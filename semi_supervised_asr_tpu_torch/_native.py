@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), placed in
-``_build/`` under a name that hashes the sources and flags: an edited
-source is rebuilt, an unchanged one is reused.  The library is loaded with
+``_build/`` under a name that hashes the sources, the shared headers
+(``csrc/*.cuh``) and the flags: an edited source is rebuilt, an unchanged
+one is reused.  The library is loaded with
 ``ctypes``; every pointer and the stream go through ``c_void_p``.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
@@ -13,7 +14,7 @@ into an exception.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Only the wrappers'
 launch sites increment it, so a caller can reset it, drive the serving
-path and see that each kernel actually ran.
+or training path and see that each kernel actually ran.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: dict[str, int] = {"fused_post_fft": 0, "lstm_scan_fwd": 0}
+LAUNCHES: dict[str, int] = {"fused_post_fft": 0, "lstm_scan_fwd": 0,
+                             "lstm_scan_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +55,13 @@ _SIGNATURES = {
     "lstm_scan_fwd": [
         _P, _P, _P,                  # gates_x, w_hh, valid
         _P, _P, _P, _P,              # h_out, hprev, cprev, acts (or NULL)
+        _I, _I, _I, _I,              # D, T, B, H
+        _I, _I,                      # reverse_mask, w_is_bf16
+        _P,                          # stream
+    ],
+    "lstm_scan_bwd": [
+        _P, _P, _P, _P, _P,          # w_t, valid, acts, cprev, dh_out
+        _P,                          # dgates
         _I, _I, _I, _I,              # D, T, B, H
         _I, _I,                      # reverse_mask, w_is_bf16
         _P,                          # stream
@@ -84,7 +93,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -35,66 +35,21 @@
 // the gate math.  A cluster / distributed-shared-memory split of w_hh
 // over SMs is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kRows = 4;
-constexpr size_t kMaxSmem = 232448;   // per block, sm_90
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// 16-byte weight vectors: 4 float32 or 8 bfloat16 columns of one row k
-template <typename W>
-struct WVec;
-template <>
-struct WVec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  __device__ __forceinline__ static float round(float x) { return x; }
-};
-template <>
-struct WVec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pairs[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-// k-slices of the recurrent product per block: enough (column group,
-// k-slice) work items to give every thread one, bounded by H.
-template <typename W>
-__host__ __device__ inline int k_slices(int H) {
-  const int groups = 4 * H / WVec<W>::kN;
-  int ks = kThreads / groups;
-  if (ks < 1) ks = 1;
-  if (ks > H) ks = H;
-  return ks;
-}
+using lstm::kMaxSmem;
+using lstm::kRows;
+using lstm::kThreads;
+using lstm::k_slices;
+using lstm::sigmoid;
+using lstm::WVec;
 
 template <typename W>
 __host__ __device__ inline size_t smem_floats(int H) {
   return (size_t)kRows * H * 3 + (size_t)kRows * 4 * H +
-         (size_t)k_slices<W>(H) * kRows * 4 * H;
+         (size_t)k_slices<W>(H, 4 * H) * kRows * 4 * H;
 }
 
 template <typename W>
@@ -107,12 +62,9 @@ lstm_scan_fwd_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
                      float* __restrict__ cprev,           // [D,T,B,H] | NULL
                      float* __restrict__ acts,            // [D,T,B,4H] | NULL
                      int T, int B, int H, int reverse_mask) {
-  constexpr int kVec = WVec<W>::kN;
   extern __shared__ float smem[];
   const int H4 = 4 * H;
-  const int groups = H4 / kVec;
-  const int ks = k_slices<W>(H);
-  const int slice = (H + ks - 1) / ks;
+  const int ks = k_slices<W>(H, H4);
   float* h_s = smem;                 // [kRows, H] carry (f32)
   float* c_s = h_s + kRows * H;      // [kRows, H]
   float* hq_s = c_s + kRows * H;     // [kRows, H] h rounded to W
@@ -141,39 +93,7 @@ lstm_scan_fwd_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
     const size_t base = (size_t)t * B + row0;   // first row of this tile
 
     // phase 1a: partial products over one k-slice for kVec columns
-    for (int wi = threadIdx.x; wi < groups * ks; wi += blockDim.x) {
-      const int grp = wi % groups;
-      const int kk = wi / groups;
-      const int k0 = kk * slice;
-      const int k1 = min(H, k0 + slice);
-      float acc[kRows][kVec];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) acc[r][v] = 0.f;
-      const W* wp = w + (size_t)k0 * H4 + grp * kVec;
-#pragma unroll 2
-      for (int k = k0; k < k1; ++k, wp += H4) {
-        float wv[kVec];
-        WVec<W>::load(wp, wv);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hv = hq_s[r * H + k];
-#pragma unroll
-          for (int v = 0; v < kVec; ++v)
-            acc[r][v] = fmaf(hv, wv[v], acc[r][v]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float4* dst = reinterpret_cast<float4*>(
-            part_s + ((size_t)kk * kRows + r) * H4 + grp * kVec);
-#pragma unroll
-        for (int v = 0; v < kVec; v += 4)
-          dst[v / 4] = make_float4(acc[r][v], acc[r][v + 1], acc[r][v + 2],
-                                   acc[r][v + 3]);
-      }
-    }
+    lstm::slice_products<W>(w, hq_s, part_s, H, H4);
     __syncthreads();
 
     // phase 1b: sum the k-slices in order, add the input projection

@@ -19,8 +19,8 @@ import math
 
 import torch
 
-from semi_supervised_asr_tpu.config import DecodeConfig
-from semi_supervised_asr_tpu.data.vocab import EOS, PAD, SOS
+from semi_supervised_asr_tpu_torch.config import DecodeConfig
+from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD, SOS
 from semi_supervised_asr_tpu_torch.models.speller import Speller
 
 NEG_INF = -1e30

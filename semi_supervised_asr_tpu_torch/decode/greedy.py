@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from semi_supervised_asr_tpu.data.vocab import EOS, PAD, SOS
+from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD, SOS
 from semi_supervised_asr_tpu_torch.models.speller import Speller
 
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from semi_supervised_asr_tpu.config import ModelConfig
+from semi_supervised_asr_tpu_torch.config import ModelConfig
 
 NEG_INF = -1e30
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from semi_supervised_asr_tpu.config import ModelConfig
+from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
 from semi_supervised_asr_tpu_torch.ops.lstm_scan import bilstm_kernel
 

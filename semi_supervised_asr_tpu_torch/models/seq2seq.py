@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from semi_supervised_asr_tpu.config import ModelConfig
+from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models.listener import Listener
 from semi_supervised_asr_tpu_torch.models.speller import Speller
 from semi_supervised_asr_tpu_torch.ops.frontend import frame_mask
@@ -32,3 +32,14 @@ class Seq2Seq(nn.Module):
         enc_mask = frame_mask(enc_lens, enc.shape[1])
         keys = self.speller.precompute_decode_cache(enc)
         return enc, enc_mask, keys
+
+    def forward_teacher(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                        tokens_in: torch.Tensor, tf_rate: float = 1.0,
+                        gen: torch.Generator | None = None,
+                        backend: str | None = None):
+        """Full teacher-forced pass -> (logits [B, U, V], alphas
+        [B, U, T'])."""
+        enc, enc_lens = self.listener(feats, feat_lens, backend)
+        enc_mask = frame_mask(enc_lens, enc.shape[1])
+        return self.speller.forward_teacher(enc, enc_mask, tokens_in,
+                                            tf_rate, gen)

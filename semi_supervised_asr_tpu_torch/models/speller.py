@@ -1,12 +1,13 @@
 """Speller: attention LSTM decoder, one step at a time.
 
-Counterpart of the decode side of ``semi_supervised_asr_tpu/models/
-speller.py``: ``precompute_decode_cache``, ``init_state`` and
-``speller_step`` for the LSTM speller, with tied or untied output.  The
-decoder state is a dict of tensors whose lattice-row axis is 0 (``h`` and
-``c`` are layer-stacked [L, B*, H], row axis 1), so the beam reorders it
-with one index per leaf.  Training (teacher forcing, scheduled sampling,
-dropout) comes with the training slice.
+Counterpart of ``semi_supervised_asr_tpu/models/speller.py`` for the LSTM
+speller, with tied or untied output: ``precompute_decode_cache``,
+``init_state`` and ``step`` (``speller_step``) for decoding, and
+``forward_teacher`` for training (teacher forcing with scheduled
+sampling).  The decoder state is a dict of tensors whose lattice-row axis
+is 0 (``h`` and ``c`` are layer-stacked [L, B*, H], row axis 1), so the
+beam reorders it with one index per leaf.  Decoder dropout is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from semi_supervised_asr_tpu.config import ModelConfig
+from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models.attention import (
     Attention, initial_alpha,
 )
@@ -96,3 +97,50 @@ class Speller(nn.Module):
         new_state = {"h": torch.stack(hs), "c": torch.stack(cs),
                      "context": context, "alpha": alpha}
         return new_state, logits, alpha
+
+    def forward_teacher(
+        self,
+        enc: torch.Tensor,          # [B, T, enc_out]
+        enc_mask: torch.Tensor,     # [B, T] bool
+        tokens_in: torch.Tensor,    # [B, U] decoder inputs (<sos> first)
+        tf_rate: float = 1.0,
+        gen: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced decode -> (logits [B, U, V], alphas [B, U, T]).
+
+        Step 0 runs on the ground-truth <sos>.  Each later step takes the
+        ground truth with probability ``tf_rate``, else the argmax (first
+        maximum, as ``jnp.argmax``) of the previous step's logits: one
+        Bernoulli draw per (step, row) from ``gen`` (a CPU generator; the
+        draws move to the device once).  ``model.speller_grad`` is
+        accepted and has no effect: ``stacked`` reroutes JAX's scan
+        autodiff, which a Python loop under autograd does not have.
+        """
+        cfg = self.cfg
+        if cfg.dec_dropout > 0.0:
+            raise NotImplementedError(
+                f"model.dec_dropout={cfg.dec_dropout} is not ported yet (the "
+                "PyTorch port trains with model.dec_dropout=0)")
+        if cfg.speller_grad not in ("scan", "stacked"):
+            raise ValueError(f"unknown model.speller_grad "
+                             f"{cfg.speller_grad!r}")
+        b, u = tokens_in.shape
+        keys = self.precompute_decode_cache(enc)
+        state = self.init_state(b, enc_mask)
+        use_gt = None
+        if u > 1 and tf_rate < 1.0:
+            draws = torch.rand((u - 1, b), generator=gen)
+            use_gt = (draws < tf_rate).to(enc.device)
+        logits_all, alphas = [], []
+        tok = tokens_in[:, 0]
+        for s in range(u):
+            if s > 0:
+                tok = tokens_in[:, s]
+                if use_gt is not None:
+                    sampled = torch.argmax(logits_all[-1].detach(), dim=-1)
+                    tok = torch.where(use_gt[s - 1], tok,
+                                      sampled.to(tok.dtype))
+            state, logits, alpha = self.step(state, tok, keys, enc, enc_mask)
+            logits_all.append(logits)
+            alphas.append(alpha)
+        return torch.stack(logits_all, dim=1), torch.stack(alphas, dim=1)

@@ -5,6 +5,9 @@ the DFT are plain tensor code (as in JAX, they stay outside the fused
 kernel); the post-FFT chain has an unfused version here and the fused CUDA
 kernel in ``fused_frontend.py``.  Everything is float32; the matmul DFT
 must run at full float32 precision (call ``strict_fp32()`` on the card).
+SpecAugment's band parameters are drawn here from a ``torch.Generator``
+(same distributions as the JAX package's ``jax.random`` draws, other bits)
+and applied by the fused kernel or by :func:`apply_specaug_masks`.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from semi_supervised_asr_tpu.config import FrontendConfig
-from semi_supervised_asr_tpu.ops import frontend_oracle as oracle
+from semi_supervised_asr_tpu_torch.config import FrontendConfig
+from semi_supervised_asr_tpu_torch.ops import frontend_oracle as oracle
 
 
 @functools.lru_cache(maxsize=8)
@@ -151,3 +154,61 @@ def log_mel_features(
         feats = apply_global_cmvn(feats, cmvn_mean, cmvn_inv_std)
     mask = frame_mask(lens, feats.shape[1])
     return feats * mask[..., None].to(feats.dtype), lens
+
+
+# ---------------------------------------------------------------------------
+# SpecAugment (Park et al. 2019, arXiv:1904.08779): band parameters and masks
+# ---------------------------------------------------------------------------
+
+def sample_specaug_params(
+    gen: torch.Generator,
+    batch: int,
+    n_mels: int,
+    feat_lens: torch.Tensor,
+    cfg: FrontendConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Draw the mask bands -> (fstarts [B,mF], fwidths [B,mF], tstarts
+    [B,mT], twidths [B,mT]), int32 on ``feat_lens``'s device.
+
+    Frequency masks: width U{0..min(F, M)}, start U[0, max(M - w, 1)).
+    Time masks: width U[0, cap + 1) with cap = min(T_param, int(p * len)),
+    start U[0, max(len - w, 1)): confined to the valid frames.  The
+    uniforms come from ``gen`` (a CPU generator, so the draws do not depend
+    on the device) and move to the device without a host sync.
+    """
+    b, m, dev = batch, n_mels, feat_lens.device
+    nf, nt = cfg.n_freq_masks, cfg.n_time_masks
+    fw = torch.randint(0, min(cfg.freq_mask_param, m) + 1, (b, nf),
+                       generator=gen).to(dev)
+    u_fs, u_tw, u_ts = (torch.rand(shape, generator=gen).to(dev)
+                        for shape in ((b, nf), (b, nt), (b, nt)))
+    fs = (u_fs * torch.clamp_min(m - fw, 1)).to(torch.int32)
+    lens_f = feat_lens.to(torch.float32)
+    cap = torch.clamp_max((cfg.time_mask_max_ratio * lens_f).to(torch.int32),
+                          cfg.time_mask_param)
+    tw = (u_tw * (cap[:, None].float() + 1.0)).to(torch.int32)
+    ts = (u_ts * torch.clamp_min(feat_lens[:, None] - tw, 1).float()
+          ).to(torch.int32)
+    return fs, fw.to(torch.int32), ts, tw
+
+
+def _band_mask(pos: torch.Tensor, starts: torch.Tensor,
+              widths: torch.Tensor) -> torch.Tensor:
+    """[B, n] bands over positions [P] -> [B, P] bool, True inside a band."""
+    s, w = starts[..., None], widths[..., None]
+    return ((pos >= s) & (pos < s + w)).any(dim=1)
+
+
+def apply_specaug_masks(
+    feats: torch.Tensor,
+    fstarts: torch.Tensor,
+    fwidths: torch.Tensor,
+    tstarts: torch.Tensor,
+    twidths: torch.Tensor,
+) -> torch.Tensor:
+    """Zero the sampled frequency and time bands of [B, T, M] features."""
+    _, t, m = feats.shape
+    fmask = _band_mask(torch.arange(m, device=feats.device), fstarts, fwidths)
+    tmask = _band_mask(torch.arange(t, device=feats.device), tstarts, twidths)
+    drop = fmask[:, None, :] | tmask[:, :, None]
+    return torch.where(drop, torch.zeros((), device=feats.device), feats)

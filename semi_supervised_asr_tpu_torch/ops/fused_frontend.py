@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from semi_supervised_asr_tpu.config import FrontendConfig
+from semi_supervised_asr_tpu_torch.config import FrontendConfig
 from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import frontend as F
 
@@ -49,13 +49,6 @@ def _mel_runs_on(cfg: FrontendConfig, device: str):
     return tuple(torch.from_numpy(a).to(device) for a in _mel_runs_np(cfg))
 
 
-def _band_mask(pos: torch.Tensor, starts: torch.Tensor,
-               widths: torch.Tensor) -> torch.Tensor:
-    """[B, n] bands over positions [P] -> [B, P] bool, True inside a band."""
-    s, w = starts[..., None], widths[..., None]
-    return ((pos >= s) & (pos < s + w)).any(dim=1)
-
-
 def fused_post_fft_reference(
     pspec: torch.Tensor,            # [B, T, F] float32
     feat_lens: torch.Tensor,        # [B] int
@@ -69,14 +62,11 @@ def fused_post_fft_reference(
     mel = torch.matmul(pspec.float(), fb)
     x = (torch.log(torch.clamp_min(mel, cfg.log_floor))
          - cmvn_mean.float()) * cmvn_inv_std.float()
-    b, t, m = x.shape
-    keep = F.frame_mask(feat_lens, t)[:, :, None].expand(b, t, m)
+    keep = F.frame_mask(feat_lens, x.shape[1])[:, :, None]
+    x = torch.where(keep, x, torch.zeros((), device=x.device))
     if specaug is not None:
-        fs, fw, ts, tw = specaug
-        fmask = _band_mask(torch.arange(m, device=x.device), fs, fw)
-        tmask = _band_mask(torch.arange(t, device=x.device), ts, tw)
-        keep = keep & ~fmask[:, None, :] & ~tmask[:, :, None]
-    return torch.where(keep, x, torch.zeros((), device=x.device))
+        x = F.apply_specaug_masks(x, *specaug)
+    return x
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -143,24 +133,3 @@ def fused_post_fft(
     _native.count("fused_post_fft")
     return out
 
-
-def fused_log_mel_features(
-    audio: torch.Tensor,
-    sample_lens: torch.Tensor,
-    cfg: FrontendConfig,
-    cmvn_mean: torch.Tensor,
-    cmvn_inv_std: torch.Tensor,
-    specaug: SpecAug | None = None,
-    backend: str | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full fused frontend: raw audio -> (features, frame lengths).
-
-    Global CMVN only (utterance CMVN needs a cross-tile statistics pass;
-    the unfused path handles that mode)."""
-    if cfg.cmvn != "global":
-        raise ValueError("the fused frontend supports global CMVN only")
-    pspec = F.power_spectrogram(audio, cfg)
-    lens = torch.clamp_max(F.frame_lengths(sample_lens, cfg), pspec.shape[1])
-    feats = fused_post_fft(pspec, lens, cfg, cmvn_mean, cmvn_inv_std,
-                           specaug, backend)
-    return feats, lens

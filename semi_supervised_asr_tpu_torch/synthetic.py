@@ -17,11 +17,11 @@ from pathlib import Path
 import numpy as np
 from scipy.io import wavfile
 
-from semi_supervised_asr_tpu.config import Config
-from semi_supervised_asr_tpu.data.corpus import load_audio
-from semi_supervised_asr_tpu.data.synthetic import make_utterance
-from semi_supervised_asr_tpu.data.vocab import Vocab
-from semi_supervised_asr_tpu.ops import frontend_oracle as oracle
+from semi_supervised_asr_tpu_torch.config import Config
+from semi_supervised_asr_tpu_torch.data.corpus import load_audio
+from semi_supervised_asr_tpu_torch.data.synthetic import make_utterance
+from semi_supervised_asr_tpu_torch.data.vocab import Vocab
+from semi_supervised_asr_tpu_torch.ops import frontend_oracle as oracle
 from semi_supervised_asr_tpu_torch import weights
 
 

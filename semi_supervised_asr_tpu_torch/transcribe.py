@@ -29,13 +29,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from semi_supervised_asr_tpu.config import Config, load_config
-from semi_supervised_asr_tpu.data.bucketing import make_bucket_spec
-from semi_supervised_asr_tpu.data.corpus import load_audio
-from semi_supervised_asr_tpu.data.registry import build_vocab
-from semi_supervised_asr_tpu.data.vocab import EOS
-from semi_supervised_asr_tpu.ops.frontend_oracle import pad_for_batch
-from semi_supervised_asr_tpu.transcribe import collect_files
+from semi_supervised_asr_tpu_torch.config import Config, load_config
+from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
+from semi_supervised_asr_tpu_torch.data.corpus import load_audio
+from semi_supervised_asr_tpu_torch.data.registry import build_vocab
+from semi_supervised_asr_tpu_torch.data.vocab import EOS
+from semi_supervised_asr_tpu_torch.ops.frontend_oracle import pad_for_batch
 from semi_supervised_asr_tpu_torch import strict_fp32, weights
 from semi_supervised_asr_tpu_torch.decode.beam import (
     beam_decode_from_enc, check_supported,
@@ -43,6 +42,23 @@ from semi_supervised_asr_tpu_torch.decode.beam import (
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
+
+AUDIO_EXTS = (".wav", ".npy", ".flac")
+
+
+def collect_files(paths: list[str]) -> list[Path]:
+    """Audio files named on the command line; a directory contributes
+    every file below it with an audio extension, sorted."""
+    out: list[Path] = []
+    for p in paths:
+        p = Path(p)
+        if p.is_dir():
+            out.extend(sorted(
+                f for f in p.rglob("*") if f.suffix.lower() in AUDIO_EXTS
+            ))
+        else:
+            out.append(p)
+    return out
 
 
 def finalize_config(cfg: Config, vocab_size: int) -> Config:

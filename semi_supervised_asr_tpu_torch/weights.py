@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from semi_supervised_asr_tpu.config import ModelConfig
+from semi_supervised_asr_tpu_torch.config import ModelConfig
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:

@@ -113,9 +113,9 @@ def test_log_mel_features_matches_jax(backend):
                                         t(istd))
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(ref_lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    # the fused path (plain version on CPU) agrees with the unfused one
-    fused, _ = TFF.fused_log_mel_features(t(audio), t(lens), cfg, t(mean),
-                                          t(istd))
+    # the fused path (K1's plain version on CPU) agrees with the unfused one
+    fused, _ = TTS.featurize(Config(frontend=cfg), t(audio), t(lens),
+                             (t(mean), t(istd)))
     np.testing.assert_allclose(fused.numpy(), np.asarray(ref), **TOL)
 
 
@@ -137,5 +137,9 @@ def test_featurize_int16_matches_jax():
     got, got_lens = TTS.featurize(cfg, t(pcm), t(lens), (t(mean), t(istd)))
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(ref_lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    with pytest.raises(NotImplementedError):
-        TTS.featurize(cfg, t(pcm), t(lens), (t(mean), t(istd)), augment=True)
+    # augmentation the port does not run yet is refused, naming the key
+    warp = Config(frontend=dataclasses.replace(cfg.frontend,
+                                               time_warp_param=5))
+    with pytest.raises(NotImplementedError, match="time_warp_param"):
+        TTS.featurize(warp, t(pcm), t(lens), (t(mean), t(istd)),
+                      augment=True)

@@ -8,7 +8,7 @@ bfloat16 both sides round h and w_hh the same way but sum in different
 orders; when that flips one bf16 rounding of h (an ulp of ~4e-3 at
 |h| ~ 1), the gates move by about |w_hh| * ulp ~ 4e-4, so the bound there
 is 1e-3.  The CUDA kernel is compared with the plain version on the card
-by chip_smoke.py.
+by chip_smoke.py; the backward (K3) is tested in test_torch_lstm_grad.py.
 """
 
 import jax
@@ -96,7 +96,7 @@ def test_bilstm_kernel_plain_matches_pallas(dtype):
 
 
 def test_scan_residuals_match_pallas():
-    """hprev / cprev / acts, the inputs of the (later) backward kernel."""
+    """hprev / cprev / acts, the inputs of the backward kernel K3."""
     rng = np.random.default_rng(12)
     p = lstm_params(rng)
     gx = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
@@ -161,8 +161,14 @@ def test_wrapper_refusals():
     with torch.inference_mode():
         K.lstm_kernel(tp, torch.from_numpy(x))
     assert _native.LAUNCHES == before          # CPU -> plain version
+    # inputs that require grad run the autograd Function (K2 forward, K3
+    # backward); residuals are refused there, being the Function's own
     w = tp["w_hh"].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        K.lstm_kernel(dict(tp, w_hh=w), torch.from_numpy(x))
+    y = K.lstm_kernel(dict(tp, w_hh=w), torch.from_numpy(x))
+    assert y.requires_grad and _native.LAUNCHES == before
+    gx = torch.zeros((1, T, B, 4 * H), requires_grad=True)
+    with pytest.raises(ValueError, match="residuals"):
+        K.lstm_scan(gx, w[None], torch.ones((T, B)), torch.float32, (False,),
+                    residuals=True)
     with torch.inference_mode(), pytest.raises(ValueError, match="backend"):
         K.lstm_kernel(tp, torch.from_numpy(x), backend="cuda")

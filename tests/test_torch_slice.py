@@ -152,13 +152,23 @@ def test_init_numpy_fits_the_model_and_repeats(workdir):
 
 
 def test_port_imports_no_jax():
+    """Every port module and chip_smoke import with JAX and the JAX package
+    blocked by a meta-path finder (the port keeps its own host-side
+    copies)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'optax', 'orbax',\n"
+        "           'semi_supervised_asr_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import semi_supervised_asr_tpu_torch as P\n"
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax'))\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
