@@ -40,12 +40,36 @@ failure raises and the script exits non-zero:
    gradient leaf within GRAD_TOL;
 8. at bucket 400, B=32, bf16: K3 against its plain version and cuDNN's
    LSTM backward, cuDNN's LSTM forward beside K2, and the median host
-   time of a train step on kernels against the plain versions.
+   time of a train step on kernels against the plain versions;
+9. K5 (flash attention, forward and backward) against its plain version
+   at the conformer's shapes (B=32, 8 heads of 64, T'=100 and 400, ragged
+   lengths with a zero-length row, f32 and bf16) and at three odd shapes
+   (head dims 24, 128 and 8, ragged tiles): O, and dq, dk, dv through the
+   autograd Function against autograd of ``mhsa_reference``, within
+   K5_TOL / GRAD_TOL in float32 and the K5_BF16 bounds in bf16; the
+   empty row's dq must be exactly 0;
+10. the serving slice at ``configs/ls960_conformer.yaml`` full width with
+    ``model.attn_backend=flash`` (random weights from seed 0, synthetic
+    WAVs in the 400- and 800-frame buckets) through ``transcribe``, beam 5
+    and greedy, with the launch counts (16 K5 forward launches per
+    encode); then one bucket-800 batch on ``backend="reference"``:
+    encoder outputs within the K5 bounds and, in float32, identical
+    tokens;
+11. the training slice at the same width through ``train`` (synthetic
+    corpus, bucket 1600 so that T'=400, B=32, bf16): 3 steps, finite
+    losses, K1 and both K5 launch counts > 0; then one float32 step on
+    kernels against the plain versions, as in phase 7;
+12. at bucket 1600, B=32, bf16: K5 forward and backward against the plain
+    version and against ``scaled_dot_product_attention`` with the boolean
+    key mask (the library yardstick, never on the port's path), and the
+    conformer's beam-5 serve batch and train step on kernels against the
+    plain versions.
 
 The line before the last is the kernel table as JSON (with each kernel's
-bound and library time); the last line is ``{"ok": true, "device":
-{...}}``.  ``--profile DIR`` also writes ``torch.profiler`` tables of one
-beam-5 batch and of one train step there.
+bound and library time; launches from the timit training run for K1-K3,
+from the conformer training run for K5); the last line is ``{"ok": true,
+"device": {...}}``.  ``--profile DIR`` also writes ``torch.profiler``
+tables of one beam-5 batch and of one train step of each path there.
 """
 
 from __future__ import annotations
@@ -54,6 +78,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -82,11 +107,42 @@ K3_TOL = 1e-5
 # largest gradient entry of the whole set compared (one layer, or the
 # model).
 GRAD_TOL = 1e-5
+# K5 in float32: the kernels sum the same f32 products as the plain version
+# in another order (and normalise by the row sum at the end).
+K5_TOL = 1e-5
+# K5 in bf16: the plain version rounds each score to bf16 before scaling
+# (as XLA's bf16 einsum does) and the kernels keep it in f32, so a score of
+# magnitude ~3 moves by up to 2^-8 * 3 ~ 0.01 and each weight by about that
+# fraction; O (|v| ~ 1, bf16 ulp 2^-8 near 1) then differs by ~1e-2 and
+# the gradients by ~1e-2 of their largest entry (1.6e-2 and 1.1e-2 measured
+# on the H100 at T=100 and 400).  Twice that is the bound.
+K5_BF16_TOL = 3e-2
+K5_BF16_GRAD_TOL = 3e-2
 DEVICE = "cuda"
 # the training slice on the synthetic corpus: two batches of 32 per epoch,
 # all in the 400-frame bucket
 TRAIN_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=64",
                    "data.frame_buckets=[400]"]
+# the kernels of the LAS path (timit): K1, K2, K3
+LSTM_PATH = ("fused_post_fft", "lstm_scan_fwd", "lstm_scan_bwd")
+# the conformer path: configs/ls960_conformer.yaml at full width with the
+# flash attention route (no shipped config sets it), synthetic data,
+# batches of 32
+CONFORMER_CONFIG = ROOT / "configs" / "ls960_conformer.yaml"
+CONFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
+                       "train.batch_size=32"]
+# training: two batches of 32 per epoch in the recipe's largest bucket
+# (T' = 400 after the 4x stem); dropout and SortaGrad are not ported
+CONFORMER_TRAIN = ["model.enc_dropout=0", "data.sortagrad_epochs=0",
+                   "data.num_synthetic_utts=64", "data.frame_buckets=[1600]"]
+# K5's timing shape: bucket 1600 -> T' = 400, B=32, 8 heads of 64
+K5_TIMING = (32, 400, 8, 64)
+# the conformer's encoder, kernels vs plain on one batch: float32 within
+# K5's own bound; bf16 relative to the largest output, within K5's bf16
+# bound (16 blocks carry the scores' bf16 rounding, each renormalised by
+# its LayerNorm)
+CONF_ENC_TOL = K5_TOL
+CONF_ENC_BF16_TOL = K5_BF16_TOL
 # published peaks of one H100 SXM (NVIDIA H100 datasheet)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -129,6 +185,14 @@ def device_ms(fn, reps: int, warmup: int = 2) -> float:
     kernels and copies it launched, from torch.profiler.  Unlike
     :func:`cuda_ms` this excludes the time the device waits for the host,
     which dominates a call of a sub-millisecond kernel."""
+    ms = sum(device_ms_by_kernel(fn, reps, warmup).values())
+    require(ms > 0, "the profiler saw no device time")
+    return ms
+
+
+def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
+    """Mean device milliseconds per call of ``fn`` for each kernel it
+    launches (torch.profiler), by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -140,10 +204,11 @@ def device_ms(fn, reps: int, warmup: int = 2) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    require(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total
+    return {k: us / reps / 1e3 for k, us in out.items()}
 
 
 def host_ms(fn, reps: int) -> list[float]:
@@ -341,8 +406,7 @@ def phase4(d: Path, files: list[Path]) -> tuple[dict, dict]:
         require(len(recs) == len(files), "one record per file")
         require(all(isinstance(r["text"], str) and math.isfinite(r["score"])
                     for r in recs), "texts and finite scores")
-    serving = ("fused_post_fft", "lstm_scan_fwd")
-    require(all(launches[k] > 0 for k in serving),
+    require(all(launches[k] > 0 for k in LSTM_PATH[:2]),
             f"a kernel of the serving path did not launch: {launches}")
     log(f"[phase4] first record: {json.dumps(beam[0])[:200]}")
 
@@ -424,15 +488,16 @@ def kernel_times(times: dict, name: str, kernel, plain, reps: int) -> None:
         times.setdefault(key, []).append(device_ms(fn, reps=reps))
 
 
-def report(phase: str, times: dict, card: str) -> dict:
+def report(phase: str, times: dict, card: str,
+           shape: str = "bucket 400, B=32, bf16") -> dict:
     med = {k: statistics.median(v) for k, v in times.items()}
     for k in sorted(med):
         what = ("call time, CUDA events" if k.endswith("_call") else
                 "host time to synchronize"
-                if k.startswith(("serve", "enc", "train")) else
+                if k.startswith(("serve", "enc", "train", "conformer")) else
                 "device time, profiler")
         log(f"[{phase}] {k}: median {med[k]:.4f} ms ({what}) over "
-            f"{len(times[k])} runs at bucket 400, B=32, bf16 ({card})")
+            f"{len(times[k])} runs at {shape} ({card})")
     return med
 
 
@@ -521,6 +586,270 @@ def phase6() -> float:
     return worst
 
 
+def k5_inputs(b: int, t: int, h: int, hd: int, seed: int,
+              zero_row: bool = True):
+    """Random q, k, v [B, T, H, D] (float32), a key mask with ragged
+    lengths (row 0 full, row 1 empty unless ``zero_row`` is off) and a
+    random output cotangent."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, t, h, hd), generator=g)
+                     for _ in range(4))
+    lens = torch.randint(max(t // 4, 1), t + 1, (b,), generator=g)
+    lens[0] = t
+    if zero_row and b > 1:
+        lens[1] = 0
+    mask = torch.arange(t)[None, :] < lens[:, None]
+    return [x.to(DEVICE) for x in (q, k, v, mask, dout)]
+
+
+def k5_grads(q, k, v, mask, dout, compute, backend):
+    """(O, dq, dk, dv) of ``mhsa`` on the kernels or the plain version; the
+    gradients reach the float32 inputs through the cast to ``compute``."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import flash_mhsa as FM
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o = FM.mhsa(*leaves, mask, sm_scale=scale, compute=compute,
+                backend=backend)
+    grads = torch.autograd.grad(o, leaves, dout.to(o.dtype))
+    return [o.detach().float(), *(x.float() for x in grads)]
+
+
+def phase9() -> dict:
+    """K5 forward and backward against the plain version."""
+    import torch
+
+    worst = {}
+    shapes = [("conformer", 32, 100, 8, 64), ("conformer", 32, 400, 8, 64),
+              ("odd", 3, 37, 3, 24), ("odd", 2, 70, 2, 128),
+              ("odd", 2, 65, 4, 8)]
+    for name, b, t, h, hd in shapes:
+        dtypes = ((torch.float32, torch.bfloat16) if name == "conformer"
+                  else (torch.float32,))
+        for compute in dtypes:
+            q, k, v, mask, dout = k5_inputs(b, t, h, hd, seed=t + hd)
+            got = k5_grads(q, k, v, mask, dout, compute, None)
+            want = k5_grads(q, k, v, mask, dout, compute, "reference")
+            torch.cuda.synchronize()
+            require(all(bool(torch.isfinite(x).all()) for x in got),
+                    "K5 output or gradient not finite")
+            require(bool((got[1][1] == 0).all()),
+                    "K5: the empty row's dq is not zero")
+            o_err = (got[0] - want[0]).abs().max().item()
+            g_errs = grad_errs(got[1:], want[1:])
+            f32 = compute == torch.float32
+            o_tol = K5_TOL if f32 else K5_BF16_TOL
+            g_tol = GRAD_TOL if f32 else K5_BF16_GRAD_TOL
+            dt = str(compute).split(".")[-1]
+            log(f"[phase9] K5 {name} B={b} T={t} H={h} D={hd} {dt}: O "
+                f"max_abs_err {o_err:.3e} (tol {o_tol:g}); gradients (max "
+                f"err / max |g|) dq {g_errs[0]:.3e} dk {g_errs[1]:.3e} dv "
+                f"{g_errs[2]:.3e} (tol {g_tol:g})")
+            require(o_err <= o_tol, f"K5 forward error {o_err} > {o_tol}")
+            require(max(g_errs) <= g_tol,
+                    f"K5 gradient error {max(g_errs)} > {g_tol}")
+            g_abs = max((a - w).abs().max().item()
+                        for a, w in zip(got[1:], want[1:]))
+            for key, val in ((dt, o_err), (dt + "_grad", max(g_errs)),
+                             (dt + "_grad_abs", g_abs)):
+                worst[key] = max(worst.get(key, 0.0), val)
+    return worst
+
+
+def conformer_config(extra: list[str]):
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+
+    cfg = TR.load_config(CONFORMER_CONFIG, [*CONFORMER_OVERRIDES, *extra])
+    return TR.finalize_config(cfg, TR.build_vocab(cfg).size)
+
+
+def enc_errs(rec_k, rec_r, audio, lens) -> tuple[float, float]:
+    """Encoder outputs of one batch on kernels and on the plain versions ->
+    (max abs difference, that over the largest |output|)."""
+    import torch
+
+    a = torch.as_tensor(audio, device=DEVICE)
+    n = torch.as_tensor(lens, device=DEVICE)
+    with torch.inference_mode():
+        enc_k, mask_k, _ = rec_k.encode(a, n)
+        enc_r, mask_r, _ = rec_r.encode(a, n)
+    require(bool(torch.equal(mask_k, mask_r)), "encoder masks differ")
+    require(bool(torch.isfinite(enc_k).all()), "encoder output not finite")
+    err = (enc_k - enc_r).abs().max().item()
+    return err, err / enc_r.abs().max().item()
+
+
+def phase10(d: Path, files: list[Path]) -> tuple[dict, dict]:
+    """Serving at ls960_conformer full width with attn_backend flash."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+
+    base = ["--config", str(CONFORMER_CONFIG), "--load-dir", str(d),
+            "--device", DEVICE, *map(str, files), *CONFORMER_OVERRIDES]
+    _native.reset_launches()
+    beam = run_cli(base)
+    launches = dict(_native.LAUNCHES)
+    log(f"[phase10] conformer transcribe beam 5: {len(beam)} records, "
+        f"kernel launches {launches}")
+    greedy = run_cli(["--beam", "1", *base])
+    log(f"[phase10] conformer transcribe greedy: {len(greedy)} records")
+    for recs in (beam, greedy):
+        require(len(recs) == len(files), "one record per file")
+        require(all(isinstance(r["text"], str) and math.isfinite(r["score"])
+                    for r in recs), "texts and finite scores")
+    # one encode per bucket batch, each through the 16 blocks' attention
+    require(launches["fused_post_fft"] > 0
+            and launches["flash_mhsa_fwd"] > 0
+            and launches["flash_mhsa_fwd"] % 16 == 0,
+            f"the conformer serving path missed a kernel: {launches}")
+    log(f"[phase10] first record: {json.dumps(beam[0])[:200]}")
+
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = conformer_config([f"model.compute_dtype={dtype}"])
+        ker = TR.Recognizer.from_dir(cfg, d, DEVICE)
+        ref = TR.Recognizer(ker.cfg, ker.model, (ker.mean.cpu(),
+                            ker.inv_std.cpu()), ker.vocab,
+                            torch.device(DEVICE), backend="reference")
+        audio, lens = bucket_batch(ker, files, frames=800)
+        err, rel = enc_errs(ker, ref, audio, lens)
+        f32 = dtype == "float32"
+        tol = CONF_ENC_TOL if f32 else CONF_ENC_BF16_TOL
+        log(f"[phase10] conformer {dtype} bucket 800 B=32: enc max_abs_err "
+            f"{err:.3e}, over max |enc| {rel:.3e} (tol {tol:g} "
+            f"{'absolute' if f32 else 'relative'})")
+        require((err if f32 else rel) <= tol, f"conformer enc error {err}")
+        agree = {}
+        for mode in ("beam", "greedy"):
+            tk, _ = ker.decode(audio, lens, mode)
+            tr, _ = ref.decode(audio, lens, mode)
+            agree[mode] = float(np.mean(np.all(tk == tr, axis=1)))
+            log(f"[phase10] conformer {dtype} {mode}: rows with identical "
+                f"tokens kernel vs plain {agree[mode]:.3f}")
+            if f32:
+                require(agree[mode] == 1.0,
+                        f"float32 {mode} tokens differ from the plain path")
+        results[dtype] = {"enc_err": err, "enc_rel": rel, "agree": agree,
+                          "rec": (ker, ref)}
+    return results, launches
+
+
+def phase11(d: Path):
+    """Training at ls960_conformer full width with attn_backend flash."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import train as T
+
+    log(f"[phase11] overrides {CONFORMER_OVERRIDES + CONFORMER_TRAIN} "
+        "(model.enc_dropout and data.sortagrad_epochs are not ported)")
+    tr = T.Trainer(conformer_config(CONFORMER_TRAIN), d / "bf16", DEVICE,
+                   seed=0)
+    _native.reset_launches()
+    recs = tr.run(3, log=lambda m: log(f"[phase11] {m}"))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    log(f"[phase11] conformer train 3 steps, bucket 1600, B=32, bf16: "
+        f"losses {[r['loss'] for r in recs]}, kernel launches {launches}")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in recs), "conformer training loss not finite")
+    require(all(launches[k] > 0 for k in ("fused_post_fft", "flash_mhsa_fwd",
+                                          "flash_mhsa_bwd")),
+            f"a kernel of the conformer training path did not launch: "
+            f"{launches}")
+    tr32 = T.Trainer(conformer_config(
+        [*CONFORMER_TRAIN, "model.compute_dtype=float32"]), d / "f32",
+        DEVICE, seed=0)
+    step_check(tr32, "phase11")
+    return tr, launches, recs
+
+
+def phase12(tr, files: list[Path], card: str) -> dict:
+    """Timings at bucket 1600, B=32, bf16: K5 forward and backward against
+    the plain version and SDPA; the conformer serve batch and train step."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.ops import flash_mhsa as FM
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    times = {}
+    bf16 = torch.bfloat16
+    q, k, v, mask, dout = (x.to(bf16) if x.is_floating_point() else x
+                           for x in k5_inputs(*K5_TIMING, seed=11,
+                                              zero_row=False))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, m, l = FM.mhsa_fwd(q, k, v, mask, scale)
+    kernel_times(times, "flash_mhsa_fwd",
+                 lambda: FM.mhsa_fwd(q, k, v, mask, scale),
+                 lambda: FM.mhsa_reference(q, k, v, mask, sm_scale=scale,
+                                           compute=bf16), reps=10)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = FM.mhsa_reference(*leaves, mask, sm_scale=scale, compute=bf16)
+    kernel_times(times, "flash_mhsa_bwd",
+                 lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale),
+                 lambda: torch.autograd.grad(out, leaves, dout,
+                                             retain_graph=True), reps=10)
+    # the backward's two launches apart (K5dq, K5dkv)
+    split = device_ms_by_kernel(
+        lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale), reps=10)
+    for name, ms in sorted(split.items()):
+        short = re.search(r"(\w+)<", name)
+        log(f"[phase12] flash_mhsa_bwd launch "
+            f"{short.group(1) if short else name[:80]}: {ms:.4f} ms (device "
+            f"time, profiler)")
+    # the library yardstick: SDPA on [B, H, T, D] with the boolean key mask
+    sl = [x.transpose(1, 2).contiguous().requires_grad_(True)
+          for x in (q, k, v)]
+    am = mask[:, None, None, :]
+    with torch.no_grad():
+        times["sdpa_fwd"] = [device_ms(lambda: Fn.scaled_dot_product_attention(
+            *sl, attn_mask=am, scale=scale), reps=10)]
+    so = Fn.scaled_dot_product_attention(*sl, attn_mask=am, scale=scale)
+    sdo = dout.transpose(1, 2).contiguous()
+    times["sdpa_bwd"] = [device_ms(lambda: torch.autograd.grad(
+        so, sl, sdo, retain_graph=True), reps=10)]
+    # the conformer serve batch (beam 5) and train step, kernels vs plain
+    ker = TR.Recognizer(tr.cfg, tr.state.model, (tr.cmvn[0].cpu(),
+                        tr.cmvn[1].cpu()), TR.build_vocab(tr.cfg),
+                        torch.device(DEVICE))
+    ref = TR.Recognizer(ker.cfg, ker.model, (tr.cmvn[0].cpu(),
+                        tr.cmvn[1].cpu()), ker.vocab, torch.device(DEVICE),
+                        backend="reference")
+    audio, lens = bucket_batch(ker, files, frames=1600)
+    for rec in (ref, ker, ker, ref):
+        key = "conformer_serve_beam5" + ("_plain" if rec is ref else "")
+        times.setdefault(key, []).extend(
+            host_ms(lambda: rec.decode(audio, lens, "beam"), reps=1))
+    batch = next(tr.batches)
+    tensors = T.batch_tensors(batch, tr.device)
+    plain = TS.init_train_state(tr.cfg, copy.deepcopy(tr.state.model), 0)
+    for state, backend in ((plain, "reference"), (tr.state, None),
+                           (tr.state, None), (plain, "reference")):
+        key = "conformer_train_step" + ("_plain" if backend else "")
+        times.setdefault(key, []).extend(host_ms(
+            lambda: TS.supervised_step(tr.cfg, state, *tensors, tr.cmvn,
+                                       backend=backend), reps=2))
+    med = report("phase12", times, card, "bucket 1600, B=32, bf16")
+    work = {
+        "conformer_beam5_b32_t1600": (lambda: ker.decode(audio, lens, "beam"),
+                                      med["conformer_serve_beam5"]),
+        "conformer_train_step_b32_t1600": (lambda: TS.supervised_step(
+            tr.cfg, tr.state, *tensors, tr.cmvn),
+            med["conformer_train_step"]),
+    }
+    return med, work
+
+
 def trainer(d: Path, dtype: str):
     from semi_supervised_asr_tpu_torch import train as T
 
@@ -533,9 +862,6 @@ def phase7(d: Path):
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch import train as T
-    from semi_supervised_asr_tpu_torch.ops import frontend as F
-    from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     tr = trainer(d, "bfloat16")
     _native.reset_launches()
@@ -546,11 +872,23 @@ def phase7(d: Path):
         f"{[r['loss'] for r in recs]}, kernel launches {launches}")
     require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in recs), "training loss not finite")
-    require(all(n > 0 for n in launches.values()),
+    require(all(launches[k] > 0 for k in LSTM_PATH),
             f"a kernel of the training path did not launch: {launches}")
 
     # float32: one step's loss and gradients, kernels against plain
-    tr32 = trainer(d, "float32")
+    step_check(trainer(d, "float32"), "phase7")
+    return tr, launches, recs
+
+
+def step_check(tr32, phase: str) -> None:
+    """One float32 step's loss and gradients from the trainer's weights,
+    first batch and fixed SpecAugment bands: kernels against plain."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
     batch = next(tr32.batches)
     tensors = T.batch_tensors(batch, tr32.device)
     fcfg = tr32.cfg.frontend
@@ -572,14 +910,13 @@ def phase7(d: Path):
     own = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
            for n, a, b in zip(names, gk, gr)}
     own_worst = max(own, key=own.get)
-    log(f"[phase7] float32 step, kernels vs plain: loss {lk.item():.6f} vs "
+    log(f"[{phase}] float32 step, kernels vs plain: loss {lk.item():.6f} vs "
         f"{lr.item():.6f} (rel {rel:.2e}, tol 1e-5); worst gradient leaf "
         f"{worst} {errs[worst]:.3e} of the model's max |g| over "
         f"{len(errs)} leaves (tol {GRAD_TOL:g}); relative to its own max "
         f"|g| the worst leaf is {own_worst} {own[own_worst]:.3e}")
     require(rel <= 1e-5, f"float32 step loss differs: rel {rel}")
     require(errs[worst] <= GRAD_TOL, f"gradient {worst} differs")
-    return tr, launches, recs
 
 
 def cudnn_lstm(x, w_ih, bias, w_hh, valid):
@@ -655,10 +992,14 @@ def phase8(tr, card: str) -> dict:
 
 
 def bounds() -> dict:
-    """Least time (ms) each kernel could take at its phase-5/8 timing shape
-    (bucket 400, B=32, H=256, D=2, bf16 weights): the larger of its bytes
-    (each input read once, each output written once) over HBM bandwidth and
-    its bf16 products over the tensor-core peak, and which of the two."""
+    """Least time (ms) each kernel could take at its timing shape: the
+    larger of its bytes (each input read once, each output written once)
+    over HBM bandwidth and its bf16 products over the tensor-core peak, and
+    which of the two.  K1-K3 at phases 5 and 8's (bucket 400, B=32, H=256,
+    D=2, bf16 weights); K5 at phase 12's (B=32, T'=400, 8 heads of 64,
+    bf16), counting the products these lengths need: every query row
+    against the valid keys of its batch row (all T keys for an empty row,
+    whose weights are uniform)."""
     from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
 
     b, t, d, h, f4 = 32, 400, 2, 256, 4
@@ -674,10 +1015,23 @@ def bounds() -> dict:
           2 * seq * 4 * h * h)
     k3 = (w + t * b * f4 + seq * 4 * h * f4 + 2 * seq * h * f4
           + seq * 4 * h * f4, 2 * seq * 4 * h * h)
+    b5, t5, h5, d5 = K5_TIMING
+    lens = k5_inputs(*K5_TIMING, seed=11, zero_row=False)[3].sum(1)
+    keys = sum(int(n) if n > 0 else t5 for n in lens.tolist())
+    qkv = b5 * t5 * h5 * d5 * 2                      # one bf16 [B, T, H, D]
+    stats = 2 * b5 * h5 * t5 * f4                    # m and l, f32
+    fwd_flops = 4 * h5 * d5 * t5 * keys              # q.k and p.v
+    # q, k, v, mask in; o, m, l out
+    k5f = (4 * qkv + b5 * t5 + stats, fwd_flops)
+    # q, k, v, o, dO, mask, m, l in; dq, dk, dv out; s and dP recomputed,
+    # then dv, dq, dk: five products where the forward has two
+    k5b = (8 * qkv + b5 * t5 + stats, fwd_flops * 5 // 2)
     out = {}
     for name, (nbytes, flops) in (("fused_post_fft", k1),
                                   ("lstm_scan_fwd", k2),
-                                  ("lstm_scan_bwd", k3)):
+                                  ("lstm_scan_bwd", k3),
+                                  ("flash_mhsa_fwd", k5f),
+                                  ("flash_mhsa_bwd", k5b)):
         by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
         out[name] = (max(by_bytes, by_ops),
                      "bytes" if by_bytes >= by_ops else "operations")
@@ -693,25 +1047,31 @@ def load_timit():
     return TR.finalize_config(cfg, TR.build_vocab(cfg).size)
 
 
-def profile(results, tr, out_dir: Path, med: dict) -> None:
-    """Kernel tables of one beam-5 batch and of one train step; device busy
-    share against the unprofiled wall time of the same work."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+def timit_work(results, tr, med: dict) -> dict:
+    """One beam-5 batch and one train step of the timit path, for
+    :func:`profile`."""
     from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     ker, _ = results["bfloat16"]["rec"]
     audio, lens = results["bfloat16"]["batch"]
     tensors = T.batch_tensors(next(tr.batches), tr.device)
-    work = {
+    return {
         "beam5_b32_t400": (lambda: ker.decode(audio, lens, "beam"),
                            med["serve_beam5"]),
         "train_step_b32_t400": (lambda: TS.supervised_step(
             tr.cfg, tr.state, *tensors, tr.cmvn), med["train_step"]),
     }
+
+
+def profile(work: dict, out_dir: Path) -> None:
+    """Kernel tables of each piece of ``work`` (name -> (fn, unprofiled
+    wall ms)); device busy share against the unprofiled wall time, and the
+    largest device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, (fn, wall_ms) in work.items():
         fn()
@@ -727,17 +1087,24 @@ def profile(results, tr, out_dir: Path, med: dict) -> None:
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
         dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+        by_name: dict[str, list[float]] = {}
+        for e in kernels:
+            by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
         log(f"[profile] {name}: {len(kernels)} device kernels and copies, "
             f"{dev_ms:.1f} ms of device time; unprofiled wall "
             f"{wall_ms:.1f} ms, device busy share {dev_ms / wall_ms:.3f}; "
             f"table in {out_dir}")
+        for kname, ts in top:
+            log(f"[profile] {name}:   {sum(ts):8.2f} ms over {len(ts):5d} "
+                f"launches  {kname[:90]}")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", type=Path, default=None,
                    help="write torch.profiler tables of one beam batch and "
-                        "one train step here")
+                        "one train step of each path here")
     args = p.parse_args(argv)
 
     import torch
@@ -770,29 +1137,58 @@ def main(argv=None) -> int:
         tr, launches, _ = phase7(Path(tmp))
         med.update(phase8(tr, card))
         if args.profile is not None:
-            profile(results, tr, args.profile, med)
+            profile(timit_work(results, tr, med), args.profile)
+    del tr
+    k5 = phase9()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ccfg = conformer_config([])
+        # eight utterances over buckets 400 and 800
+        cfiles = synthetic.write_wavs(d, ccfg, TR.build_vocab(ccfg), 8,
+                                      min_tokens=8, max_tokens=20,
+                                      token_dur_s=0.35)
+        synthetic.write_model_dir(d, ccfg, cfiles, seed=0)
+        _, conf_serve = phase10(d, cfiles)
+        ctr, conf_launches, _ = phase11(d)
+        conf_med, conf_work = phase12(ctr, cfiles, card)
+        med.update(conf_med)
+        if args.profile is not None:
+            profile(conf_work, args.profile)
     bound = bounds()
     log(f"[summary] card: {card}; K2 bf16 max_abs_err {k2_bf16:.3e}; "
         f"bf16 token agreement {results['bfloat16']['agree']}; serving "
         f"launches {serve_launches}; training launches {launches}; train "
         f"step {med['train_step']:.1f} ms on kernels vs "
-        f"{med['train_step_plain']:.1f} ms plain")
+        f"{med['train_step_plain']:.1f} ms plain; conformer serving "
+        f"launches {conf_serve}, training launches {conf_launches}; "
+        f"conformer train step {med['conformer_train_step']:.1f} ms on "
+        f"kernels vs {med['conformer_train_step_plain']:.1f} ms plain; K5 "
+        f"worst errors {k5}")
     src = "semi_supervised_asr_tpu_torch/csrc/"
+    tpu = "semi_supervised_asr_tpu/ops/"
+    jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
+              "(jax 0.9.0), reached from " + tpu + "flash_mhsa.py:123")
+    # launches: K1-K3 from the timit training run (phase 7), K5 from the
+    # conformer training run (phase 11)
     rows = (
-        ("fused_post_fft", "fused_post_fft.cu", "pallas_frontend.py:50",
-         k1_err, None),
-        ("lstm_scan_fwd", "lstm_scan_fwd.cu", "pallas_lstm.py:41", k2_err,
-         med["cudnn_lstm_fwd"]),
-        ("lstm_scan_bwd", "lstm_scan_bwd.cu", "pallas_lstm.py:85", k3_err,
-         med["cudnn_lstm_bwd"]),
+        ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
+         k1_err, None, launches),
+        ("lstm_scan_fwd", "lstm_scan_fwd.cu", tpu + "pallas_lstm.py:41",
+         k2_err, med["cudnn_lstm_fwd"], launches),
+        ("lstm_scan_bwd", "lstm_scan_bwd.cu", tpu + "pallas_lstm.py:85",
+         k3_err, med["cudnn_lstm_bwd"], launches),
+        ("flash_mhsa_fwd", "flash_mhsa_fwd.cu", jax_fa.format(331),
+         k5["float32"], med["sdpa_fwd"], conf_launches),
+        ("flash_mhsa_bwd", "flash_mhsa_bwd.cu", jax_fa.format("796 and :1146"),
+         k5["float32_grad_abs"], med["sdpa_bwd"], conf_launches),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
-         "replaces": "semi_supervised_asr_tpu/ops/" + tpu,
-         "launches": launches[name], "max_abs_err": err, "ms": med[name],
-         "plain_ms": med[name + "_plain"], "bound_ms": bound[name][0],
-         "bound_by": bound[name][1], "library_ms": lib}
-        for name, cu, tpu, err, lib in rows]}), flush=True)
+         "replaces": tpu_src, "launches": runs[name], "max_abs_err": err,
+         "ms": med[name], "plain_ms": med[name + "_plain"],
+         "bound_ms": bound[name][0], "bound_by": bound[name][1],
+         "library_ms": lib}
+        for name, cu, tpu_src, err, lib, runs in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

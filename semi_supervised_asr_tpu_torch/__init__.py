@@ -12,6 +12,10 @@ and the supervised LAS train step (``train.py``): the same frontend with
 SpecAugment bands, the listener under autograd with its backward scan on
 a CUDA kernel (csrc/lstm_scan_bwd.cu), teacher forcing with scheduled
 sampling, label-smoothed cross-entropy, global-norm clipping and Adam.
+Both entry points also run the transformer and conformer listeners
+(``model.encoder_arch``) behind a stride-2 conv stem, whose attention
+under ``model.attn_backend: flash`` goes through the CUDA flash attention
+kernels (csrc/flash_mhsa_fwd.cu, csrc/flash_mhsa_bwd.cu).
 
 The port imports nothing of the JAX package: it keeps its own copies of
 the host-side modules (config, vocab, bucketing, the synthetic corpus,
@@ -23,7 +27,7 @@ tensors.
 
 import torch
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def strict_fp32() -> None:
@@ -32,7 +36,8 @@ def strict_fp32() -> None:
     The reference runs its float32 products at full precision (the matmul
     DFT at ``Precision.HIGHEST``); TF32 keeps ~3 decimal digits, far
     outside the port's 1e-5 parity tolerances.  cuDNN convolutions (the
-    attention's location conv) default to TF32, so entry points call this.
+    attention's location conv, the conv stem) default to TF32, so entry
+    points call this.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds), placed in
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per source,
+all started together, then links the objects into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), placed in
 ``_build/`` under a name that hashes the sources, the shared headers
 (``csrc/*.cuh``) and the flags: an edited source is rebuilt, an unchanged
 one is reused.  The library is loaded with
@@ -33,11 +34,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES: dict[str, int] = {"fused_post_fft": 0, "lstm_scan_fwd": 0,
-                             "lstm_scan_bwd": 0}
+                             "lstm_scan_bwd": 0, "flash_mhsa_fwd": 0,
+                             "flash_mhsa_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +66,19 @@ _SIGNATURES = {
         _P,                          # dgates
         _I, _I, _I, _I,              # D, T, B, H
         _I, _I,                      # reverse_mask, w_is_bf16
+        _P,                          # stream
+    ],
+    "flash_mhsa_fwd": [
+        _P, _P, _P, _P,              # q, k, v, key_mask
+        _P, _P, _P,                  # o, m, l
+        _I, _I, _I, _I, _F, _I,      # B, T, H, D, sm_scale, is_bf16
+        _P,                          # stream
+    ],
+    "flash_mhsa_bwd": [
+        _P, _P, _P, _P, _P, _P,      # q, k, v, key_mask, o, dout
+        _P, _P, _P,                  # m, l, delta (scratch)
+        _P, _P, _P,                  # dq, dk, dv
+        _I, _I, _I, _I, _F, _I,      # B, T, H, D, sm_scale, is_bf16
         _P,                          # stream
     ],
 }
@@ -100,25 +115,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libssasr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    done = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        done.append(subprocess.CompletedProcess(cmd, proc.returncode, out,
+                                                err))
+    for res in done:
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(res.args)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
+    return done
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    extra = ["-Xptxas=-v"] if verbose else []
+    compiled = _run([[nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o",
+                      str(obj)] for src, obj in zip(_sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(o) for o in objs)]])
+    for obj in objs:
+        obj.unlink()
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+        print("".join(r.stdout + r.stderr for r in compiled))
     os.replace(tmp, out)
     return out
 

@@ -101,15 +101,24 @@ def load_npz(model: nn.Module, path: str | Path) -> None:
         load_flat(model, {k: z[k] for k in z.files})
 
 
+# listener biases (LayerNorm b, projections, attention, feed-forward, the
+# conformer's conv module, the conv stem) and the speller's own: zeros
+ZERO_LEAVES = ("b", "bq", "bk", "bv", "bo", "b1", "b2", "b_pw1", "b_dw",
+               "b_pw2", "bias", "b_out")
+
+
 def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
-              cfg: ModelConfig) -> np.ndarray:
-    """Distribution per leaf, after the JAX initializers."""
+              cfg: ModelConfig, lstm: bool) -> np.ndarray:
+    """Distribution per leaf, after the JAX initializers; ``lstm`` says
+    that the leaf's group is an LSTM cell (it holds a ``w_hh``)."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf in ("w_ih", "w_hh", "b"):          # LSTM: U(-1/sqrt(H), 1/sqrt(H))
+    if lstm:                                    # U(-1/sqrt(H), 1/sqrt(H))
         hidden = shape[-1] // 4
         bound = 1.0 / math.sqrt(hidden)
         return rng.uniform(-bound, bound, shape)
-    if leaf in ("bias", "b_out"):
+    if leaf == "g":                             # LayerNorm gain
+        return np.ones(shape)
+    if leaf in ZERO_LEAVES:
         return np.zeros(shape)
     if leaf == "embedding":
         return rng.standard_normal(shape) / math.sqrt(cfg.embed_dim)
@@ -117,6 +126,9 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
         return rng.standard_normal(shape) / math.sqrt(shape[0])
     if leaf == "v":                             # glorot of an [A, 1] matrix
         fan_in, fan_out = shape[0], 1
+    elif len(shape) == 4:                       # conv stem [3, 3, C_in, C]
+        field = shape[0] * shape[1]
+        fan_in, fan_out = field * shape[2], field * shape[3]
     else:                                       # glorot uniform matrices
         fan_in, fan_out = shape[0], shape[-1]
     bound = math.sqrt(6.0 / (fan_in + fan_out))
@@ -125,11 +137,17 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
 
 def init_numpy(cfg: ModelConfig, seed: int) -> dict[str, np.ndarray]:
     """Random float32 weights with the names and shapes of ``Seq2Seq(cfg)``,
-    drawn from ``seed`` (the JAX init's shapes, not its values)."""
+    drawn from ``seed`` (the JAX init's shapes and distributions, not its
+    values): LayerNorm gains ones, biases zeros, LSTM cells uniform, the
+    rest glorot (the conv stem's with its receptive field)."""
     from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
 
     rng = np.random.default_rng(seed)
-    return {
-        name: _fan_init(rng, name, tuple(p.shape), cfg).astype(np.float32)
-        for name, p in Seq2Seq(cfg).named_parameters()
-    }
+    params = dict(Seq2Seq(cfg).named_parameters())
+    out = {}
+    for name, p in params.items():
+        group = name.rsplit(".", 1)[0]
+        out[name] = _fan_init(rng, name, tuple(p.shape), cfg,
+                              lstm=f"{group}.w_hh" in params
+                              ).astype(np.float32)
+    return out

@@ -9,6 +9,7 @@ float32 compute.  Texts must be identical; scores agree to 1e-4.  Also:
 the port imports no JAX, and it refuses what this slice does not serve.
 """
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -42,23 +43,48 @@ SMALL = [
     "model.compute_dtype=float32", "train.batch_size=4",
     "data.frame_buckets=[48,96]", "decode.max_decode_len=16",
 ]
+# configs/ls960_conformer.yaml cut to a small width: a 2-block conformer
+# listener (d_model 32) under attn_backend flash, float32, synthetic data
+CONFORMER_CONFIG = str(REPO / "configs" / "ls960_conformer.yaml")
+CONFORMER = [
+    "model.enc_hidden=16", "model.enc_heads=2", "model.enc_ff_dim=32",
+    "model.enc_blocks=2", "model.conv_channels=4",
+    "model.conformer_conv_width=5", "model.attn_backend=flash",
+    "model.dec_hidden=32", "model.dec_layers=1", "model.attn_dim=16",
+    "model.attn_conv_channels=4", "model.attn_conv_width=10",
+    "model.embed_dim=16", "model.compute_dtype=float32",
+    "train.batch_size=4", "data.dataset=synthetic",
+    "data.frame_buckets=[96]", "data.token_buckets=[16]",
+    "decode.max_decode_len=16",
+]
+# one bucket, one batch: a short file, a full one and one cut in two
+CONFORMER_LENGTHS = (4000, 9000, 20000)
 # sample counts: two buckets, a zero-free short file, and one longer than
 # the largest bucket (decoded as two chunks)
 LENGTHS = (4000, 6500, 7000, 12000, 14500, 9000, 20000)
 
 
-@pytest.fixture(scope="module")
-def workdir(tmp_path_factory):
-    d = tmp_path_factory.mktemp("slice")
-    cfg = load_config(CONFIG, SMALL)
+def make_workdir(d, config, overrides, lengths=LENGTHS):
+    cfg = load_config(config, overrides)
     vocab = build_vocab(cfg)
     cfg = TR.finalize_config(cfg, vocab.size)
-    files = synthetic.write_wavs(d, cfg, vocab, len(LENGTHS), LENGTHS,
+    files = synthetic.write_wavs(d, cfg, vocab, len(lengths), lengths,
                                  min_tokens=12, max_tokens=12)
     synthetic.write_model_dir(d, cfg, files, seed=0)
     with np.load(d / "params.npz") as z:
         params = jax.tree.map(jnp.asarray, weights.unflatten_tree(dict(z)))
     return d, cfg, vocab, files, params
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    return make_workdir(tmp_path_factory.mktemp("slice"), CONFIG, SMALL)
+
+
+@pytest.fixture(scope="module")
+def conformer_workdir(tmp_path_factory):
+    return make_workdir(tmp_path_factory.mktemp("conformer"),
+                        CONFORMER_CONFIG, CONFORMER, CONFORMER_LENGTHS)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 5))
@@ -105,10 +131,21 @@ def jax_transcribe(cfg, vocab, files, params, cmvn, mode):
 
 @pytest.mark.parametrize("mode", ["beam", "greedy"])
 def test_transcribe_matches_jax_chain(workdir, mode, tmp_path, capsys):
+    check_transcribe(workdir, CONFIG, SMALL, mode, tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy"])
+def test_conformer_transcribe_matches_jax_chain(conformer_workdir, mode,
+                                                tmp_path, capsys):
+    check_transcribe(conformer_workdir, CONFORMER_CONFIG, CONFORMER, mode,
+                     tmp_path)
+
+
+def check_transcribe(workdir, config, overrides, mode, tmp_path):
     d, cfg, vocab, files, params = workdir
     out = tmp_path / "hyps.jsonl"
-    argv = ["--config", CONFIG, "--load-dir", str(d), "--device", "cpu",
-            "--out", str(out), *map(str, files), *SMALL]
+    argv = ["--config", config, "--load-dir", str(d), "--device", "cpu",
+            "--out", str(out), *map(str, files), *overrides]
     if mode == "greedy":
         argv[:0] = ["--beam", "1"]
     assert TR.main(argv) == 0
@@ -151,6 +188,35 @@ def test_init_numpy_fits_the_model_and_repeats(workdir):
                for v in a.values())
 
 
+@pytest.mark.parametrize("arch", ["transformer", "conformer"])
+def test_init_numpy_fits_the_attention_listeners(conformer_workdir, arch):
+    """The same for the attention listeners: their LayerNorm gains are
+    ones, their biases zeros, the conv stem's kernels glorot over the
+    receptive field (fan_in 9*C_in, fan_out 9*C)."""
+    _, cfg, _, _, _ = conformer_workdir
+    mcfg = dataclasses.replace(cfg.model, encoder_arch=arch)
+    a = weights.init_numpy(mcfg, seed=0)
+    weights.load_flat(Seq2Seq(mcfg), a)
+    b = weights.init_numpy(mcfg, seed=0)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    assert all(v.dtype == np.float32 and np.isfinite(v).all()
+               for v in a.values())
+    assert (a["listener.blocks.1.attn.wq"] != 0).all()
+    gains = [k for k in a if k.endswith(".g")]
+    assert gains and all((a[k] == 1.0).all() for k in gains)
+    biases = [k for k in a if k.startswith("listener.")
+              and k.rsplit(".", 1)[-1].startswith("b")]
+    assert biases and all((a[k] == 0.0).all() for k in biases)
+    c = cfg.model.conv_channels
+    for i, c_in in enumerate((1, c)):
+        w = a[f"listener.conv.{i}.w"]
+        bound = np.sqrt(6.0 / (9 * c_in + 9 * c))
+        assert w.shape == (3, 3, c_in, c)
+        assert np.abs(w).max() <= bound and np.abs(w).max() > 0.5 * bound
+    if arch == "conformer":
+        assert (a["listener.blocks.0.ff1.ln.g"] == 1.0).all()
+
+
 def test_port_imports_no_jax():
     """Every port module and chip_smoke import with JAX and the JAX package
     blocked by a meta-path finder (the port keeps its own host-side
@@ -168,6 +234,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ('ops.flash_mhsa', 'models.transformer_listener',\n"
+        "       'models.conformer_listener')\n"
+        "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"

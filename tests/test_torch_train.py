@@ -63,6 +63,21 @@ SMALL = [
     "data.num_synthetic_utts=8", "data.frame_buckets=[128]",
     "data.token_buckets=[12]",
 ]
+# configs/ls960_conformer.yaml cut to a small width: a 2-block conformer of
+# d_model 32, the flash attention route, float32
+CONFORMER_CONFIG = "configs/ls960_conformer.yaml"
+CONFORMER = [
+    "model.enc_hidden=16", "model.enc_heads=2", "model.enc_ff_dim=32",
+    "model.enc_blocks=2", "model.conv_channels=4",
+    "model.conformer_conv_width=5", "model.attn_backend=flash",
+    "model.enc_dropout=0", "model.dec_hidden=32", "model.dec_layers=1",
+    "model.attn_dim=16", "model.attn_conv_channels=4",
+    "model.attn_conv_width=10", "model.embed_dim=16",
+    "model.compute_dtype=float32", "train.batch_size=4",
+    "train.warmup_steps=0", "data.sortagrad_epochs=0",
+    "data.dataset=synthetic", "data.num_synthetic_utts=8",
+    "data.frame_buckets=[128]", "data.token_buckets=[12]",
+]
 TOL_GRAD = dict(rtol=2e-4, atol=2e-5)
 # the JAX references run once each, so their XLA compile dominates: the
 # cheap backend settings halve it; the results stay inside the tolerances
@@ -166,14 +181,13 @@ def test_specaug_draws_respect_the_ranges():
     assert seen_w == set(range(16))      # every width 0..F is drawn
 
 
-@pytest.fixture(scope="module")
-def step_setup():
+def make_step_setup(config, overrides):
     """Both configs, the JAX parameter tree, a batch with a filler row, and
     the CMVN statistics."""
-    pcfg = load_config(CONFIG, SMALL + ["frontend.spec_augment=false"])
+    pcfg = load_config(config, overrides + ["frontend.spec_augment=false"])
     bundle = build_datasets(pcfg)
     pcfg = TR.finalize_config(pcfg, bundle.vocab.size)
-    jcfg = jax_load_config(CONFIG, SMALL + ["frontend.spec_augment=false"])
+    jcfg = jax_load_config(config, overrides + ["frontend.spec_augment=false"])
     jcfg = jcfg.replace(model=dataclasses.replace(
         jcfg.model, vocab_size=bundle.vocab.size, n_mels=80))
     spec = make_bucket_spec(pcfg.data, pcfg.frontend,
@@ -183,6 +197,11 @@ def step_setup():
     cmvn = pipeline.compute_global_cmvn(bundle.train, pcfg.frontend)
     flat = weights.init_numpy(pcfg.model, seed=0)
     return pcfg, jcfg, batch, cmvn, flat
+
+
+@pytest.fixture(scope="module")
+def step_setup():
+    return make_step_setup(CONFIG, SMALL)
 
 
 def port_model(cfg, flat):
@@ -263,7 +282,19 @@ def stash():
 
 
 def test_supervised_step_matches_jax(step_setup):
-    pcfg, jcfg, batch, cmvn, flat = step_setup
+    check_supervised_step(*step_setup)
+
+
+def test_conformer_supervised_step_matches_jax():
+    """The same step with a tiny conformer listener under attn_backend
+    flash (its MHSA on the plain version of K5 here); one block, so that
+    JAX's compile stays short."""
+    check_supervised_step(*make_step_setup(
+        CONFORMER_CONFIG, CONFORMER + ["model.enc_blocks=1",
+                                       "model.conformer_conv_width=3"]))
+
+
+def check_supervised_step(pcfg, jcfg, batch, cmvn, flat):
     tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
     opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
     state = JT.TrainState(params=tree, opt_state=opt.init(tree),
@@ -354,6 +385,18 @@ def test_train_cli_refuses_unported_options(tmp_path, override, message):
     with pytest.raises(SystemExit, match=message):
         TRN.main(["--config", CONFIG, "--workdir", str(tmp_path), "--steps",
                   "1", "--device", "cpu", *TINY, override])
+
+
+@pytest.mark.parametrize("override, message", [
+    ("model.enc_attn_chunk=8", "model.enc_attn_chunk"),
+    ("model.enc_dropout=0.1", "model.enc_dropout"),
+    ("train.remat_encoder=true", "train.remat_encoder"),
+])
+def test_train_cli_refuses_unported_conformer_options(tmp_path, override,
+                                                      message):
+    with pytest.raises(SystemExit, match=message):
+        TRN.main(["--config", CONFORMER_CONFIG, "--workdir", str(tmp_path),
+                  "--steps", "1", "--device", "cpu", *CONFORMER, override])
 
 
 def test_train_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch):
