@@ -8,7 +8,8 @@ Run from the root of a checkout.  It imports nothing of JAX and fails
 failure raises and the script exits non-zero:
 
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
-1. build the CUDA kernels from ``semi_supervised_asr_tpu_torch/csrc``;
+1. build the CUDA kernels from ``semi_supervised_asr_tpu_torch/csrc``,
+   with ptxas's registers and spills of K5's bf16 instances;
 2. K1 (fused post-FFT frontend) against its plain version at the timit
    shapes (B=32, T=400 and 800, F=257, M=80), with and without
    SpecAugment bands: max abs error <= 1e-5;
@@ -42,12 +43,14 @@ failure raises and the script exits non-zero:
    LSTM backward, cuDNN's LSTM forward beside K2, and the median host
    time of a train step on kernels against the plain versions;
 9. K5 (flash attention, forward and backward) against its plain version
-   at the conformer's shapes (B=32, 8 heads of 64, T'=100 and 400, ragged
-   lengths with a zero-length row, f32 and bf16) and at three odd shapes
-   (head dims 24, 128 and 8, ragged tiles): O, and dq, dk, dv through the
+   at the conformer's shapes (B=32, 8 heads of 64, T'=100 and 400) and at
+   four odd shapes (head dims 24, 128 and 8, and T'=129: ragged tiles),
+   each in f32 (the CUDA-core route) and bf16 (the tensor-core route),
+   with a full row, an empty row, a row of length 1 and rows whose masks
+   have holes before their last valid key: O, and dq, dk, dv through the
    autograd Function against autograd of ``mhsa_reference``, within
-   K5_TOL / GRAD_TOL in float32 and the K5_BF16 bounds in bf16; the
-   empty row's dq must be exactly 0;
+   K5_TOL / GRAD_TOL in float32 and the K5_BF16 bounds in bf16; the empty
+   row's dq must be exactly 0;
 10. the serving slice at ``configs/ls960_conformer.yaml`` full width with
     ``model.attn_backend=flash`` (random weights from seed 0, synthetic
     WAVs in the 400- and 800-frame buckets) through ``transcribe``, beam 5
@@ -59,11 +62,14 @@ failure raises and the script exits non-zero:
     corpus, bucket 1600 so that T'=400, B=32, bf16): 3 steps, finite
     losses, K1 and both K5 launch counts > 0; then one float32 step on
     kernels against the plain versions, as in phase 7;
-12. at bucket 1600, B=32, bf16: K5 forward and backward against the plain
-    version and against ``scaled_dot_product_attention`` with the boolean
-    key mask (the library yardstick, never on the port's path), and the
-    conformer's beam-5 serve batch and train step on kernels against the
-    plain versions.
+12. K5 forward and backward (bf16, B=32, 8 heads of 64) against
+    ``scaled_dot_product_attention`` with the boolean key mask (the
+    library yardstick, never on the port's path) at the T' of all four
+    ls960_conformer buckets (100-400), with the card's clocks, power and
+    temperature before and after each K5 timing, each ratio and each
+    share of the bound; at T'=400 (bucket 1600) also against the plain
+    version; then the conformer's beam-5 serve batch and train step on
+    kernels against the plain versions.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound and library time; launches from the timit training run for K1-K3,
@@ -75,7 +81,9 @@ tables of one beam-5 batch and of one train step of each path there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import math
 import re
@@ -137,6 +145,9 @@ CONFORMER_TRAIN = ["model.enc_dropout=0", "data.sortagrad_epochs=0",
                    "data.num_synthetic_utts=64", "data.frame_buckets=[1600]"]
 # K5's timing shape: bucket 1600 -> T' = 400, B=32, 8 heads of 64
 K5_TIMING = (32, 400, 8, 64)
+# T' of ls960_conformer's four buckets (400-1600 frames, 4x stem), each
+# timed in phase 12
+K5_BUCKETS = (100, 200, 300, 400)
 # the conformer's encoder, kernels vs plain on one batch: float32 within
 # K5's own bound; bf16 relative to the largest output, within K5's bf16
 # bound (16 blocks carry the scores' bf16 rounding, each renormalised by
@@ -251,13 +262,41 @@ def phase0() -> str:
     return card
 
 
-def phase1() -> None:
+def phase1() -> dict:
+    """Build the kernels; -> {K5 bf16 instance: (registers, spill stores,
+    spill loads)} from ptxas."""
     from semi_supervised_asr_tpu_torch import _native
 
     t0 = time.perf_counter()
-    path = _native.build(verbose=True)
+    cached = _native.library_path().exists()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        path = _native.build(verbose=True)
     _native.lib()
+    print(out.getvalue(), flush=True)
     log(f"[phase1] built {path.name} in {time.perf_counter() - t0:.1f} s")
+    if cached:
+        log("[phase1] the library was built before: no ptxas report")
+        return {}
+    regs, kernel = {}, None
+    for line in out.getvalue().splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"(flash_mhsa_(?:fwd|bwd_dq|bwd_dkv)_bf16"
+                             r"_kernel)ILi(\d)", entry.group(1))
+            kernel = f"{name.group(1)}<NB={name.group(2)}>" if name else None
+        used = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if kernel and spill:
+            regs[kernel] = regs.get(kernel, (0,)) + tuple(
+                int(x) for x in spill.groups())
+        if kernel and used:
+            regs[kernel] = (int(used.group(1)),) + regs.get(kernel, (0,))[1:]
+    for name, (n, *sp) in sorted(regs.items()):
+        log(f"[phase1] {name}: {n} registers, spill stores/loads {sp} bytes")
+    require(len(regs) == 6, f"ptxas reported {sorted(regs)}")
+    return regs
 
 
 def k1_inputs(b: int, t: int, seed: int, cfg):
@@ -587,10 +626,11 @@ def phase6() -> float:
 
 
 def k5_inputs(b: int, t: int, h: int, hd: int, seed: int,
-              zero_row: bool = True):
+              odd_rows: bool = True):
     """Random q, k, v [B, T, H, D] (float32), a key mask with ragged
-    lengths (row 0 full, row 1 empty unless ``zero_row`` is off) and a
-    random output cotangent."""
+    lengths (row 0 full) and a random output cotangent.  ``odd_rows``: row
+    1 empty, row 2 of length 1, and every other row from 3 on with holes
+    (about a third of its keys masked before its last valid key)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -598,9 +638,15 @@ def k5_inputs(b: int, t: int, h: int, hd: int, seed: int,
                      for _ in range(4))
     lens = torch.randint(max(t // 4, 1), t + 1, (b,), generator=g)
     lens[0] = t
-    if zero_row and b > 1:
-        lens[1] = 0
+    if odd_rows:
+        lens[1:3] = torch.tensor([0, 1])[:max(b - 1, 0)]
     mask = torch.arange(t)[None, :] < lens[:, None]
+    if odd_rows:
+        holes = torch.rand((b, t), generator=g) < 1 / 3
+        holes[:3] = False
+        holes[4::2] = False
+        holes[torch.arange(b), (lens - 1).clamp_min(0)] = False
+        mask &= ~holes
     return [x.to(DEVICE) for x in (q, k, v, mask, dout)]
 
 
@@ -624,13 +670,13 @@ def phase9() -> dict:
     import torch
 
     worst = {}
+    # odd: head dims below one 64-wide box, above it, and 8; T above one
+    # tile and not a multiple of 64
     shapes = [("conformer", 32, 100, 8, 64), ("conformer", 32, 400, 8, 64),
-              ("odd", 3, 37, 3, 24), ("odd", 2, 70, 2, 128),
-              ("odd", 2, 65, 4, 8)]
+              ("odd", 5, 37, 3, 24), ("odd", 5, 70, 2, 128),
+              ("odd", 5, 65, 4, 8), ("odd", 5, 129, 2, 64)]
     for name, b, t, h, hd in shapes:
-        dtypes = ((torch.float32, torch.bfloat16) if name == "conformer"
-                  else (torch.float32,))
-        for compute in dtypes:
+        for compute in (torch.float32, torch.bfloat16):
             q, k, v, mask, dout = k5_inputs(b, t, h, hd, seed=t + hd)
             got = k5_grads(q, k, v, mask, dout, compute, None)
             want = k5_grads(q, k, v, mask, dout, compute, "reference")
@@ -771,53 +817,95 @@ def phase11(d: Path):
     return tr, launches, recs
 
 
-def phase12(tr, files: list[Path], card: str) -> dict:
-    """Timings at bucket 1600, B=32, bf16: K5 forward and backward against
-    the plain version and SDPA; the conformer serve batch and train step."""
+def gpu_clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def k5_bucket(times: dict, shape: tuple) -> None:
+    """K5 forward and backward (bf16) beside SDPA at one shape, device
+    times, with the card's clocks before and after each K5 timing; at
+    K5_TIMING also the plain version, interleaved, into ``times`` (the
+    kernel table's numbers)."""
     import torch
     import torch.nn.functional as Fn
 
-    from semi_supervised_asr_tpu_torch import train as T
-    from semi_supervised_asr_tpu_torch import transcribe as TR
     from semi_supervised_asr_tpu_torch.ops import flash_mhsa as FM
-    from semi_supervised_asr_tpu_torch.training import train_step as TS
 
-    times = {}
     bf16 = torch.bfloat16
+    b, t, h, d = shape
     q, k, v, mask, dout = (x.to(bf16) if x.is_floating_point() else x
-                           for x in k5_inputs(*K5_TIMING, seed=11,
-                                              zero_row=False))
-    scale = 1.0 / math.sqrt(q.shape[-1])
+                           for x in k5_inputs(*shape, seed=11,
+                                              odd_rows=False))
+    scale = 1.0 / math.sqrt(d)
     o, m, l = FM.mhsa_fwd(q, k, v, mask, scale)
-    kernel_times(times, "flash_mhsa_fwd",
-                 lambda: FM.mhsa_fwd(q, k, v, mask, scale),
-                 lambda: FM.mhsa_reference(q, k, v, mask, sm_scale=scale,
-                                           compute=bf16), reps=10)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     out = FM.mhsa_reference(*leaves, mask, sm_scale=scale, compute=bf16)
-    kernel_times(times, "flash_mhsa_bwd",
-                 lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale),
-                 lambda: torch.autograd.grad(out, leaves, dout,
-                                             retain_graph=True), reps=10)
-    # the backward's two launches apart (K5dq, K5dkv)
-    split = device_ms_by_kernel(
-        lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale), reps=10)
-    for name, ms in sorted(split.items()):
-        short = re.search(r"(\w+)<", name)
-        log(f"[phase12] flash_mhsa_bwd launch "
-            f"{short.group(1) if short else name[:80]}: {ms:.4f} ms (device "
-            f"time, profiler)")
     # the library yardstick: SDPA on [B, H, T, D] with the boolean key mask
     sl = [x.transpose(1, 2).contiguous().requires_grad_(True)
           for x in (q, k, v)]
     am = mask[:, None, None, :]
-    with torch.no_grad():
-        times["sdpa_fwd"] = [device_ms(lambda: Fn.scaled_dot_product_attention(
-            *sl, attn_mask=am, scale=scale), reps=10)]
     so = Fn.scaled_dot_product_attention(*sl, attn_mask=am, scale=scale)
     sdo = dout.transpose(1, 2).contiguous()
-    times["sdpa_bwd"] = [device_ms(lambda: torch.autograd.grad(
-        so, sl, sdo, retain_graph=True), reps=10)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            Fn.scaled_dot_product_attention(*sl, attn_mask=am, scale=scale)
+
+    work = {
+        "flash_mhsa_fwd": (lambda: FM.mhsa_fwd(q, k, v, mask, scale),
+                           lambda: FM.mhsa_reference(
+                               q, k, v, mask, sm_scale=scale, compute=bf16),
+                           sdpa_fwd),
+        "flash_mhsa_bwd": (
+            lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale),
+            lambda: torch.autograd.grad(out, leaves, dout,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(so, sl, sdo, retain_graph=True)),
+    }
+    bound = k5_bounds(shape, mask.sum(1))
+    for name, (kernel, plain, lib) in work.items():
+        log(f"[phase12] clocks before {name} T'={t}: {gpu_clocks()} (SM "
+            "MHz, max SM MHz, W, C)")
+        if shape == K5_TIMING:
+            kernel_times(times, name, kernel, plain, reps=10)
+            ms = statistics.median(times[name])
+        else:
+            ms = device_ms(kernel, reps=10)
+        lib_ms = device_ms(lib, reps=10)
+        log(f"[phase12] clocks after {name} T'={t}: {gpu_clocks()}")
+        if shape == K5_TIMING:
+            times["sdpa" + name[-4:]] = [lib_ms]
+        bms, by = bound[name]
+        log(f"[phase12] {name} B={b} T'={t} H={h} D={d} bf16: {ms:.4f} ms "
+            f"(device time, profiler), SDPA {lib_ms:.4f} ms, kernel/SDPA "
+            f"{ms / lib_ms:.2f}; bound {bms:.4f} ms ({by}): kernel at "
+            f"{bms / ms:.1%}, SDPA at {bms / lib_ms:.1%} of it")
+    # the backward's two launches apart (K5dq, K5dkv)
+    split = device_ms_by_kernel(work["flash_mhsa_bwd"][0], reps=10)
+    for name, ms in sorted(split.items()):
+        short = re.search(r"(\w+)<", name)
+        log(f"[phase12] T'={t} flash_mhsa_bwd launch "
+            f"{short.group(1) if short else name[:80]}: {ms:.4f} ms (device "
+            f"time, profiler)")
+
+
+def phase12(tr, files: list[Path], card: str) -> dict:
+    """Timings at bucket 1600, B=32, bf16: K5 forward and backward against
+    the plain version and SDPA; the conformer serve batch and train step."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    times = {}
+    for t in K5_BUCKETS:
+        k5_bucket(times, (*K5_TIMING[:1], t, *K5_TIMING[2:]))
     # the conformer serve batch (beam 5) and train step, kernels vs plain
     ker = TR.Recognizer(tr.cfg, tr.state.model, (tr.cmvn[0].cpu(),
                         tr.cmvn[1].cpu()), TR.build_vocab(tr.cfg),
@@ -991,6 +1079,37 @@ def phase8(tr, card: str) -> dict:
     return med
 
 
+def k5_work(shape: tuple, lens) -> tuple:
+    """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
+    shape, counting the products these lengths need: every query row
+    against the valid keys of its batch row (all T keys for an empty row,
+    whose weights are uniform)."""
+    b, t, h, d = shape
+    f4 = 4
+    keys = sum(int(n) if n > 0 else t for n in lens.tolist())
+    qkv = b * t * h * d * 2                      # one bf16 [B, T, H, D]
+    stats = 2 * b * h * t * f4                   # m and l, f32
+    fwd_flops = 4 * h * d * t * keys             # q.k and p.v
+    # q, k, v, mask in; o, m, l out
+    fwd = (4 * qkv + b * t + stats, fwd_flops)
+    # q, k, v, o, dO, mask, m, l in; dq, dk, dv out; s and dP recomputed,
+    # then dv, dq, dk: five products where the forward has two
+    bwd = (8 * qkv + b * t + stats, fwd_flops * 5 // 2)
+    return fwd, bwd
+
+
+def k5_bounds(shape: tuple, lens) -> dict:
+    """K5 forward and backward -> (bound ms, "bytes" or "operations")."""
+    return {name: bound_ms(*work) for name, work in
+            zip(("flash_mhsa_fwd", "flash_mhsa_bwd"), k5_work(shape, lens))}
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple:
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def bounds() -> dict:
     """Least time (ms) each kernel could take at its timing shape: the
     larger of its bytes (each input read once, each output written once)
@@ -1015,28 +1134,18 @@ def bounds() -> dict:
           2 * seq * 4 * h * h)
     k3 = (w + t * b * f4 + seq * 4 * h * f4 + 2 * seq * h * f4
           + seq * 4 * h * f4, 2 * seq * 4 * h * h)
-    b5, t5, h5, d5 = K5_TIMING
-    lens = k5_inputs(*K5_TIMING, seed=11, zero_row=False)[3].sum(1)
-    keys = sum(int(n) if n > 0 else t5 for n in lens.tolist())
-    qkv = b5 * t5 * h5 * d5 * 2                      # one bf16 [B, T, H, D]
-    stats = 2 * b5 * h5 * t5 * f4                    # m and l, f32
-    fwd_flops = 4 * h5 * d5 * t5 * keys              # q.k and p.v
-    # q, k, v, mask in; o, m, l out
-    k5f = (4 * qkv + b5 * t5 + stats, fwd_flops)
-    # q, k, v, o, dO, mask, m, l in; dq, dk, dv out; s and dP recomputed,
-    # then dv, dq, dk: five products where the forward has two
-    k5b = (8 * qkv + b5 * t5 + stats, fwd_flops * 5 // 2)
+    lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
+    k5f, k5b = k5_work(K5_TIMING, lens)
     out = {}
     for name, (nbytes, flops) in (("fused_post_fft", k1),
                                   ("lstm_scan_fwd", k2),
                                   ("lstm_scan_bwd", k3),
                                   ("flash_mhsa_fwd", k5f),
                                   ("flash_mhsa_bwd", k5b)):
-        by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
-        out[name] = (max(by_bytes, by_ops),
-                     "bytes" if by_bytes >= by_ops else "operations")
-        log(f"[bound] {name}: {nbytes / 1e6:.1f} MB -> {by_bytes:.4f} ms, "
-            f"{flops / 1e9:.2f} GFLOP -> {by_ops:.4f} ms")
+        out[name] = bound_ms(nbytes, flops)
+        log(f"[bound] {name}: {nbytes / 1e6:.1f} MB -> "
+            f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP "
+            f"-> {flops / BF16_FLOPS * 1e3:.4f} ms")
     return out
 
 

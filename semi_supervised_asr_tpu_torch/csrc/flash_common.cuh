@@ -1,8 +1,9 @@
-// Helpers shared by the flash attention kernels (flash_mhsa_fwd.cu,
-// flash_mhsa_bwd.cu).
+// Helpers of the float32 route of the flash attention kernels
+// (flash_mhsa_fwd.cu, flash_mhsa_bwd.cu), which runs on the CUDA cores; the
+// bf16 route's are in flash_sm90.cuh.
 //
-// Layout: q, k, v, o and their gradients are [B, T, H, D] in the compute
-// dtype (f32 or bf16), contiguous, so row t of head h starts at
+// Layout: q, k, v, o and their gradients are [B, T, H, D] f32,
+// contiguous, so row t of head h starts at
 // ((b*T + t)*H + h)*D; the kernels read each head through that stride, with
 // no transposes.  Per-row softmax statistics are [B, H, T] f32.
 //
@@ -19,7 +20,6 @@
 // shared memory, so they add nothing.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -31,36 +31,9 @@ constexpr int kThreads = 2 * kBlock;    // two threads per row
 constexpr float kMasked = -1e9f;        // the plain version's replaced score
 constexpr unsigned kFull = 0xffffffffu;
 
-// 4 consecutive values of one row in the compute dtype, as floats
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  __device__ __forceinline__ static float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  __device__ __forceinline__ static void store4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-  __device__ __forceinline__ static float round(float x) { return x; }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  __device__ __forceinline__ static float4 load4(const __nv_bfloat16* p) {
-    const __nv_bfloat162* pp = reinterpret_cast<const __nv_bfloat162*>(p);
-    const float2 a = __bfloat1622float2(pp[0]);
-    const float2 b = __bfloat1622float2(pp[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float4 v) {
-    __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(p);
-    pp[0] = __floats2bfloat162_rn(v.x, v.y);
-    pp[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-  __device__ __forceinline__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 __device__ __forceinline__ float4 zero4() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -68,33 +41,33 @@ __device__ __forceinline__ float4 zero4() {
 
 // this thread's half of row `row` (global, D valid dims) into registers;
 // zeros when the row is outside the sequence
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_half(const T* row, bool valid, int D,
+template <int DMAX>
+__device__ __forceinline__ void load_half(const float* row, bool valid, int D,
                                           int hf, float4 (&x)[DMAX / 8]) {
 #pragma unroll
   for (int i = 0; i < DMAX / 8; ++i) {
     const int d0 = 4 * (2 * i + hf);
-    x[i] = (valid && d0 < D) ? Elem<T>::load4(row + d0) : zero4();
+    x[i] = (valid && d0 < D) ? load4(row + d0) : zero4();
   }
 }
 
-template <typename T, int DMAX>
-__device__ __forceinline__ void store_half(T* row, int D, int hf,
+template <int DMAX>
+__device__ __forceinline__ void store_half(float* row, int D, int hf,
                                            const float4 (&x)[DMAX / 8],
                                            float scale) {
 #pragma unroll
   for (int i = 0; i < DMAX / 8; ++i) {
     const int d0 = 4 * (2 * i + hf);
     if (d0 < D)
-      Elem<T>::store4(row + d0, make_float4(x[i].x * scale, x[i].y * scale,
-                                            x[i].z * scale, x[i].w * scale));
+      *reinterpret_cast<float4*>(row + d0) = make_float4(
+          x[i].x * scale, x[i].y * scale, x[i].z * scale, x[i].w * scale);
   }
 }
 
 // kBlock rows of one head, starting at `first` (global), into shared memory
-// as f32 [kBlock][DMAX]; rows at or past `nrows` and dims past D are zeros
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile(const T* first, size_t row_stride,
+// as [kBlock][DMAX]; rows at or past `nrows` and dims past D are zeros
+template <int DMAX>
+__device__ __forceinline__ void load_tile(const float* first, size_t row_stride,
                                           int nrows, int D, float* dst) {
   constexpr int G = DMAX / 4;
   float4* d4 = reinterpret_cast<float4*>(dst);
@@ -102,7 +75,7 @@ __device__ __forceinline__ void load_tile(const T* first, size_t row_stride,
     const int r = idx / G;
     const int d0 = 4 * (idx - r * G);
     d4[idx] = (r < nrows && d0 < D)
-                  ? Elem<T>::load4(first + (size_t)r * row_stride + d0)
+                  ? load4(first + (size_t)r * row_stride + d0)
                   : zero4();
   }
 }

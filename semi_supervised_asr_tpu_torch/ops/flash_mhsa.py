@@ -27,6 +27,15 @@ scores, f32 online softmax, the weights rounded to the compute dtype before
 their product with v, f32 accumulators.  In float32 the kernels differ
 from the plain version by summation order only; in bfloat16 also by the
 plain version's rounding of the scores to bf16 (as XLA's einsum does).
+
+Two routes behind each C entry point, chosen by dtype.  bfloat16, what
+every shipped recipe runs: all products on the H100's tensor cores
+(``wgmma``), tiles of 64 rows fed by TMA through a 2-stage ring; the
+bytes (each input read once) bound it at the listeners' shapes.  float32,
+for exactness checks at 1e-5: the CUDA cores (TF32 would not hold that
+tolerance).  Both stop each row's key loop at its last valid key, which
+is exact: past it every weight is exp(-1e9 - m) = 0.  The key mask goes
+to the kernels as the bool tensor's own bytes (one byte per key, 0 or 1).
 """
 
 from __future__ import annotations
@@ -75,13 +84,20 @@ def _check(q, k, v, key_mask) -> None:
                          f"{tuple(key_mask.shape)} on {key_mask.device}")
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, starting on a 16-byte boundary (the kernels read 16-byte
+    words and TMA needs it)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def mhsa_fwd(q, k, v, key_mask, sm_scale: float):
     """The forward kernel -> (o [B, T, H, D], row max m, row sum l [B, H,
     T] float32).  q, k, v in one compute dtype, on the card."""
     _check(q, k, v, key_mask)
     b, t, h, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    mask = key_mask.to(torch.uint8).contiguous()
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    mask = key_mask.contiguous()
     o = torch.empty_like(q)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -109,9 +125,9 @@ def mhsa_bwd(q, k, v, key_mask, o, m, l, dout, sm_scale: float):
             raise ValueError(f"mhsa_bwd: {name} must be {dtype} "
                              f"{tuple(shape)} on {q.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    o = o.contiguous()
-    dout = dout.to(q.dtype).contiguous()
-    mask = key_mask.to(torch.uint8).contiguous()
+    q, k, v, o = _dense(q), _dense(k), _dense(v), _dense(o)
+    dout = _dense(dout.to(q.dtype))
+    mask = key_mask.contiguous()
     delta = torch.empty_like(m)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     code = _native.lib().flash_mhsa_bwd(
