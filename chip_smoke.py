@@ -9,18 +9,25 @@ failure raises and the script exits non-zero:
 
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
 1. build the CUDA kernels from ``semi_supervised_asr_tpu_torch/csrc``,
-   with ptxas's registers and spills of K5's bf16 instances;
+   with ptxas's registers and spills of the bf16 instances of K5 and of
+   the LSTM cluster route (and its exchange-floor probe), and
+   ``cudaOccupancyMaxActiveClusters`` of each K2/K3 cluster plan at B=32,
+   H=256/384/512 (timit's must all be resident at once);
 2. K1 (fused post-FFT frontend) against its plain version at the timit
    shapes (B=32, T=400 and 800, F=257, M=80), with and without
    SpecAugment bands: max abs error <= 1e-5;
 3. K2 (LSTM forward scan) against its plain version at the listener's
    shapes (T=800 / input 80 and T=100 / input 1024, B=32, H=256, both
    directions, variable lengths with a zero-length row, residuals):
-   <= 1e-5 in float32, <= BF16_TOL in bfloat16;
+   <= 1e-5 in float32 (the CUDA-core route), <= BF16_TOL in bfloat16 (the
+   cluster route); then the cluster route at H=256, 384 and 512, B=32
+   and 5, T=1 and 37, D=2 and D=1 reverse, each with a zero-length row;
+   every call's route is checked by its launch count;
 4. the serving slice at ``configs/timit.yaml`` full width (random weights
    from seed 0, synthetic WAVs in two buckets) through the port's
    ``transcribe`` entry, beam 5 and greedy, with each kernel's launch
-   count from that run; then the same bucket-400 batch with
+   count from that run (K2 on the cluster route); then the same bucket-400
+   batch with
    ``backend="reference"``: encoder outputs within the phase-3 tolerance
    and, in a float32-compute run, identical tokens;
 5. median times per batch of 32 at bucket 400: each kernel against its
@@ -31,17 +38,29 @@ failure raises and the script exits non-zero:
    directions, ragged lengths with a zero-length row, random dh_out):
    dgates <= 1e-5 in float32, <= BF16_TOL in bfloat16; then the
    gradients of one whole BiLSTM layer (dx, dW_ih, dW_hh, db) through the
-   autograd Function, kernel against plain, in float32;
+   autograd Function, kernel against plain, in float32; then K3's
+   cluster route at phase 3's shapes;
 7. the training slice at ``configs/timit.yaml`` full width through the
    port's ``train`` entry (synthetic corpus, bucket 400, B=32, bf16,
    weights from seed 0): 3 steps, the loss of each, finite losses, and
-   each kernel's launch count from that run (all three > 0); then one
-   float32 step from the same weights, batch and SpecAugment bands on
-   kernels and on ``backend="reference"``: loss to 1e-5 relative, every
-   gradient leaf within GRAD_TOL;
-8. at bucket 400, B=32, bf16: K3 against its plain version and cuDNN's
-   LSTM backward, cuDNN's LSTM forward beside K2, and the median host
-   time of a train step on kernels against the plain versions;
+   each kernel's launch count from that run (all three > 0, K2 and K3 on
+   the cluster route); then one bf16 step from the trained weights and
+   one float32 step from fresh ones, each with one batch and fixed
+   SpecAugment bands on kernels and on ``backend="reference"``: loss and
+   every gradient leaf within BF16_STEP_LOSS_TOL / BF16_STEP_GRAD_TOL
+   (bf16) and 1e-5 / GRAD_TOL (float32);
+8. at bucket 400, B=32, bf16: the library yardsticks, like with like:
+   cuDNN's whole LSTM layer forward (input projection + recurrence)
+   beside the port's (projection + K2), and cuDNN's layer backward
+   (training forward + backward minus training forward) beside the
+   port's by the same difference (K3 + the dW_hh product + the
+   projection's autograd backward); K3 against its plain version; K2
+   and K3 with tiles of 8 rows (the plan's) against 16; the serial
+   chain's floor of timit's K2 and K3 cluster plans (T=400 steps of the
+   exchange and the waits for it alone); and the median host time of a
+   train step on kernels against the plain versions.  K2 and K3's own
+   times, the tiles and the floor are CUDA events over back-to-back
+   calls (the profiler has misread single-kernel calls late in a run);
 9. K5 (flash attention, forward and backward) against its plain version
    at the conformer's shapes (B=32, 8 heads of 64, T'=100 and 400) and at
    four odd shapes (head dims 24, 128 and 8, and T'=129: ragged tiles),
@@ -72,8 +91,9 @@ failure raises and the script exits non-zero:
     kernels against the plain versions.
 
 The line before the last is the kernel table as JSON (with each kernel's
-bound and library time; launches from the timit training run for K1-K3,
-from the conformer training run for K5); the last line is ``{"ok": true,
+bound, library time and what that library call computes, and its
+design; launches from the timit training run for K1-K3, from the
+conformer training run for K5); the last line is ``{"ok": true,
 "device": {...}}``.  ``--profile DIR`` also writes ``torch.profiler``
 tables of one beam-5 batch and of one train step of each path there.
 """
@@ -81,8 +101,10 @@ tables of one beam-5 batch and of one train step of each path there.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -105,6 +127,15 @@ K2_TOL = 1e-5
 # over a sequence stay under 2e-3.
 BF16_TOL = 2e-3
 K3_TOL = 1e-5
+# A bf16 train step, kernels against plain (phase 7): each LSTM layer's
+# kernels sum their f32 products in another order than the plain version,
+# which can flip a bf16 rounding of an h or dgates entry (ulp ~4e-3 near
+# 1) and so move the gradients that flow through it.  Measured on the
+# H100: loss 1.1e-7 relative, the worst leaf 3.4e-5 of the model's largest
+# gradient entry (5e-3 of its own, a deep BiLSTM layer's w_ih).  The bounds
+# leave a margin of ~30x for other seeds and flips.
+BF16_STEP_LOSS_TOL = 1e-5
+BF16_STEP_GRAD_TOL = 1e-3
 # A gradient entry of a layer or of the model sums up to T*B products, added
 # in another order by the kernels than by the plain versions, so the float32
 # difference scales with the size of those products, not with their sum:
@@ -154,6 +185,10 @@ K5_BUCKETS = (100, 200, 300, 400)
 # its LayerNorm)
 CONF_ENC_TOL = K5_TOL
 CONF_ENC_BF16_TOL = K5_BF16_TOL
+# every shipped LSTM-listener width of the LAS and semi-supervised recipes
+# (timit 256; ls100, ls100_semi 384; ls960_dp 512): the cluster route's
+# checks (phases 1, 3, 6)
+CLUSTER_WIDTHS = (256, 384, 512)
 # published peaks of one H100 SXM (NVIDIA H100 datasheet)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -201,25 +236,102 @@ def device_ms(fn, reps: int, warmup: int = 2) -> float:
     return ms
 
 
-def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
-    """Mean device milliseconds per call of ``fn`` for each kernel it
-    launches (torch.profiler), by kernel name."""
+# The profiler loses kernel events at the end of a trace (the last 2 of a
+# cuDNN layer's 5 x 1,676 in every trace, the last launch of a
+# single-kernel call, a thousand of a long plain loop): every trace of
+# device_ms_by_kernel ends in TRACE_TAIL spin kernels, which take the loss
+# and are not counted.
+TRACE_TAIL = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def tail_kernel() -> str:
+    """The device-side name of ``torch.cuda._sleep``'s kernel: the most
+    frequent kernel of a trace of spin kernels alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_TAIL):
+            torch.cuda._sleep(16)
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type == DeviceType.CUDA)
+    require(bool(names), "the profiler saw no spin kernel")
+    return names.most_common(1)[0][0]
+
+
+def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
+    """Mean device milliseconds per call of ``fn`` for each kernel it
+    launches (torch.profiler), by kernel name.  Each trace ends in a tail
+    of spin kernels (see TRACE_TAIL), and each measurement takes two traces
+    and keeps them when they hold the same number of kernel events (their
+    mean).  After a trace of tens of thousands of kernels the profiler can
+    record nothing for several sessions, so a failed attempt waits a
+    second; after five, the fuller trace, or, if no trace held a kernel,
+    CUDA events over back-to-back calls under the name "all kernels (CUDA
+    events, back to back)", each with a log line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    tail = tail_kernel()
+
+    def trace() -> tuple[dict, int]:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            for _ in range(TRACE_TAIL):
+                torch.cuda._sleep(16)
+            torch.cuda.synchronize()
+        out: dict[str, float] = {}
+        n = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name != tail:
+                out[e.name] = out.get(e.name, 0.0) + e.device_time_total
+                n += 1
+        return {k: us / reps / 1e3 for k, us in out.items()}, n
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.device_time_total
-    return {k: us / reps / 1e3 for k, us in out.items()}
+    best = ({}, 0)
+    for _ in range(5):
+        (a, na), (b, nb) = trace(), trace()
+        if na == nb > 0:
+            return {k: (a[k] + b.get(k, 0.0)) / 2 for k in a}
+        best = max(best, (a, na), (b, nb), key=lambda x: x[1])
+        log(f"[profiler] two traces disagree ({na} and {nb} kernel events "
+            f"over {reps} calls)")
+        time.sleep(1.0)
+    if best[1]:
+        log(f"[profiler] no two traces agreed: the fuller ({best[1]} "
+            "events)")
+        return best[0]
+    ms = back_to_back_ms(fn, reps)
+    log(f"[profiler] no trace held a kernel: {ms:.4f} ms a call from CUDA "
+        "events over back-to-back calls instead (host launch gaps included)")
+    return {"all kernels (CUDA events, back to back)": ms}
+
+
+def back_to_back_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``reps`` back-to-back calls of ``fn``
+    between two CUDA events: the device time of a call whose kernels keep
+    the device busier than the host's launches (one long kernel), with no
+    profiler in the way."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_ms(fn, reps: int) -> list[float]:
@@ -262,9 +374,24 @@ def phase0() -> str:
     return card
 
 
+def kernel_label(entry: str) -> str | None:
+    """A readable name of a bf16 instance that phase 1 reports, from its
+    mangled entry name (None for the others)."""
+    for pattern, param in ((r"(flash_mhsa_(?:fwd|bwd_dq|bwd_dkv)_bf16"
+                            r"_kernel)ILi(\d)", "NB"),
+                           (r"(lstm_(?:fwd|bwd)_cluster_kernel|"
+                            r"exchange_floor_kernel)E", None)):
+        name = re.search(pattern, entry)
+        if name:
+            return (f"{name.group(1)}<{param}={name.group(2)}>" if param
+                    else name.group(1))
+    return None
+
+
 def phase1() -> dict:
-    """Build the kernels; -> {K5 bf16 instance: (registers, spill stores,
-    spill loads)} from ptxas."""
+    """Build the kernels; -> {bf16 instance of K5 and of the LSTM cluster
+    route: (registers, spill stores, spill loads)} from ptxas; then how
+    many clusters of each LSTM cluster plan at B=32 the card holds."""
     from semi_supervised_asr_tpu_torch import _native
 
     t0 = time.perf_counter()
@@ -275,6 +402,7 @@ def phase1() -> dict:
     _native.lib()
     print(out.getvalue(), flush=True)
     log(f"[phase1] built {path.name} in {time.perf_counter() - t0:.1f} s")
+    cluster_occupancy()
     if cached:
         log("[phase1] the library was built before: no ptxas report")
         return {}
@@ -282,9 +410,7 @@ def phase1() -> dict:
     for line in out.getvalue().splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"(flash_mhsa_(?:fwd|bwd_dq|bwd_dkv)_bf16"
-                             r"_kernel)ILi(\d)", entry.group(1))
-            kernel = f"{name.group(1)}<NB={name.group(2)}>" if name else None
+            kernel = kernel_label(entry.group(1))
         used = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -295,8 +421,32 @@ def phase1() -> dict:
             regs[kernel] = (int(used.group(1)),) + regs.get(kernel, (0,))[1:]
     for name, (n, *sp) in sorted(regs.items()):
         log(f"[phase1] {name}: {n} registers, spill stores/loads {sp} bytes")
-    require(len(regs) == 6, f"ptxas reported {sorted(regs)}")
+    require(len(regs) == 9, f"ptxas reported {sorted(regs)}")
     return regs
+
+
+def cluster_occupancy() -> None:
+    """Each cluster plan of K2 and K3 at B=32 (bf16, H of every shipped
+    LSTM listener): its shape and cudaOccupancyMaxActiveClusters; at
+    timit's H every cluster of a layer's launch must be resident at once."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    for kind in ("fwd", "bwd"):
+        for h in CLUSTER_WIDTHS:
+            plan = K.cluster_plan(kind, h, 32, torch.bfloat16)
+            require(plan.route == "cluster", f"K2/K3 {kind} H={h}: {plan}")
+            held = K.cluster_occupancy(kind, plan)
+            need = 2 * -(-32 // plan.rows)          # D=2 x row tiles
+            log(f"[phase1] {kind} cluster plan H={h} B=32: C={plan.cluster} "
+                f"R={plan.rows} u={plan.units} "
+                f"threads={plan.threads} smem={plan.smem} B; max active "
+                f"clusters {held}, a D=2 launch needs {need}")
+            require(held >= 1, f"no cluster of {plan} fits on the card")
+            if h == 256:
+                require(held >= need, f"timit's {kind} clusters are not all "
+                        "resident at once")
 
 
 def k1_inputs(b: int, t: int, seed: int, cfg):
@@ -374,6 +524,23 @@ def k2_inputs(t: int, i: int, seed: int, b: int = 32, h: int = 256):
     return x, w_ih, bias, w_hh, valid
 
 
+def routed(kind: str, compute, call):
+    """Run ``call`` and require that it launched K2 (``kind="fwd"``) or K3
+    ("bwd") once, on the route the dtype asks for (the cluster route in
+    bf16 at these widths, the CUDA cores in f32) -> (result, route)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+
+    route = "cluster" if compute == torch.bfloat16 else "simt"
+    key = f"lstm_scan_{kind}_{route}"
+    before = _native.LAUNCHES[key]
+    out = call()
+    require(_native.LAUNCHES[key] == before + 1,
+            f"K{2 if kind == 'fwd' else 3} did not run on the {route} route")
+    return out, route
+
+
 def phase3() -> tuple[float, float]:
     import torch
 
@@ -388,8 +555,8 @@ def phase3() -> tuple[float, float]:
             with torch.inference_mode():
                 gx = (R.mm(x, w_ih, compute) + bias).view(b, t, 2, 4 * h)
                 gx = gx.permute(2, 1, 0, 3).contiguous()
-                got = K.lstm_scan(gx, w_hh, valid, compute, (False, True),
-                                  residuals=True)
+                got, route = routed("fwd", compute, lambda: K.lstm_scan(
+                    gx, w_hh, valid, compute, (False, True), residuals=True))
                 want = K.lstm_scan_reference(gx, w_hh, valid, compute,
                                              (False, True), residuals=True)
             torch.cuda.synchronize()
@@ -398,12 +565,78 @@ def phase3() -> tuple[float, float]:
             require(all(bool(torch.isfinite(a).all()) for a in got),
                     "K2 output not finite")
             log(f"[phase3] K2 {name} T={t} I={i} B={b} H={h} D=2 "
-                f"{str(compute).split('.')[-1]}: max_abs_err h_out "
-                f"{errs[0]:.3e} hprev {errs[1]:.3e} cprev {errs[2]:.3e} "
-                f"acts {errs[3]:.3e} (tol {tol:g})")
+                f"{str(compute).split('.')[-1]} ({route} route): max_abs_err "
+                f"h_out {errs[0]:.3e} hprev {errs[1]:.3e} cprev "
+                f"{errs[2]:.3e} acts {errs[3]:.3e} (tol {tol:g})")
             require(max(errs) <= tol, f"K2 error {max(errs)} > {tol}")
             worst[compute] = max(worst[compute], max(errs))
+    worst[torch.bfloat16] = max(worst[torch.bfloat16],
+                                cluster_checks("phase3", "fwd"))
     return worst[torch.float32], worst[torch.bfloat16]
+
+
+def scan_inputs(h: int, d: int, b: int, t: int, seed: int):
+    """Random gates_x [D, T, B, 4H] (std 0.5, about what the listener's
+    projections give), w_hh [D, H, 4H] U(+-1/sqrt(H)), valid [T, B] with
+    row 0 full and row 1 empty (zero length), and dh_out [D, T, B, H]."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    gx = torch.randn((d, t, b, 4 * h), generator=g) * 0.5
+    w_hh = (torch.rand((d, h, 4 * h), generator=g) * 2 - 1) / math.sqrt(h)
+    lens = torch.randint(1, t + 1, (b,), generator=g)
+    lens[0], lens[1] = t, 0
+    valid = (torch.arange(t)[:, None] < lens[None, :]).float()
+    dh_out = torch.randn((d, t, b, h), generator=g)
+    return [x.to(DEVICE) for x in (gx, w_hh, valid, dh_out)]
+
+
+def cluster_checks(phase: str, kind: str) -> float:
+    """K2 (``kind="fwd"``: h_out and the residuals) or K3 ("bwd": dgates
+    from the plain forward's residuals) on the cluster route against its
+    plain version, bf16, at every width of CLUSTER_WIDTHS: B=32 and a
+    ragged B=5 (one part-filled row tile), T=1 and T=37, a zero-length
+    row, both directions at once (D=2) and one reverse direction alone
+    (D=1) -> the largest error (each within BF16_TOL)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    bf16 = torch.bfloat16
+    worst = 0.0
+    for h in CLUSTER_WIDTHS:
+        for rev in ((False, True), (True,)):
+            for b in (32, 5):
+                for t in (1, 37):
+                    gx, w_hh, valid, dh_out = scan_inputs(h, len(rev), b, t,
+                                                          h + 7 * b + t)
+                    with torch.inference_mode():
+                        ref = K.lstm_scan_reference(gx, w_hh, valid, bf16,
+                                                    rev, residuals=True)
+                        if kind == "fwd":
+                            got, _ = routed(kind, bf16, lambda: K.lstm_scan(
+                                gx, w_hh, valid, bf16, rev, residuals=True))
+                            want = ref
+                        else:
+                            args = (w_hh, valid, ref[3], ref[2], dh_out, bf16,
+                                    rev)
+                            got, _ = routed(kind, bf16,
+                                            lambda: [K.lstm_scan_bwd(*args)])
+                            want = [K.lstm_scan_bwd_reference(*args)]
+                    torch.cuda.synchronize()
+                    require(all(bool(torch.isfinite(a).all()) for a in got),
+                            f"{kind} cluster route output not finite")
+                    err = max((a - w).abs().max().item()
+                              for a, w in zip(got, want))
+                    plan = K.cluster_plan(kind, h, b, bf16)
+                    log(f"[{phase}] K{2 if kind == 'fwd' else 3} cluster "
+                        f"route H={h} D={len(rev)} reverse={rev} B={b} T={t} "
+                        f"(C={plan.cluster} R={plan.rows}): max_abs_err "
+                        f"{err:.3e} (tol {BF16_TOL:g})")
+                    require(err <= BF16_TOL,
+                            f"{kind} cluster route error {err} > {BF16_TOL}")
+                    worst = max(worst, err)
+    return worst
 
 
 def bucket_batch(rec, files, frames: int = 400):
@@ -447,6 +680,8 @@ def phase4(d: Path, files: list[Path]) -> tuple[dict, dict]:
                     for r in recs), "texts and finite scores")
     require(all(launches[k] > 0 for k in LSTM_PATH[:2]),
             f"a kernel of the serving path did not launch: {launches}")
+    require(launches["lstm_scan_fwd_cluster"] == launches["lstm_scan_fwd"],
+            f"bf16 serving ran K2 off the cluster route: {launches}")
     log(f"[phase4] first record: {json.dumps(beam[0])[:200]}")
 
     results = {}
@@ -503,7 +738,8 @@ def phase5(results, fcfg, card: str) -> dict:
         gx = gx.permute(2, 1, 0, 3).contiguous()
         args = (gx, w_hh, valid, torch.bfloat16, (False, True))
         kernel_times(times, "lstm_scan_fwd", lambda: K.lstm_scan(*args),
-                     lambda: K.lstm_scan_reference(*args), reps=3)
+                     lambda: K.lstm_scan_reference(*args), reps=3,
+                     back_to_back=True)
     ker, ref = results["bfloat16"]["rec"]
     audio, lens = results["bfloat16"]["batch"]
     for rec in (ref, ker, ker, ref):
@@ -518,13 +754,21 @@ def phase5(results, fcfg, card: str) -> dict:
     return report("phase5", times, card)
 
 
-def kernel_times(times: dict, name: str, kernel, plain, reps: int) -> None:
+def kernel_times(times: dict, name: str, kernel, plain, reps: int,
+                 back_to_back: bool = False) -> None:
     """plain, kernel, kernel, plain: call time (CUDA events, includes the
-    host's launch work) and device time (profiler) into ``times``."""
+    host's launch work) and device time into ``times``.  Device time is
+    the profiler's, but with ``back_to_back`` (a kernel that outlasts its
+    launch) the kernel's is CUDA events over back-to-back calls, which
+    needs no profiler (stored under ``name + "_b2b"``)."""
     for key, fn in ((name + "_plain", plain), (name, kernel), (name, kernel),
                     (name + "_plain", plain)):
         times.setdefault(key + "_call", []).append(cuda_ms(fn, reps=reps))
-        times.setdefault(key, []).append(device_ms(fn, reps=reps))
+        if back_to_back and fn is kernel:
+            times.setdefault(key + "_b2b", []).append(
+                back_to_back_ms(fn, reps=2 * reps))
+        else:
+            times.setdefault(key, []).append(device_ms(fn, reps=reps))
 
 
 def report(phase: str, times: dict, card: str,
@@ -532,6 +776,8 @@ def report(phase: str, times: dict, card: str,
     med = {k: statistics.median(v) for k, v in times.items()}
     for k in sorted(med):
         what = ("call time, CUDA events" if k.endswith("_call") else
+                "device time, CUDA events over back-to-back calls"
+                if k.endswith("_b2b") else
                 "host time to synchronize"
                 if k.startswith(("serve", "enc", "train", "conformer")) else
                 "device time, profiler")
@@ -586,30 +832,33 @@ def grad_errs(got, want) -> list[float]:
     return [(g - w).abs().max().item() / scale for g, w in zip(got, want)]
 
 
-def phase6() -> float:
+def phase6() -> tuple[float, float]:
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
-    worst = 0.0
+    worst, worst_bf16 = 0.0, 0.0
     rev = (False, True)
     for name, t, i in (("layer0", 800, 80), ("pyramid", 100, 1024)):
         for compute in (torch.float32, torch.bfloat16):
             w_hh, valid, acts, cprev, dh_out = k3_inputs(t, i, t, compute)
             args = (w_hh, valid, acts, cprev, dh_out, compute, rev)
-            got = K.lstm_scan_bwd(*args)
+            got, route = routed("bwd", compute,
+                                lambda: K.lstm_scan_bwd(*args))
             want = K.lstm_scan_bwd_reference(*args)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), "K3 output not finite")
             err = (got - want).abs().max().item()
             tol = K3_TOL if compute == torch.float32 else BF16_TOL
             log(f"[phase6] K3 {name} T={t} B=32 H=256 D=2 "
-                f"{str(compute).split('.')[-1]}: dgates max_abs_err "
-                f"{err:.3e} (tol {tol:g}), max |dgates| "
+                f"{str(compute).split('.')[-1]} ({route} route): dgates "
+                f"max_abs_err {err:.3e} (tol {tol:g}), max |dgates| "
                 f"{want.abs().max().item():.3e}")
             require(err <= tol, f"K3 error {err} > {tol}")
             if compute == torch.float32:
                 worst = max(worst, err)
+            else:
+                worst_bf16 = max(worst_bf16, err)
         x, w_ih, bias, w_hh, valid = k2_inputs(t, i, t + 2)
         g = torch.Generator().manual_seed(t + 3)
         dy = torch.randn((32, t, 2 * w_hh.shape[1]), generator=g).to(DEVICE)
@@ -622,7 +871,7 @@ def phase6() -> float:
             f"bwd dW_ih {errs[4]:.3e} dW_hh {errs[5]:.3e} db {errs[6]:.3e} "
             f"(tol {GRAD_TOL:g})")
         require(max(errs) <= GRAD_TOL, f"layer gradient error {max(errs)}")
-    return worst
+    return worst, max(worst_bf16, cluster_checks("phase6", "bwd"))
 
 
 def k5_inputs(b: int, t: int, h: int, hd: int, seed: int,
@@ -962,17 +1211,27 @@ def phase7(d: Path):
                 for r in recs), "training loss not finite")
     require(all(launches[k] > 0 for k in LSTM_PATH),
             f"a kernel of the training path did not launch: {launches}")
+    require(all(launches[f"lstm_scan_{k}_cluster"] == launches[f"lstm_scan_{k}"]
+                for k in ("fwd", "bwd")),
+            f"bf16 training ran K2 or K3 off the cluster route: {launches}")
 
-    # float32: one step's loss and gradients, kernels against plain
+    # one step's loss and gradients, kernels against plain: in bf16 (the
+    # cluster route through the autograd Function), then in float32 (the
+    # CUDA-core route)
+    step_check(tr, "phase7", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
     step_check(trainer(d, "float32"), "phase7")
     return tr, launches, recs
 
 
-def step_check(tr32, phase: str) -> None:
-    """One float32 step's loss and gradients from the trainer's weights,
-    first batch and fixed SpecAugment bands: kernels against plain."""
+def step_check(tr32, phase: str, loss_tol: float = 1e-5,
+               grad_tol: float = GRAD_TOL) -> None:
+    """One step's loss and gradients from the trainer's weights, first
+    batch and fixed SpecAugment bands, in the trainer's compute dtype:
+    kernels against plain, loss within ``loss_tol`` relative and every
+    gradient leaf within ``grad_tol`` of the model's largest entry."""
     import torch
 
+    from semi_supervised_asr_tpu_torch import _native
     from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
@@ -985,11 +1244,14 @@ def step_check(tr32, phase: str) -> None:
     bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
                                     flens.shape[0], fcfg.n_mels, flens, fcfg)
     out = {}
+    _native.reset_launches()
     for backend in (None, "reference"):
         model = copy.deepcopy(tr32.state.model)
         state = TS.init_train_state(tr32.cfg, model, seed=0)
         out[backend] = TS.loss_and_grads(tr32.cfg, state, *tensors,
                                          tr32.cmvn, bands, backend)
+    routes = {k: v for k, v in _native.LAUNCHES.items()
+              if k.startswith("lstm_scan_") and v}
     (lk, _, gk), (lr, _, gr) = out[None], out["reference"]
     rel = abs(lk.item() - lr.item()) / abs(lr.item())
     names = [n for n, _ in tr32.state.model.named_parameters()]
@@ -998,13 +1260,15 @@ def step_check(tr32, phase: str) -> None:
     own = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
            for n, a, b in zip(names, gk, gr)}
     own_worst = max(own, key=own.get)
-    log(f"[{phase}] float32 step, kernels vs plain: loss {lk.item():.6f} vs "
-        f"{lr.item():.6f} (rel {rel:.2e}, tol 1e-5); worst gradient leaf "
-        f"{worst} {errs[worst]:.3e} of the model's max |g| over "
-        f"{len(errs)} leaves (tol {GRAD_TOL:g}); relative to its own max "
-        f"|g| the worst leaf is {own_worst} {own[own_worst]:.3e}")
-    require(rel <= 1e-5, f"float32 step loss differs: rel {rel}")
-    require(errs[worst] <= GRAD_TOL, f"gradient {worst} differs")
+    dtype = tr32.cfg.model.compute_dtype
+    log(f"[{phase}] {dtype} step, kernels vs plain (LSTM launches {routes}): "
+        f"loss {lk.item():.6f} vs {lr.item():.6f} (rel {rel:.2e}, tol "
+        f"{loss_tol:g}); worst gradient leaf {worst} {errs[worst]:.3e} of "
+        f"the model's max |g| over {len(errs)} leaves (tol {grad_tol:g}); "
+        f"relative to its own max |g| the worst leaf is {own_worst} "
+        f"{own[own_worst]:.3e}")
+    require(rel <= loss_tol, f"{dtype} step loss differs: rel {rel}")
+    require(errs[worst] <= grad_tol, f"gradient {worst} differs")
 
 
 def cudnn_lstm(x, w_ih, bias, w_hh, valid):
@@ -1038,32 +1302,124 @@ def cudnn_lstm(x, w_ih, bias, w_hh, valid):
     raise AssertionError("cuDNN LSTM ran in no dtype")
 
 
+def port_layer(x, w_ih, bias, w_hh, valid):
+    """One BiLSTM layer of the port in bf16 (the input projection as one
+    product, then K2; K3, the dW_hh product and the projection's autograd
+    backward under autograd), its inputs and weights as leaves -> (forward
+    function, leaves)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    h4 = w_hh.shape[2]
+    leaves = [x, w_ih[:, :h4], w_hh[0], bias[:h4], w_ih[:, h4:], w_hh[1],
+              bias[h4:]]
+    leaves = [a.detach().clone().requires_grad_(True) for a in leaves]
+    xg, wif, whf, bf, wib, whb, bb = leaves
+    params = {"fwd": {"w_ih": wif, "w_hh": whf, "b": bf},
+              "bwd": {"w_ih": wib, "w_hh": whb, "b": bb}}
+    lens = valid.sum(0).to(torch.int32)
+    return (lambda: K.bilstm_kernel(params, xg, lens, torch.bfloat16),
+            leaves)
+
+
+def backward_ms(fwd, leaves, dy) -> float:
+    """Device ms of a backward pass: (training forward + backward) minus
+    the training forward, each on a fresh graph."""
+    import torch
+
+    fwd_train = device_ms(fwd, reps=5)
+    both = device_ms(lambda: torch.autograd.grad(fwd(), leaves, dy), reps=5)
+    return both - fwd_train
+
+
+def rows_times(times: dict, w_hh, valid, acts, cprev, dh_out, gx) -> None:
+    """K2 (with residuals) and K3 on timit's cluster size at bucket 400,
+    launched straight through their C entries with tiles of 8 rows (the
+    plan's CLUSTER_ROWS) and of 16, in turns: device ms (CUDA events over
+    back-to-back calls) into ``times``."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    lib, st = _native.lib(), _native.stream_ptr(torch.device(DEVICE))
+    d, t, b, h4 = gx.shape
+    h = h4 // 4
+    for kind in ("fwd", "bwd"):
+        plan = K.cluster_plan(kind, h, b, torch.bfloat16)
+        w = K.cluster_weights(w_hh, kind, plan)
+        if kind == "fwd":
+            out = [torch.empty((d, t, b, h), device=DEVICE) for _ in range(3)]
+            out.append(torch.empty_like(gx))
+            ptrs = (gx.data_ptr(), w.data_ptr(), valid.data_ptr(),
+                    *(x.data_ptr() for x in out))
+        else:
+            ptrs = (w.data_ptr(), valid.data_ptr(), acts.data_ptr(),
+                    cprev.data_ptr(), dh_out.data_ptr(),
+                    torch.empty_like(acts).data_ptr())
+        entry = getattr(lib, f"lstm_scan_{kind}")
+        for rows in (8, 16, 8, 16):
+            times.setdefault(f"{kind}_rows{rows}_b2b", []).append(
+                back_to_back_ms(lambda: _native.check(kind, entry(
+                    *ptrs, d, t, b, h, 2, 1, plan.cluster, rows, st)),
+                    reps=10))
+
+
 def phase8(tr, card: str) -> dict:
     import torch
 
     from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+    from semi_supervised_asr_tpu_torch.ops import recurrent as R
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     times = {}
     bf16 = torch.bfloat16
-    w_hh, valid, acts, cprev, dh_out = k3_inputs(400, 80, 3, bf16)
-    args = (w_hh, valid, acts, cprev, dh_out, bf16, (False, True))
-    kernel_times(times, "lstm_scan_bwd", lambda: K.lstm_scan_bwd(*args),
-                 lambda: K.lstm_scan_bwd_reference(*args), reps=3)
+    # the library yardsticks at layer 0's shape (B=32, T=400, 80 inputs,
+    # H=256, both directions): cuDNN's whole layer (torch.nn.LSTM, packed)
+    # beside the port's whole layer; never on the port's path.  First in
+    # the phase: the profiler can record nothing for a while after the
+    # plain K3's trace of ~46k kernels
     x, w_ih, bias, w_hh, valid = k2_inputs(400, 80, 3)
     mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid)
     log(f"[phase8] cuDNN LSTM (torch.nn.LSTM, packed) runs in {dtype}")
     with torch.no_grad():
         times["cudnn_lstm_fwd"] = [device_ms(lambda: mod(packed), reps=5)]
     # backward = (training forward + backward) - training forward, each a
-    # fresh graph (device times)
+    # fresh graph (device times): dx, dW_ih, dW_hh and the biases
     leaves = [packed.data, *mod.parameters()]
     dy = torch.randn_like(mod(packed)[0].data)
-    fwd_train = device_ms(lambda: mod(packed), reps=5)
-    both = device_ms(lambda: torch.autograd.grad(mod(packed)[0].data, leaves,
-                                                 dy), reps=5)
-    times["cudnn_lstm_bwd"] = [both - fwd_train]
+    times["cudnn_lstm_bwd"] = [backward_ms(lambda: mod(packed)[0].data,
+                                           leaves, dy)]
+    # the port's layer: forward = projection + K2 (no_grad); backward = K3
+    # + the dW_hh product + the projection's autograd backward (dx, dW_ih,
+    # db), the same difference of two device times
+    layer, leaves = port_layer(x, w_ih, bias, w_hh, valid)
+    with torch.no_grad():
+        times["layer_fwd"] = [device_ms(layer, reps=5)]
+    dy = torch.randn((32, 400, 2 * w_hh.shape[1]), device=DEVICE)
+    times["layer_bwd"] = [backward_ms(layer, leaves, dy)]
+    w_hh, valid, acts, cprev, dh_out = k3_inputs(400, 80, 3, bf16)
+    args = (w_hh, valid, acts, cprev, dh_out, bf16, (False, True))
+    kernel_times(times, "lstm_scan_bwd", lambda: K.lstm_scan_bwd(*args),
+                 lambda: K.lstm_scan_bwd_reference(*args), reps=3,
+                 back_to_back=True)
+    with torch.inference_mode():
+        gx = (R.mm(x, w_ih, bf16) + bias).view(32, 400, 2, -1)
+        gx = gx.permute(2, 1, 0, 3).contiguous()
+    rows_times(times, *args[:5], gx)
+    # the serial chain's floor of timit's cluster plans: T=400 steps of the
+    # exchange and the waits for it alone
+    for kind in ("fwd", "bwd"):
+        plan = K.cluster_plan(kind, 256, 32, bf16)
+        times[f"floor_{kind}_b2b"] = [back_to_back_ms(
+            lambda: K.exchange_floor(kind, plan, 2, 400, 32,
+                                     torch.device(DEVICE)), reps=20)]
+        log(f"[phase8] serial floor of the {kind} plan (C={plan.cluster} "
+            f"R={plan.rows}): "
+            f"{times[f'floor_{kind}_b2b'][0] / 400 * 1e3:.3f} us a step "
+            f"({card})")
     # whole train steps on one batch: kernels vs plain, interleaved
     batch = next(tr.batches)
     tensors = T.batch_tensors(batch, tr.device)
@@ -1076,6 +1432,11 @@ def phase8(tr, card: str) -> dict:
                                        backend=backend), reps=2))
     med = report("phase8", times, card)
     med["cudnn_dtype"] = str(dtype).split(".")[-1]
+    for kind, lib in (("fwd", "cudnn_lstm_fwd"), ("bwd", "cudnn_lstm_bwd")):
+        log(f"[phase8] layer {kind}: the port {med['layer_' + kind]:.4f} ms "
+            f"against cuDNN {med[lib]:.4f} ms (ratio "
+            f"{med['layer_' + kind] / med[lib]:.3f}; device time, "
+            f"profiler; {card})")
     return med
 
 
@@ -1241,7 +1602,7 @@ def main(argv=None) -> int:
         synthetic.write_model_dir(d, cfg, files, seed=0)
         results, serve_launches = phase4(d, files)
     med = phase5(results, cfg.frontend, card)
-    k3_err = phase6()
+    k3_err, k3_bf16 = phase6()
     with tempfile.TemporaryDirectory() as tmp:
         tr, launches, _ = phase7(Path(tmp))
         med.update(phase8(tr, card))
@@ -1264,7 +1625,17 @@ def main(argv=None) -> int:
         if args.profile is not None:
             profile(conf_work, args.profile)
     bound = bounds()
-    log(f"[summary] card: {card}; K2 bf16 max_abs_err {k2_bf16:.3e}; "
+    for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
+        log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
+            f"{med[name + '_b2b']:.4f} ms device (back to back), "
+            f"{med[name + '_call']:.4f} ms call; "
+            f"serial floor x T=400 {med['floor_' + kind + '_b2b']:.4f} ms; "
+            f"bytes "
+            f"bound {bound[name][0]:.4f} ms; plain {med[name + '_plain']:.3f}"
+            f" ms; the port's layer {med['layer_' + kind]:.4f} ms against "
+            f"cuDNN's {med['cudnn_lstm_' + kind]:.4f} ms ({card})")
+    log(f"[summary] card: {card}; K2 bf16 max_abs_err {k2_bf16:.3e}, K3 "
+        f"{k3_bf16:.3e}; "
         f"bf16 token agreement {results['bfloat16']['agree']}; serving "
         f"launches {serve_launches}; training launches {launches}; train "
         f"step {med['train_step']:.1f} ms on kernels vs "
@@ -1277,27 +1648,48 @@ def main(argv=None) -> int:
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(jax 0.9.0), reached from " + tpu + "flash_mhsa.py:123")
+    cudnn = (f"cuDNN LSTM (torch.nn.LSTM, packed, {med['cudnn_dtype']}), "
+             "the whole layer at bucket 400: ")
+    lstm_design = ("bf16: clusters of C blocks, the weight slice resident in "
+                   "shared memory, {} through distributed shared memory, "
+                   "mma.sync; f32: CUDA cores")
     # launches: K1-K3 from the timit training run (phase 7), K5 from the
-    # conformer training run (phase 11)
+    # conformer training run (phase 11); max_abs_err: the route the main
+    # path runs (bf16 cluster route for K2/K3, f32 for K1 and K5's table)
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
-         k1_err, None, launches),
+         k1_err, None, launches, "CUDA cores", None),
         ("lstm_scan_fwd", "lstm_scan_fwd.cu", tpu + "pallas_lstm.py:41",
-         k2_err, med["cudnn_lstm_fwd"], launches),
+         k2_bf16, med["cudnn_lstm_fwd"], launches, lstm_design.format("h"),
+         cudnn + "forward (input projection + recurrence) against the "
+         f"port's layer forward (projection + K2) at {med['layer_fwd']:.4f} "
+         f"ms; f32 route max_abs_err {k2_err:.3e}"),
         ("lstm_scan_bwd", "lstm_scan_bwd.cu", tpu + "pallas_lstm.py:85",
-         k3_err, med["cudnn_lstm_bwd"], launches),
+         k3_bf16, med["cudnn_lstm_bwd"], launches,
+         lstm_design.format("dgates"),
+         cudnn + "backward (dx, dW_ih, dW_hh, biases; training forward + "
+         "backward minus training forward) against the port's layer "
+         "backward (K3 + the dW_hh product + the projection's autograd "
+         f"backward) at {med['layer_bwd']:.4f} ms; f32 route max_abs_err "
+         f"{k3_err:.3e}"),
         ("flash_mhsa_fwd", "flash_mhsa_fwd.cu", jax_fa.format(331),
-         k5["float32"], med["sdpa_fwd"], conf_launches),
+         k5["float32"], med["sdpa_fwd"], conf_launches,
+         "bf16: wgmma + TMA ring; f32: CUDA cores",
+         "scaled_dot_product_attention with the boolean key mask"),
         ("flash_mhsa_bwd", "flash_mhsa_bwd.cu", jax_fa.format("796 and :1146"),
-         k5["float32_grad_abs"], med["sdpa_bwd"], conf_launches),
+         k5["float32_grad_abs"], med["sdpa_bwd"], conf_launches,
+         "bf16: wgmma + TMA ring; f32: CUDA cores",
+         "scaled_dot_product_attention backward with the boolean key mask"),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": tpu_src, "launches": runs[name], "max_abs_err": err,
-         "ms": med[name], "plain_ms": med[name + "_plain"],
+         "ms": med.get(name + "_b2b", med.get(name)),
+         "plain_ms": med[name + "_plain"],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": lib}
-        for name, cu, tpu_src, err, lib, runs in rows]}), flush=True)
+         "library_ms": lib, "design": design, "library_vs": vs}
+        for name, cu, tpu_src, err, lib, runs, design, vs in rows]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

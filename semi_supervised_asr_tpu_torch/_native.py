@@ -15,7 +15,10 @@ into an exception.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Only the wrappers'
 launch sites increment it, so a caller can reset it, drive the serving
-or training path and see that each kernel actually ran.
+or training path and see that each kernel actually ran.  The LSTM scans
+also count each launch under the route that ran it
+(``lstm_scan_fwd_cluster`` / ``lstm_scan_fwd_simt``, and the same for
+``lstm_scan_bwd``).
 """
 
 from __future__ import annotations
@@ -37,13 +40,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: dict[str, int] = {"fused_post_fft": 0, "lstm_scan_fwd": 0,
-                             "lstm_scan_bwd": 0, "flash_mhsa_fwd": 0,
-                             "flash_mhsa_bwd": 0}
+LAUNCHES: dict[str, int] = {
+    "fused_post_fft": 0, "lstm_scan_fwd": 0, "lstm_scan_bwd": 0,
+    "flash_mhsa_fwd": 0, "flash_mhsa_bwd": 0,
+    "lstm_scan_fwd_cluster": 0, "lstm_scan_fwd_simt": 0,
+    "lstm_scan_bwd_cluster": 0, "lstm_scan_bwd_simt": 0,
+    "lstm_exchange_floor": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (argument order as in csrc/*.cu)
 _SIGNATURES = {
     "fused_post_fft": [
@@ -59,6 +67,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,              # h_out, hprev, cprev, acts (or NULL)
         _I, _I, _I, _I,              # D, T, B, H
         _I, _I,                      # reverse_mask, w_is_bf16
+        _I, _I,                      # cluster, rows (0: CUDA cores)
         _P,                          # stream
     ],
     "lstm_scan_bwd": [
@@ -66,6 +75,14 @@ _SIGNATURES = {
         _P,                          # dgates
         _I, _I, _I, _I,              # D, T, B, H
         _I, _I,                      # reverse_mask, w_is_bf16
+        _I, _I,                      # cluster, rows (0: CUDA cores)
+        _P,                          # stream
+    ],
+    "lstm_scan_fwd_occupancy": [_I, _I, _I, _IP],  # H, C, R, out
+    "lstm_scan_bwd_occupancy": [_I, _I, _I, _IP],
+    "lstm_exchange_floor": [
+        _I, _I, _I, _I, _I,          # backward, D, T, B, H
+        _I, _I,                      # cluster, rows
         _P,                          # stream
     ],
     "flash_mhsa_fwd": [

@@ -21,21 +21,51 @@
 // sum_t,b hprev^T dgates is one large product outside the kernel (as in
 // JAX), so the kernel returns dgates only.
 //
-// What bounds it on this card: as for the forward scan, the serial
-// dh -> dh dependency.  Each step needs all of w_hh (512 KB in bf16 at
-// H=256) for kRows*4H*H FMAs per block, so a step is a pass over L2
-// bounded by load latency and one SM's L2 bandwidth, not by FLOPs.
+// Two routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
+// passed in as the plan's integers (cluster, rows):
 //
-// Design (simple and correct first), mirroring the forward kernel: one
-// block owns (direction, tile of kRows batch rows) and loops over all T
-// with (dh, dc) in shared memory -- no cross-block synchronisation, one
-// launch per layer.  The wrapper hands the weights transposed, [D,4H,H],
-// so the product's reduction runs over rows of a contiguous matrix, exactly
-// like the forward's h . w_hh: each thread owns a 16-byte group of output
-// units over one slice of the 4H inputs (wide, coalesced loads; the
-// dgates values are shared-memory broadcasts), and the slice partials are
-// summed in a fixed order, so results do not change from run to run.
-// A cluster / tensor-core split of w_hh over SMs is later work.
+// The cluster route (bfloat16, H <= 512).  As for the forward scan, what
+// bounds it on this card is the serial chain of each step: gate gradients,
+// then the step's dgates must reach every block that computes a unit of
+// dh, then the product of R x 4H x H, and only then the next step.  The
+// bytes (0.08 ms at bucket 400) and products are far below T such chains.
+// One cluster of C blocks per (direction, tile of R rows); block j owns
+// the hidden units [j*u, (j+1)*u), u = H/C: their gate gradients and
+// their dh.  Its slice of the weights, w_hh's rows [j*u, (j+1)*u) ([u, 4H]
+// bf16, laid out by the wrapper in mma fragment order), is copied into
+// shared memory once per launch by the bulk-copy engine.  Each step the
+// block computes the dgates of its (unit, row) pairs from (dh, dc) carries
+// in registers, writes them out in f32, and writes them rounded to bf16
+// into its own slab ([R] rows of its 4 gate groups x u columns); one bulk
+// copy per block of the cluster (cp.async.bulk shared::cta ->
+// shared::cluster: distributed shared memory) then puts the slab into slab
+// j of every block's dgates buffer, counted in bytes on the receiving
+// block's mbarrier for that buffer.  (Sent as 16-byte stores instead, the
+// 16 stores a lane each step cost more than the copy engine does.)  When
+// its barrier has seen all C slabs of the step, a block
+// computes dh for its units on the tensor cores (mma.sync m16n8k16: units
+// as M, batch rows as N, 4H deep, its k-steps alternating between four
+// accumulator chains so that their mma latencies overlap), the result
+// landing in the registers of the lanes that own those (unit, row) pairs.
+// No cluster barrier and no release fence sit in the loop.  The dgates
+// buffers and the own slabs alternate by step parity: a block writes step
+// s+2's dgates into a peer only after it has received that peer's step
+// s+1 dgates, sent after the peer's step s product had read the buffer
+// (and after the peer had received this block's step s slab, so the own
+// slab of step s is free again).  Tiles of R =
+// 8 rows (one mma n-tile) keep the exchange (8 x 4H bf16 a block and
+// step) and the product short.  The next step's acts, cprev, dh_out and
+// valid values are loaded into registers at the start of each step,
+// hidden behind the exchange, the wait and the product.  Sums run in a
+// fixed order (no atomics).
+//
+// The CUDA-core route (float32, the exactness checks, and bfloat16 where
+// no cluster fits, H > 512): one block owns (direction, tile of kRows
+// batch rows) and loops over all T with (dh, dc) in shared memory; the
+// wrapper hands the weights transposed, [D,4H,H], so the product reduces
+// over rows of a contiguous matrix like the forward's: each thread owns a
+// 16-byte group of output units over one slice of the 4H inputs, the
+// slice partials summed in a fixed order.
 
 #include "lstm_common.cuh"
 
@@ -165,21 +195,223 @@ int launch(const void* w_t, const float* valid, const float* acts,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the cluster route (bf16) ----
+
+// the lane's acts (4 gates), cprev, dh_out of its pairs (unit hh, row e)
+// and valid of its rows at step t (zeros past B)
+__device__ __forceinline__ void fetch_bwd(
+    const float* __restrict__ act, const float* __restrict__ cp,
+    const float* __restrict__ dho, const float* __restrict__ valid, int t,
+    int B, int H, int row0, int rbase, const int (&unit)[2],
+    float (&a)[4][4], float (&c)[4], float (&g)[4], float (&v)[2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + rbase + e;
+    const bool live = row < B;
+    const size_t base = (size_t)t * B + row;
+    v[e] = live ? valid[base] : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = hh * 2 + e;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        a[p][q] = live ? act[base * 4 * H + q * H + unit[hh]] : 0.f;
+      c[p] = live ? cp[base * H + unit[hh]] : 0.f;
+      g[p] = live ? dho[base * H + unit[hh]] : 0.f;
+    }
+  }
+}
+
+// One cluster per (direction, tile of R rows), block j = rank in the
+// cluster.  Warp (mt, ng) owns the units j*u + 16*mt + [0, 16) and the
+// rows 8*ng + [0, 8) of the tile; lane pairs: units lane/4 + 8*hh, rows
+// 2*(lane%4) + e, as mma's accumulator holds them.  The 4H-deep product
+// runs in kChains chains over alternate k-steps (their latencies overlap),
+// added in a fixed order.  Step s's round(dgates) go to buffer s & 1 (C
+// slabs of [R][4u + kPad], each row gate by gate); its mbarrier
+// bars[1 + (s & 1)] completes a phase when every block's slab of that step
+// has landed.
+__global__ void __launch_bounds__(lstm::kClusterThreads)
+lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ w_frag,  // [D,C,u*4H]
+                        const float* __restrict__ valid,     // [T,B]
+                        const float* __restrict__ acts,      // [D,T,B,4H]
+                        const float* __restrict__ cprev,     // [D,T,B,H]
+                        const float* __restrict__ dh_out,    // [D,T,B,H]
+                        float* __restrict__ dgates,          // [D,T,B,4H]
+                        int T, int B, int H, int R, int reverse_mask) {
+  using namespace lstm;
+  constexpr int kChains = 4;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int C = cluster_size();
+  const int j = cluster_rank();
+  const int u = H / C, H4 = 4 * H, MT = u / 16, SW = 4 * u + kPad;
+  const int slab = R * SW;          // one block's rows of round(dgates)
+  const size_t wbytes = (size_t)u * H4 * 2;
+  const uint32_t step_bytes = (uint32_t)C * slab * 2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  const uint4* w_s = reinterpret_cast<const uint4*>(smem_b + kHeader);
+  __nv_bfloat16* g_s =              // [2][C][R][SW] round(dgates) by parity
+      reinterpret_cast<__nv_bfloat16*>(smem_b + kHeader + wbytes);
+  __nv_bfloat16* own_s = g_s + 2 * C * slab;   // [2][R][SW] this block's
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = warp % MT, ng = warp / MT;
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * R;
+  const bool rev = (reverse_mask >> d) & 1;
+  const size_t seq = (size_t)T * B;
+  const float* act = acts + (size_t)d * seq * H4;
+  const float* cp = cprev + (size_t)d * seq * H;
+  const float* dho = dh_out + (size_t)d * seq * H;
+  float* dg = dgates + (size_t)d * seq * H4;
+  const int ul[2] = {mt * 16 + (lane >> 2), mt * 16 + (lane >> 2) + 8};
+  const int unit[2] = {j * u + ul[0], j * u + ul[1]};
+  const int rbase = ng * 8 + 2 * (lane & 3);
+
+  init_barriers(bars, 3);
+  if (threadIdx.x == 0) {        // steps 0 and 1 (buffers 0 and 1); the
+    if (T > 1) expect_bytes(&bars[1], step_bytes);   // last step sends
+    if (T > 2) expect_bytes(&bars[2], step_bytes);   // nothing
+  }
+  load_resident(smem_b + kHeader, w_frag + ((size_t)d * C + j) * u * H4,
+                (uint32_t)wbytes, &bars[0]);
+  float dh[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
+  float a[4][4], c0[4], g0[4], v[2];
+  fetch_bwd(act, cp, dho, valid, rev ? 0 : T - 1, B, H, row0, rbase, unit, a,
+            c0, g0, v);
+  cluster_sync();     // every block's barriers are set before a remote store
+
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? s : T - 1 - s;
+    float an[4][4], cn[4], gn[4], vn[2];
+    if (s + 1 < T)
+      fetch_bwd(act, cp, dho, valid, rev ? t + 1 : t - 1, B, H, row0, rbase,
+                unit, an, cn, gn, vn);
+
+    // gate gradients of the lane's pairs, the dc carry and the (1-v) part
+    // of the dh carry
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = hh * 2 + e;
+        const int r = rbase + e;
+        const int row = row0 + r;
+        const float ig = a[p][0], fg = a[p][1], gg = a[p][2], og = a[p][3];
+        const float tc = tanhf(fg * c0[p] + ig * gg);
+        const float dh_new = v[e] * (dh[p] + g0[p]);
+        const float dc_new = dh_new * og * (1.f - tc * tc) + v[e] * dc[p];
+        const float dq[4] = {dc_new * gg * ig * (1.f - ig),
+                             dc_new * c0[p] * fg * (1.f - fg),
+                             dc_new * ig * (1.f - gg * gg),
+                             dh_new * tc * og * (1.f - og)};
+        float* out = dg + ((size_t)t * B + row) * H4 + unit[hh];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (row < B) out[q * H] = dq[q];
+          own_s[(s & 1) * slab + r * SW + q * u + ul[hh]] = bf16(dq[q]);
+        }
+        dh[p] = (1.f - v[e]) * dh[p];
+        dc[p] = (1.f - v[e]) * dc[p] + dc_new * fg;
+      }
+
+    if (s + 1 < T) {   // the last step's dh is not needed
+      // this block's slab into slab j of this step's dgates buffer of
+      // every block of the cluster, this one included
+      const int cb = s & 1;
+      send_slab(smem_u32(g_s + ((size_t)cb * C + j) * slab),
+                smem_u32(own_s + cb * slab), (uint32_t)slab * 2,
+                smem_u32(&bars[1 + cb]), C);
+      wait_phase(&bars[1 + cb], (s >> 1) & 1);   // every block's have landed
+      if (threadIdx.x == 0 && s + 3 < T)
+        expect_bytes(&bars[1 + cb], step_bytes);   // for step s + 2
+
+      // dh[units, rows] += w_slice . round(dgates)^T on the tensor cores,
+      // k-steps slab by slab (4u a slab, a multiple of 4 k-steps)
+      const __nv_bfloat16* gb = g_s + (size_t)cb * C * slab + ng * 8 * SW;
+      const uint4* wp = w_s + (size_t)mt * (H4 / 16) * 32 + lane;
+      float acc[kChains][4];
+#pragma unroll
+      for (int ch = 0; ch < kChains; ++ch)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[ch][q] = 0.f;
+      for (int jj = 0; jj < C; ++jj, gb += slab)
+#pragma unroll 2
+        for (int kk = 0; kk < 4 * u; kk += 16 * kChains, wp += 32 * kChains)
+#pragma unroll
+          for (int ch = 0; ch < kChains; ++ch) {
+            uint32_t b0, b1;
+            b_frag(gb, SW, kk + 16 * ch, b0, b1);
+            mma_bf16(acc[ch], wp[32 * ch], b0, b1);
+          }
+      // acc[.][2*hh + e] is (unit hh, row e): the pair order of dh
+      static_assert(kChains == 4, "the chains are added pairwise below");
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        dh[p] += (acc[0][p] + acc[1][p]) + (acc[2][p] + acc[3][p]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      c0[p] = cn[p];
+      g0[p] = gn[p];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[p][q] = an[p][q];
+    }
+    v[0] = vn[0];
+    v[1] = vn[1];
+  }
+  cluster_sync();       // no block leaves while a peer may still store to it
+}
+
+int launch_cluster(const void* w_frag, const float* valid, const float* acts,
+                   const float* cprev, const float* dh_out, float* dgates,
+                   int D, int T, int B, int H, int reverse_mask, int C, int R,
+                   cudaStream_t stream) {
+  const int threads = lstm::bwd_cluster_threads(H, C, R);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(C * ((B + R - 1) / R), D);
+  return (int)lstm::launch_clusters(
+      lstm_bwd_cluster_kernel, grid, threads,
+      lstm::bwd_cluster_smem(H, C, R), C, stream,
+      static_cast<const __nv_bfloat16*>(w_frag), valid, acts, cprev, dh_out,
+      dgates, T, B, H, R, reverse_mask);
+}
 }  // namespace
 
-// w_t [D,4H,H] = w_hh transposed (bf16 when w_is_bf16 else f32), valid
-// [T,B] f32 0/1, acts [D,T,B,4H], cprev and dh_out [D,T,B,H], dgates
-// [D,T,B,4H], all f32.  Contiguous, on the stream's device.
+// valid [T,B] f32 0/1, acts [D,T,B,4H], cprev and dh_out [D,T,B,H],
+// dgates [D,T,B,4H], all f32.  cluster = 0: the CUDA-core route, w_t
+// [D,4H,H] = w_hh transposed (bf16 when w_is_bf16 else f32).  cluster =
+// C > 0: the cluster route with clusters of C blocks and R = rows batch
+// rows; w_t is bf16 w_hh in the wrapper's fragment order
+// [D,C,u*4H].  A plan the route cannot take returns cudaErrorInvalidValue.
+// Contiguous, on the stream's device.
 extern "C" int lstm_scan_bwd(const void* w_t, const float* valid,
                              const float* acts, const float* cprev,
                              const float* dh_out, float* dgates, int D, int T,
                              int B, int H, int reverse_mask, int w_is_bf16,
-                             void* stream) {
+                             int cluster, int rows, void* stream) {
   if (D == 0 || T == 0 || B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster > 0) {
+    if (!w_is_bf16) return (int)cudaErrorInvalidValue;
+    return launch_cluster(w_t, valid, acts, cprev, dh_out, dgates, D, T, B,
+                          H, reverse_mask, cluster, rows, s);
+  }
   if (w_is_bf16)
     return launch<__nv_bfloat16>(w_t, valid, acts, cprev, dh_out, dgates, D,
                                  T, B, H, reverse_mask, s);
   return launch<float>(w_t, valid, acts, cprev, dh_out, dgates, D, T, B, H,
                        reverse_mask, s);
+}
+
+// How many clusters of the backward cluster route's plan the card holds at
+// once, into *clusters.
+extern "C" int lstm_scan_bwd_occupancy(int H, int cluster, int rows,
+                                       int* clusters) {
+  const int threads = lstm::bwd_cluster_threads(H, cluster, rows);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  return (int)lstm::max_clusters(lstm_bwd_cluster_kernel, threads,
+                                 lstm::bwd_cluster_smem(H, cluster, rows),
+                                 cluster, clusters);
 }
