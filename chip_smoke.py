@@ -13,9 +13,13 @@ failure raises and the script exits non-zero:
    the LSTM cluster route (and its exchange-floor probe), and
    ``cudaOccupancyMaxActiveClusters`` of each K2/K3 cluster plan at B=32,
    H=256/384/512 (timit's must all be resident at once);
-2. K1 (fused post-FFT frontend) against its plain version at the timit
-   shapes (B=32, T=400 and 800, F=257, M=80), with and without
-   SpecAugment bands: max abs error <= 1e-5;
+2. K1 (fused post-FFT frontend) against its plain version at B=32, T=400,
+   800 and 1600 (F=257, M=80, a zero-length row each), and at B=5, T=37
+   (the last tile ends off 16 bytes) and B=1, T=1 under every launch plan
+   of the phase-5 sweep, each without SpecAugment bands, with random bands
+   and with bands at the edges (fs + fw = 80, a time band past the row's
+   length): max abs error <= 1e-5; a view 4-12 bytes off 16-byte
+   alignment must raise;
 3. K2 (LSTM forward scan) against its plain version at the listener's
    shapes (T=800 / input 80 and T=100 / input 1024, B=32, H=256, both
    directions, variable lengths with a zero-length row, residuals):
@@ -30,9 +34,13 @@ failure raises and the script exits non-zero:
    batch with
    ``backend="reference"``: encoder outputs within the phase-3 tolerance
    and, in a float32-compute run, identical tokens;
-5. median times per batch of 32 at bucket 400: each kernel against its
-   plain version, and the whole serving path (features -> encoder ->
-   beam 5) on kernels against the plain versions;
+5. K1 at B=32, T=400 and 1600: device time L2-cold (rotating inputs that
+   hold twice the L2) and L2-warm, call time, its plain version, and
+   ``torch.matmul(pspec, fb)`` alone as a partial yardstick; the sweep of
+   K1's launch plans (rows per tile, row groups, ring stages, blocks per
+   SM), L2-cold at both shapes; then median times per batch of 32 at
+   bucket 400: K2 against its plain version, and the whole serving path
+   (features -> encoder -> beam 5) on kernels against the plain versions;
 6. K3 (LSTM backward scan) against its plain version at the listener's
    shapes (T=800 / input 80 and T=100 / input 1024, B=32, H=256, both
    directions, ragged lengths with a zero-length row, random dh_out):
@@ -43,8 +51,8 @@ failure raises and the script exits non-zero:
 7. the training slice at ``configs/timit.yaml`` full width through the
    port's ``train`` entry (synthetic corpus, bucket 400, B=32, bf16,
    weights from seed 0): 3 steps, the loss of each, finite losses, and
-   each kernel's launch count from that run (all three > 0, K2 and K3 on
-   the cluster route); then one bf16 step from the trained weights and
+   each kernel's launch count from that run (all three > 0, K1 once a
+   step, K2 and K3 on the cluster route); then one bf16 step from the trained weights and
    one float32 step from fresh ones, each with one batch and fixed
    SpecAugment bands on kernels and on ``backend="reference"``: loss and
    every gradient leaf within BF16_STEP_LOSS_TOL / BF16_STEP_GRAD_TOL
@@ -79,7 +87,7 @@ failure raises and the script exits non-zero:
     tokens;
 11. the training slice at the same width through ``train`` (synthetic
     corpus, bucket 1600 so that T'=400, B=32, bf16): 3 steps, finite
-    losses, K1 and both K5 launch counts > 0; then one float32 step on
+    losses, K1 once a step, both K5 launch counts > 0; then one float32 step on
     kernels against the plain versions, as in phase 7;
 12. K5 forward and backward (bf16, B=32, 8 heads of 64) against
     ``scaled_dot_product_attention`` with the boolean key mask (the
@@ -106,6 +114,7 @@ import contextlib
 import copy
 import functools
 import io
+import itertools
 import json
 import math
 import re
@@ -119,6 +128,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "timit.yaml"
 K1_TOL = 1e-5
+# K1's launch plans, (rows per tile, row groups, ring stages, blocks per
+# SM), checked in phase 2 and timed in phase 5
+K1_PLANS = tuple((r, g, st, k) for r in (8, 16, 32) for g in (2, 4)
+                 for st in (2, 3, 4) for k in (1, 2) if r // g <= 8)
 K2_TOL = 1e-5
 # bf16: kernel and plain version round h to bf16 identically but sum the
 # f32 products in different orders; when that flips one bf16 rounding of
@@ -191,6 +204,7 @@ CONF_ENC_BF16_TOL = K5_BF16_TOL
 CLUSTER_WIDTHS = (256, 384, 512)
 # published peaks of one H100 SXM (NVIDIA H100 datasheet)
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50e6
 BF16_FLOPS = 989e12
 
 
@@ -313,6 +327,37 @@ def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
     log(f"[profiler] no trace held a kernel: {ms:.4f} ms a call from CUDA "
         "events over back-to-back calls instead (host launch gaps included)")
     return {"all kernels (CUDA events, back to back)": ms}
+
+
+def device_ms_each(fns: list, reps: int) -> list[float]:
+    """Mean device milliseconds per call of each of ``fns`` (one kernel a
+    call), ``reps`` calls apiece in order, from one torch.profiler trace:
+    the kernels' durations split in launch order.  If the trace lost or
+    gained kernel events, :func:`device_ms` for each fn instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    tail = tail_kernel()
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+        for _ in range(TRACE_TAIL):
+            torch.cuda._sleep(16)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name != tail),
+                key=lambda e: e.time_range.start)
+    if len(ev) != len(fns) * reps:
+        log(f"[profiler] one trace of {len(fns)} x {reps} calls held "
+            f"{len(ev)} kernel events: a trace per call site instead")
+        return [device_ms(fn, reps) for fn in fns]
+    return [sum(e.device_time_total for e in ev[i * reps:(i + 1) * reps])
+            / reps / 1e3 for i in range(len(fns))]
 
 
 def back_to_back_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -477,27 +522,109 @@ def k1_inputs(b: int, t: int, seed: int, cfg):
     return pspec, flens, mean, istd, bands
 
 
+def edge_bands(lens, t: int, m: int):
+    """SpecAugment bands at the edges: a frequency band that ends at the
+    last mel bin (fs + fw = m) beside one at bin 0, and a time band that
+    starts 5 frames before each row's length and runs past it (and past T)
+    beside one at frame 0."""
+    import torch
+
+    b = lens.shape[0]
+    one = torch.ones((b,), dtype=torch.int32, device=lens.device)
+    fs = torch.stack([one * (m - 9), one * 0], 1)
+    fw = torch.stack([one * 9, one * 3], 1)
+    ts = torch.stack([torch.clamp_min(lens - 5, 0), one * 0], 1)
+    tw = torch.stack([one * (t + 40), one * 2], 1)
+    return tuple(x.to(torch.int32).contiguous() for x in (fs, fw, ts, tw))
+
+
+def k1_cases(fcfg):
+    """(label, args of fused_post_fft) of every phase-2 case: B=32 at
+    T=400, 800 and 1600 (a full and a zero-length row each), without and
+    with random SpecAugment bands and with bands at the edges; B=5, T=37
+    (185 rows: the last tile ends off 16 bytes) and B=1, T=1, cut from
+    the T=400 batch, the same three ways."""
+    out = []
+    for t in (400, 800, 1600):
+        pspec, flens, mean, istd, bands = k1_inputs(32, t, t, fcfg)
+        flens[1] = 0    # empty audio still makes one frame
+        batches = [(f"B=32 T={t}", pspec, flens, bands)]
+        if t == 400:
+            for b, tt in ((5, 37), (1, 1)):
+                batches.append((f"B={b} T={tt}", pspec[:b, :tt].contiguous(),
+                                flens[:b].clamp_max(tt).contiguous(),
+                                tuple(x[:b].contiguous() for x in bands)))
+        for label, ps, fl, sa in batches:
+            for name, bands_ in (("none", None), ("random", sa),
+                                 ("edges", edge_bands(fl, ps.shape[1],
+                                                      fcfg.n_mels))):
+                out.append((f"{label} bands={name}",
+                            (ps, fl, fcfg, mean, istd, bands_)))
+    return out
+
+
+@contextlib.contextmanager
+def k1_plan(plan: tuple):
+    """Run K1's wrapper with another launch plan (rows, stages, blocks per
+    SM) than its default."""
+    from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
+
+    keep, FF.PLAN = FF.PLAN, plan
+    try:
+        yield
+    finally:
+        FF.PLAN = keep
+
+
 def phase2(fcfg) -> float:
+    """K1 against its plain version on every case of :func:`k1_cases`, each
+    under the default plan and the odd shapes under every plan of the
+    sweep; a view that starts off 16 bytes must raise, one on 16 bytes
+    must run."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
 
     worst = 0.0
-    for t in (400, 800):
-        pspec, flens, mean, istd, bands = k1_inputs(32, t, t, fcfg)
-        for sa in (None, bands):
-            got = FF.fused_post_fft(pspec, flens, fcfg, mean, istd, sa)
-            want = FF.fused_post_fft_reference(pspec, flens, fcfg, mean,
-                                               istd, sa)
+    cases = k1_cases(fcfg)
+    for label, args in cases:
+        plans = [FF.PLAN]
+        if not label.startswith("B=32"):
+            plans += [p for p in K1_PLANS if p != FF.PLAN]
+        want = FF.fused_post_fft_reference(*args)
+        errs = []
+        for plan in plans:
+            with k1_plan(plan):
+                got = FF.fused_post_fft(*args)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), "K1 output not finite")
-            err = (got - want).abs().max().item()
-            zeros = (got == 0).float().mean().item()
-            log(f"[phase2] K1 B=32 T={t} bands={sa is not None}: "
-                f"max_abs_err {err:.3e} (tol {K1_TOL:g}), zero share "
-                f"{zeros:.3f}")
-            require(err <= K1_TOL, f"K1 error {err} > {K1_TOL}")
-            worst = max(worst, err)
+            errs.append((got - want).abs().max().item())
+            require(errs[-1] <= K1_TOL, f"K1 {label} plan {plan}: error "
+                    f"{errs[-1]} > {K1_TOL}")
+        worst = max(worst, *errs)
+        zeros = (want == 0).float().mean().item()
+        log(f"[phase2] K1 {label}: max_abs_err {max(errs):.3e} (tol "
+            f"{K1_TOL:g}) over {len(plans)} plan(s), zero share {zeros:.3f}")
+    pspec, flens, _, mean, istd, _ = cases[0][1]
+    n = pspec.numel()
+    big = torch.empty(n + 8, device=pspec.device)
+    for offset in (1, 2, 3, 4):
+        view = big[offset:offset + n].view(pspec.shape)
+        view.copy_(pspec)
+        if offset % 4:
+            with contextlib.suppress(ValueError):
+                FF.fused_post_fft(view, flens, fcfg, mean, istd)
+                require(False, f"K1 took a view {offset * 4} bytes past "
+                        "16-byte alignment")
+        else:
+            got = FF.fused_post_fft(view, flens, fcfg, mean, istd)
+            want = FF.fused_post_fft_reference(view, flens, fcfg, mean, istd)
+            require((got - want).abs().max().item() <= K1_TOL,
+                    "K1 on an aligned view disagrees")
+    log(f"[phase2] K1 views 4, 8 and 12 bytes past 16-byte alignment raise, "
+        f"16 bytes past runs; B=5 T=37: last tile "
+        f"{FF.tile_spans(5 * 37, pspec.shape[2], FF.PLAN[0])[-1]} (first "
+        "row, rows, bulk bytes, plain floats)")
     return worst
 
 
@@ -727,10 +854,7 @@ def phase5(results, fcfg, card: str) -> dict:
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
     times = {}
-    pspec, flens, mean, istd, _ = k1_inputs(32, 400, 7, fcfg)
-    args = (pspec, flens, fcfg, mean, istd)
-    kernel_times(times, "fused_post_fft", lambda: FF.fused_post_fft(*args),
-                 lambda: FF.fused_post_fft_reference(*args), reps=20)
+    k1_timing(times, fcfg)
     x, w_ih, bias, w_hh, valid = k2_inputs(400, 80, 3)
     b, t, h = 32, 400, 256
     with torch.inference_mode():
@@ -752,6 +876,80 @@ def phase5(results, fcfg, card: str) -> dict:
         times.setdefault(key, []).extend(
             host_ms(lambda: rec.encode(a, n), reps=3))
     return report("phase5", times, card)
+
+
+def k1_timing(times: dict, fcfg) -> None:
+    """K1 at B=32, T=400 (timit's bucket) and T=1600 (the conformer's):
+    device time L2-cold -- each call reads another of a set of inputs that
+    together hold twice the 50 MB L2 -- and L2-warm (one input again and
+    again), its call time, its plain version's, and the mel product alone,
+    ``torch.matmul(pspec, fb)`` (a partial yardstick: the same bytes in and
+    out, less work, not the same function); plain, kernel, kernel, plain.
+    Then the sweep of K1_PLANS, L2-cold, at both shapes."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
+
+    _, fb = F.constants(fcfg, torch.device(DEVICE))
+
+    def kern(ps, fl, mu, sd):
+        return FF.fused_post_fft(ps, fl, fcfg, mu, sd)
+
+    def plain(ps, fl, mu, sd):
+        return FF.fused_post_fft_reference(ps, fl, fcfg, mu, sd)
+
+    def mel(ps, *_):
+        return torch.matmul(ps, fb)
+
+    def rotating(fn, sets):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    shapes = {}
+    for t in (400, 1600):
+        first = k1_inputs(32, t, 7, fcfg)[:4]
+        n = max(2, math.ceil(2 * L2_BYTES / (first[0].numel() * 4)))
+        sets = [first] + [k1_inputs(32, t, 7 + i, fcfg)[:4]
+                          for i in range(1, n)]
+        shapes[t] = sets
+        tag = "fused_post_fft" + ("" if t == 400 else f"_t{t}")
+        reps = max(16, 2 * n)
+        for name, fn in ((tag + "_plain", plain), (tag, kern), (tag, kern),
+                         (tag + "_plain", plain)):
+            times.setdefault(name, []).append(
+                device_ms(rotating(fn, sets), reps=reps))
+            times.setdefault(name + "_call", []).append(
+                cuda_ms(lambda: fn(*first), reps=20))
+            if fn is kern:
+                times.setdefault(name + "_warm", []).append(
+                    device_ms(lambda: fn(*first), reps=20))
+        mm = "mel_matmul" + tag[len("fused_post_fft"):]
+        times[mm] = [device_ms(rotating(mel, sets), reps=reps)]
+        times[mm + "_warm"] = [device_ms(lambda: mel(*first), reps=20)]
+        log(f"[phase5] K1 T={t}: {n} rotating input sets of "
+            f"{first[0].numel() * 4 / 1e6:.1f} MB for the L2-cold times")
+    def planned(plan, fn):
+        def call():
+            with k1_plan(plan):
+                fn()
+        return call
+
+    per_shape = [device_ms_each([planned(p, rotating(kern, shapes[t]))
+                                 for p in K1_PLANS],
+                                reps=max(16, 2 * len(shapes[t])))
+                 for t in (400, 1600)]
+    sweep = {p: [ms[i] for ms in per_shape] for i, p in enumerate(K1_PLANS)}
+    best = min(sweep, key=lambda p: sweep[p][0])
+    log("[phase5] K1 plan sweep, device ms L2-cold (profiler) at B=32; "
+        "rows per tile, row groups, ring stages, blocks per SM:")
+    for plan, (a, b) in sorted(sweep.items()):
+        log(f"[phase5]   R={plan[0]:2d} G={plan[1]} S={plan[2]} k={plan[3]}: "
+            f"T=400 "
+            f"{a:.4f}  T=1600 {b:.4f}"
+            + ("  <- default" if plan == FF.PLAN else ""))
+    log(f"[phase5] K1 fastest plan at T=400: {best} ({sweep[best][0]:.4f} "
+        f"ms); the default {FF.PLAN}: {sweep[FF.PLAN][0]:.4f} ms")
 
 
 def kernel_times(times: dict, name: str, kernel, plain, reps: int,
@@ -778,6 +976,9 @@ def report(phase: str, times: dict, card: str,
         what = ("call time, CUDA events" if k.endswith("_call") else
                 "device time, CUDA events over back-to-back calls"
                 if k.endswith("_b2b") else
+                "device time, profiler, L2-warm" if k.endswith("_warm") else
+                "device time, profiler, L2-cold"
+                if k.startswith(("fused_post_fft", "mel_matmul")) else
                 "host time to synchronize"
                 if k.startswith(("serve", "enc", "train", "conformer")) else
                 "device time, profiler")
@@ -1059,6 +1260,8 @@ def phase11(d: Path):
                                           "flash_mhsa_bwd")),
             f"a kernel of the conformer training path did not launch: "
             f"{launches}")
+    require(launches["fused_post_fft"] == len(recs),
+            f"K1 did not launch once a conformer train step: {launches}")
     tr32 = T.Trainer(conformer_config(
         [*CONFORMER_TRAIN, "model.compute_dtype=float32"]), d / "f32",
         DEVICE, seed=0)
@@ -1211,6 +1414,8 @@ def phase7(d: Path):
                 for r in recs), "training loss not finite")
     require(all(launches[k] > 0 for k in LSTM_PATH),
             f"a kernel of the training path did not launch: {launches}")
+    require(launches["fused_post_fft"] == len(recs),
+            f"K1 did not launch once a train step: {launches}")
     require(all(launches[f"lstm_scan_{k}_cluster"] == launches[f"lstm_scan_{k}"]
                 for k in ("fwd", "bwd")),
             f"bf16 training ran K2 or K3 off the cluster route: {launches}")
@@ -1476,7 +1681,7 @@ def bounds() -> dict:
     larger of its bytes (each input read once, each output written once)
     over HBM bandwidth and its bf16 products over the tensor-core peak, and
     which of the two.  K1-K3 at phases 5 and 8's (bucket 400, B=32, H=256,
-    D=2, bf16 weights); K5 at phase 12's (B=32, T'=400, 8 heads of 64,
+    D=2, bf16 weights), K1 also at B=32, T=1600; K5 at phase 12's (B=32, T'=400, 8 heads of 64,
     bf16), counting the products these lengths need: every query row
     against the valid keys of its batch row (all T keys for an empty row,
     whose weights are uniform)."""
@@ -1488,8 +1693,11 @@ def bounds() -> dict:
     f, m = fcfg.n_fft // 2 + 1, fcfg.n_mels
     nnz = len(FF._mel_runs_np(fcfg)[0])
     seq = d * t * b
-    k1 = (b * t * f * f4 + b * t * m * f4 + nnz * f4 + 3 * m * f4 + b * f4,
-          2 * nnz * b * t)
+    def k1_work(t):
+        return (b * t * f * f4 + b * t * m * f4 + nnz * f4 + 3 * m * f4
+                + b * f4, 2 * nnz * b * t)
+
+    k1 = k1_work(t)
     w = d * h * 4 * h * 2
     k2 = (seq * 4 * h * f4 + w + t * b * f4 + seq * h * f4,
           2 * seq * 4 * h * h)
@@ -1499,6 +1707,7 @@ def bounds() -> dict:
     k5f, k5b = k5_work(K5_TIMING, lens)
     out = {}
     for name, (nbytes, flops) in (("fused_post_fft", k1),
+                                  ("fused_post_fft_t1600", k1_work(1600)),
                                   ("lstm_scan_fwd", k2),
                                   ("lstm_scan_bwd", k3),
                                   ("flash_mhsa_fwd", k5f),
@@ -1588,11 +1797,18 @@ def main(argv=None) -> int:
     from semi_supervised_asr_tpu_torch import transcribe as TR
 
     strict_fp32()
+    t0 = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t0:.0f} s")
+
     card = phase0()
     phase1()
+    elapsed("phases 0-1 (build)")
     cfg = load_timit()
     vocab = TR.build_vocab(cfg)
     k1_err = phase2(cfg.frontend)
+    elapsed("phase 2 (K1 checks)")
     k2_err, k2_bf16 = phase3()
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -1602,6 +1818,7 @@ def main(argv=None) -> int:
         synthetic.write_model_dir(d, cfg, files, seed=0)
         results, serve_launches = phase4(d, files)
     med = phase5(results, cfg.frontend, card)
+    elapsed("phases 3-5")
     k3_err, k3_bf16 = phase6()
     with tempfile.TemporaryDirectory() as tmp:
         tr, launches, _ = phase7(Path(tmp))
@@ -1609,6 +1826,7 @@ def main(argv=None) -> int:
         if args.profile is not None:
             profile(timit_work(results, tr, med), args.profile)
     del tr
+    elapsed("phases 6-8")
     k5 = phase9()
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -1624,6 +1842,7 @@ def main(argv=None) -> int:
         med.update(conf_med)
         if args.profile is not None:
             profile(conf_work, args.profile)
+    elapsed("phases 9-12")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -1634,6 +1853,16 @@ def main(argv=None) -> int:
             f"bound {bound[name][0]:.4f} ms; plain {med[name + '_plain']:.3f}"
             f" ms; the port's layer {med['layer_' + kind]:.4f} ms against "
             f"cuDNN's {med['cudnn_lstm_' + kind]:.4f} ms ({card})")
+    for t, tag in ((400, "fused_post_fft"), (1600, "fused_post_fft_t1600")):
+        mm = "mel_matmul" + tag[len("fused_post_fft"):]
+        log(f"[summary] fused_post_fft at B=32, T={t}: {med[tag]:.4f} ms "
+            f"device L2-cold, {med[tag + '_warm']:.4f} ms L2-warm, "
+            f"{med[tag + '_call']:.4f} ms call; bytes bound "
+            f"{bound[tag][0]:.4f} ms (share {bound[tag][0] / med[tag]:.3f} "
+            f"cold); plain {med[tag + '_plain']:.4f} ms device, "
+            f"{med[tag + '_plain_call']:.4f} ms call; torch.matmul(pspec, fb)"
+            f" alone (not the same function) {med[mm]:.4f} ms cold, "
+            f"{med[mm + '_warm']:.4f} ms warm ({card})")
     log(f"[summary] card: {card}; K2 bf16 max_abs_err {k2_bf16:.3e}, K3 "
         f"{k3_bf16:.3e}; "
         f"bf16 token agreement {results['bfloat16']['agree']}; serving "
@@ -1658,7 +1887,10 @@ def main(argv=None) -> int:
     # path runs (bf16 cluster route for K2/K3, f32 for K1 and K5's table)
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
-         k1_err, None, launches, "CUDA cores", None),
+         k1_err, None, launches,
+         "persistent grid, tiles of rows by cp.async.bulk through an "
+         "mbarrier ring, one producer warp; CUDA cores; ms L2-cold at "
+         "B=32 T=400", None),
         ("lstm_scan_fwd", "lstm_scan_fwd.cu", tpu + "pallas_lstm.py:41",
          k2_bf16, med["cudnn_lstm_fwd"], launches, lstm_design.format("h"),
          cudnn + "forward (input projection + recurrence) against the "

@@ -60,6 +60,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _I,      # fs, fw, ts, tw, n_freq, n_time
         _P,                          # out
         _I, _I, _I, _I, _F,          # B, T, F, M, log_floor
+        _I, _I, _I, _I,              # rows, groups, stages, blocks_per_sm
         _P,                          # stream
     ],
     "lstm_scan_fwd": [

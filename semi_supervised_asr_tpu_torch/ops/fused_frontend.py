@@ -6,7 +6,10 @@ pad-frame zeroing and the SpecAugment band masks -- is one CUDA kernel
 that reads the [B, T, F] power spectrum once and writes the [B, T, M]
 features once.  Framing and the DFT stay outside (``frontend.py``).  The
 kernel takes the mel bank packed by filter (each triangular filter's run
-of non-zero bins), which skips only exact-zero terms of the product.
+of non-zero bins), which skips only exact-zero terms of the product.  It
+streams tiles of rows of the flattened [B*T, F] spectrum by bulk copies,
+so ``pspec`` must be contiguous and 16-byte aligned (:func:`tile_spans`
+is its tiling).
 
 ``fused_post_fft_reference`` is the same math in plain PyTorch.  The
 wrapper runs it only for CPU tensors or when asked with
@@ -69,6 +72,37 @@ def fused_post_fft_reference(
     return x
 
 
+# the kernel's launch plan: rows per tile, row groups (a thread owns one
+# filter in rows/groups rows of a tile), stages in its ring of bulk
+# copies, blocks per SM in its persistent grid (chip_smoke.py phase 5
+# sweeps the alternatives on the card)
+PLAN = (16, 4, 2, 2)
+
+
+def tile_spans(n_rows: int, n_freq: int, rows: int) -> list[tuple]:
+    """The kernel's tiles of ``rows`` (a multiple of 4) rows over
+    ``n_rows`` rows of ``n_freq`` floats: (first row, rows, bulk-copied
+    bytes, floats loaded one by one) each.  A tile starts on a multiple of
+    16 bytes (4 rows are 16 * n_freq); only the last may end off one, and
+    loads its tail plainly."""
+    out = []
+    for row0 in range(0, n_rows, rows):
+        n = min(rows, n_rows - row0)
+        bulk = n * n_freq * 4 // 16 * 16
+        out.append((row0, n, bulk, n * n_freq - bulk // 4))
+    return out
+
+
+def require_aligned(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` is contiguous and starts on 16 bytes, as the
+    kernel's bulk copies need (no copy is made)."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the fused frontend kernel needs a contiguous tensor "
+            f"that starts on 16 bytes (storage offset {x.storage_offset()}, "
+            f"contiguous {x.is_contiguous()})")
+
+
 def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
         raise ValueError(
@@ -118,18 +152,21 @@ def fused_post_fft(
         for name, x, n in zip(("fstarts", "fwidths", "tstarts", "twidths"),
                               bands, (n_f, n_f, n_t, n_t)):
             _check(name, x, torch.int32, (b, n), dev)
-    pspec = pspec.contiguous()
+    if m % 4 or m > 128:
+        raise ValueError(f"the fused frontend kernel takes n_mels a multiple "
+                         f"of 4 up to 128, got {m}")
+    require_aligned("pspec", pspec)
     out = torch.empty((b, t, m), dtype=torch.float32, device=dev)
-    lib = _native.lib()
-    code = lib.fused_post_fft(
+    if out.numel() == 0:
+        return out
+    code = _native.lib().fused_post_fft(
         pspec.data_ptr(), band_w.data_ptr(), band_lo.data_ptr(),
         band_off.data_ptr(), band_w.numel(), mean.data_ptr(),
         istd.data_ptr(), lens.data_ptr(), *(_native.ptr(x) for x in bands),
         n_f, n_t,
-        out.data_ptr(), b, t, f, m, float(cfg.log_floor),
+        out.data_ptr(), b, t, f, m, float(cfg.log_floor), *PLAN,
         _native.stream_ptr(dev),
     )
     _native.check("fused_post_fft", code)
     _native.count("fused_post_fft")
     return out
-
