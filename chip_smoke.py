@@ -95,15 +95,34 @@ failure raises and the script exits non-zero:
     ls960_conformer buckets (100-400), with the card's clocks, power and
     temperature before and after each K5 timing, each ratio and each
     share of the bound; at T'=400 (bucket 1600) also against the plain
-    version; then the conformer's beam-5 serve batch and train step on
-    kernels against the plain versions.
+    version; every one of these times is a CUDA graph of back-to-back
+    calls between CUDA events (a backward: forward + backward minus
+    forward), so no host gap and no profiler enters it, and each log line
+    names the method that took it; then the conformer's beam-5 serve
+    batch and train step on kernels against the plain versions;
+13. the semi-supervised step (C4) at ``configs/ls100_semi.yaml`` full
+    width (enc 384 x (1 + 3) BiLSTM, dec 768, batch 64, bf16; synthetic
+    data, the pseudo-label gate open from step 1) through
+    ``train.Trainer``: 3 steps, each with its metrics (loss, ce, text_ae,
+    pseudo, pseudo_gate, grad_norm), wall time and kernel launches by
+    route (K1 3, K2 12 and K3 8 a step, K2 and K3 on the cluster route);
+    a float32 step from fresh weights and a bf16 step from the trained
+    ones with the gate open and every row kept, kernels against plain:
+    the clean view, the teacher's hypotheses, then the loss and every
+    gradient on the same hypotheses (1e-5 / GRAD_TOL in float32, the
+    phase-7 bounds in bf16) and the EMA buffer after the update (1e-6);
+    K2 and K3 at the step's first-layer shapes (B=64, H=384, T=400 and
+    1600) with their launch plans and resident clusters, and K2 at B=56
+    (a launch that fits the card in one wave) beside B=64.
 
 The line before the last is the kernel table as JSON (with each kernel's
-bound, library time and what that library call computes, and its
-design; launches from the timit training run for K1-K3, from the
-conformer training run for K5); the last line is ``{"ok": true,
-"device": {...}}``.  ``--profile DIR`` also writes ``torch.profiler``
-tables of one beam-5 batch and of one train step of each path there.
+bound, library time and what that library call computes, how each time
+was taken, and its design; launches from the timit training run for
+K1-K3, from the conformer training run for K5, and per path in
+``launches_by_path``; K2 and K3 also at the C4 shapes in ``at_c4``); the
+last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
+writes ``torch.profiler`` tables of one beam-5 batch and of one train step
+of each path (the C4 step included) there.
 """
 
 from __future__ import annotations
@@ -112,6 +131,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import functools
 import io
 import itertools
@@ -198,6 +218,31 @@ K5_BUCKETS = (100, 200, 300, 400)
 # its LayerNorm)
 CONF_ENC_TOL = K5_TOL
 CONF_ENC_BF16_TOL = K5_BF16_TOL
+# the semi-supervised path (C4): configs/ls100_semi.yaml at full width and
+# its own batch of 64; cut: synthetic data (the LibriSpeech splits are not
+# on the machine), 64 utterances, and the pseudo-label gate opened after
+# one step (closed at step 0, open from step 1).  The labeled stream lands
+# in the 400-frame / 128-token bucket, the unlabeled streams in 1600 / 256
+SEMI_CONFIG = ROOT / "configs" / "ls100_semi.yaml"
+SEMI_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=64",
+                  "objective.pseudo_warmup_steps=1"]
+# the kernels-against-plain steps of the C4 path: the gate open at step 0
+# and every row kept (random weights put every hypothesis below the
+# recipe's 0.6 confidence, which would leave the term no gradient)
+SEMI_CHECK = {"pseudo_warmup_steps": 0, "pseudo_confidence": 0.0}
+# a C4 step's launches: K1 for the labeled, the clean and the augmented
+# view; K2 for the 4 layers of the labeled, the augmented and the
+# teacher's clean encode; K3 for the student's two
+C4_LAUNCHES = {"fused_post_fft": 3, "lstm_scan_fwd": 12, "lstm_scan_bwd": 8}
+# K2 and K3 timed at the C4 step's first-layer shapes (B=64, H=384, 80
+# inputs): the labeled view (T=400) and the unlabeled views (T=1600)
+C4_LSTM_T = (400, 1600)
+
+
+def c4_tag(t: int) -> str:
+    return f"_h384_b64_t{t}"
+
+
 # every shipped LSTM-listener width of the LAS and semi-supervised recipes
 # (timit 256; ls100, ls100_semi 384; ls960_dp 512): the cluster route's
 # checks (phases 1, 3, 6)
@@ -240,22 +285,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call of ``fn``: the durations of the
-    kernels and copies it launched, from torch.profiler.  Unlike
-    :func:`cuda_ms` this excludes the time the device waits for the host,
-    which dominates a call of a sub-millisecond kernel."""
-    ms = sum(device_ms_by_kernel(fn, reps, warmup).values())
-    require(ms > 0, "the profiler saw no device time")
-    return ms
-
-
 # The profiler loses kernel events at the end of a trace (the last 2 of a
 # cuDNN layer's 5 x 1,676 in every trace, the last launch of a
 # single-kernel call, a thousand of a long plain loop): every trace of
 # device_ms_by_kernel ends in TRACE_TAIL spin kernels, which take the loss
 # and are not counted.
 TRACE_TAIL = 4096
+# device_ms_by_kernel's one entry when no trace held a kernel
+EVENTS_KEY = "all kernels (CUDA events, back to back)"
 
 
 @functools.lru_cache(maxsize=None)
@@ -284,8 +321,8 @@ def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
     mean).  After a trace of tens of thousands of kernels the profiler can
     record nothing for several sessions, so a failed attempt waits a
     second; after five, the fuller trace, or, if no trace held a kernel,
-    CUDA events over back-to-back calls under the name "all kernels (CUDA
-    events, back to back)", each with a log line."""
+    CUDA events over back-to-back calls under the name ``EVENTS_KEY``,
+    each with a log line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -326,14 +363,14 @@ def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
     ms = back_to_back_ms(fn, reps)
     log(f"[profiler] no trace held a kernel: {ms:.4f} ms a call from CUDA "
         "events over back-to-back calls instead (host launch gaps included)")
-    return {"all kernels (CUDA events, back to back)": ms}
+    return {EVENTS_KEY: ms}
 
 
 def device_ms_each(fns: list, reps: int) -> list[float]:
     """Mean device milliseconds per call of each of ``fns`` (one kernel a
     call), ``reps`` calls apiece in order, from one torch.profiler trace:
     the kernels' durations split in launch order.  If the trace lost or
-    gained kernel events, :func:`device_ms` for each fn instead."""
+    gained kernel events, :func:`profiled_ms` for each fn instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -355,7 +392,7 @@ def device_ms_each(fns: list, reps: int) -> list[float]:
     if len(ev) != len(fns) * reps:
         log(f"[profiler] one trace of {len(fns)} x {reps} calls held "
             f"{len(ev)} kernel events: a trace per call site instead")
-        return [device_ms(fn, reps) for fn in fns]
+        return [profiled_ms(fn, reps)[0] for fn in fns]
     return [sum(e.device_time_total for e in ev[i * reps:(i + 1) * reps])
             / reps / 1e3 for i in range(len(fns))]
 
@@ -377,6 +414,79 @@ def back_to_back_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph (after warm-up calls on a side stream, as autograd
+    inside a capture needs), the graph replayed ``replays`` times between
+    two CUDA events, the median replay over ``reps``.  A replay launches
+    the captured kernels back to back with no host work between them, so
+    this times the device alone, with no profiler in the way."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(out)
+
+
+# how a device time was taken: the key suffix it is stored under in a
+# phase's times, and the words its log lines use
+METHODS = {
+    "graph": ("_graph", "device time, a CUDA graph of back-to-back calls "
+              "between CUDA events"),
+    "b2b": ("_b2b", "device time, CUDA events over back-to-back calls "
+            "(host launch gaps included)"),
+    "profiler": ("", "device time, profiler"),
+}
+
+
+def profiled_ms(fn, reps: int, warmup: int = 2) -> tuple[float, str]:
+    """Mean device milliseconds per call of ``fn`` -- the durations of the
+    kernels and copies it launched, from torch.profiler; unlike
+    :func:`cuda_ms` this leaves out the time the device waits for the
+    host -- and the method that produced it: "profiler", or "b2b" where no
+    trace held a kernel and CUDA events stood in."""
+    by = device_ms_by_kernel(fn, reps, warmup)
+    ms = sum(by.values())
+    require(ms > 0, "the profiler saw no device time")
+    return ms, ("b2b" if EVENTS_KEY in by else "profiler")
+
+
+def record(times: dict, key: str, ms_method: tuple[float, str]) -> None:
+    """Append a (ms, method) time under ``key`` + the method's suffix."""
+    ms, method = ms_method
+    times.setdefault(key + METHODS[method][0], []).append(ms)
+
+
+def pick(med: dict, key: str) -> tuple[float, str]:
+    """The median time of ``key`` under whichever method took it ->
+    (ms, method)."""
+    for method, (suffix, _) in METHODS.items():
+        if key + suffix in med:
+            return med[key + suffix], method
+    raise KeyError(key)
 
 
 def host_ms(fn, reps: int) -> list[float]:
@@ -862,8 +972,7 @@ def phase5(results, fcfg, card: str) -> dict:
         gx = gx.permute(2, 1, 0, 3).contiguous()
         args = (gx, w_hh, valid, torch.bfloat16, (False, True))
         kernel_times(times, "lstm_scan_fwd", lambda: K.lstm_scan(*args),
-                     lambda: K.lstm_scan_reference(*args), reps=3,
-                     back_to_back=True)
+                     lambda: K.lstm_scan_reference(*args), reps=3)
     ker, ref = results["bfloat16"]["rec"]
     audio, lens = results["bfloat16"]["batch"]
     for rec in (ref, ker, ker, ref):
@@ -917,16 +1026,15 @@ def k1_timing(times: dict, fcfg) -> None:
         reps = max(16, 2 * n)
         for name, fn in ((tag + "_plain", plain), (tag, kern), (tag, kern),
                          (tag + "_plain", plain)):
-            times.setdefault(name, []).append(
-                device_ms(rotating(fn, sets), reps=reps))
+            record(times, name, profiled_ms(rotating(fn, sets), reps=reps))
             times.setdefault(name + "_call", []).append(
                 cuda_ms(lambda: fn(*first), reps=20))
             if fn is kern:
-                times.setdefault(name + "_warm", []).append(
-                    device_ms(lambda: fn(*first), reps=20))
+                record(times, name + "_warm",
+                       profiled_ms(lambda: fn(*first), reps=20))
         mm = "mel_matmul" + tag[len("fused_post_fft"):]
-        times[mm] = [device_ms(rotating(mel, sets), reps=reps)]
-        times[mm + "_warm"] = [device_ms(lambda: mel(*first), reps=20)]
+        record(times, mm, profiled_ms(rotating(mel, sets), reps=reps))
+        record(times, mm + "_warm", profiled_ms(lambda: mel(*first), reps=20))
         log(f"[phase5] K1 T={t}: {n} rotating input sets of "
             f"{first[0].numel() * 4 / 1e6:.1f} MB for the L2-cold times")
     def planned(plan, fn):
@@ -952,21 +1060,20 @@ def k1_timing(times: dict, fcfg) -> None:
         f"ms); the default {FF.PLAN}: {sweep[FF.PLAN][0]:.4f} ms")
 
 
-def kernel_times(times: dict, name: str, kernel, plain, reps: int,
-                 back_to_back: bool = False) -> None:
+def kernel_times(times: dict, name: str, kernel, plain, reps: int) -> None:
     """plain, kernel, kernel, plain: call time (CUDA events, includes the
-    host's launch work) and device time into ``times``.  Device time is
-    the profiler's, but with ``back_to_back`` (a kernel that outlasts its
-    launch) the kernel's is CUDA events over back-to-back calls, which
-    needs no profiler (stored under ``name + "_b2b"``)."""
+    host's launch work) and device time into ``times``: the kernel's (one
+    that outlasts its launch) by CUDA events over back-to-back calls,
+    which needs no profiler (stored under ``name + "_b2b"``), the plain
+    version's by the profiler."""
     for key, fn in ((name + "_plain", plain), (name, kernel), (name, kernel),
                     (name + "_plain", plain)):
         times.setdefault(key + "_call", []).append(cuda_ms(fn, reps=reps))
-        if back_to_back and fn is kernel:
+        if fn is kernel:
             times.setdefault(key + "_b2b", []).append(
                 back_to_back_ms(fn, reps=2 * reps))
         else:
-            times.setdefault(key, []).append(device_ms(fn, reps=reps))
+            record(times, key, profiled_ms(fn, reps=reps))
 
 
 def report(phase: str, times: dict, card: str,
@@ -974,20 +1081,22 @@ def report(phase: str, times: dict, card: str,
     med = {k: statistics.median(v) for k, v in times.items()}
     for k in sorted(med):
         what = ("call time, CUDA events" if k.endswith("_call") else
-                "device time, CUDA events over back-to-back calls"
-                if k.endswith("_b2b") else
+                METHODS["graph"][1] if k.endswith("_graph") else
+                METHODS["b2b"][1] if k.endswith("_b2b") else
                 "device time, profiler, L2-warm" if k.endswith("_warm") else
                 "device time, profiler, L2-cold"
                 if k.startswith(("fused_post_fft", "mel_matmul")) else
                 "host time to synchronize"
-                if k.startswith(("serve", "enc", "train", "conformer")) else
+                if k.startswith(("serve", "enc", "train", "conformer", "c4"))
+                else
                 "device time, profiler")
         log(f"[{phase}] {k}: median {med[k]:.4f} ms ({what}) over "
             f"{len(times[k])} runs at {shape} ({card})")
     return med
 
 
-def k3_inputs(t: int, i: int, seed: int, compute):
+def k3_inputs(t: int, i: int, seed: int, compute, b: int = 32,
+              h: int = 256):
     """K2's residuals for a random layer (kernel forward) and a random
     dh_out: the inputs of the backward scan."""
     import torch
@@ -995,8 +1104,7 @@ def k3_inputs(t: int, i: int, seed: int, compute):
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
-    x, w_ih, bias, w_hh, valid = k2_inputs(t, i, seed)
-    b, h = x.shape[0], w_hh.shape[1]
+    x, w_ih, bias, w_hh, valid = k2_inputs(t, i, seed, b, h)
     with torch.inference_mode():
         gx = (R.mm(x, w_ih, compute) + bias).view(b, t, 2, 4 * h)
         gx = gx.permute(2, 1, 0, 3).contiguous()
@@ -1280,9 +1388,13 @@ def gpu_clocks() -> str:
 
 def k5_bucket(times: dict, shape: tuple) -> None:
     """K5 forward and backward (bf16) beside SDPA at one shape, device
-    times, with the card's clocks before and after each K5 timing; at
-    K5_TIMING also the plain version, interleaved, into ``times`` (the
-    kernel table's numbers)."""
+    times from CUDA graphs of back-to-back calls (:func:`graph_ms`; the
+    profiler can stop recording late in a run), with the card's clocks
+    before and after; at K5_TIMING also the plain version, and each of the
+    three twice, into ``times`` (the kernel table's numbers).  A forward is
+    timed under no_grad; a backward as the graph of forward + backward
+    minus that of the forward that keeps what the backward needs, for the
+    kernels (the autograd Function), the plain version and SDPA alike."""
     import torch
     import torch.nn.functional as Fn
 
@@ -1294,56 +1406,97 @@ def k5_bucket(times: dict, shape: tuple) -> None:
                            for x in k5_inputs(*shape, seed=11,
                                               odd_rows=False))
     scale = 1.0 / math.sqrt(d)
-    o, m, l = FM.mhsa_fwd(q, k, v, mask, scale)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    out = FM.mhsa_reference(*leaves, mask, sm_scale=scale, compute=bf16)
     # the library yardstick: SDPA on [B, H, T, D] with the boolean key mask
     sl = [x.transpose(1, 2).contiguous().requires_grad_(True)
           for x in (q, k, v)]
     am = mask[:, None, None, :]
-    so = Fn.scaled_dot_product_attention(*sl, attn_mask=am, scale=scale)
     sdo = dout.transpose(1, 2).contiguous()
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            Fn.scaled_dot_product_attention(*sl, attn_mask=am, scale=scale)
-
-    work = {
-        "flash_mhsa_fwd": (lambda: FM.mhsa_fwd(q, k, v, mask, scale),
-                           lambda: FM.mhsa_reference(
-                               q, k, v, mask, sm_scale=scale, compute=bf16),
-                           sdpa_fwd),
-        "flash_mhsa_bwd": (
-            lambda: FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale),
-            lambda: torch.autograd.grad(out, leaves, dout,
-                                        retain_graph=True),
-            lambda: torch.autograd.grad(so, sl, sdo, retain_graph=True)),
+    fwds = {
+        "kernel": (lambda: FM.mhsa(*leaves, mask, sm_scale=scale,
+                                   compute=bf16), leaves, dout),
+        "plain": (lambda: FM.mhsa_reference(*leaves, mask, sm_scale=scale,
+                                            compute=bf16), leaves, dout),
+        "sdpa": (lambda: Fn.scaled_dot_product_attention(
+            *sl, attn_mask=am, scale=scale), sl, sdo),
     }
+
+    def fwd_ms(who):
+        fwd = fwds[who][0]
+
+        def call():
+            with torch.no_grad():
+                fwd()
+        return graph_ms(call)
+
+    def bwd_ms(who):
+        fwd, xs, dy = fwds[who]
+        return (graph_ms(lambda: torch.autograd.grad(fwd(), xs, dy))
+                - graph_ms(fwd))
+
+    timing = shape == K5_TIMING
     bound = k5_bounds(shape, mask.sum(1))
-    for name, (kernel, plain, lib) in work.items():
+    for name, ms_of in (("flash_mhsa_fwd", fwd_ms), ("flash_mhsa_bwd",
+                                                     bwd_ms)):
         log(f"[phase12] clocks before {name} T'={t}: {gpu_clocks()} (SM "
             "MHz, max SM MHz, W, C)")
-        if shape == K5_TIMING:
-            kernel_times(times, name, kernel, plain, reps=10)
-            ms = statistics.median(times[name])
-        else:
-            ms = device_ms(kernel, reps=10)
-        lib_ms = device_ms(lib, reps=10)
+        order = (("plain", "kernel", "sdpa", "kernel", "plain") if timing
+                 else ("kernel", "sdpa"))
+        got = {}
+        for who in order:
+            got.setdefault(who, []).append(ms_of(who))
+            if timing:
+                key = {"kernel": name, "plain": name + "_plain",
+                       "sdpa": "sdpa" + name[-4:]}[who]
+                record(times, key, (got[who][-1], "graph"))
         log(f"[phase12] clocks after {name} T'={t}: {gpu_clocks()}")
-        if shape == K5_TIMING:
-            times["sdpa" + name[-4:]] = [lib_ms]
+        kernel_ms = ms = statistics.median(got["kernel"])
+        lib_ms = got["sdpa"][0]
         bms, by = bound[name]
-        log(f"[phase12] {name} B={b} T'={t} H={h} D={d} bf16: {ms:.4f} ms "
-            f"(device time, profiler), SDPA {lib_ms:.4f} ms, kernel/SDPA "
+        log(f"[phase12] {name} B={b} T'={t} H={h} D={d} bf16: {ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms ({METHODS['graph'][1]}), kernel/SDPA "
             f"{ms / lib_ms:.2f}; bound {bms:.4f} ms ({by}): kernel at "
             f"{bms / ms:.1%}, SDPA at {bms / lib_ms:.1%} of it")
-    # the backward's two launches apart (K5dq, K5dkv)
-    split = device_ms_by_kernel(work["flash_mhsa_bwd"][0], reps=10)
-    for name, ms in sorted(split.items()):
-        short = re.search(r"(\w+)<", name)
-        log(f"[phase12] T'={t} flash_mhsa_bwd launch "
-            f"{short.group(1) if short else name[:80]}: {ms:.4f} ms (device "
-            f"time, profiler)")
+    o, m, l = FM.mhsa_fwd(q, k, v, mask, scale)
+
+    def kernel_bwd():
+        return FM.mhsa_bwd(q, k, v, mask, o, m, l, dout, scale)
+
+    if timing:
+        # call times (CUDA events around one Python call, host work
+        # included): the kernels' entries and the plain versions
+        out = FM.mhsa_reference(*leaves, mask, sm_scale=scale, compute=bf16)
+        calls = (("flash_mhsa_fwd", lambda: FM.mhsa_fwd(q, k, v, mask,
+                                                         scale)),
+                 ("flash_mhsa_fwd_plain", lambda: FM.mhsa_reference(
+                     q, k, v, mask, sm_scale=scale, compute=bf16)),
+                 ("flash_mhsa_bwd", kernel_bwd),
+                 ("flash_mhsa_bwd_plain", lambda: torch.autograd.grad(
+                     out, leaves, dout, retain_graph=True)))
+        for key, fn in calls:
+            times.setdefault(key + "_call", []).append(cuda_ms(fn, reps=10))
+        # the backward's two launches apart (K5dq, K5dkv): their shares
+        # of one profiler trace (a trace that loses events late in a run
+        # understates each mean, so the sum is set beside the graph's)
+        split = device_ms_by_kernel(kernel_bwd, reps=10)
+        total = sum(split.values())
+        # the three methods on the same direct calls, side by side
+        split_how = "b2b" if EVENTS_KEY in split else "profiler"
+        for what, fn, (prof, how) in (
+                ("forward", calls[0][1], profiled_ms(calls[0][1], reps=10)),
+                ("backward", kernel_bwd, (total, split_how))):
+            log(f"[phase12] K5 {what} at T'={t}, one direct call timed "
+                f"three ways: {graph_ms(fn):.4f} ms (CUDA graph), "
+                f"{prof:.4f} ms ({METHODS[how][1]}), "
+                f"{back_to_back_ms(fn, 100):.4f} ms (CUDA events, back to "
+                "back)")
+        for name, ms in sorted(split.items()):
+            short = re.search(r"(\w+)<", name)
+            log(f"[phase12] T'={t} flash_mhsa_bwd launch "
+                f"{short.group(1) if short else name[:80]}: {ms:.4f} ms, "
+                f"{ms / total:.1%} of the trace's {total:.4f} ms "
+                f"({METHODS[split_how][1]}; the graph's backward "
+                f"{kernel_ms:.4f} ms)")
 
 
 def phase12(tr, files: list[Path], card: str) -> dict:
@@ -1388,6 +1541,214 @@ def phase12(tr, files: list[Path], card: str) -> dict:
             med["conformer_train_step"]),
     }
     return med, work
+
+
+def semi_trainer(d: Path, dtype: str):
+    from semi_supervised_asr_tpu_torch import train as T
+
+    cfg = T.load_config(SEMI_CONFIG, [*SEMI_OVERRIDES,
+                                      f"model.compute_dtype={dtype}"])
+    return T.Trainer(cfg, d, DEVICE, seed=0)
+
+
+def semi_step_check(tr, loss_tol: float = 1e-5,
+                    grad_tol: float = GRAD_TOL) -> None:
+    """One C4 step from the trainer's weights (student and EMA teacher),
+    batches and fixed SpecAugment bands, gate open and every row kept
+    (SEMI_CHECK), in the trainer's compute dtype, kernels against plain:
+    the clean view and the teacher's hypotheses are compared first, then
+    both runs take the kernel teacher's hypotheses, so that the student's
+    loss and gradients are compared on the same targets (loss within
+    ``loss_tol`` relative, every gradient leaf within ``grad_tol`` of the
+    model's largest entry); the EMA buffer after the update within 1e-6."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch.objectives import losses as LO
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    cfg = dataclasses.replace(tr.cfg, objective=dataclasses.replace(
+        tr.cfg.objective, **SEMI_CHECK))
+    dtype = cfg.model.compute_dtype
+    fcfg = cfg.frontend
+    batch = next(tr.batches)
+    tensors = T.batch_tensors(batch, tr.device)
+    unlab = tr.unlabeled()
+    gen = torch.Generator().manual_seed(5)
+
+    def bands(audio_lens, frames):
+        flens = torch.clamp_max(F.frame_lengths(audio_lens, fcfg), frames)
+        return F.sample_specaug_params(gen, flens.shape[0], fcfg.n_mels,
+                                       flens, fcfg)
+
+    lab_bands = bands(tensors[1], batch.bucket[0])
+    max_len = min(cfg.decode.max_decode_len, tensors[2].shape[1])
+    views, labels = {}, {}
+    for backend in (None, "reference"):
+        views[backend] = TS.featurize(cfg, unlab["unlab_audio"],
+                                      unlab["unlab_audio_lens"], tr.cmvn,
+                                      False, backend)
+        labels[backend] = LO.teacher_labels(tr.state.ema, *views[backend],
+                                            max_len, backend)
+    unlab_bands = bands(unlab["unlab_audio_lens"], views[None][0].shape[1])
+    view_err = (views[None][0] - views["reference"][0]).abs().max().item()
+    same = float(np.mean(np.all(
+        (labels[None][0] == labels["reference"][0]).cpu().numpy(), axis=1)))
+    log(f"[phase13] {dtype} clean view (K1 vs plain) max_abs_err "
+        f"{view_err:.3e}; teacher's greedy hypotheses (K2 no-grad vs "
+        f"plain) identical in {same:.3f} of the rows")
+    if dtype == "float32":
+        require(view_err <= K1_TOL, f"clean view error {view_err}")
+        # a near-tie of two logits can flip one row's argmax; a fault in
+        # the path would move every row
+        require(same >= 0.95, "float32 teacher hypotheses differ")
+    out = {}
+    _native.reset_launches()
+    for backend in (None, "reference"):
+        state = TS.init_train_state(cfg, copy.deepcopy(tr.state.model), 0)
+        state.ema = copy.deepcopy(tr.state.ema)
+        t0 = time.perf_counter()
+        loss, aux, grads = TS.loss_and_grads(
+            cfg, state, *tensors, tr.cmvn, lab_bands, backend, **unlab,
+            unlab_specaug=unlab_bands, pseudo_labels=labels[None])
+        grads = [g.clone() for g in grads]
+        TS.apply_grads(cfg, state, [g.clone() for g in grads])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[backend] = (loss, aux, grads, list(state.ema.parameters()))
+        log(f"[phase13] {dtype} check step on "
+            f"{backend or 'the kernels'}: {ms:.0f} ms; "
+            + ", ".join(f"{k} {float(aux[k]):.6f}"
+                        for k in ("ce", "text_ae", "pseudo", "pseudo_gate")))
+        del state
+    routes = {k: v for k, v in _native.LAUNCHES.items() if v}
+    (lk, ak, gk, ek), (lr, ar, gr, er) = out[None], out["reference"]
+    rel = abs(lk.item() - lr.item()) / abs(lr.item())
+    names = [n for n, _ in tr.state.model.named_parameters()]
+    errs = dict(zip(names, grad_errs(gk, gr)))
+    worst = max(errs, key=errs.get)
+    ema_err = max((a - b).abs().max().item() for a, b in zip(ek, er))
+    log(f"[phase13] {dtype} C4 step, kernels vs plain (kernel launches "
+        f"{routes}): loss {lk.item():.6f} vs {lr.item():.6f} (rel "
+        f"{rel:.2e}, tol {loss_tol:g}); worst gradient leaf {worst} "
+        f"{errs[worst]:.3e} of the model's max |g| over {len(errs)} leaves "
+        f"(tol {grad_tol:g}); EMA buffer max_abs_err {ema_err:.3e} (tol "
+        f"1e-6)")
+    require(all(float(ak[k]) > 0 for k in ("ce", "text_ae", "pseudo")),
+            "a term of the C4 loss is zero")
+    require(rel <= loss_tol, f"{dtype} C4 step loss differs: rel {rel}")
+    require(errs[worst] <= grad_tol, f"C4 gradient {worst} differs")
+    require(ema_err <= 1e-6, f"C4 EMA buffer differs by {ema_err}")
+
+
+def c4_lstm_times(times: dict, card: str) -> None:
+    """K2 and K3 at the C4 step's first-layer shapes (B=64, H=384, both
+    directions, bf16, T=400 and 1600): device time by CUDA events over
+    back-to-back calls (a launch lasts milliseconds, far beyond its host
+    work), and the plain version's call time; the launch plan and how many
+    of its clusters the card holds at once."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+    from semi_supervised_asr_tpu_torch.ops import recurrent as R
+
+    bf16 = torch.bfloat16
+    for kind in ("fwd", "bwd"):
+        plan = K.cluster_plan(kind, 384, 64, bf16)
+        require(plan.route == "cluster", f"C4 {kind} plan {plan}")
+        held = K.cluster_occupancy(kind, plan)
+        log(f"[phase13] {kind} plan at H=384 B=64: C={plan.cluster} "
+            f"R={plan.rows} u={plan.units} threads={plan.threads} smem="
+            f"{plan.smem} B; max active clusters {held}, a D=2 launch has "
+            f"{2 * -(-64 // plan.rows)} ({card})")
+    for t in C4_LSTM_T:
+        tag = c4_tag(t)
+        x, w_ih, bias, w_hh, valid = k2_inputs(t, 80, 3, b=64, h=384)
+        with torch.inference_mode():
+            gx = (R.mm(x, w_ih, bf16) + bias).view(64, t, 2, -1)
+            gx = gx.permute(2, 1, 0, 3).contiguous()
+        fwd = (gx, w_hh, valid, bf16, (False, True))
+        bwd = (*k3_inputs(t, 80, 3, bf16, b=64, h=384), bf16, (False, True))
+        del x, gx
+        for name, kern, plain in (
+                ("lstm_scan_fwd", lambda: K.lstm_scan(*fwd),
+                 lambda: K.lstm_scan_reference(*fwd)),
+                ("lstm_scan_bwd", lambda: K.lstm_scan_bwd(*bwd),
+                 lambda: K.lstm_scan_bwd_reference(*bwd))):
+            with torch.inference_mode():
+                for fn, key in ((plain, "_plain_call"), (kern, "_b2b"),
+                                (kern, "_b2b"), (plain, "_plain_call")):
+                    ms = (back_to_back_ms(fn, reps=6) if key == "_b2b"
+                          else cuda_ms(fn, reps=1, warmup=0))
+                    times.setdefault(name + tag + key, []).append(ms)
+        del fwd, bwd
+        torch.cuda.empty_cache()
+    # the second wave: at B=64 a D=2 launch has 16 clusters and the card
+    # may hold fewer; B=56 (14 clusters) runs in one
+    for b in (56, 64, 56, 64):
+        x, w_ih, bias, w_hh, valid = k2_inputs(400, 80, 3, b=b, h=384)
+        with torch.inference_mode():
+            gx = (R.mm(x, w_ih, bf16) + bias).view(b, 400, 2, -1)
+            gx = gx.permute(2, 1, 0, 3).contiguous()
+            args = (gx, w_hh, valid, bf16, (False, True))
+            times.setdefault(f"lstm_scan_fwd_h384_b{b}_t400_b2b", []).append(
+                back_to_back_ms(lambda: K.lstm_scan(*args), reps=6))
+
+
+def phase13(d: Path, card: str):
+    """The semi-supervised LAS step (C4) at ls100_semi width through
+    ``train.Trainer``: 3 bf16 steps (the gate closed, then open), each
+    step's kernel launches by route; a float32 step from fresh weights and
+    a bf16 step from the trained ones, kernels against plain; K2 and K3
+    at the step's shapes; the median wall time of a step."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+
+    tr = semi_trainer(d, "bfloat16")
+    log(f"[phase13] {SEMI_CONFIG.name} at full width, batch 64, bf16; "
+        f"cuts: {SEMI_OVERRIDES}")
+    launches = collections.Counter()
+    walls, recs = [], []
+    for i in range(3):
+        batch = next(tr.batches)
+        _native.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        step = {k: v for k, v in _native.LAUNCHES.items() if v}
+        launches.update(step)
+        recs.append(m)
+        log(f"[phase13] step {i}: loss {m['loss']:.4f} ce {m['ce']:.4f} "
+            f"text_ae {m['text_ae']:.4f} pseudo {m['pseudo']:.4f} "
+            f"pseudo_gate {m['pseudo_gate']:.0f} grad_norm "
+            f"{m['grad_norm']:.4f}; wall {walls[-1]:.1f} ms; bucket "
+            f"{batch.bucket}; kernel launches {step}")
+        require(all(math.isfinite(v) for v in m.values()),
+                f"C4 step {i}: a metric is not finite")
+        for k, n in C4_LAUNCHES.items():
+            require(step.get(k, 0) == n, f"C4 step {i}: {k} launched "
+                    f"{step.get(k, 0)} times, not {n}: {step}")
+        for k in ("fwd", "bwd"):
+            require(step.get(f"lstm_scan_{k}_cluster") == step[
+                f"lstm_scan_{k}"], f"C4 step {i} ran K2 or K3 off the "
+                f"cluster route: {step}")
+    require([r["pseudo_gate"] for r in recs] == [0.0, 1.0, 1.0],
+            "the pseudo-label gate did not open after step 0")
+    semi_step_check(semi_trainer(d / "f32", "float32"))
+    torch.cuda.empty_cache()
+    semi_step_check(tr, BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    times = {"c4_train_step": walls[1:]}
+    c4_lstm_times(times, card)
+    med = report("phase13", times, card, "ls100_semi, B=64, bf16")
+    work = {"c4_train_step_b64": (lambda: tr.step(next(tr.batches)),
+                                  med["c4_train_step"])}
+    return med, dict(launches), work
 
 
 def trainer(d: Path, dtype: str):
@@ -1528,14 +1889,20 @@ def port_layer(x, w_ih, bias, w_hh, valid):
             leaves)
 
 
-def backward_ms(fwd, leaves, dy) -> float:
-    """Device ms of a backward pass: (training forward + backward) minus
-    the training forward, each on a fresh graph."""
+def weaker(*methods: str) -> str:
+    """The method to name a time computed from times of these methods."""
+    return max(methods, key=list(METHODS).index)
+
+
+def backward_ms(fwd, leaves, dy) -> tuple[float, str]:
+    """Device ms of a backward pass and the method: (training forward +
+    backward) minus the training forward, each on a fresh graph."""
     import torch
 
-    fwd_train = device_ms(fwd, reps=5)
-    both = device_ms(lambda: torch.autograd.grad(fwd(), leaves, dy), reps=5)
-    return both - fwd_train
+    fwd_train, m1 = profiled_ms(fwd, reps=5)
+    both, m2 = profiled_ms(lambda: torch.autograd.grad(fwd(), leaves, dy),
+                           reps=5)
+    return both - fwd_train, weaker(m1, m2)
 
 
 def rows_times(times: dict, w_hh, valid, acts, cprev, dh_out, gx) -> None:
@@ -1590,26 +1957,26 @@ def phase8(tr, card: str) -> dict:
     mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid)
     log(f"[phase8] cuDNN LSTM (torch.nn.LSTM, packed) runs in {dtype}")
     with torch.no_grad():
-        times["cudnn_lstm_fwd"] = [device_ms(lambda: mod(packed), reps=5)]
+        record(times, "cudnn_lstm_fwd", profiled_ms(lambda: mod(packed),
+                                                    reps=5))
     # backward = (training forward + backward) - training forward, each a
     # fresh graph (device times): dx, dW_ih, dW_hh and the biases
     leaves = [packed.data, *mod.parameters()]
     dy = torch.randn_like(mod(packed)[0].data)
-    times["cudnn_lstm_bwd"] = [backward_ms(lambda: mod(packed)[0].data,
-                                           leaves, dy)]
+    record(times, "cudnn_lstm_bwd",
+           backward_ms(lambda: mod(packed)[0].data, leaves, dy))
     # the port's layer: forward = projection + K2 (no_grad); backward = K3
     # + the dW_hh product + the projection's autograd backward (dx, dW_ih,
     # db), the same difference of two device times
     layer, leaves = port_layer(x, w_ih, bias, w_hh, valid)
     with torch.no_grad():
-        times["layer_fwd"] = [device_ms(layer, reps=5)]
+        record(times, "layer_fwd", profiled_ms(layer, reps=5))
     dy = torch.randn((32, 400, 2 * w_hh.shape[1]), device=DEVICE)
-    times["layer_bwd"] = [backward_ms(layer, leaves, dy)]
+    record(times, "layer_bwd", backward_ms(layer, leaves, dy))
     w_hh, valid, acts, cprev, dh_out = k3_inputs(400, 80, 3, bf16)
     args = (w_hh, valid, acts, cprev, dh_out, bf16, (False, True))
     kernel_times(times, "lstm_scan_bwd", lambda: K.lstm_scan_bwd(*args),
-                 lambda: K.lstm_scan_bwd_reference(*args), reps=3,
-                 back_to_back=True)
+                 lambda: K.lstm_scan_bwd_reference(*args), reps=3)
     with torch.inference_mode():
         gx = (R.mm(x, w_ih, bf16) + bias).view(32, 400, 2, -1)
         gx = gx.permute(2, 1, 0, 3).contiguous()
@@ -1638,10 +2005,10 @@ def phase8(tr, card: str) -> dict:
     med = report("phase8", times, card)
     med["cudnn_dtype"] = str(dtype).split(".")[-1]
     for kind, lib in (("fwd", "cudnn_lstm_fwd"), ("bwd", "cudnn_lstm_bwd")):
-        log(f"[phase8] layer {kind}: the port {med['layer_' + kind]:.4f} ms "
-            f"against cuDNN {med[lib]:.4f} ms (ratio "
-            f"{med['layer_' + kind] / med[lib]:.3f}; device time, "
-            f"profiler; {card})")
+        (port, m1), (ref, m2) = pick(med, "layer_" + kind), pick(med, lib)
+        log(f"[phase8] layer {kind}: the port {port:.4f} ms ({METHODS[m1][1]})"
+            f" against cuDNN {ref:.4f} ms ({METHODS[m2][1]}); ratio "
+            f"{port / ref:.3f} ({card})")
     return med
 
 
@@ -1676,42 +2043,54 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def lstm_work(t: int, b: int, h: int, d: int = 2) -> tuple:
+    """(bytes, flops) of K2 and of K3 at [D, T, B, 4H] with bf16 weights:
+    K2 reads gates_x, w_hh and valid and writes h; K3 reads w_hh, valid,
+    acts, cprev and dh_out and writes dgates; each step's product is
+    2 x 4H x H a row."""
+    f4 = 4
+    seq = d * t * b
+    w = d * h * 4 * h * 2
+    flops = 2 * seq * 4 * h * h
+    k2 = (seq * 4 * h * f4 + w + t * b * f4 + seq * h * f4, flops)
+    k3 = (w + t * b * f4 + seq * 4 * h * f4 + 2 * seq * h * f4
+          + seq * 4 * h * f4, flops)
+    return k2, k3
+
+
 def bounds() -> dict:
     """Least time (ms) each kernel could take at its timing shape: the
     larger of its bytes (each input read once, each output written once)
     over HBM bandwidth and its bf16 products over the tensor-core peak, and
     which of the two.  K1-K3 at phases 5 and 8's (bucket 400, B=32, H=256,
-    D=2, bf16 weights), K1 also at B=32, T=1600; K5 at phase 12's (B=32, T'=400, 8 heads of 64,
-    bf16), counting the products these lengths need: every query row
-    against the valid keys of its batch row (all T keys for an empty row,
-    whose weights are uniform)."""
+    D=2, bf16 weights), K1 also at B=32, T=1600, K2 and K3 also at phase
+    13's (ls100_semi: B=64, H=384, T=400 and 1600); K5 at phase 12's
+    (B=32, T'=400, 8 heads of 64, bf16), counting the products these
+    lengths need: every query row against the valid keys of its batch row
+    (all T keys for an empty row, whose weights are uniform)."""
     from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
 
-    b, t, d, h, f4 = 32, 400, 2, 256, 4
+    b, t, f4 = 32, 400, 4
     cfg = load_timit()
     fcfg = cfg.frontend
     f, m = fcfg.n_fft // 2 + 1, fcfg.n_mels
     nnz = len(FF._mel_runs_np(fcfg)[0])
-    seq = d * t * b
+
     def k1_work(t):
         return (b * t * f * f4 + b * t * m * f4 + nnz * f4 + 3 * m * f4
                 + b * f4, 2 * nnz * b * t)
 
-    k1 = k1_work(t)
-    w = d * h * 4 * h * 2
-    k2 = (seq * 4 * h * f4 + w + t * b * f4 + seq * h * f4,
-          2 * seq * 4 * h * h)
-    k3 = (w + t * b * f4 + seq * 4 * h * f4 + 2 * seq * h * f4
-          + seq * 4 * h * f4, 2 * seq * 4 * h * h)
+    work = {"fused_post_fft": k1_work(t),
+            "fused_post_fft_t1600": k1_work(1600)}
+    work["lstm_scan_fwd"], work["lstm_scan_bwd"] = lstm_work(t, b, 256)
+    for tt in C4_LSTM_T:
+        k2, k3 = lstm_work(tt, 64, 384)
+        work[f"lstm_scan_fwd{c4_tag(tt)}"] = k2
+        work[f"lstm_scan_bwd{c4_tag(tt)}"] = k3
     lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
-    k5f, k5b = k5_work(K5_TIMING, lens)
+    work["flash_mhsa_fwd"], work["flash_mhsa_bwd"] = k5_work(K5_TIMING, lens)
     out = {}
-    for name, (nbytes, flops) in (("fused_post_fft", k1),
-                                  ("fused_post_fft_t1600", k1_work(1600)),
-                                  ("lstm_scan_fwd", k2),
-                                  ("lstm_scan_bwd", k3),
-                                  ("flash_mhsa_fwd", k5f),
-                                  ("flash_mhsa_bwd", k5b)):
+    for name, (nbytes, flops) in work.items():
         out[name] = bound_ms(nbytes, flops)
         log(f"[bound] {name}: {nbytes / 1e6:.1f} MB -> "
             f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP "
@@ -1843,6 +2222,13 @@ def main(argv=None) -> int:
         if args.profile is not None:
             profile(conf_work, args.profile)
     elapsed("phases 9-12")
+    with tempfile.TemporaryDirectory() as tmp:
+        c4_med, c4_launches, c4_work = phase13(Path(tmp), card)
+        med.update(c4_med)
+        if args.profile is not None:
+            profile(c4_work, args.profile)
+        del c4_work
+    elapsed("phase 13")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -1850,19 +2236,29 @@ def main(argv=None) -> int:
             f"{med[name + '_call']:.4f} ms call; "
             f"serial floor x T=400 {med['floor_' + kind + '_b2b']:.4f} ms; "
             f"bytes "
-            f"bound {bound[name][0]:.4f} ms; plain {med[name + '_plain']:.3f}"
-            f" ms; the port's layer {med['layer_' + kind]:.4f} ms against "
-            f"cuDNN's {med['cudnn_lstm_' + kind]:.4f} ms ({card})")
+            f"bound {bound[name][0]:.4f} ms; plain "
+            f"{pick(med, name + '_plain')[0]:.3f} ms; the port's layer "
+            f"{pick(med, 'layer_' + kind)[0]:.4f} ms against cuDNN's "
+            f"{pick(med, 'cudnn_lstm_' + kind)[0]:.4f} ms ({card})")
+        for t in C4_LSTM_T:
+            key = name + c4_tag(t)
+            ms, (bms, by) = med[key + "_b2b"], bound[key]
+            log(f"[summary] {name} at ls100_semi's B=64, T={t}, H=384, D=2, "
+                f"bf16: {ms:.4f} ms device (back to back), "
+                f"{ms / t * 1e3:.2f} us a step; bound {bms:.4f} ms ({by}), "
+                f"share {bms / ms:.3f}; plain {med[key + '_plain_call']:.1f}"
+                f" ms a call ({card})")
     for t, tag in ((400, "fused_post_fft"), (1600, "fused_post_fft_t1600")):
         mm = "mel_matmul" + tag[len("fused_post_fft"):]
-        log(f"[summary] fused_post_fft at B=32, T={t}: {med[tag]:.4f} ms "
-            f"device L2-cold, {med[tag + '_warm']:.4f} ms L2-warm, "
+        (cold, how), (warm, _) = pick(med, tag), pick(med, tag + "_warm")
+        log(f"[summary] fused_post_fft at B=32, T={t}: {cold:.4f} ms "
+            f"device L2-cold, {warm:.4f} ms L2-warm ({METHODS[how][1]}), "
             f"{med[tag + '_call']:.4f} ms call; bytes bound "
-            f"{bound[tag][0]:.4f} ms (share {bound[tag][0] / med[tag]:.3f} "
-            f"cold); plain {med[tag + '_plain']:.4f} ms device, "
+            f"{bound[tag][0]:.4f} ms (share {bound[tag][0] / cold:.3f} "
+            f"cold); plain {pick(med, tag + '_plain')[0]:.4f} ms device, "
             f"{med[tag + '_plain_call']:.4f} ms call; torch.matmul(pspec, fb)"
-            f" alone (not the same function) {med[mm]:.4f} ms cold, "
-            f"{med[mm + '_warm']:.4f} ms warm ({card})")
+            f" alone (not the same function) {pick(med, mm)[0]:.4f} ms cold, "
+            f"{pick(med, mm + '_warm')[0]:.4f} ms warm ({card})")
     log(f"[summary] card: {card}; K2 bf16 max_abs_err {k2_bf16:.3e}, K3 "
         f"{k3_bf16:.3e}; "
         f"bf16 token agreement {results['bfloat16']['agree']}; serving "
@@ -1872,7 +2268,8 @@ def main(argv=None) -> int:
         f"launches {conf_serve}, training launches {conf_launches}; "
         f"conformer train step {med['conformer_train_step']:.1f} ms on "
         f"kernels vs {med['conformer_train_step_plain']:.1f} ms plain; K5 "
-        f"worst errors {k5}")
+        f"worst errors {k5}; C4 launches over 3 steps {c4_launches}, C4 "
+        f"step {med['c4_train_step']:.1f} ms wall (median of steps 2-3)")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -1883,8 +2280,12 @@ def main(argv=None) -> int:
                    "shared memory, {} through distributed shared memory, "
                    "mma.sync; f32: CUDA cores")
     # launches: K1-K3 from the timit training run (phase 7), K5 from the
-    # conformer training run (phase 11); max_abs_err: the route the main
-    # path runs (bf16 cluster route for K2/K3, f32 for K1 and K5's table)
+    # conformer training run (phase 11), and by path in launches_by_path;
+    # max_abs_err: the route the main path runs (bf16 cluster route for
+    # K2/K3, f32 for K1 and K5's table)
+    paths = {"timit_serve": serve_launches, "timit_train": launches,
+             "conformer_serve": conf_serve, "conformer_train": conf_launches,
+             "c4_train": c4_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, launches,
@@ -1892,36 +2293,56 @@ def main(argv=None) -> int:
          "mbarrier ring, one producer warp; CUDA cores; ms L2-cold at "
          "B=32 T=400", None),
         ("lstm_scan_fwd", "lstm_scan_fwd.cu", tpu + "pallas_lstm.py:41",
-         k2_bf16, med["cudnn_lstm_fwd"], launches, lstm_design.format("h"),
+         k2_bf16, "cudnn_lstm_fwd", launches, lstm_design.format("h"),
          cudnn + "forward (input projection + recurrence) against the "
-         f"port's layer forward (projection + K2) at {med['layer_fwd']:.4f} "
-         f"ms; f32 route max_abs_err {k2_err:.3e}"),
+         f"port's layer forward (projection + K2) at "
+         f"{pick(med, 'layer_fwd')[0]:.4f} ms; f32 route max_abs_err "
+         f"{k2_err:.3e}"),
         ("lstm_scan_bwd", "lstm_scan_bwd.cu", tpu + "pallas_lstm.py:85",
-         k3_bf16, med["cudnn_lstm_bwd"], launches,
+         k3_bf16, "cudnn_lstm_bwd", launches,
          lstm_design.format("dgates"),
          cudnn + "backward (dx, dW_ih, dW_hh, biases; training forward + "
          "backward minus training forward) against the port's layer "
          "backward (K3 + the dW_hh product + the projection's autograd "
-         f"backward) at {med['layer_bwd']:.4f} ms; f32 route max_abs_err "
-         f"{k3_err:.3e}"),
+         f"backward) at {pick(med, 'layer_bwd')[0]:.4f} ms; f32 route "
+         f"max_abs_err {k3_err:.3e}"),
         ("flash_mhsa_fwd", "flash_mhsa_fwd.cu", jax_fa.format(331),
-         k5["float32"], med["sdpa_fwd"], conf_launches,
+         k5["float32"], "sdpa_fwd", conf_launches,
          "bf16: wgmma + TMA ring; f32: CUDA cores",
          "scaled_dot_product_attention with the boolean key mask"),
         ("flash_mhsa_bwd", "flash_mhsa_bwd.cu", jax_fa.format("796 and :1146"),
-         k5["float32_grad_abs"], med["sdpa_bwd"], conf_launches,
+         k5["float32_grad_abs"], "sdpa_bwd", conf_launches,
          "bf16: wgmma + TMA ring; f32: CUDA cores",
-         "scaled_dot_product_attention backward with the boolean key mask"),
+         "scaled_dot_product_attention backward with the boolean key mask "
+         "(forward + backward minus forward, as the kernel's)"),
     )
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src + cu,
-         "replaces": tpu_src, "launches": runs[name], "max_abs_err": err,
-         "ms": med.get(name + "_b2b", med.get(name)),
-         "plain_ms": med[name + "_plain"],
-         "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": lib, "design": design, "library_vs": vs}
-        for name, cu, tpu_src, err, lib, runs, design, vs in rows]}),
-        flush=True)
+
+    def entry(name, cu, tpu_src, err, lib, runs, design, vs):
+        ms, method = pick(med, name)
+        plain, plain_method = pick(med, name + "_plain")
+        lib_ms, lib_method = pick(med, lib) if lib else (None, None)
+        out = {"name": name, "route": "cuda", "source": src + cu,
+               "replaces": tpu_src, "launches": runs[name],
+               "max_abs_err": err, "ms": ms, "method": METHODS[method][1],
+               "plain_ms": plain, "plain_method": METHODS[plain_method][1],
+               "bound_ms": bound[name][0], "bound_by": bound[name][1],
+               "library_ms": lib_ms,
+               "library_method": lib_method and METHODS[lib_method][1],
+               "design": design, "library_vs": vs,
+               "launches_by_path": {p: n.get(name, 0)
+                                    for p, n in paths.items()}}
+        if name.startswith("lstm_scan"):
+            out["at_c4"] = [
+                {"shape": f"B=64 T={t} H=384 D=2 bf16",
+                 "ms": med[name + c4_tag(t) + "_b2b"],
+                 "method": METHODS["b2b"][1],
+                 "plain_call_ms": med[name + c4_tag(t) + "_plain_call"],
+                 "bound_ms": bound[name + c4_tag(t)][0],
+                 "bound_by": bound[name + c4_tag(t)][1]}
+                for t in C4_LSTM_T]
+        return out
+
+    print(json.dumps({"kernels": [entry(*row) for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

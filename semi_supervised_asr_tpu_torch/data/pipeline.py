@@ -1,16 +1,20 @@
-"""Bucketed training batches and global CMVN statistics.
+"""Bucketed training batches, the unlabeled streams and global CMVN
+statistics.
 
 The PyTorch port's counterpart of the parts of ``semi_supervised_asr_tpu/
-data/pipeline.py`` that the supervised train step needs: ``assemble_batch``
-(audio padded to the frame bucket -- int16 PCM when
-``data.audio_i16_transfer`` is set -- tokens PAD-padded to the token
-bucket, a ``real`` mask for filler rows), ``compute_global_cmvn`` and a
-simple seeded batcher over ``bucketing.plan_epoch``.  Prefetch threads,
-resumable positions and the unlabeled streams wait for the Solver slice.
+data/pipeline.py`` that the train step needs: ``assemble_batch`` (audio
+padded to the frame bucket -- int16 PCM when ``data.audio_i16_transfer``
+is set -- tokens PAD-padded to the token bucket, a ``real`` mask for
+filler rows), ``repeating_batches`` (the endless seeded audio stream over
+``bucketing.plan_epoch``, labeled or not), ``text_batches`` (the unlabeled
+text stream) and ``compute_global_cmvn``.  Prefetch threads, resumable
+positions (``skip_batches``) and sharding wait for the Solver and
+data-parallel slices; the streams refuse those arguments.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections.abc import Iterator
 from dataclasses import dataclass
 
@@ -66,24 +70,76 @@ def assemble_batch(dataset, idxs: list[int], n_real: int,
     return Batch(audio, audio_lens, tokens, np.arange(b) < n_real, bucket)
 
 
-def batches(dataset, spec: BucketSpec, batch_size: int, fcfg: FrontendConfig,
-            seed: int) -> Iterator[Batch]:
+def _refuse_unported(skip_batches: int, shard_index: int, num_shards: int,
+                     row_shard) -> None:
+    if skip_batches or shard_index or num_shards != 1 or row_shard:
+        raise NotImplementedError(
+            "resumed or sharded streams (skip_batches, shard_index, "
+            "num_shards, row_shard) are not ported yet: they wait for the "
+            "Solver and data-parallel slices")
+
+
+def repeating_batches(
+    dataset,
+    spec: BucketSpec,
+    fcfg: FrontendConfig,
+    batch_size: int,
+    seed: int,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    drop_remainder: bool = True,
+    skip_batches: int = 0,
+    row_shard: tuple[int, int, int] | None = None,
+) -> Iterator[Batch]:
     """Endless bucketed batches, epoch after epoch, each epoch shuffled from
-    (seed, epoch); a bucket's last partial batch is filled by repeating its
-    rows, which ``real`` marks as filler."""
+    (seed, epoch).  Without ``drop_remainder`` a bucket's last partial
+    batch is filled by repeating its rows, which ``real`` marks as
+    filler."""
+    _refuse_unported(skip_batches, shard_index, num_shards, row_shard)
     lengths = [(dataset.audio_len(i), dataset.token_len(i))
                for i in range(len(dataset))]
-    epoch = 0
-    while True:
+    for epoch in itertools.count():
         plan, _ = plan_epoch(lengths, spec, batch_size, seed, epoch,
-                             drop_remainder=False)
+                             drop_remainder)
         if not plan:
             raise ValueError(
-                "no utterance fits the bucket grid: raise "
-                "data.frame_buckets / data.token_buckets")
+                f"epoch {epoch} produced no batch: no utterance fits the "
+                "bucket grid (raise data.frame_buckets / "
+                "data.token_buckets), or fewer rows than the batch size "
+                "remain with drop_remainder")
         for key, idxs, n_real in plan:
             yield assemble_batch(dataset, idxs, n_real, key, spec, fcfg)
-        epoch += 1
+
+
+def text_batches(
+    dataset,
+    token_bucket: int,
+    batch_size: int,
+    seed: int,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    skip_batches: int = 0,
+    row_shard: tuple[int, int, int] | None = None,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Endless unlabeled-text stream: (tokens [B, U] int32, EOS-terminated
+    and PAD-padded to ``token_bucket``; real [B] bool), each epoch a
+    permutation from (seed, epoch); the last batch of an epoch is padded
+    with all-PAD filler rows."""
+    _refuse_unported(skip_batches, shard_index, num_shards, row_shard)
+    if len(dataset) == 0:
+        raise ValueError("text_batches: the dataset is empty")
+    for epoch in itertools.count():
+        order = np.random.default_rng((seed, epoch, 17)).permutation(
+            len(dataset))
+        for s in range(0, len(order), batch_size):
+            tokens = np.full((batch_size, token_bucket), PAD, np.int32)
+            real = np.zeros((batch_size,), bool)
+            for r, i in enumerate(order[s:s + batch_size]):
+                t = dataset[int(i)].tokens
+                u = min(len(t), token_bucket)
+                tokens[r, :u] = t[:u]
+                real[r] = True
+            yield tokens, real
 
 
 def compute_global_cmvn(dataset, fcfg: FrontendConfig,

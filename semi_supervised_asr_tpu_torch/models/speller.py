@@ -2,12 +2,13 @@
 
 Counterpart of ``semi_supervised_asr_tpu/models/speller.py`` for the LSTM
 speller, with tied or untied output: ``precompute_decode_cache``,
-``init_state`` and ``step`` (``speller_step``) for decoding, and
+``init_state`` and ``step`` (``speller_step``) for decoding,
 ``forward_teacher`` for training (teacher forcing with scheduled
-sampling).  The decoder state is a dict of tensors whose lattice-row axis
-is 0 (``h`` and ``c`` are layer-stacked [L, B*, H], row axis 1), so the
-beam reorders it with one index per leaf.  Decoder dropout is not ported
-yet.
+sampling), and ``text_autoencoder_logits``, the text autoencoder's pass
+over unlabeled text.  The decoder state is a dict of tensors whose
+lattice-row axis is 0 (``h`` and ``c`` are layer-stacked [L, B*, H], row
+axis 1), so the beam reorders it with one index per leaf.  Decoder
+dropout is not ported yet.
 """
 
 from __future__ import annotations
@@ -144,3 +145,19 @@ class Speller(nn.Module):
             logits_all.append(logits)
             alphas.append(alpha)
         return torch.stack(logits_all, dim=1), torch.stack(alphas, dim=1)
+
+    def text_autoencoder_logits(
+        self,
+        tokens_in: torch.Tensor,    # [B, U] decoder inputs (<sos> first)
+    ) -> torch.Tensor:
+        """The text autoencoder: the shared speller at teacher-forcing rate
+        1 over one zero frame with an all-true mask -> logits [B, U, V].
+        The attention context is zero, so the gradient reaches the
+        speller's own weights only (the reference's
+        ``text_autoencoder_logits``)."""
+        b, dev = tokens_in.shape[0], tokens_in.device
+        enc = torch.zeros((b, 1, self.cfg.enc_out_dim), dtype=torch.float32,
+                          device=dev)
+        mask = torch.ones((b, 1), dtype=torch.bool, device=dev)
+        logits, _ = self.forward_teacher(enc, mask, tokens_in, 1.0)
+        return logits

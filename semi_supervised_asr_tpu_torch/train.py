@@ -1,4 +1,4 @@
-"""Supervised training CLI of the PyTorch port.
+"""Training CLI of the PyTorch port, supervised and semi-supervised.
 
     python -m semi_supervised_asr_tpu_torch.train --config configs/timit.yaml \\
         --workdir DIR --steps N [--device cpu] [--seed S] [section.key=value ...]
@@ -6,22 +6,30 @@
 The per-step part of the JAX package's ``main.py --train`` (``Solver.train``)
 for the LAS family: global CMVN over the training set (cached in
 ``DIR/cmvn.npz``, as the Solver does), seeded bucketed batches (int16 PCM
-when ``data.audio_i16_transfer`` is set), and ``N`` supervised steps
+when ``data.audio_i16_transfer`` is set), and ``N`` steps
 (``training/train_step.py``), each logged as one JSON line of
-``DIR/metrics.jsonl`` with the JAX metric keys.  At the end it writes
-``DIR/params.npz``, so that ``semi_supervised_asr_tpu_torch.transcribe
---load-dir DIR`` decodes with what it trained.  Weights start from
+``DIR/metrics.jsonl`` with the JAX metric keys.  When
+``objective.lambda_pseudo`` / ``lambda_text_ae`` > 0 (``configs/
+ls100_semi.yaml``) each step also takes one batch of unlabeled audio,
+padded to the largest frame and token buckets, and one of unlabeled text,
+padded to the largest token bucket, both at ``train.batch_size`` (the
+Solver's streams, seeded ``seed + 1`` and ``seed + 2``).  At the end it
+writes ``DIR/params.npz``, so that ``semi_supervised_asr_tpu_torch.
+transcribe --load-dir DIR`` decodes with what it trained.  Weights start from
 ``weights.init_numpy(seed)``.
 
 ``--device`` defaults to ``cuda`` and the CLI refuses to start without it;
 ``--device cpu`` runs every kernel's plain version.  ``data.dataset=synthetic``
 trains on the seeded synthetic corpus, with nothing on disk.  Evaluation,
-checkpoints and resume wait for the Solver slice.
+checkpoints, resume and decoding with the EMA weights (``decode.use_ema``;
+the step updates the buffer, ``params.npz`` holds the live weights) wait
+for the Solver slice.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -39,6 +47,8 @@ from semi_supervised_asr_tpu_torch.training import train_step as TS
 from semi_supervised_asr_tpu_torch.transcribe import finalize_config
 
 METRIC_KEYS = ("loss", "ce", "acc", "grad_norm", "tf_rate", "frames", "lr")
+# logged where the step runs the text autoencoder / the pseudo-label term
+SEMI_KEYS = ("text_ae", "pseudo", "pseudo_gate")
 
 
 def load_cmvn(cfg: Config, dataset, workdir: Path):
@@ -78,16 +88,47 @@ class Trainer:
                      torch.as_tensor(inv_std, device=self.device))
         self.spec = make_bucket_spec(cfg.data, cfg.frontend,
                                      cfg.model.time_reduction)
-        self.batches = pipeline.batches(bundle.train, self.spec,
-                                        cfg.train.batch_size, cfg.frontend,
-                                        seed)
+        bs = cfg.train.batch_size
+        self.batches = pipeline.repeating_batches(
+            bundle.train, self.spec, cfg.frontend, bs, seed,
+            drop_remainder=False)
+        self.unlab_audio = self.unlab_text = None
+        obj = cfg.objective
+        if obj.lambda_pseudo > 0.0 and bundle.unlabeled_audio is not None:
+            big = make_bucket_spec(dataclasses.replace(
+                cfg.data, frame_buckets=(self.spec.frame_buckets[-1],),
+                token_buckets=(self.spec.token_buckets[-1],)),
+                cfg.frontend, cfg.model.time_reduction)
+            self.unlab_audio = pipeline.repeating_batches(
+                bundle.unlabeled_audio, big, cfg.frontend, bs, seed + 1,
+                drop_remainder=False)
+        if obj.lambda_text_ae > 0.0 and bundle.unlabeled_text is not None:
+            self.unlab_text = pipeline.text_batches(
+                bundle.unlabeled_text, self.spec.token_buckets[-1], bs,
+                seed + 2)
+
+    def unlabeled(self) -> dict:
+        """The next batch of each unlabeled stream, as the step's keyword
+        arguments on the device (empty for a supervised run)."""
+        out = {}
+        if self.unlab_audio is not None:
+            audio, lens, _, real = batch_tensors(next(self.unlab_audio),
+                                                 self.device)
+            out.update(unlab_audio=audio, unlab_audio_lens=lens,
+                       unlab_real=real)
+        if self.unlab_text is not None:
+            tokens, real = next(self.unlab_text)
+            out.update(unlab_text=torch.as_tensor(tokens).to(self.device),
+                       unlab_text_real=torch.as_tensor(real).to(self.device))
+        return out
 
     def step(self, batch: pipeline.Batch) -> dict:
-        """One supervised step -> metrics as Python numbers."""
+        """One step on ``batch`` and the next unlabeled batches -> metrics
+        as Python numbers."""
         audio, lens, tokens, real = batch_tensors(batch, self.device)
         m = TS.supervised_step(self.cfg, self.state, audio, lens, tokens,
-                               real, self.cmvn)
-        return {k: float(m[k]) for k in METRIC_KEYS}
+                               real, self.cmvn, **self.unlabeled())
+        return {k: float(m[k]) for k in METRIC_KEYS + SEMI_KEYS if k in m}
 
     def run(self, steps: int, log=print) -> list[dict]:
         out = []
@@ -99,8 +140,10 @@ class Trainer:
                        "bucket": list(batch.bucket)}
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
+                semi = "".join(f" {k} {m[k]:.4f}" for k in SEMI_KEYS
+                               if k in m)
                 log(f"step {rec['step']} loss {m['loss']:.4f} ce "
-                    f"{m['ce']:.4f} acc {m['acc']:.3f} grad_norm "
+                    f"{m['ce']:.4f} acc {m['acc']:.3f}{semi} grad_norm "
                     f"{m['grad_norm']:.3f} bucket {batch.bucket}")
                 out.append(rec)
         weights.save_npz(self.state.model, self.workdir / "params.npz")

@@ -28,6 +28,7 @@ from semi_supervised_asr_tpu_torch import weights
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models import listener as L
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
 
 KW = dict(n_mels=20, vocab_size=16, enc_hidden=16, enc_heads=2,
           enc_ff_dim=32, enc_blocks=2, conv_subsample=2, conv_channels=4,

@@ -24,6 +24,7 @@ from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import frontend as TF
 from semi_supervised_asr_tpu_torch.ops import fused_frontend as TFF
 from semi_supervised_asr_tpu_torch.training import train_step as TTS
+from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = FrontendConfig(cmvn="global", spec_augment=True)

@@ -10,6 +10,7 @@ and the rest give identical outputs.
 """
 
 import dataclasses
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,7 @@ from semi_supervised_asr_tpu import config as JC
 from semi_supervised_asr_tpu import transcribe as JTR
 from semi_supervised_asr_tpu.data import bucketing as JB
 from semi_supervised_asr_tpu.data import corpus as JCO
+from semi_supervised_asr_tpu.data import pipeline as JP
 from semi_supervised_asr_tpu.data import registry as JR
 from semi_supervised_asr_tpu.data import synthetic as JSY
 from semi_supervised_asr_tpu.data import vocab as JV
@@ -29,6 +31,7 @@ from semi_supervised_asr_tpu_torch import config as PC
 from semi_supervised_asr_tpu_torch import transcribe as PTR
 from semi_supervised_asr_tpu_torch.data import bucketing as PB
 from semi_supervised_asr_tpu_torch.data import corpus as PCO
+from semi_supervised_asr_tpu_torch.data import pipeline as PP
 from semi_supervised_asr_tpu_torch.data import registry as PR
 from semi_supervised_asr_tpu_torch.data import synthetic as PSY
 from semi_supervised_asr_tpu_torch.data import vocab as PV
@@ -142,3 +145,77 @@ def test_audio_loading_and_collect_files_match_jax(tmp_path):
     want = JCO.ManifestDataset(manifest, JV.timit_vocab())[0]
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_array_equal(got.audio, want.audio)
+
+
+def semi_configs(tmp_path=None):
+    """configs/ls100_semi.yaml on the synthetic corpus, or, given a
+    directory, on manifests there -- for the port and for JAX."""
+    extra = (["data.num_synthetic_utts=6", "data.dataset=synthetic"]
+             if tmp_path is None else [f"data.data_dir={tmp_path}"])
+    path = REPO / "configs" / "ls100_semi.yaml"
+    return PC.load_config(path, extra), JC.load_config(path, extra)
+
+
+def test_unlabeled_sets_match_jax(tmp_path):
+    """The registry's unlabeled audio and text: synthetic (seed + 2 and
+    + 3) and from the manifests of the configured splits."""
+    pc, jc = semi_configs()
+    got, want = PR.build_datasets(pc), JR.build_datasets(jc)
+    for name in ("unlabeled_audio", "unlabeled_text"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert (len(g), g.labeled, g.cfg.synthetic_seed) == (
+            len(w), w.labeled, w.cfg.synthetic_seed)
+        for i in range(3):
+            np.testing.assert_array_equal(g[i].audio, w[i].audio)
+            np.testing.assert_array_equal(g[i].tokens, w[i].tokens)
+    rng = np.random.default_rng(3)
+    for split, text in (("train-clean-100", "ab c"),
+                        ("train-clean-360", "de f"), ("dev", "g")):
+        wavfile.write(tmp_path / f"{split}.wav", 16000,
+                      rng.integers(-3000, 3000, 1600).astype(np.int16))
+        (tmp_path / f"{split}.jsonl").write_text(
+            f'{{"uid": "{split}", "audio": "{split}.wav", '
+            f'"n_samples": 1600, "text": "{text}"}}\n')
+    pc, jc = semi_configs(tmp_path)
+    got, want = PR.build_datasets(pc), JR.build_datasets(jc)
+    for name in ("train", "unlabeled_audio", "unlabeled_text"):
+        g, w = getattr(got, name)[0], getattr(want, name)[0]
+        np.testing.assert_array_equal(g.audio, w.audio)
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+    assert got.unlabeled_audio[0].uid == "train-clean-360"
+
+
+def test_unlabeled_streams_match_jax():
+    """The first batches of the unlabeled audio stream (the largest
+    frame and token bucket, no dropped remainder, train.seed + 1) and of
+    the text stream (the largest token bucket, train.seed + 2), array for
+    array, across an epoch boundary."""
+    pc, jc = semi_configs()
+    pspec = PB.make_bucket_spec(dataclasses.replace(
+        pc.data, frame_buckets=(1600,), token_buckets=(256,)),
+        pc.frontend, 8)
+    jspec = JB.make_bucket_spec(dataclasses.replace(
+        jc.data, frame_buckets=(1600,), token_buckets=(256,)),
+        jc.frontend, 8)
+    pset = PR.build_datasets(pc).unlabeled_audio
+    jset = JR.build_datasets(jc).unlabeled_audio
+    got = PP.repeating_batches(pset, pspec, pc.frontend, 4, 1,
+                               drop_remainder=False)
+    want = JP.repeating_batches(jset, jspec, jc.frontend, 4, 1,
+                                drop_remainder=False)
+    for g, w in zip(got, itertools.islice(want, 4)):
+        for f in ("audio", "audio_lens", "tokens", "real"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+        assert g.bucket == w.bucket == (1600, 256)
+    ptext = PR.build_datasets(pc).unlabeled_text
+    jtext = JR.build_datasets(jc).unlabeled_text
+    for (gt, gr), (wt, wr) in zip(
+            PP.text_batches(ptext, 256, 4, 2),
+            itertools.islice(JP.text_batches(jtext, 256, 4, 2), 4)):
+        np.testing.assert_array_equal(gt, wt)
+        np.testing.assert_array_equal(gr, wr)
+    with pytest.raises(NotImplementedError, match="skip_batches"):
+        next(PP.text_batches(ptext, 256, 4, 2, skip_batches=3))
+    with pytest.raises(NotImplementedError, match="num_shards"):
+        next(PP.repeating_batches(pset, pspec, pc.frontend, 4, 1,
+                                  num_shards=2))

@@ -22,6 +22,7 @@ from semi_supervised_asr_tpu.ops import recurrent as JR
 from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
+from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
 
 B, T, I, H = 8, 12, 16, 128
 TOL = dict(rtol=1e-5, atol=1e-5)

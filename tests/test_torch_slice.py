@@ -33,6 +33,7 @@ from semi_supervised_asr_tpu.training.train_step import featurize
 from semi_supervised_asr_tpu_torch import synthetic, weights
 from semi_supervised_asr_tpu_torch import transcribe as TR
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "configs" / "timit.yaml")
@@ -235,7 +236,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "new = ('ops.flash_mhsa', 'models.transformer_listener',\n"
-        "       'models.conformer_listener')\n"
+        "       'models.conformer_listener', 'objectives.losses',\n"
+        "       'training.train_step', 'data.pipeline', 'data.registry',\n"
+        "       'decode.greedy', 'train')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"

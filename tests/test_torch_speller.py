@@ -29,6 +29,7 @@ from semi_supervised_asr_tpu_torch.decode.beam import beam_decode_from_enc
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
 from semi_supervised_asr_tpu_torch.models.attention import Attention
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
 
 CFG = ModelConfig(
     n_mels=80, vocab_size=65, enc_hidden=128, enc_base_layers=1,

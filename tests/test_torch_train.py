@@ -85,6 +85,17 @@ FAST_XLA = {"xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: its shapes are tiny, and the
+    test workers that share the machine would oversubscribe its cores
+    (each small torch op then waits on the other workers' threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 
@@ -375,11 +386,28 @@ def test_train_cli_then_transcribe_on_cpu(tmp_path, capsys):
     assert json.loads(out.read_text())["audio"] == str(wav[0])
 
 
+def test_train_cli_semi_on_cpu(tmp_path):
+    """configs/ls100_semi.yaml (text autoencoder, EMA-teacher pseudo-labels,
+    the unlabeled streams) at the tiny width: the pseudo-label gate is
+    closed at step 0 and open from step 1."""
+    d = tmp_path / "semi"
+    assert TRN.main(["--config", "configs/ls100_semi.yaml", "--workdir",
+                     str(d), "--steps", "2", "--device", "cpu", *TINY,
+                     "objective.pseudo_warmup_steps=1"]) == 0
+    recs = [json.loads(x) for x in (d / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert [r["pseudo_gate"] for r in recs] == [0.0, 1.0]
+    for r in recs:
+        assert all(math.isfinite(r[k])
+                   for k in TRN.METRIC_KEYS + TRN.SEMI_KEYS)
+        assert r["text_ae"] > 0
+
+
 @pytest.mark.parametrize("override, message", [
     ("model.dec_dropout=0.1", "model.dec_dropout"),
     ("frontend.speed_perturb=[0.9,1.1]", "frontend.speed_perturb"),
     ("train.grad_accum=2", "train.grad_accum"),
-    ("objective.lambda_text_ae=0.5", "objective.lambda_text_ae"),
+    ("objective.lambda_mwer=0.2", "objective.lambda_mwer"),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, override, message):
     with pytest.raises(SystemExit, match=message):
