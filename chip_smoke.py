@@ -48,9 +48,10 @@ failure raises and the script exits non-zero:
    gradients of one whole BiLSTM layer (dx, dW_ih, dW_hh, db) through the
    autograd Function, kernel against plain, in float32; then K3's
    cluster route at phase 3's shapes;
-7. the training slice at ``configs/timit.yaml`` full width through the
-   port's ``train`` entry (synthetic corpus, bucket 400, B=32, bf16,
-   weights from seed 0): 3 steps, the loss of each, finite losses, and
+7. the training slice at ``configs/timit.yaml`` full width through
+   the Solver (the train CLI's short form; synthetic corpus, bucket 400,
+   B=32, bf16, weights from seed 0): 3 steps, the loss of each, finite
+   losses, and
    each kernel's launch count from that run (all three > 0, K1 once a
    step, K2 and K3 on the cluster route); then one bf16 step from the trained weights and
    one float32 step from fresh ones, each with one batch and fixed
@@ -85,8 +86,9 @@ failure raises and the script exits non-zero:
     encode); then one bucket-800 batch on ``backend="reference"``:
     encoder outputs within the K5 bounds and, in float32, identical
     tokens;
-11. the training slice at the same width through ``train`` (synthetic
-    corpus, bucket 1600 so that T'=400, B=32, bf16): 3 steps, finite
+11. the training slice at the same width through the Solver
+    (synthetic corpus, bucket 1600 so that T'=400, B=32, bf16,
+    ``train.async_ckpt=false``): 3 steps, finite
     losses, K1 once a step, both K5 launch counts > 0; then one float32 step on
     kernels against the plain versions, as in phase 7;
 12. K5 forward and backward (bf16, B=32, 8 heads of 64) against
@@ -102,10 +104,14 @@ failure raises and the script exits non-zero:
     batch and train step on kernels against the plain versions;
 13. the semi-supervised step (C4) at ``configs/ls100_semi.yaml`` full
     width (enc 384 x (1 + 3) BiLSTM, dec 768, batch 64, bf16; synthetic
-    data, the pseudo-label gate open from step 1) through
-    ``train.Trainer``: 3 steps, each with its metrics (loss, ce, text_ae,
-    pseudo, pseudo_gate, grad_norm), wall time and kernel launches by
-    route (K1 3, K2 12 and K3 8 a step, K2 and K3 on the cluster route);
+    data, the pseudo-label gate open from step 1) through the Solver: 3
+    steps with a checkpoint at step 2, each with its metrics (loss, ce,
+    text_ae, pseudo, pseudo_gate, grad_norm), wall time and kernel
+    launches by route (K1 3, K2 12 and K3 8 a step, K2 and K3 on the
+    cluster route), the final validation on the EMA buffer
+    (``decode.use_ema``; K1 1 and K2 4 a dev batch); step 2's checkpoint
+    resumed in a fresh workdir must give step 3's state (parameters, EMA
+    buffer, Adam moments and count, generator) bitwise;
     a float32 step from fresh weights and a bf16 step from the trained
     ones with the gate open and every row kept, kernels against plain:
     the clean view, the teacher's hypotheses, then the loss and every
@@ -113,12 +119,30 @@ failure raises and the script exits non-zero:
     phase-7 bounds in bf16) and the EMA buffer after the update (1e-6);
     K2 and K3 at the step's first-layer shapes (B=64, H=384, T=400 and
     1600) with their launch plans and resident clusters, and K2 at B=56
-    (a launch that fits the card in one wave) beside B=64.
+    (a launch that fits the card in one wave) beside B=64;
+14. the Solver path at ``configs/timit.yaml`` full width (synthetic
+    corpus of 128 utterances in one 400-frame bucket, B=32, bf16):
+    ``Solver.train`` for 4 steps with validation and a checkpoint every 2
+    (K1 1, K2 4, K3 4 a step and K1 1, K2 4 a dev batch, K2 and K3 on the
+    cluster route); a bf16 step from the trained weights on the run's
+    first batch and the dev batch's encoder (bf16 and float32) and
+    decodes (float32, identical tokens), kernels against plain; the host
+    time of a step's input copies (pinned, side stream) against a plain
+    ``.to(device)``; the same run stopped at step 2 and resumed by
+    ``main --train --resume`` in a fresh process: step 4's state, data
+    position and step-3/4 records bitwise equal to the straight run's;
+    retention after a worse dev error (the newest two and the best
+    survive); ``main --test`` with beam 5 and greedy (PER, length-cap hit
+    rate, ``--hyp-out`` and its analysis); ``eval_params``'s weights
+    against a Recognizer given the same weights in float32 (identical
+    tokens); ``transcribe --load-dir`` on the workdir; the card's
+    checkpoint, restore, evaluation, start-up and first-step times and
+    the run's frames per second.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
-was taken, and its design; launches from the timit training run for
-K1-K3, from the conformer training run for K5, and per path in
+was taken, and its design; launches from the timit Solver run (phase 14)
+for K1-K3, from the conformer training run for K5, and per path in
 ``launches_by_path``; K2 and K3 also at the C4 shapes in ``at_c4``); the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
@@ -204,9 +228,11 @@ CONFORMER_CONFIG = ROOT / "configs" / "ls960_conformer.yaml"
 CONFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
                        "train.batch_size=32"]
 # training: two batches of 32 per epoch in the recipe's largest bucket
-# (T' = 400 after the 4x stem); dropout and SortaGrad are not ported
+# (T' = 400 after the 4x stem); dropout, SortaGrad and the recipe's
+# background checkpoint saves (train.async_ckpt) are not ported
 CONFORMER_TRAIN = ["model.enc_dropout=0", "data.sortagrad_epochs=0",
-                   "data.num_synthetic_utts=64", "data.frame_buckets=[1600]"]
+                   "train.async_ckpt=false", "data.num_synthetic_utts=64",
+                   "data.frame_buckets=[1600]"]
 # K5's timing shape: bucket 1600 -> T' = 400, B=32, 8 heads of 64
 K5_TIMING = (32, 400, 8, 64)
 # T' of ls960_conformer's four buckets (400-1600 frames, 4x stem), each
@@ -237,6 +263,31 @@ C4_LAUNCHES = {"fused_post_fft": 3, "lstm_scan_fwd": 12, "lstm_scan_bwd": 8}
 # K2 and K3 timed at the C4 step's first-layer shapes (B=64, H=384, 80
 # inputs): the labeled view (T=400) and the unlabeled views (T=1600)
 C4_LSTM_T = (400, 1600)
+# phase 13's run of the C4 path through the Solver: 3 steps, a checkpoint
+# at step 2, the final validation (and checkpoint) at step 3 on the EMA
+# buffer; the 64 labeled utterances fill one batch of 64 in the 400-frame,
+# 128-token bucket, so the default data.drop_remainder keeps it
+SEMI_SOLVER = ["train.total_steps=3", "train.ckpt_every=2",
+               "train.eval_every=0", "train.log_every=1",
+               "decode.use_ema=true"]
+# the Solver path (phase 14: main --train / --resume / --test, transcribe
+# from a checkpoint) at configs/timit.yaml full width; cuts: the synthetic
+# corpus of 128 utterances, all in one 400-frame bucket (4 full batches of
+# 32 an epoch under the default data.drop_remainder, and a dev set of 32,
+# one full batch), so that every kernel runs at the shapes phases 2, 4 and
+# 7 hold against the plain versions (K1 at B=32 T=400, K2 and K3 at T'
+# 400-50) and phase 14 holds again on its own batches; 4 steps, validation
+# and a checkpoint every 2, a train record every step
+SOLVER_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=128",
+                    "data.frame_buckets=[400]", "train.total_steps=4",
+                    "train.eval_every=2", "train.ckpt_every=2",
+                    "train.log_every=1"]
+# timit's launches: a train step runs K1 once and K2 and K3 once a layer
+# (1 + 3 BiLSTM layers, both directions in one launch); a validation batch
+# K1 once and K2 once a layer
+SOLVER_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4,
+                        "lstm_scan_bwd": 4}
+SOLVER_EVAL_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4}
 
 
 def c4_tag(t: int) -> str:
@@ -1350,14 +1401,16 @@ def phase11(d: Path):
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch import train as T
 
     log(f"[phase11] overrides {CONFORMER_OVERRIDES + CONFORMER_TRAIN} "
-        "(model.enc_dropout and data.sortagrad_epochs are not ported)")
-    tr = T.Trainer(conformer_config(CONFORMER_TRAIN), d / "bf16", DEVICE,
-                   seed=0)
+        "(model.enc_dropout, data.sortagrad_epochs and train.async_ckpt "
+        "are not ported)")
+    s = short_solver(conformer_config(CONFORMER_TRAIN), d / "bf16")
     _native.reset_launches()
-    recs = tr.run(3, log=lambda m: log(f"[phase11] {m}"))
+    s.train()
+    recs = s.history
+    for r in recs:
+        log(f"[phase11] {r}")
     torch.cuda.synchronize()
     launches = dict(_native.LAUNCHES)
     log(f"[phase11] conformer train 3 steps, bucket 1600, B=32, bf16: "
@@ -1370,11 +1423,10 @@ def phase11(d: Path):
             f"{launches}")
     require(launches["fused_post_fft"] == len(recs),
             f"K1 did not launch once a conformer train step: {launches}")
-    tr32 = T.Trainer(conformer_config(
-        [*CONFORMER_TRAIN, "model.compute_dtype=float32"]), d / "f32",
-        DEVICE, seed=0)
-    step_check(tr32, "phase11")
-    return tr, launches, recs
+    step_check(short_solver(conformer_config(
+        [*CONFORMER_TRAIN, "model.compute_dtype=float32"]), d / "f32"),
+        "phase11")
+    return s, launches, recs
 
 
 def gpu_clocks() -> str:
@@ -1499,12 +1551,12 @@ def k5_bucket(times: dict, shape: tuple) -> None:
                 f"{kernel_ms:.4f} ms)")
 
 
-def phase12(tr, files: list[Path], card: str) -> dict:
+def phase12(s, files: list[Path], card: str) -> dict:
     """Timings at bucket 1600, B=32, bf16: K5 forward and backward against
-    the plain version and SDPA; the conformer serve batch and train step."""
+    the plain version and SDPA; the conformer serve batch and train step
+    (``s``: phase 11's trained Solver)."""
     import torch
 
-    from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch import transcribe as TR
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
@@ -1512,50 +1564,48 @@ def phase12(tr, files: list[Path], card: str) -> dict:
     for t in K5_BUCKETS:
         k5_bucket(times, (*K5_TIMING[:1], t, *K5_TIMING[2:]))
     # the conformer serve batch (beam 5) and train step, kernels vs plain
-    ker = TR.Recognizer(tr.cfg, tr.state.model, (tr.cmvn[0].cpu(),
-                        tr.cmvn[1].cpu()), TR.build_vocab(tr.cfg),
+    ker = TR.Recognizer(s.cfg, s.state.model, s.cmvn, s.vocab,
                         torch.device(DEVICE))
-    ref = TR.Recognizer(ker.cfg, ker.model, (tr.cmvn[0].cpu(),
-                        tr.cmvn[1].cpu()), ker.vocab, torch.device(DEVICE),
-                        backend="reference")
+    ref = TR.Recognizer(ker.cfg, ker.model, s.cmvn, ker.vocab,
+                        torch.device(DEVICE), backend="reference")
     audio, lens = bucket_batch(ker, files, frames=1600)
     for rec in (ref, ker, ker, ref):
         key = "conformer_serve_beam5" + ("_plain" if rec is ref else "")
         times.setdefault(key, []).extend(
             host_ms(lambda: rec.decode(audio, lens, "beam"), reps=1))
-    batch = next(tr.batches)
-    tensors = T.batch_tensors(batch, tr.device)
-    plain = TS.init_train_state(tr.cfg, copy.deepcopy(tr.state.model), 0)
-    for state, backend in ((plain, "reference"), (tr.state, None),
-                           (tr.state, None), (plain, "reference")):
+    _, tensors = first_batch(s)
+    plain = TS.init_train_state(s.cfg, copy.deepcopy(s.state.model), 0)
+    for state, backend in ((plain, "reference"), (s.state, None),
+                           (s.state, None), (plain, "reference")):
         key = "conformer_train_step" + ("_plain" if backend else "")
         times.setdefault(key, []).extend(host_ms(
-            lambda: TS.supervised_step(tr.cfg, state, *tensors, tr.cmvn,
+            lambda: TS.supervised_step(s.cfg, state, *tensors, s.cmvn_dev,
                                        backend=backend), reps=2))
     med = report("phase12", times, card, "bucket 1600, B=32, bf16")
     work = {
         "conformer_beam5_b32_t1600": (lambda: ker.decode(audio, lens, "beam"),
                                       med["conformer_serve_beam5"]),
         "conformer_train_step_b32_t1600": (lambda: TS.supervised_step(
-            tr.cfg, tr.state, *tensors, tr.cmvn),
+            s.cfg, s.state, *tensors, s.cmvn_dev),
             med["conformer_train_step"]),
     }
     return med, work
 
 
-def semi_trainer(d: Path, dtype: str):
-    from semi_supervised_asr_tpu_torch import train as T
+def semi_solver(d: Path, dtype: str, extra=()):
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
 
-    cfg = T.load_config(SEMI_CONFIG, [*SEMI_OVERRIDES,
-                                      f"model.compute_dtype={dtype}"])
-    return T.Trainer(cfg, d, DEVICE, seed=0)
+    return Solver(load_config(SEMI_CONFIG, [
+        *SEMI_OVERRIDES, f"model.compute_dtype={dtype}", *extra]), d, DEVICE)
 
 
-def semi_step_check(tr, loss_tol: float = 1e-5,
+def semi_step_check(s, loss_tol: float = 1e-5,
                     grad_tol: float = GRAD_TOL) -> None:
-    """One C4 step from the trainer's weights (student and EMA teacher),
-    batches and fixed SpecAugment bands, gate open and every row kept
-    (SEMI_CHECK), in the trainer's compute dtype, kernels against plain:
+    """One C4 step from the Solver's weights (student and EMA teacher),
+    the first batch of its streams and fixed SpecAugment bands, gate open
+    and every row kept (SEMI_CHECK), in its compute dtype, kernels against
+    plain:
     the clean view and the teacher's hypotheses are compared first, then
     both runs take the kernel teacher's hypotheses, so that the student's
     loss and gradients are compared on the same targets (loss within
@@ -1565,18 +1615,16 @@ def semi_step_check(tr, loss_tol: float = 1e-5,
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.objectives import losses as LO
     from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
-    cfg = dataclasses.replace(tr.cfg, objective=dataclasses.replace(
-        tr.cfg.objective, **SEMI_CHECK))
+    cfg = dataclasses.replace(s.cfg, objective=dataclasses.replace(
+        s.cfg.objective, **SEMI_CHECK))
     dtype = cfg.model.compute_dtype
     fcfg = cfg.frontend
-    batch = next(tr.batches)
-    tensors = T.batch_tensors(batch, tr.device)
-    unlab = tr.unlabeled()
+    _, _, batch = next(s._labeled_stream())
+    tensors, unlab = s.step_inputs(batch, *s._unlabeled_streams())
     gen = torch.Generator().manual_seed(5)
 
     def bands(audio_lens, frames):
@@ -1589,9 +1637,9 @@ def semi_step_check(tr, loss_tol: float = 1e-5,
     views, labels = {}, {}
     for backend in (None, "reference"):
         views[backend] = TS.featurize(cfg, unlab["unlab_audio"],
-                                      unlab["unlab_audio_lens"], tr.cmvn,
+                                      unlab["unlab_audio_lens"], s.cmvn_dev,
                                       False, backend)
-        labels[backend] = LO.teacher_labels(tr.state.ema, *views[backend],
+        labels[backend] = LO.teacher_labels(s.state.ema, *views[backend],
                                             max_len, backend)
     unlab_bands = bands(unlab["unlab_audio_lens"], views[None][0].shape[1])
     view_err = (views[None][0] - views["reference"][0]).abs().max().item()
@@ -1608,11 +1656,11 @@ def semi_step_check(tr, loss_tol: float = 1e-5,
     out = {}
     _native.reset_launches()
     for backend in (None, "reference"):
-        state = TS.init_train_state(cfg, copy.deepcopy(tr.state.model), 0)
-        state.ema = copy.deepcopy(tr.state.ema)
+        state = TS.init_train_state(cfg, copy.deepcopy(s.state.model), 0)
+        state.ema = copy.deepcopy(s.state.ema)
         t0 = time.perf_counter()
         loss, aux, grads = TS.loss_and_grads(
-            cfg, state, *tensors, tr.cmvn, lab_bands, backend, **unlab,
+            cfg, state, *tensors, s.cmvn_dev, lab_bands, backend, **unlab,
             unlab_specaug=unlab_bands, pseudo_labels=labels[None])
         grads = [g.clone() for g in grads]
         TS.apply_grads(cfg, state, [g.clone() for g in grads])
@@ -1627,7 +1675,7 @@ def semi_step_check(tr, loss_tol: float = 1e-5,
     routes = {k: v for k, v in _native.LAUNCHES.items() if v}
     (lk, ak, gk, ek), (lr, ar, gr, er) = out[None], out["reference"]
     rel = abs(lk.item() - lr.item()) / abs(lr.item())
-    names = [n for n, _ in tr.state.model.named_parameters()]
+    names = [n for n, _ in s.state.model.named_parameters()]
     errs = dict(zip(names, grad_errs(gk, gr)))
     worst = max(errs, key=errs.get)
     ema_err = max((a - b).abs().max().item() for a, b in zip(ek, er))
@@ -1698,65 +1746,458 @@ def c4_lstm_times(times: dict, card: str) -> None:
                 back_to_back_ms(lambda: K.lstm_scan(*args), reps=6))
 
 
-def phase13(d: Path, card: str):
-    """The semi-supervised LAS step (C4) at ls100_semi width through
-    ``train.Trainer``: 3 bf16 steps (the gate closed, then open), each
-    step's kernel launches by route; a float32 step from fresh weights and
-    a bf16 step from the trained ones, kernels against plain; K2 and K3
-    at the step's shapes; the median wall time of a step."""
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] - before.get(k, 0)}
+
+
+def counting(solver, steps: list, evals: list, walls: list) -> None:
+    """Record each step's and each validation's kernel launches (the
+    difference of the counts around the call, so the run's own counts
+    stay whole) and each step's wall time, by wrapping the Solver's
+    ``run_step`` and ``validate`` on this instance."""
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
 
-    tr = semi_trainer(d, "bfloat16")
-    log(f"[phase13] {SEMI_CONFIG.name} at full width, batch 64, bf16; "
-        f"cuts: {SEMI_OVERRIDES}")
-    launches = collections.Counter()
-    walls, recs = [], []
-    for i in range(3):
-        batch = next(tr.batches)
-        _native.reset_launches()
+    run_step, validate = solver.run_step, solver.validate
+
+    def counted_step(args, unlab):
         torch.cuda.synchronize()
+        before = dict(_native.LAUNCHES)
         t0 = time.perf_counter()
-        m = tr.step(batch)
+        m = run_step(args, unlab)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        step = {k: v for k, v in _native.LAUNCHES.items() if v}
-        launches.update(step)
-        recs.append(m)
-        log(f"[phase13] step {i}: loss {m['loss']:.4f} ce {m['ce']:.4f} "
-            f"text_ae {m['text_ae']:.4f} pseudo {m['pseudo']:.4f} "
-            f"pseudo_gate {m['pseudo_gate']:.0f} grad_norm "
-            f"{m['grad_norm']:.4f}; wall {walls[-1]:.1f} ms; bucket "
-            f"{batch.bucket}; kernel launches {step}")
+        steps.append(launch_delta(before, _native.LAUNCHES))
+        return m
+
+    def counted_validate():
+        before = dict(_native.LAUNCHES)
+        out = validate()
+        evals.append((launch_delta(before, _native.LAUNCHES), out))
+        return out
+
+    solver.run_step, solver.validate = counted_step, counted_validate
+
+
+def first_difference(a, b, path: str = "") -> str | None:
+    """The first leaf of two checkpoint trees (dicts, lists, tensors,
+    numbers) whose bits differ, or None."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return f"{path} (keys)"
+        for k in a:
+            d = first_difference(a[k], b[k], f"{path}.{k}" if path else k)
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path} (length)"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = first_difference(x, y, f"{path}.{i}")
+            if d:
+                return d
+        return None
+    if isinstance(a, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+        return None if same else path
+    return None if a == b else path
+
+
+def require_launches(what: str, got: dict, want: dict) -> None:
+    """``got`` holds exactly ``want``'s counts, every K2 / K3 launch on the
+    cluster route."""
+    main = {k: got.get(k, 0) for k in LSTM_PATH}
+    require(main == {k: want.get(k, 0) for k in LSTM_PATH},
+            f"{what}: kernel launches {got}, not {want}")
+    for k in ("fwd", "bwd"):
+        require(got.get(f"lstm_scan_{k}_cluster", 0)
+                == got.get(f"lstm_scan_{k}", 0),
+                f"{what} ran K2 or K3 off the cluster route: {got}")
+
+
+def phase13(d: Path, card: str):
+    """The semi-supervised LAS step (C4) at ls100_semi width through the
+    Solver: 3 bf16 steps (the gate closed, then open) with a checkpoint at
+    step 2 and the final validation on the EMA buffer, each step's and the
+    validation's kernel launches by route; step 2's checkpoint resumed in a
+    fresh workdir must reproduce step 3 bitwise; a float32 step from fresh
+    weights and a bf16 step from the trained ones, kernels against plain;
+    K2 and K3 at the step's shapes; the median wall time of a step."""
+    import shutil
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+
+    run = d / "run"
+    s = semi_solver(run, "bfloat16", SEMI_SOLVER)
+    log(f"[phase13] {SEMI_CONFIG.name} at full width, batch 64, bf16, "
+        f"through the Solver; cuts: {SEMI_OVERRIDES + SEMI_SOLVER}")
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    _native.reset_launches()
+    final = s.train()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = s.history
+    require(len(recs) == len(steps) == 3, f"C4 run took {len(steps)} steps")
+    for i, (m, step) in enumerate(zip(recs, steps)):
+        log(f"[phase13] step {i + 1}: loss {m['loss']:.4f} ce "
+            f"{m['ce']:.4f} text_ae {m['text_ae']:.4f} pseudo "
+            f"{m['pseudo']:.4f} pseudo_gate {m['pseudo_gate']:.0f} "
+            f"grad_norm {m['grad_norm']:.4f}; wall {walls[i]:.1f} ms; "
+            f"kernel launches {step}")
         require(all(math.isfinite(v) for v in m.values()),
-                f"C4 step {i}: a metric is not finite")
-        for k, n in C4_LAUNCHES.items():
-            require(step.get(k, 0) == n, f"C4 step {i}: {k} launched "
-                    f"{step.get(k, 0)} times, not {n}: {step}")
-        for k in ("fwd", "bwd"):
-            require(step.get(f"lstm_scan_{k}_cluster") == step[
-                f"lstm_scan_{k}"], f"C4 step {i} ran K2 or K3 off the "
-                f"cluster route: {step}")
+                f"C4 step {i + 1}: a metric is not finite")
+        require_launches(f"C4 step {i + 1}", step, C4_LAUNCHES)
     require([r["pseudo_gate"] for r in recs] == [0.0, 1.0, 1.0],
-            "the pseudo-label gate did not open after step 0")
-    semi_step_check(semi_trainer(d / "f32", "float32"))
+            "the pseudo-label gate did not open after step 1")
+    require(len(evals) == 1, f"{len(evals)} validations, not 1")
+    ev_launches, dev = evals[0]
+    n_dev = -(-len(s.bundle.dev) // s.cfg.train.batch_size)
+    require_launches("C4 validation", ev_launches,
+                     {k: n * n_dev for k, n in SOLVER_EVAL_LAUNCHES.items()})
+    log(f"[phase13] validation on the EMA buffer (decode.use_ema=true, "
+        f"greedy, {len(s.bundle.dev)} dev utterances in {n_dev} batch): "
+        f"{dev}; kernel launches {ev_launches}; run launches {launches}")
+    require(all(math.isfinite(v) for v in final.values()),
+            "C4 validation not finite")
+    require(s.ckpt.all_steps() == [2, 3],
+            f"C4 checkpoints {s.ckpt.all_steps()}, not [2, 3]")
+    # step 2's checkpoint in a fresh workdir, resumed to step 3
+    res = d / "resumed"
+    shutil.copytree(run / "checkpoints" / "2", res / "checkpoints" / "2")
+    shutil.copy(run / "cmvn.npz", res / "cmvn.npz")
+    s2 = semi_solver(res, "bfloat16", SEMI_SOLVER)
+    s2.train(resume=True)
+    sd_a, meta_a, _ = Checkpointer(run / "checkpoints").load(3)
+    sd_b, meta_b, _ = Checkpointer(res / "checkpoints").load(3)
+    diff = first_difference(sd_a, sd_b)
+    same_rec = all(recs[2][k] == s2.history[0][k]
+                   for k in T.METRIC_KEYS + T.SEMI_KEYS)
+    log(f"[phase13] resumed from step 2 in a fresh workdir: step 3's "
+        f"state (parameters, EMA buffer, Adam moments and count, generator) "
+        f"{'bitwise equal' if diff is None else 'differs first at ' + diff};"
+        f" data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}; step-3 "
+        f"metrics equal: {same_rec}")
+    require(diff is None, f"C4 resume differs from the straight run first "
+            f"at {diff}")
+    require(meta_a["data_pos"] == meta_b["data_pos"], "C4 data_pos differs")
+    require(same_rec, f"C4 step-3 metrics differ: {recs[2]} vs "
+            f"{s2.history[0]}")
+    del s2, sd_a, sd_b
+    semi_step_check(semi_solver(d / "f32", "float32"))
     torch.cuda.empty_cache()
-    semi_step_check(tr, BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    semi_step_check(s, BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
     times = {"c4_train_step": walls[1:]}
     c4_lstm_times(times, card)
     med = report("phase13", times, card, "ls100_semi, B=64, bf16")
-    work = {"c4_train_step_b64": (lambda: tr.step(next(tr.batches)),
-                                  med["c4_train_step"])}
-    return med, dict(launches), work
+    lab = s._labeled_stream()
+    ua, ut = s._unlabeled_streams()
+    work = {"c4_train_step_b64": (
+        lambda: s.run_step(*s.step_inputs(next(lab)[2], ua, ut)),
+        med["c4_train_step"])}
+    return med, launches, work
 
 
-def trainer(d: Path, dtype: str):
+def copy_times(s, card: str) -> None:
+    """Host time of one step's input copies: the Solver's (pinned, on its
+    side stream) against a plain blocking ``.to(device)`` of the same
+    arrays, interleaved, each followed by a synchronize outside the
+    timing."""
+    import torch
+
+    batch = next(s._labeled_stream())[2]
+    arrays = (batch.audio, batch.audio_lens, batch.tokens, batch.real)
+    ways = {"pinned, side stream": lambda: s._put(*arrays),
+            "plain .to(device)": lambda: tuple(
+                torch.as_tensor(a).to(s.device) for a in arrays)}
+    times = {k: [] for k in ways}
+    for _ in range(10):
+        for k in (*ways, *reversed(ways)):
+            t0 = time.perf_counter()
+            ways[k]()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    log(f"[phase14] a step's input copies ({batch.audio.nbytes / 1e6:.2f} "
+        f"MB of audio), host ms, median of 20: " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in times.items())
+        + f" ({card})")
+
+
+def read_records(workdir: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (workdir / "metrics.jsonl").read_text().splitlines()]
+
+
+def by_prefix(recs: list[dict], prefix: str) -> list[dict]:
+    return [r for r in recs if r["prefix"] == prefix]
+
+
+def phase14(d: Path, card: str) -> dict:
+    """The Solver path at timit full width: ``Solver.train`` for 4 steps
+    with validation and a checkpoint every 2 (each step's and each
+    validation's launches), the same run split at step 2 and resumed by
+    ``main --train --resume`` in a fresh process (bitwise equal), the
+    retention rule, ``main --test`` with beam 5 and greedy, the checkpoint
+    weights against a Recognizer given the same weights (float32), and
+    ``transcribe --load-dir`` on the workdir; the card's checkpoint,
+    restore, evaluation and start-up times."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native, synthetic, weights
+    from semi_supervised_asr_tpu_torch import main as M
     from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data import pipeline as pipe
+    from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
 
-    cfg = T.load_config(CONFIG, [*TRAIN_OVERRIDES,
-                                 f"model.compute_dtype={dtype}"])
-    return T.Trainer(cfg, d, DEVICE, seed=0)
+    straight, split = d / "straight", d / "split"
+    log(f"[phase14] {CONFIG.name} at full width (enc 256 x (1 + 3) BiLSTM, "
+        f"dec 512, bf16, B=32) through the Solver; cuts: {SOLVER_OVERRIDES}")
+    s = Solver(load_config(CONFIG, SOLVER_OVERRIDES), straight, DEVICE)
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    s.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = read_records(straight)
+    train = {r["step"]: r for r in by_prefix(recs, "train")}
+    dev = by_prefix(recs, "dev")
+    require(sorted(train) == [1, 2, 3, 4] and len(steps) == 4,
+            f"the Solver logged steps {sorted(train)}")
+    for i, step in enumerate(steps):
+        r = train[i + 1]
+        log(f"[phase14] step {i + 1}: loss {r['loss']:.4f} acc "
+            f"{r['acc']:.3f} grad_norm {r['grad_norm']:.4f} frames_per_sec "
+            f"{r['frames_per_sec']:.0f}; wall {walls[i]:.1f} ms; kernel "
+            f"launches {step}")
+        require(all(math.isfinite(r[k]) for k in T.METRIC_KEYS),
+                f"step {i + 1}: a metric is not finite")
+        require_launches(f"timit Solver step {i + 1}", step,
+                         SOLVER_STEP_LAUNCHES)
+    n_dev = -(-len(s.bundle.dev) // s.cfg.train.batch_size)
+    require(len(evals) == 2, f"{len(evals)} validations, not 2")
+    for ev, out in evals:
+        require_launches("timit validation", ev, {
+            k: n * n_dev for k, n in SOLVER_EVAL_LAUNCHES.items()})
+    for r in dev:
+        log(f"[phase14] dev at step {r['step']}: dev_error (PER) "
+            f"{r['dev_error']:.4f} dev_cap_hit_rate "
+            f"{r['dev_cap_hit_rate']:.3f}; eval_wall_s {r['eval_wall_s']:.3f}"
+            f" ckpt_wall_s {r['ckpt_wall_s']:.3f} ({card})")
+    require(all(launches.get(k, 0) > 0 for k in LSTM_PATH),
+            f"a kernel of the Solver path did not launch: {launches}")
+    require(s.ckpt.all_steps() == [2, 4],
+            f"checkpoints {s.ckpt.all_steps()}, not [2, 4]")
+    log(f"[phase14] Solver.train, 4 steps and 2 validations of "
+        f"{len(s.bundle.dev)} dev utterances ({n_dev} batch): {run_s:.2f} s;"
+        f" kernel launches {launches}")
+    # the run's own shapes, kernels against plain: a bf16 step from the
+    # trained weights on the Solver's first batch (the dev batch's encode
+    # and decode follow with the float32 checks)
+    step_check(s, "phase14", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    copy_times(s, card)
+    t0 = time.perf_counter()
+    s.ckpt.restore(s.state, 4)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+
+    # the same run, stopped at step 2 and resumed in a fresh process
+    Solver(load_config(CONFIG, [*SOLVER_OVERRIDES, "train.total_steps=2"]),
+           split, DEVICE).train()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "semi_supervised_asr_tpu_torch.main",
+         "--config", str(CONFIG), "--train", "--resume", "--workdir",
+         str(split), "--device", DEVICE, *SOLVER_OVERRIDES],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"main --train --resume exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    require("resumed from step 2" in proc.stderr,
+            f"the resumed process did not resume: {proc.stderr[-1000:]}")
+    sd_a, meta_a, _ = Checkpointer(straight / "checkpoints").load(4)
+    sd_b, meta_b, _ = Checkpointer(split / "checkpoints").load(4)
+    diff = first_difference(sd_a, sd_b)
+    recs_b = read_records(split)
+    train_b = {r["step"]: r for r in by_prefix(recs_b, "train")}
+    dev_b = {r["step"]: r for r in by_prefix(recs_b, "dev")}
+    same_rec = all(train[st][k] == train_b[st][k]
+                   for st in (3, 4) for k in T.METRIC_KEYS)
+    wall_a = by_prefix(recs, "wall")[0]
+    wall_b = [r for r in by_prefix(recs_b, "wall") if r["resumed"]][0]
+    log(f"[phase14] main --train --resume in a fresh process ({resume_s:.1f}"
+        f" s): step 4's state (parameters, EMA buffer, Adam moments and "
+        f"count, generator) "
+        f"{'bitwise equal' if diff is None else 'differs first at ' + diff}"
+        f"; data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}; step-3/4"
+        f" train records equal: {same_rec}; dev_error at 4 "
+        f"{dev_b[4]['dev_error']:.4f} vs {dev[-1]['dev_error']:.4f}")
+    require(diff is None, f"the resumed run differs from the straight run "
+            f"first at {diff}")
+    require(meta_a["data_pos"] == meta_b["data_pos"], "data_pos differs")
+    require(same_rec, "the step-3/4 train records differ")
+    require(dev_b[4]["dev_error"] == dev[-1]["dev_error"],
+            "dev_error at step 4 differs")
+    del sd_a, sd_b
+
+    # retention: the newest two and the best keep_ckpts (here 1) survive a
+    # worse dev_error
+    ck = Checkpointer(d / "retention", max_to_keep=1, best_metric="dev_error")
+    save_ms = []
+    for st, err in ((1, 0.5), (2, 0.4), (3, 0.9), (4, 0.95)):
+        t0 = time.perf_counter()
+        ck.save(st, s.state, s.data_pos, {"dev_error": err})
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[phase14] retention (keep 1 best + newest 2) after dev_error "
+        f"0.5, 0.4, 0.9, 0.95: steps {ck.all_steps()}, best_step "
+        f"{ck.best_step()}; save {[round(x, 1) for x in save_ms]} ms")
+    require(ck.all_steps() == [2, 3, 4] and ck.best_step() == 2,
+            "retention lost the resume anchor or the best checkpoint")
+
+    # main --test, beam 5 and greedy
+    tests = {}
+    for beam in (5, 1):
+        hyp = d / f"hyps_beam{beam}.jsonl"
+        buf = io.StringIO()
+        _native.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = M.main(["--config", str(CONFIG), "--test", "--load-dir",
+                         str(straight), "--beam", str(beam), "--hyp-out",
+                         str(hyp), "--device", DEVICE, *SOLVER_OVERRIDES])
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        got = {k: v for k, v in _native.LAUNCHES.items() if v}
+        log(f"[phase14] main --test --beam {beam}: {res}; kernel launches "
+            f"{got}")
+        require(rc == 0 and res["n_utts"] == len(s.bundle.dev)
+                and math.isfinite(res["per"]) and "cap_hit_rate" in res,
+                f"--test --beam {beam}: {res}")
+        require(Path(f"{hyp}.analysis.json").exists(),
+                "--hyp-out wrote no analysis")
+        require_launches(f"--test --beam {beam}", got, {
+            k: n * n_dev for k, n in SOLVER_EVAL_LAUNCHES.items()})
+        tests[beam] = res
+
+    # the checkpoint's weights through eval_params against a Recognizer
+    # given the same weights, float32
+    s32 = Solver(load_config(CONFIG, [*SOLVER_OVERRIDES,
+                                      "model.compute_dtype=float32"]),
+                 straight, DEVICE)
+    batch = next(pipe.epoch_batches(s32.bundle.dev, s32.spec,
+                                    s32.cfg.frontend, 32, 0, 0,
+                                    drop_remainder=False))
+    via_solver = TR.Recognizer(s32.cfg, s32.eval_params(), s32.cmvn,
+                               s32.vocab, torch.device(DEVICE))
+    # the dev batch through K1 and K2, kernels against plain: the run's
+    # bf16 weights (encoder within BF16_TOL) and the checkpoint's in
+    # float32 (encoder within K2_TOL, identical tokens below)
+    for rec, tol in ((TR.Recognizer(s.cfg, s.state.model, s.cmvn, s.vocab,
+                                    torch.device(DEVICE)), BF16_TOL),
+                     (via_solver, K2_TOL)):
+        ref = TR.Recognizer(rec.cfg, rec.model, s.cmvn, s.vocab,
+                            torch.device(DEVICE), backend="reference")
+        err, _ = enc_errs(rec, ref, batch.audio, batch.audio_lens)
+        log(f"[phase14] {rec.cfg.model.compute_dtype} dev batch (B=32, "
+            f"T=400): enc max_abs_err kernels vs plain {err:.3e} (tol "
+            f"{tol:g})")
+        require(err <= tol, f"dev batch encoder error {err} > {tol}")
+    sd, _, best = Checkpointer(straight / "checkpoints").load(
+        s32.ckpt.best_step())
+    model = Seq2Seq(s32.cfg.model)
+    weights.load_flat(model, {k: v.numpy() for k, v in sd["model"].items()})
+    direct = TR.Recognizer(s32.cfg, model, s32.cmvn, s32.vocab,
+                           torch.device(DEVICE))
+    for mode in ("greedy", "beam"):
+        tk, _ = via_solver.decode(batch.audio, batch.audio_lens, mode)
+        td, _ = direct.decode(batch.audio, batch.audio_lens, mode)
+        tr, _ = ref.decode(batch.audio, batch.audio_lens, mode)
+        log(f"[phase14] float32 {mode}: eval_params (step {best}) against "
+            f"a Recognizer given the same weights: tokens identical "
+            f"{bool(np.array_equal(tk, td))}; against the plain versions: "
+            f"{bool(np.array_equal(tk, tr))}")
+        require(np.array_equal(tk, td), f"float32 {mode} tokens differ")
+        require(np.array_equal(tk, tr),
+                f"float32 {mode} tokens differ from the plain path")
+    del s32, via_solver, direct, model, ref
+
+    # transcribe from the Solver's workdir (phase 4's WAVs, made anew)
+    wcfg = load_timit()
+    files = synthetic.write_wavs(d, wcfg, TR.build_vocab(wcfg), 8,
+                                 min_tokens=5, max_tokens=12,
+                                 token_dur_s=0.3)
+    _native.reset_launches()
+    out = run_cli(["--config", str(CONFIG), "--load-dir", str(straight),
+                   "--device", DEVICE, *map(str, files), *SOLVER_OVERRIDES])
+    got = {k: v for k, v in _native.LAUNCHES.items() if v}
+    log(f"[phase14] transcribe --load-dir (checkpoint step "
+        f"{s.ckpt.best_step()}): {len(out)} records, kernel launches {got}; "
+        f"first {json.dumps(out[0])[:160]}")
+    require(len(out) == len(files) and all(
+        isinstance(r["text"], str) and math.isfinite(r["score"])
+        for r in out), "transcribe from the checkpoint")
+    require(all(got.get(k, 0) > 0 for k in LSTM_PATH[:2]),
+            f"transcribe did not launch K1 and K2: {got}")
+
+    fps = statistics.median(train[st]["frames_per_sec"] for st in (2, 3, 4))
+    log(f"[phase14] card figures ({card}): ckpt_wall_s "
+        f"{[round(r['ckpt_wall_s'], 4) for r in dev]}, restore "
+        f"{restore_s:.4f} s (step 4 into the live state), eval_wall_s "
+        f"{[round(r['eval_wall_s'], 4) for r in dev]}; startup_wall_s "
+        f"{wall_b['startup_wall_s']:.2f} (fresh process, resumed) and "
+        f"{wall_a['startup_wall_s']:.2f} (in this process: its age, the "
+        f"earlier phases included); "
+        f"first_step_wall_s {wall_b['first_step_wall_s']:.3f} (fresh) and "
+        f"{wall_a['first_step_wall_s']:.3f} (this process); frames_per_sec "
+        f"{fps:.0f} "
+        f"(median of steps 2-4); PER beam 5 {tests[5]['per']:.4f}, greedy "
+        f"{tests[1]['per']:.4f}; cap_hit_rate beam 5 "
+        f"{tests[5]['cap_hit_rate']:.3f}, greedy {tests[1]['cap_hit_rate']:.3f}")
+    return launches
+
+
+def short_solver(cfg, d: Path, steps: int = 3):
+    """A Solver of ``cfg`` in the train CLI's short form: ``steps`` steps
+    with evaluation off, one checkpoint at the end, weights, batch order
+    and draws from seed 0."""
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    return Solver(T.short_form(cfg, steps, seed=0), d, DEVICE)
+
+
+def timit_solver(d: Path, dtype: str):
+    from semi_supervised_asr_tpu_torch.config import load_config
+
+    return short_solver(load_config(CONFIG, [
+        *TRAIN_OVERRIDES, f"model.compute_dtype={dtype}"]), d)
+
+
+def first_batch(s):
+    """The Solver's first labeled batch and its step's device tensors
+    (audio, audio_lens, tokens, real)."""
+    batch = next(s._labeled_stream())[2]
+    return batch, s.step_inputs(batch)[0]
 
 
 def phase7(d: Path):
@@ -1764,9 +2205,12 @@ def phase7(d: Path):
 
     from semi_supervised_asr_tpu_torch import _native
 
-    tr = trainer(d, "bfloat16")
+    s = timit_solver(d / "bf16", "bfloat16")
     _native.reset_launches()
-    recs = tr.run(3, log=lambda m: log(f"[phase7] {m}"))
+    s.train()
+    recs = s.history
+    for r in recs:
+        log(f"[phase7] {r}")
     torch.cuda.synchronize()
     launches = dict(_native.LAUNCHES)
     log(f"[phase7] train 3 steps, bucket 400, B=32, bf16: losses "
@@ -1784,27 +2228,25 @@ def phase7(d: Path):
     # one step's loss and gradients, kernels against plain: in bf16 (the
     # cluster route through the autograd Function), then in float32 (the
     # CUDA-core route)
-    step_check(tr, "phase7", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
-    step_check(trainer(d, "float32"), "phase7")
-    return tr, launches, recs
+    step_check(s, "phase7", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    step_check(timit_solver(d / "f32", "float32"), "phase7")
+    return s, launches, recs
 
 
-def step_check(tr32, phase: str, loss_tol: float = 1e-5,
+def step_check(s, phase: str, loss_tol: float = 1e-5,
                grad_tol: float = GRAD_TOL) -> None:
-    """One step's loss and gradients from the trainer's weights, first
-    batch and fixed SpecAugment bands, in the trainer's compute dtype:
-    kernels against plain, loss within ``loss_tol`` relative and every
-    gradient leaf within ``grad_tol`` of the model's largest entry."""
+    """One step's loss and gradients from the Solver's weights, first
+    batch and fixed SpecAugment bands, in its compute dtype: kernels
+    against plain, loss within ``loss_tol`` relative and every gradient
+    leaf within ``grad_tol`` of the model's largest entry."""
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
-    batch = next(tr32.batches)
-    tensors = T.batch_tensors(batch, tr32.device)
-    fcfg = tr32.cfg.frontend
+    batch, tensors = first_batch(s)
+    fcfg = s.cfg.frontend
     flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
                             batch.bucket[0])
     bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
@@ -1812,21 +2254,21 @@ def step_check(tr32, phase: str, loss_tol: float = 1e-5,
     out = {}
     _native.reset_launches()
     for backend in (None, "reference"):
-        model = copy.deepcopy(tr32.state.model)
-        state = TS.init_train_state(tr32.cfg, model, seed=0)
-        out[backend] = TS.loss_and_grads(tr32.cfg, state, *tensors,
-                                         tr32.cmvn, bands, backend)
+        model = copy.deepcopy(s.state.model)
+        state = TS.init_train_state(s.cfg, model, seed=0)
+        out[backend] = TS.loss_and_grads(s.cfg, state, *tensors,
+                                         s.cmvn_dev, bands, backend)
     routes = {k: v for k, v in _native.LAUNCHES.items()
               if k.startswith("lstm_scan_") and v}
     (lk, _, gk), (lr, _, gr) = out[None], out["reference"]
     rel = abs(lk.item() - lr.item()) / abs(lr.item())
-    names = [n for n, _ in tr32.state.model.named_parameters()]
+    names = [n for n, _ in s.state.model.named_parameters()]
     errs = dict(zip(names, grad_errs(gk, gr)))
     worst = max(errs, key=errs.get)
     own = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
            for n, a, b in zip(names, gk, gr)}
     own_worst = max(own, key=own.get)
-    dtype = tr32.cfg.model.compute_dtype
+    dtype = s.cfg.model.compute_dtype
     log(f"[{phase}] {dtype} step, kernels vs plain (LSTM launches {routes}): "
         f"loss {lk.item():.6f} vs {lr.item():.6f} (rel {rel:.2e}, tol "
         f"{loss_tol:g}); worst gradient leaf {worst} {errs[worst]:.3e} of "
@@ -1938,10 +2380,11 @@ def rows_times(times: dict, w_hh, valid, acts, cprev, dh_out, gx) -> None:
                     reps=10))
 
 
-def phase8(tr, card: str) -> dict:
+def phase8(s, card: str) -> dict:
+    """Library yardsticks, K2/K3 timings and the train step at bucket 400
+    (``s``: phase 7's trained Solver)."""
     import torch
 
-    from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
     from semi_supervised_asr_tpu_torch.training import train_step as TS
@@ -1993,14 +2436,13 @@ def phase8(tr, card: str) -> dict:
             f"{times[f'floor_{kind}_b2b'][0] / 400 * 1e3:.3f} us a step "
             f"({card})")
     # whole train steps on one batch: kernels vs plain, interleaved
-    batch = next(tr.batches)
-    tensors = T.batch_tensors(batch, tr.device)
-    plain = TS.init_train_state(tr.cfg, copy.deepcopy(tr.state.model), 0)
-    for state, backend in ((plain, "reference"), (tr.state, None),
-                           (tr.state, None), (plain, "reference")):
+    _, tensors = first_batch(s)
+    plain = TS.init_train_state(s.cfg, copy.deepcopy(s.state.model), 0)
+    for state, backend in ((plain, "reference"), (s.state, None),
+                           (s.state, None), (plain, "reference")):
         key = "train_step" + ("_plain" if backend else "")
         times.setdefault(key, []).extend(host_ms(
-            lambda: TS.supervised_step(tr.cfg, state, *tensors, tr.cmvn,
+            lambda: TS.supervised_step(s.cfg, state, *tensors, s.cmvn_dev,
                                        backend=backend), reps=2))
     med = report("phase8", times, card)
     med["cudnn_dtype"] = str(dtype).split(".")[-1]
@@ -2105,20 +2547,19 @@ def load_timit():
     return TR.finalize_config(cfg, TR.build_vocab(cfg).size)
 
 
-def timit_work(results, tr, med: dict) -> dict:
+def timit_work(results, s, med: dict) -> dict:
     """One beam-5 batch and one train step of the timit path, for
     :func:`profile`."""
-    from semi_supervised_asr_tpu_torch import train as T
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     ker, _ = results["bfloat16"]["rec"]
     audio, lens = results["bfloat16"]["batch"]
-    tensors = T.batch_tensors(next(tr.batches), tr.device)
+    _, tensors = first_batch(s)
     return {
         "beam5_b32_t400": (lambda: ker.decode(audio, lens, "beam"),
                            med["serve_beam5"]),
         "train_step_b32_t400": (lambda: TS.supervised_step(
-            tr.cfg, tr.state, *tensors, tr.cmvn), med["train_step"]),
+            s.cfg, s.state, *tensors, s.cmvn_dev), med["train_step"]),
     }
 
 
@@ -2229,6 +2670,9 @@ def main(argv=None) -> int:
             profile(c4_work, args.profile)
         del c4_work
     elapsed("phase 13")
+    with tempfile.TemporaryDirectory() as tmp:
+        solver_launches = phase14(Path(tmp), card)
+    elapsed("phase 14")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -2268,8 +2712,10 @@ def main(argv=None) -> int:
         f"launches {conf_serve}, training launches {conf_launches}; "
         f"conformer train step {med['conformer_train_step']:.1f} ms on "
         f"kernels vs {med['conformer_train_step_plain']:.1f} ms plain; K5 "
-        f"worst errors {k5}; C4 launches over 3 steps {c4_launches}, C4 "
-        f"step {med['c4_train_step']:.1f} ms wall (median of steps 2-3)")
+        f"worst errors {k5}; C4 launches over the Solver's 3 steps and "
+        f"validation {c4_launches}, C4 step {med['c4_train_step']:.1f} ms "
+        f"wall (median of steps 2-3); timit Solver run (4 steps, 2 "
+        f"validations) launches {solver_launches}")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -2279,27 +2725,28 @@ def main(argv=None) -> int:
     lstm_design = ("bf16: clusters of C blocks, the weight slice resident in "
                    "shared memory, {} through distributed shared memory, "
                    "mma.sync; f32: CUDA cores")
-    # launches: K1-K3 from the timit training run (phase 7), K5 from the
-    # conformer training run (phase 11), and by path in launches_by_path;
+    # launches: K1-K3 from the timit Solver run (phase 14: 4 steps and 2
+    # validations), K5 from the conformer training run (phase 11), and by
+    # path in launches_by_path;
     # max_abs_err: the route the main path runs (bf16 cluster route for
     # K2/K3, f32 for K1 and K5's table)
     paths = {"timit_serve": serve_launches, "timit_train": launches,
              "conformer_serve": conf_serve, "conformer_train": conf_launches,
-             "c4_train": c4_launches}
+             "c4_solver": c4_launches, "timit_solver": solver_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
-         k1_err, None, launches,
+         k1_err, None, solver_launches,
          "persistent grid, tiles of rows by cp.async.bulk through an "
          "mbarrier ring, one producer warp; CUDA cores; ms L2-cold at "
          "B=32 T=400", None),
         ("lstm_scan_fwd", "lstm_scan_fwd.cu", tpu + "pallas_lstm.py:41",
-         k2_bf16, "cudnn_lstm_fwd", launches, lstm_design.format("h"),
+         k2_bf16, "cudnn_lstm_fwd", solver_launches, lstm_design.format("h"),
          cudnn + "forward (input projection + recurrence) against the "
          f"port's layer forward (projection + K2) at "
          f"{pick(med, 'layer_fwd')[0]:.4f} ms; f32 route max_abs_err "
          f"{k2_err:.3e}"),
         ("lstm_scan_bwd", "lstm_scan_bwd.cu", tpu + "pallas_lstm.py:85",
-         k3_bf16, "cudnn_lstm_bwd", launches,
+         k3_bf16, "cudnn_lstm_bwd", solver_launches,
          lstm_design.format("dgates"),
          cudnn + "backward (dx, dW_ih, dW_hh, biases; training forward + "
          "backward minus training forward) against the port's layer "

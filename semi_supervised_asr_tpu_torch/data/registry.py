@@ -1,20 +1,23 @@
-"""Dataset registry: name -> the training corpora and the vocab.
+"""Dataset registry: name -> the corpora and the vocab.
 
 The PyTorch port's counterpart of ``semi_supervised_asr_tpu/data/
-registry.py`` for what the train step reads: the labeled corpus and the
+registry.py``: the labeled training corpus, the dev split (read by the
+Solver's validation), the test split (``--test``; None scores dev) and the
 unlabeled audio and text, from ``synthetic`` (always available, seeded:
-the unlabeled audio at ``synthetic_seed + 2``, the text at ``+ 3``) or
-from the manifest corpora ``timit`` / ``librispeech`` that
-``data/preprocess.py`` writes (``data.unlabeled_audio_split`` /
-``unlabeled_text_split``, when set).  The dev and test splits (read by the
-Solver's evaluation), the HDF5 feature store and BPE units are not ported
-yet; the last two are refused with a message naming the key.
+dev at ``synthetic_seed + 1`` with ``max(n // 4, 4)`` utterances, the
+unlabeled audio at ``+ 2``, the text at ``+ 3``) or from the manifest
+corpora ``timit`` / ``librispeech`` that ``data/preprocess.py`` writes
+(``dev.jsonl``, ``data.test_split`` with a warning when its manifest is
+missing, ``data.unlabeled_audio_split`` / ``unlabeled_text_split`` when
+set).  The HDF5 feature store and BPE units are not ported yet and are
+refused with a message naming the key.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 
 from semi_supervised_asr_tpu_torch.config import Config
 from semi_supervised_asr_tpu_torch.data.synthetic import SyntheticDataset
@@ -27,8 +30,10 @@ from semi_supervised_asr_tpu_torch.data.vocab import (
 class DataBundle:
     vocab: Vocab
     train: object
+    dev: object
     unlabeled_audio: object | None = None
     unlabeled_text: object | None = None
+    test: object | None = None        # scored by --test; None -> dev
 
 
 def build_vocab(cfg: Config) -> Vocab:
@@ -55,6 +60,8 @@ def build_datasets(cfg: Config) -> DataBundle:
         return DataBundle(
             vocab=vocab,
             train=SyntheticDataset(vocab, d, cfg.frontend, n_utts=n),
+            dev=SyntheticDataset(vocab, seeded(1), cfg.frontend,
+                                 n_utts=max(n // 4, 4)),
             unlabeled_audio=SyntheticDataset(vocab, seeded(2), cfg.frontend,
                                              n_utts=n, labeled=False),
             unlabeled_text=SyntheticDataset(vocab, seeded(3), cfg.frontend,
@@ -71,9 +78,24 @@ def build_datasets(cfg: Config) -> DataBundle:
             return ManifestDataset(f"{d.data_dir}/{split}.jsonl", vocab,
                                    prefer_i16=d.audio_i16_transfer)
 
+        def load_test():
+            """data.test_split is read only by --test: a missing manifest
+            warns instead of stopping a training run."""
+            if not d.test_split:
+                return None
+            path = Path(d.data_dir) / f"{d.test_split}.jsonl"
+            if not path.exists():
+                print(f"WARNING: data.test_split={d.test_split!r} but "
+                      f"{path} does not exist — --test will score dev; "
+                      "add the split to preprocess --splits to fix")
+                return None
+            return load(d.test_split)
+
         return DataBundle(
             vocab=vocab,
             train=load(d.labeled_split),
+            dev=load("dev"),
+            test=load_test(),
             unlabeled_audio=(load(d.unlabeled_audio_split)
                              if d.unlabeled_audio_split else None),
             unlabeled_text=(load(d.unlabeled_text_split)

@@ -44,12 +44,16 @@ class Attention(nn.Module):
 
     def location_features(self, alpha: torch.Tensor) -> torch.Tensor:
         """Conv over the previous alignment: [B, T] -> [B, T, C], with lax
-        SAME padding (an even width W pads (W-1)//2 left, the rest right)."""
+        SAME padding (an even width W pads (W-1)//2 left, the rest right).
+        Computed as the W-tap windows times the [W, C] filter: its backward
+        is a gather and a matmul, with no atomics, so that a step's bits do
+        not depend on the run (cuDNN's default backward-filter algorithm
+        for a conv sums with atomics on the card)."""
         width = self.conv.shape[0]
         left = (width - 1) // 2
-        x = Fn.pad(alpha[:, None, :], (left, width - 1 - left))
-        weight = self.conv.to(alpha.dtype).permute(2, 1, 0)   # [C, 1, W]
-        return Fn.conv1d(x, weight).transpose(1, 2)
+        x = Fn.pad(alpha, (left, width - 1 - left))
+        windows = x.unfold(1, width, 1)                       # [B, T, W]
+        return torch.matmul(windows, self.conv.to(alpha.dtype)[:, 0])
 
     def attend(
         self,

@@ -125,3 +125,25 @@ class Adam:
             update = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             p.sub_(lr * update)
         return lr
+
+    def state_dict(self) -> dict:
+        """The moments (CPU copies) and the count; the parameters are the
+        model's and are saved with it."""
+        return {"count": self.count,
+                "mu": [m.detach().cpu().clone() for m in self.mu],
+                "nu": [v.detach().cpu().clone() for v in self.nu]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy saved moments into this optimizer's own tensors (shapes
+        must match; their device is kept)."""
+        if len(sd["mu"]) != len(self.mu) or len(sd["nu"]) != len(self.nu):
+            raise ValueError("optimizer state has "
+                             f"{len(sd['mu'])} moments, this model "
+                             f"{len(self.mu)}")
+        for dst, src in zip(self.mu + self.nu, sd["mu"] + sd["nu"]):
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"optimizer moment shape {tuple(src.shape)}"
+                                 f" does not match {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(sd["count"])

@@ -121,6 +121,29 @@ def featurize(
     return feats, lens
 
 
+def module_state(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Named parameters as CPU copies (exact bits)."""
+    return {n: p.detach().cpu().clone() for n, p in module.named_parameters()}
+
+
+@torch.no_grad()
+def load_module_state(module: torch.nn.Module,
+                      sd: dict[str, torch.Tensor]) -> None:
+    """Copy :func:`module_state` into ``module``'s own parameters in place
+    (the optimizer holds references to them); names and shapes must
+    match."""
+    params = dict(module.named_parameters())
+    if set(params) != set(sd):
+        raise KeyError("parameter names differ: missing "
+                       f"{sorted(set(params) - set(sd))}, unexpected "
+                       f"{sorted(set(sd) - set(params))}")
+    for n, p in params.items():
+        if tuple(p.shape) != tuple(sd[n].shape):
+            raise ValueError(f"{n}: shape {tuple(sd[n].shape)} does not "
+                             f"match the model's {tuple(p.shape)}")
+        p.copy_(sd[n])
+
+
 @dataclass
 class TrainState:
     """What one training run carries from step to step."""
@@ -130,6 +153,24 @@ class TrainState:
     opt: schedules.Adam
     step: int
     gen: torch.Generator          # SpecAugment bands and scheduled sampling
+
+    def state_dict(self) -> dict:
+        """Everything an exact resume needs, as CPU tensors: the
+        parameters, the EMA buffer, Adam's moments and count, the step and
+        the generator's state."""
+        return {"model": module_state(self.model),
+                "ema": module_state(self.ema),
+                "opt": self.opt.state_dict(),
+                "step": int(self.step),
+                "gen": self.gen.get_state()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore :meth:`state_dict` into this state's own tensors."""
+        load_module_state(self.model, sd["model"])
+        load_module_state(self.ema, sd["ema"])
+        self.opt.load_state_dict(sd["opt"])
+        self.step = int(sd["step"])
+        self.gen.set_state(sd["gen"])
 
 
 def init_train_state(cfg: Config, model: torch.nn.Module,

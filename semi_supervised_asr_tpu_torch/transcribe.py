@@ -13,8 +13,11 @@ Each file prints one JSON object ``{"audio", "text", "score"}`` (plus
 ``nbest`` with ``--nbest N``, ``no_eos`` when the length cap cut it,
 ``chunks`` for chunked files).
 
-``DIR`` holds ``params.npz`` (``weights.save_npz``) and ``cmvn.npz``
-(``mean``, ``inv_std``, as the JAX Solver writes it).  ``--device``
+``DIR`` is a Solver's workdir (``main --train``): it decodes with the
+best, else the latest checkpoint (``decode.average_ckpts`` and
+``decode.use_ema`` apply, as in ``main --test``).  Or ``DIR`` holds
+``params.npz`` (``weights.save_npz``, e.g. weights carried across from a
+JAX run) and ``cmvn.npz`` (``mean``, ``inv_std``).  ``--device``
 defaults to ``cuda``; ``--device cpu`` runs every kernel's plain version.
 """
 
@@ -97,7 +100,22 @@ class Recognizer:
     @classmethod
     def from_dir(cls, cfg: Config, load_dir: str | Path, device,
                  backend: str | None = None) -> "Recognizer":
+        """A Solver's workdir (it holds ``train.ckpt_dir``) decodes with
+        ``Solver.eval_params``'s weights (best, then latest checkpoint;
+        ``decode.average_ckpts``; ``decode.use_ema``); a directory with
+        ``params.npz`` instead decodes with those weights."""
         load_dir = Path(load_dir)
+        if (load_dir / cfg.train.ckpt_dir).is_dir():
+            from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+            solver = Solver(cfg, load_dir, device)
+            return cls(solver.cfg, solver.eval_params(require_ckpt=True),
+                       solver.cmvn, solver.vocab, torch.device(device),
+                       backend)
+        if not (load_dir / "params.npz").exists():
+            raise SystemExit(
+                f"{load_dir}: found neither {cfg.train.ckpt_dir}/ (a "
+                "Solver's checkpoints) nor params.npz to decode with")
         vocab = build_vocab(cfg)
         cfg = finalize_config(cfg, vocab.size)
         model = Seq2Seq(cfg.model)
@@ -239,7 +257,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="semi_supervised_asr_tpu_torch.transcribe")
     p.add_argument("--config", required=True)
     p.add_argument("--load-dir", required=True,
-                   help="directory holding params.npz and cmvn.npz")
+                   help="a Solver's workdir (checkpoints/), or a directory "
+                        "holding params.npz and cmvn.npz")
     p.add_argument("--beam", type=int, default=None,
                    help="beam size; 1 = greedy")
     p.add_argument("--nbest", type=int, default=1,

@@ -11,6 +11,7 @@ and the rest give identical outputs.
 
 import dataclasses
 import itertools
+import json
 from pathlib import Path
 
 import numpy as np
@@ -26,7 +27,10 @@ from semi_supervised_asr_tpu.data import registry as JR
 from semi_supervised_asr_tpu.data import synthetic as JSY
 from semi_supervised_asr_tpu.data import vocab as JV
 from semi_supervised_asr_tpu.ops import frontend_oracle as JO
+from semi_supervised_asr_tpu.utils import error_analysis as JEA
 from semi_supervised_asr_tpu.utils import flac as JFL
+from semi_supervised_asr_tpu.utils import metrics as JM
+from semi_supervised_asr_tpu.utils import native_ops as JN
 from semi_supervised_asr_tpu_torch import config as PC
 from semi_supervised_asr_tpu_torch import transcribe as PTR
 from semi_supervised_asr_tpu_torch.data import bucketing as PB
@@ -36,6 +40,10 @@ from semi_supervised_asr_tpu_torch.data import registry as PR
 from semi_supervised_asr_tpu_torch.data import synthetic as PSY
 from semi_supervised_asr_tpu_torch.data import vocab as PV
 from semi_supervised_asr_tpu_torch.ops import frontend_oracle as PO
+from semi_supervised_asr_tpu_torch.utils import error_analysis as PEA
+from semi_supervised_asr_tpu_torch.utils import logging as PL
+from semi_supervised_asr_tpu_torch.utils import metrics as PM
+from semi_supervised_asr_tpu_torch.utils import native_ops as PN
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml"))
@@ -189,7 +197,8 @@ def test_unlabeled_streams_match_jax():
     """The first batches of the unlabeled audio stream (the largest
     frame and token bucket, no dropped remainder, train.seed + 1) and of
     the text stream (the largest token bucket, train.seed + 2), array for
-    array, across an epoch boundary."""
+    array, across an epoch boundary; the text stream resumed by
+    ``skip_batches``; sharding refused."""
     pc, jc = semi_configs()
     pspec = PB.make_bucket_spec(dataclasses.replace(
         pc.data, frame_buckets=(1600,), token_buckets=(256,)),
@@ -214,8 +223,136 @@ def test_unlabeled_streams_match_jax():
             itertools.islice(JP.text_batches(jtext, 256, 4, 2), 4)):
         np.testing.assert_array_equal(gt, wt)
         np.testing.assert_array_equal(gr, wr)
-    with pytest.raises(NotImplementedError, match="skip_batches"):
-        next(PP.text_batches(ptext, 256, 4, 2, skip_batches=3))
+    # a resumed stream skips at plan cost; sharding waits for the
+    # data-parallel slice
+    gt, gr = next(PP.text_batches(ptext, 256, 4, 2, skip_batches=3))
+    wt, wr = next(JP.text_batches(jtext, 256, 4, 2, skip_batches=3))
+    np.testing.assert_array_equal(gt, wt)
+    np.testing.assert_array_equal(gr, wr)
     with pytest.raises(NotImplementedError, match="num_shards"):
         next(PP.repeating_batches(pset, pspec, pc.frontend, 4, 1,
                                   num_shards=2))
+
+
+def random_rows(rng, b, u, vocab_size):
+    """[b, u] ids with EOS / PAD cut at random places, and ragged lengths."""
+    x = rng.integers(0, vocab_size, (b, u)).astype(np.int32)
+    for r in range(b):
+        cut = rng.integers(0, u + 1)
+        if cut < u:
+            x[r, cut] = rng.choice([2, 0])
+    return x, rng.integers(0, u + 1, b).astype(np.int32)
+
+
+def test_edit_distance_and_metrics_match_jax():
+    """The native edit distance (and its plain numpy version) against the
+    JAX package's, with and without a fold table; PER with the TIMIT
+    39-fold, CER, WER and hypothesis lengths: identical counts."""
+    rng = np.random.default_rng(7)
+    vocab = PV.timit_vocab()
+    table = np.asarray(PV.timit_39_id_map(vocab), np.int32)
+    for b, uh, ur in ((1, 1, 1), (9, 17, 12), (33, 40, 40)):
+        hyps, hl = random_rows(rng, b, uh, vocab.size)
+        refs, rl = random_rows(rng, b, ur, vocab.size)
+        for t in (None, table):
+            want = JN.batch_edit_distance(hyps, hl, refs, rl, t)
+            for got in (PN.batch_edit_distance(hyps, hl, refs, rl, t),
+                        PN.batch_edit_distance_py(hyps, hl, refs, rl, t)):
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and np.array_equal(g, w)
+        np.testing.assert_array_equal(PM.hyp_lengths(hyps),
+                                      JM.hyp_lengths(hyps))
+        for g, w in zip(PM.per_batch(hyps, refs, vocab),
+                        JM.per_batch(hyps, refs, JV.timit_vocab())):
+            np.testing.assert_array_equal(g, w)
+        for g, w in zip(PM.cer_batch(hyps, refs), JM.cer_batch(hyps, refs)):
+            np.testing.assert_array_equal(g, w)
+    chars, jchars = PV.char_vocab(), JV.char_vocab()
+    hyps, _ = random_rows(rng, 6, 30, chars.size)
+    refs, _ = random_rows(rng, 6, 30, chars.size)
+    assert PM.wer_batch(hyps, refs, chars) == JM.wer_batch(hyps, refs,
+                                                            jchars)
+    for h, r in (("a b c", "a c"), ("", "x y"), ("x", ""), ("", "")):
+        assert PM.wer_strings(h, r) == JM.wer_strings(h, r)
+    e = PM.ErrorRate()
+    e.update(np.array([1, 2]), np.array([3, 4]))
+    assert (e.errors, e.total, e.rate) == (3, 7, 3 / 7)
+
+
+def test_error_analysis_matches_jax():
+    """analyze_records and summary_line on phone records (the 39-fold)
+    and on char records (words)."""
+    rng = np.random.default_rng(3)
+    vocab, jvocab = PV.timit_vocab(), JV.timit_vocab()
+    phones = vocab.tokens[4:]
+    words = ["the", "cat", "sat", "on", "a", "mat", "q"]
+
+    def records(units):
+        out = []
+        for i in range(12):
+            ref = list(rng.choice(units, rng.integers(1, 9)))
+            hyp = list(rng.choice(units, rng.integers(0, 9)))
+            out.append({"uid": f"u{i}", "ref": " ".join(ref),
+                        "hyp": " ".join(hyp), "errors": int(rng.integers(9)),
+                        "ref_len": len(ref)})
+        return out
+
+    for recs, unit, pv, jv in ((records(phones), "phone", vocab, jvocab),
+                               (records(words), "char", None, None)):
+        got = PEA.analyze_records(recs, pv, unit)
+        assert got == JEA.analyze_records(recs, jv, unit)
+        assert PEA.summary_line(got) == JEA.summary_line(got)
+
+
+def test_dev_and_test_splits_match_jax(tmp_path, capsys):
+    """The registry's dev split (synthetic: seed + 1, max(n // 4, 4)
+    utterances; manifests: dev.jsonl) and data.test_split, with the
+    warning when its manifest is missing."""
+    for n in (6, 40):
+        extra = ["data.dataset=synthetic", f"data.num_synthetic_utts={n}"]
+        path = REPO / "configs" / "timit.yaml"
+        got = PR.build_datasets(PC.load_config(path, extra))
+        want = JR.build_datasets(JC.load_config(path, extra))
+        assert len(got.dev) == len(want.dev) == max(n // 4, 4)
+        assert got.test is None and want.test is None
+        for i in (0, len(got.dev) - 1):
+            assert got.dev[i].uid == want.dev[i].uid
+            np.testing.assert_array_equal(got.dev[i].audio, want.dev[i].audio)
+            np.testing.assert_array_equal(got.dev[i].tokens,
+                                          want.dev[i].tokens)
+    rng = np.random.default_rng(5)
+    for split, text in (("train-clean-100", "ab c"), ("dev", "d e"),
+                        ("test-clean", "f")):
+        wavfile.write(tmp_path / f"{split}.wav", 16000,
+                      rng.integers(-3000, 3000, 1600).astype(np.int16))
+        (tmp_path / f"{split}.jsonl").write_text(
+            f'{{"uid": "{split}", "audio": "{split}.wav", '
+            f'"n_samples": 1600, "text": "{text}"}}\n')
+    path = REPO / "configs" / "ls100_semi.yaml"
+    for test_split in ("test-clean", "test-other"):
+        extra = [f"data.data_dir={tmp_path}", "data.unlabeled_audio_split=",
+                 "data.unlabeled_text_split=",
+                 f"data.test_split={test_split}"]
+        got = PR.build_datasets(PC.load_config(path, extra))
+        want_out = capsys.readouterr().out
+        want = JR.build_datasets(JC.load_config(path, extra))
+        assert capsys.readouterr().out == want_out
+        assert got.dev[0].uid == want.dev[0].uid == "dev"
+        np.testing.assert_array_equal(got.dev[0].audio, want.dev[0].audio)
+        if test_split == "test-clean":
+            assert got.test[0].uid == want.test[0].uid == "test-clean"
+        else:
+            assert got.test is None and want.test is None
+            assert "test-other" in want_out and "WARNING" in want_out
+
+
+def test_metrics_logger_writes_the_reference_records(tmp_path):
+    """One JSON line a record with step, time, prefix and the scalars as
+    floats (strings kept), as the JAX package's MetricsLogger writes."""
+    log = PL.MetricsLogger(tmp_path, use_tensorboard=False)
+    log.log(3, {"loss": np.float32(1.5), "n": 2, "tag": "x"}, "dev")
+    log.close()
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert set(rec) == {"step", "time", "prefix", "loss", "n", "tag"}
+    assert (rec["step"], rec["prefix"], rec["loss"], rec["n"], rec["tag"]
+            ) == (3, "dev", 1.5, 2.0, "x")

@@ -77,6 +77,7 @@ CONFORMER = [
     "train.warmup_steps=0", "data.sortagrad_epochs=0",
     "data.dataset=synthetic", "data.num_synthetic_utts=8",
     "data.frame_buckets=[128]", "data.token_buckets=[12]",
+    "train.async_ckpt=false",
 ]
 TOL_GRAD = dict(rtol=2e-4, atol=2e-5)
 # the JAX references run once each, so their XLA compile dominates: the
@@ -366,13 +367,20 @@ TINY = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
         "decode.max_decode_len=8"]
 
 
+def train_records(workdir):
+    """The per-step records of metrics.jsonl (the Solver also logs "data"
+    and "wall" records there)."""
+    return [r for r in map(json.loads, (workdir / "metrics.jsonl")
+                           .read_text().splitlines())
+            if r["prefix"] == "train"]
+
+
 def test_train_cli_then_transcribe_on_cpu(tmp_path, capsys):
     d = tmp_path / "run"
     argv = ["--config", CONFIG, "--workdir", str(d), "--steps", "2",
             "--device", "cpu", *TINY]
     assert TRN.main(argv) == 0
-    recs = [json.loads(x) for x in (d / "metrics.jsonl").read_text()
-            .splitlines()]
+    recs = train_records(d)
     assert [r["step"] for r in recs] == [1, 2]
     for r in recs:
         assert set(TRN.METRIC_KEYS) <= set(r)
@@ -394,8 +402,7 @@ def test_train_cli_semi_on_cpu(tmp_path):
     assert TRN.main(["--config", "configs/ls100_semi.yaml", "--workdir",
                      str(d), "--steps", "2", "--device", "cpu", *TINY,
                      "objective.pseudo_warmup_steps=1"]) == 0
-    recs = [json.loads(x) for x in (d / "metrics.jsonl").read_text()
-            .splitlines()]
+    recs = train_records(d)
     assert [r["pseudo_gate"] for r in recs] == [0.0, 1.0]
     for r in recs:
         assert all(math.isfinite(r[k])
