@@ -87,9 +87,11 @@ failure raises and the script exits non-zero:
     encoder outputs within the K5 bounds and, in float32, identical
     tokens;
 11. the training slice at the same width through the Solver
-    (synthetic corpus, bucket 1600 so that T'=400, B=32, bf16,
-    ``train.async_ckpt=false``): 3 steps, finite
-    losses, K1 once a step, both K5 launch counts > 0; then one float32 step on
+    (synthetic corpus, bucket 1600 so that T'=400, B=32, bf16, the
+    recipe's SortaGrad epoch and background checkpoint saves): 3 steps,
+    finite losses, K1 once a step, both K5 launch counts > 0; the same run
+    stopped at step 2 and resumed must give step 3's state bitwise (the
+    conv stem has no atomics in its backward); then one float32 step on
     kernels against the plain versions, as in phase 7;
 12. K5 forward and backward (bf16, B=32, 8 heads of 64) against
     ``scaled_dot_product_attention`` with the boolean key mask (the
@@ -137,13 +139,34 @@ failure raises and the script exits non-zero:
     against a Recognizer given the same weights in float32 (identical
     tokens); ``transcribe --load-dir`` on the workdir; the card's
     checkpoint, restore, evaluation, start-up and first-step times and
-    the run's frames per second.
+    the run's frames per second;
+15. the data-parallel recipe ``configs/ls960_dp.yaml`` (C5) at full width
+    and depth (enc 512 x (1 + 3) BiLSTM, dec 1024 x 2, bf16,
+    ``remat_encoder``, ``bf16_weight_stream``, ``sortagrad_epochs`` 1,
+    ``async_ckpt``; synthetic corpus, B=32 a rank): (a) ``main --train``
+    under torchrun over NCCL at world size 1, 3 steps with a background
+    checkpoint at step 2 and the final validation, each step's metrics,
+    wall time and launches by route (K1 1, K2 8 -- 4 and 4 recomputed --
+    and K3 4 a step, K1 1 and K2 4 a dev batch), the gradient
+    all-reduce's bytes and device time; then ``main --train --resume``
+    of step 2 in a fresh process and workdir: step 3's state bitwise;
+    (b) two ranks sharing the card over gloo, 16 rows each of a global
+    32: a float32 step against one process on the 32 rows (loss 1e-5
+    relative, every reduced gradient leaf within GRAD_TOL, the ranks'
+    gradients bitwise equal), 3 bf16 steps after which the replicas'
+    parameters are bitwise equal, and the rank-sharded validation's error
+    counts equal to one process's; (c) one step each, kernels only: remat
+    on against off (the phase-7 bf16 bounds; K2 8 launches against 4) and
+    the bf16 weight stream on against off (the reference's bound), then
+    the step kernels against plain; the K2 / K3 launch plans at H=512
+    for B=32 and 16.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
 was taken, and its design; launches from the timit Solver run (phase 14)
 for K1-K3, from the conformer training run for K5, and per path in
-``launches_by_path``; K2 and K3 also at the C4 shapes in ``at_c4``); the
+``launches_by_path``, the C5 run as ``c5_dp``; K2 and K3 also at the C4
+shapes in ``at_c4``); the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
 of each path (the C4 step included) there.
@@ -228,10 +251,9 @@ CONFORMER_CONFIG = ROOT / "configs" / "ls960_conformer.yaml"
 CONFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
                        "train.batch_size=32"]
 # training: two batches of 32 per epoch in the recipe's largest bucket
-# (T' = 400 after the 4x stem); dropout, SortaGrad and the recipe's
-# background checkpoint saves (train.async_ckpt) are not ported
-CONFORMER_TRAIN = ["model.enc_dropout=0", "data.sortagrad_epochs=0",
-                   "train.async_ckpt=false", "data.num_synthetic_utts=64",
+# (T' = 400 after the 4x stem), with the recipe's SortaGrad epoch and
+# background checkpoint saves; dropout is not ported
+CONFORMER_TRAIN = ["model.enc_dropout=0", "data.num_synthetic_utts=64",
                    "data.frame_buckets=[1600]"]
 # K5's timing shape: bucket 1600 -> T' = 400, B=32, 8 heads of 64
 K5_TIMING = (32, 400, 8, 64)
@@ -288,6 +310,27 @@ SOLVER_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=128",
 SOLVER_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4,
                         "lstm_scan_bwd": 4}
 SOLVER_EVAL_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4}
+
+
+# the data-parallel path (C5, phase 15): configs/ls960_dp.yaml as shipped
+# (enc 512 x (1 + 3) BiLSTM, dec 1024 x 2, bf16, remat_encoder,
+# bf16_weight_stream, sortagrad_epochs 1, async_ckpt) but for its data
+# section and the run's length: the synthetic corpus of 160 utterances,
+# which all land in the 400-frame bucket of [400, 800] (the corpus's
+# longest utterance is 1.2 s) and the 128-token bucket, a dev set of 40
+# (two batches of 32); a global batch of 32 (32 rows on one rank, 16 on
+# each of two), 3 steps, a checkpoint at step 2 and the final validation
+# at step 3
+C5_CONFIG = ROOT / "configs" / "ls960_dp.yaml"
+C5_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=160",
+           "data.frame_buckets=[400,800]"]
+C5_RUN = ["train.batch_size=32", "train.total_steps=3", "train.ckpt_every=2",
+          "train.eval_every=0", "train.log_every=1"]
+C5_DEV = 40
+# a C5 step under remat: K1 once, K2 once a layer forward and once again
+# in the backward's recomputation, K3 once a layer
+C5_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 8,
+                    "lstm_scan_bwd": 4}
 
 
 def c4_tag(t: int) -> str:
@@ -1402,9 +1445,12 @@ def phase11(d: Path):
 
     from semi_supervised_asr_tpu_torch import _native
 
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+
     log(f"[phase11] overrides {CONFORMER_OVERRIDES + CONFORMER_TRAIN} "
-        "(model.enc_dropout, data.sortagrad_epochs and train.async_ckpt "
-        "are not ported)")
+        "(model.enc_dropout is not ported)")
     s = short_solver(conformer_config(CONFORMER_TRAIN), d / "bf16")
     _native.reset_launches()
     s.train()
@@ -1423,6 +1469,23 @@ def phase11(d: Path):
             f"{launches}")
     require(launches["fused_post_fft"] == len(recs),
             f"K1 did not launch once a conformer train step: {launches}")
+    # exact resume: 2 steps, then a Solver resuming their checkpoint to
+    # step 3 in the same workdir, against the straight run's step 3 (the
+    # conv stem's backward is a gather and a matmul, with no atomics)
+    split = d / "split"
+    short_solver(conformer_config(CONFORMER_TRAIN), split, steps=2).train()
+    short_solver(conformer_config(CONFORMER_TRAIN), split).train(resume=True)
+    sd_a, meta_a, _ = Checkpointer(d / "bf16" / "checkpoints").load(3)
+    sd_b, meta_b, _ = Checkpointer(split / "checkpoints").load(3)
+    diff = first_difference(sd_a, sd_b)
+    log(f"[phase11] conformer run resumed from step 2: step 3's state "
+        f"(parameters, EMA buffer, Adam moments and count, generator) "
+        f"{'bitwise equal' if diff is None else 'differs first at ' + diff}"
+        f"; data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}")
+    require(diff is None, f"conformer resume differs first at {diff}")
+    require(meta_a["data_pos"] == meta_b["data_pos"],
+            "conformer data_pos differs")
+    del sd_a, sd_b
     step_check(short_solver(conformer_config(
         [*CONFORMER_TRAIN, "model.compute_dtype=float32"]), d / "f32"),
         "phase11")
@@ -2454,6 +2517,365 @@ def phase8(s, card: str) -> dict:
     return med
 
 
+# --------------------------------------------------------------------- #
+# phase 15: data parallelism and the ls960_dp recipe (C5)
+# --------------------------------------------------------------------- #
+
+def c5_config(extra=()):
+    from semi_supervised_asr_tpu_torch.config import load_config
+
+    return load_config(C5_CONFIG, [*C5_DATA, *extra])
+
+
+def torchrun(nproc: int, argv: list[str], timeout: int) -> str:
+    """``argv`` under ``torch.distributed.run --standalone`` with ``nproc``
+    ranks (a rendezvous on localhost) -> its stderr; a failure raises."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    require(proc.returncode == 0,
+            f"torchrun of {argv[:3]} exited {proc.returncode}: "
+            f"{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+    return proc.stderr
+
+
+def c5_rank_a(out: Path) -> None:
+    """Part (a), one rank under torchrun: ``main --train`` of the C5
+    recipe over NCCL (world 1), with each step's and each validation's
+    kernel launches, each step's wall time and each gradient all-reduce's
+    bytes and device time recorded around the Solver's own calls."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import main as M
+    from semi_supervised_asr_tpu_torch.parallel import dp as DP
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    steps, evals, walls, reductions = [], [], [], []
+    run_step, validate = Solver.run_step, Solver.validate
+    all_reduce = DP.all_reduce_grads
+
+    def counted_step(self, args, unlab):
+        torch.cuda.synchronize()
+        before = dict(_native.LAUNCHES)
+        t0 = time.perf_counter()
+        m = run_step(self, args, unlab)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(launch_delta(before, _native.LAUNCHES))
+        return m
+
+    def counted_validate(self):
+        before = dict(_native.LAUNCHES)
+        res = validate(self)
+        evals.append((launch_delta(before, _native.LAUNCHES), res))
+        return res
+
+    def timed_all_reduce(grads):
+        n0, c0 = DP.STATS["bytes"], DP.STATS["calls"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = all_reduce(grads)
+        ev[1].record()
+        torch.cuda.synchronize()
+        reductions.append({"bytes": DP.STATS["bytes"] - n0,
+                           "buffers": DP.STATS["calls"] - c0,
+                           "ms": ev[0].elapsed_time(ev[1])})
+        return res
+
+    Solver.run_step, Solver.validate = counted_step, counted_validate
+    DP.all_reduce_grads = timed_all_reduce
+    _native.reset_launches()
+    rc = M.main(["--config", str(C5_CONFIG), "--train", "--workdir",
+                 str(out / "run"), *C5_DATA, *C5_RUN])
+    torch.cuda.synchronize()
+    (out / "rank_a.json").write_text(json.dumps({
+        "rc": rc, "steps": steps, "evals": evals, "walls": walls,
+        "reductions": reductions,
+        "launches": {k: v for k, v in _native.LAUNCHES.items() if v}}))
+
+
+def c5_rank_b(out: Path) -> None:
+    """Part (b), one of two ranks sharing the card over gloo: one float32
+    step on the rank's 16 rows of a global batch of 32 (rank 0 also runs
+    one process's step on the 32 rows), then 3 bf16 steps of the recipe
+    and the rank-sharded validation (rank 0 also validates alone)."""
+    import hashlib
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch import strict_fp32
+    from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    strict_fp32()
+    device = MESH.maybe_initialize_distributed("cuda", backend="gloo")
+    rank = MESH.rank()
+    res: dict = {"rank": rank, "device": str(device)}
+    s = Solver(c5_config([*C5_RUN, "model.compute_dtype=float32",
+                          "train.bf16_weight_stream=false"]),
+               out / "f32", device)
+    init = copy.deepcopy(s.state.model)
+    _, _, batch = next(s._labeled_stream())
+    tensors, _ = s.step_inputs(batch)
+    state = TS.init_train_state(s.cfg, copy.deepcopy(init), s.cfg.train.seed)
+    loss, _, grads = TS.loss_and_grads(s.cfg, state, *tensors, s.cmvn_dev,
+                                       dp=s.dp)
+    res["rows"] = int(tensors[0].shape[0])
+    res["grad_sha"] = hashlib.sha256(b"".join(
+        g.detach().cpu().numpy().tobytes() for g in grads)).hexdigest()
+    if rank == 0:
+        s.world = 1                       # the global batch, one process
+        _, _, whole = next(s._labeled_stream())
+        s.world = MESH.world_size()
+        one, _ = s.step_inputs(whole)
+        st1 = TS.init_train_state(s.cfg, copy.deepcopy(init),
+                                  s.cfg.train.seed)
+        loss1, _, grads1 = TS.loss_and_grads(s.cfg, st1, *one, s.cmvn_dev)
+        names = [n for n, _ in init.named_parameters()]
+        errs = dict(zip(names, grad_errs(grads, grads1)))
+        worst = max(errs, key=errs.get)
+        res.update(loss=loss.item(), loss_one=loss1.item(),
+                   rows_one=int(one[0].shape[0]), worst_leaf=worst,
+                   worst_err=errs[worst], gen_equal=torch.equal(
+                       state.gen.get_state(), st1.gen.get_state()))
+        del st1, grads1
+    del s, state, grads, init
+    torch.cuda.empty_cache()
+    MESH.barrier()
+
+    run = Solver(c5_config(C5_RUN), out / "run", device)
+    run.train()
+    res["history"] = [{k: v for k, v in h.items()
+                       if k not in ("frames_per_sec", "steps_per_sec")}
+                      for h in run.history]
+    res["param_sha"] = hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes()
+        for p in run.state.model.parameters())).hexdigest()
+    rate, records, _, _ = run._score_batches(run.bundle.dev,
+                                             run.state.model, "greedy")
+    res.update(dev_rate=rate, errors=sum(r["errors"] for r in records),
+               ref_len=sum(r["ref_len"] for r in records),
+               n_records=len(records))
+    if rank == 0:
+        run.world = 1                     # the whole dev set, one process
+        rate1, rec1, _, _ = run._score_batches(run.bundle.dev,
+                                               run.state.model, "greedy")
+        run.world = MESH.world_size()
+        res.update(dev_rate_one=rate1,
+                   errors_one=sum(r["errors"] for r in rec1),
+                   ref_len_one=sum(r["ref_len"] for r in rec1),
+                   n_records_one=len(rec1))
+    MESH.barrier()
+    (out / f"rank_b{rank}.json").write_text(json.dumps(res))
+    MESH.destroy()
+
+
+def c5_part_c(d: Path, card: str) -> None:
+    """Part (c), one process, kernels only: the C5 step with remat on and
+    off (loss and gradients within the phase-7 bf16 bounds, K2 8 launches
+    against 4, K3 4 both) and with the bf16 weight stream on and off
+    (loss within BF16_STEP_LOSS_TOL); the step kernels against plain with
+    remat on and the stream off; the K2 / K3 launch plans at H=512 for
+    the world-1 and the two-rank batch."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    for kind in ("fwd", "bwd"):
+        for b in (32, 16):
+            plan = K.cluster_plan(kind, 512, b, torch.bfloat16)
+            held = K.cluster_occupancy(kind, plan)
+            log(f"[phase15] K{2 if kind == 'fwd' else 3} plan at H=512 "
+                f"B={b}: route {plan.route} C={plan.cluster} R={plan.rows} "
+                f"u={plan.units} threads={plan.threads} smem={plan.smem} B;"
+                f" max active clusters {held}, a D=2 launch has "
+                f"{2 * -(-b // plan.rows)} ({card})")
+            require(plan.route == "cluster", f"C5 {kind} plan {plan}")
+    s = Solver(c5_config(C5_RUN), d, DEVICE)
+    batch, tensors = first_batch(s)
+    fcfg = s.cfg.frontend
+    flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
+                            batch.bucket[0])
+    bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
+                                    flens.shape[0], fcfg.n_mels, flens, fcfg)
+
+    def one_step(**train):
+        cfg = s.cfg.replace(train=dataclasses.replace(s.cfg.train, **train))
+        state = TS.init_train_state(cfg, copy.deepcopy(s.state.model), 0)
+        torch.cuda.synchronize()
+        before = dict(_native.LAUNCHES)
+        out = TS.loss_and_grads(cfg, state, *tensors, s.cmvn_dev, bands)
+        torch.cuda.synchronize()
+        return out, launch_delta(before, _native.LAUNCHES)
+
+    (lr_, _, gr), on = one_step()
+    (ln, _, gn), off = one_step(remat_encoder=False)
+    rel = abs(lr_.item() - ln.item()) / abs(ln.item())
+    names = [n for n, _ in s.state.model.named_parameters()]
+    errs = dict(zip(names, grad_errs(gr, gn)))
+    worst = max(errs, key=errs.get)
+    same = all(torch.equal(a, b) for a, b in zip(gr, gn))
+    log(f"[phase15] C5 step (bf16, bf16 weight stream), remat_encoder on vs "
+        f"off: loss {lr_.item():.6f} vs {ln.item():.6f} (rel {rel:.2e}, tol "
+        f"{BF16_STEP_LOSS_TOL:g}); worst gradient leaf {worst} "
+        f"{errs[worst]:.3e} of the model's max |g| (tol "
+        f"{BF16_STEP_GRAD_TOL:g}); gradients bitwise equal: {same}; "
+        f"launches on {on}, off {off}")
+    require(rel <= BF16_STEP_LOSS_TOL, f"remat changes the loss: {rel}")
+    require(errs[worst] <= BF16_STEP_GRAD_TOL, f"remat gradient {worst}")
+    require({k: on.get(k, 0) for k in LSTM_PATH} == C5_STEP_LAUNCHES,
+            f"remat step launches {on}, not {C5_STEP_LAUNCHES}")
+    require({k: off.get(k, 0) for k in LSTM_PATH}
+            == {**C5_STEP_LAUNCHES, "lstm_scan_fwd": 4},
+            f"step launches without remat {off}")
+    del gr, gn
+    (l32, _, _), _ = one_step(bf16_weight_stream=False)
+    rel = abs(lr_.item() - l32.item()) / abs(l32.item())
+    log(f"[phase15] C5 step, bf16 weight stream on vs off: loss "
+        f"{lr_.item():.6f} vs {l32.item():.6f} (rel {rel:.2e}, tol "
+        f"{BF16_STEP_LOSS_TOL:g})")
+    require(rel <= BF16_STEP_LOSS_TOL, f"the bf16 stream moves the loss by "
+            f"{rel}")
+    torch.cuda.empty_cache()
+    nostream = copy.copy(s)
+    nostream.cfg = s.cfg.replace(train=dataclasses.replace(
+        s.cfg.train, bf16_weight_stream=False))
+    step_check(nostream, "phase15", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    lab = s._labeled_stream()
+    return lambda: s.run_step(*s.step_inputs(next(lab)[2]))
+
+
+def phase15(d: Path, card: str) -> tuple[dict, dict]:
+    """The C5 recipe (configs/ls960_dp.yaml) at full width: (a) main
+    --train under torchrun over NCCL, world 1, with its launches, step
+    walls and all-reduces, then main --train --resume of its step-2
+    checkpoint in a fresh process and workdir, bitwise at step 3; (b) two
+    ranks on the card over gloo against one process; (c) remat and the
+    bf16 stream, on against off.  -> (part (a)'s launches, a C5 step to
+    profile with its median wall ms)."""
+    import shutil
+
+    from semi_supervised_asr_tpu_torch import train as T
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+
+    log(f"[phase15] {C5_CONFIG.name} as shipped (B=32 a rank, bf16, "
+        f"remat_encoder, bf16_weight_stream, sortagrad_epochs 1, async_ckpt)"
+        f"; cuts: {C5_DATA + C5_RUN}")
+    a = d / "a"
+    t0 = time.perf_counter()
+    torchrun(1, [__file__, "--c5-rank", "a", str(a)], timeout=900)
+    wall = time.perf_counter() - t0
+    got = json.loads((a / "rank_a.json").read_text())
+    require(got["rc"] == 0, f"main --train returned {got['rc']}")
+    recs = read_records(a / "run")
+    train = by_prefix(recs, "train")
+    require(len(train) == len(got["steps"]) == 3,
+            f"C5 run took {len(got['steps'])} steps")
+    for i, (m, step) in enumerate(zip(train, got["steps"])):
+        log(f"[phase15] (a) step {i + 1}: loss {m['loss']:.4f} ce "
+            f"{m['ce']:.4f} acc {m['acc']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; wall "
+            f"{got['walls'][i]:.1f} ms; kernel launches {step}")
+        require(all(math.isfinite(m[k]) for k in T.METRIC_KEYS),
+                f"C5 step {i + 1}: a metric is not finite")
+        require_launches(f"C5 step {i + 1}", step, C5_STEP_LAUNCHES)
+    require(len(got["evals"]) == 1, f"{len(got['evals'])} validations")
+    ev, dev = got["evals"][0]
+    n_dev = -(-C5_DEV // 32)
+    require_launches("C5 validation", ev,
+                     {k: n * n_dev for k, n in SOLVER_EVAL_LAUNCHES.items()})
+    red = got["reductions"]
+    log(f"[phase15] (a) validation (greedy, {C5_DEV} dev utterances in "
+        f"{n_dev} batches of 32): {dev}; kernel launches {ev}; run launches "
+        f"{got['launches']}; {wall:.1f} s for the torchrun")
+    log(f"[phase15] (a) gradient all-reduce over NCCL, world 1, one a step:"
+        f" {red[0]['bytes'] / 1e6:.3f} MB (the flat float32 gradients and "
+        f"metrics) in {red[0]['buffers']} buffers, device time by CUDA "
+        f"events around the call (flatten, all_reduce, views) "
+        f"{[round(r['ms'], 4) for r in red]} ms for steps 1-3 ({card})")
+    ckpts = Checkpointer(a / "run" / "checkpoints")
+    require(ckpts.all_steps() == [2, 3],
+            f"C5 checkpoints {ckpts.all_steps()}, not [2, 3]")
+    res = d / "resumed"
+    shutil.copytree(a / "run" / "checkpoints" / "2", res / "checkpoints" / "2")
+    shutil.copy(a / "run" / "cmvn.npz", res / "cmvn.npz")
+    err = torchrun(1, ["-m", "semi_supervised_asr_tpu_torch.main",
+                       "--config", str(C5_CONFIG), "--train", "--resume",
+                       "--workdir", str(res), *C5_DATA, *C5_RUN],
+                   timeout=600)
+    require("resumed from step 2" in err, f"no resume: {err[-1000:]}")
+    sd_a, meta_a, _ = ckpts.load(3)
+    sd_b, meta_b, _ = Checkpointer(res / "checkpoints").load(3)
+    diff = first_difference(sd_a, sd_b)
+    rec_b = by_prefix(read_records(res), "train")
+    same_rec = all(train[2][k] == rec_b[0][k] for k in T.METRIC_KEYS)
+    log(f"[phase15] (a) main --train --resume of step 2 in a fresh process "
+        f"and workdir: step 3's state (parameters, EMA buffer, Adam moments "
+        f"and count, generator) "
+        f"{'bitwise equal' if diff is None else 'differs first at ' + diff}"
+        f"; data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}; step-3 "
+        f"record equal: {same_rec}")
+    require(diff is None, f"C5 resume differs first at {diff}")
+    require(meta_a["data_pos"] == meta_b["data_pos"], "C5 data_pos differs")
+    require(same_rec, "C5 step-3 record differs")
+    del sd_a, sd_b
+
+    b = d / "b"
+    t0 = time.perf_counter()
+    torchrun(2, [__file__, "--c5-rank", "b", str(b)], timeout=900)
+    wall_b = time.perf_counter() - t0
+    r0, r1 = (json.loads((b / f"rank_b{r}.json").read_text())
+              for r in (0, 1))
+    rel = abs(r0["loss"] - r0["loss_one"]) / abs(r0["loss_one"])
+    log(f"[phase15] (b) two ranks over gloo on {r0['device']} and "
+        f"{r1['device']}, {r0['rows']} + {r1['rows']} rows against one "
+        f"process on {r0['rows_one']}, float32 step: loss {r0['loss']:.6f} "
+        f"vs {r0['loss_one']:.6f} (rel {rel:.2e}, tol 1e-5); worst reduced "
+        f"gradient leaf {r0['worst_leaf']} {r0['worst_err']:.3e} of the "
+        f"model's max |g| (tol {GRAD_TOL:g}); the ranks' reduced gradients "
+        f"bitwise equal: {r0['grad_sha'] == r1['grad_sha']}; generator as "
+        f"one process's: {r0['gen_equal']}")
+    require(r0["rows"] == r1["rows"] == 16 and r0["rows_one"] == 32,
+            "the two-rank batch is not 16 + 16 rows of 32")
+    require(rel <= 1e-5, f"two-rank loss differs: rel {rel}")
+    require(r0["worst_err"] <= GRAD_TOL,
+            f"two-rank gradient {r0['worst_leaf']} differs")
+    require(r0["grad_sha"] == r1["grad_sha"], "the ranks' gradients differ")
+    require(r0["gen_equal"], "a rank's generator moved unlike one process's")
+    log(f"[phase15] (b) 3 bf16 steps on two ranks: losses "
+        f"{[h['loss'] for h in r0['history']]}; parameter checksums "
+        f"{r0['param_sha'][:16]} / {r1['param_sha'][:16]}; sharded "
+        f"validation: {r0['n_records']} + {r1['n_records']} records, "
+        f"{r0['errors']} + {r1['errors']} errors over "
+        f"{r0['ref_len'] + r1['ref_len']} reference units, rate "
+        f"{r0['dev_rate']:.4f}; one process: {r0['n_records_one']} "
+        f"records, {r0['errors_one']} errors over {r0['ref_len_one']}, rate "
+        f"{r0['dev_rate_one']:.4f}; {wall_b:.1f} s for the torchrun")
+    require(r0["param_sha"] == r1["param_sha"], "the replicas differ")
+    require(r0["history"] == r1["history"], "the ranks' metrics differ")
+    require(r0["errors"] + r1["errors"] == r0["errors_one"]
+            and r0["ref_len"] + r1["ref_len"] == r0["ref_len_one"]
+            and r0["n_records"] + r1["n_records"] == r0["n_records_one"]
+            and r0["dev_rate"] == r1["dev_rate"] == r0["dev_rate_one"],
+            "the sharded validation's counts differ from one process's")
+    require(min(r0["n_records"], r1["n_records"]) > 0,
+            "a rank decoded no dev batch")
+    step = c5_part_c(d / "c", card)
+    wall = statistics.median(got["walls"][1:])
+    log(f"[phase15] (a) C5 step wall time, median of steps 2-3: "
+        f"{wall:.1f} ms ({card})")
+    return got["launches"], {"c5_train_step_b32": (step, wall)}
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -2604,6 +3026,8 @@ def main(argv=None) -> int:
     p.add_argument("--profile", type=Path, default=None,
                    help="write torch.profiler tables of one beam batch and "
                         "one train step of each path here")
+    p.add_argument("--c5-rank", nargs=2, metavar=("PART", "DIR"),
+                   help=argparse.SUPPRESS)   # phase 15's ranks (torchrun)
     args = p.parse_args(argv)
 
     import torch
@@ -2613,6 +3037,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.c5_rank:
+        part, out = args.c5_rank
+        {"a": c5_rank_a, "b": c5_rank_b}[part](Path(out))
+        return 0
     from semi_supervised_asr_tpu_torch import strict_fp32, synthetic
     from semi_supervised_asr_tpu_torch import transcribe as TR
 
@@ -2673,6 +3101,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         solver_launches = phase14(Path(tmp), card)
     elapsed("phase 14")
+    with tempfile.TemporaryDirectory() as tmp:
+        c5_launches, c5_work = phase15(Path(tmp), card)
+        if args.profile is not None:
+            profile(c5_work, args.profile)
+        del c5_work
+    elapsed("phase 15")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -2715,7 +3149,8 @@ def main(argv=None) -> int:
         f"worst errors {k5}; C4 launches over the Solver's 3 steps and "
         f"validation {c4_launches}, C4 step {med['c4_train_step']:.1f} ms "
         f"wall (median of steps 2-3); timit Solver run (4 steps, 2 "
-        f"validations) launches {solver_launches}")
+        f"validations) launches {solver_launches}; C5 run under torchrun "
+        f"(3 steps, 1 validation) launches {c5_launches}")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -2732,7 +3167,8 @@ def main(argv=None) -> int:
     # K2/K3, f32 for K1 and K5's table)
     paths = {"timit_serve": serve_launches, "timit_train": launches,
              "conformer_serve": conf_serve, "conformer_train": conf_launches,
-             "c4_solver": c4_launches, "timit_solver": solver_launches}
+             "c4_solver": c4_launches, "timit_solver": solver_launches,
+             "c5_dp": c5_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

@@ -8,9 +8,12 @@ tokens PAD-padded to the token bucket, a ``real`` mask for filler rows),
 ``start_batch`` batches at plan cost), ``repeating_batches`` (the endless
 stream, labeled or not, with ``skip_batches``), ``text_batches`` (the
 unlabeled text stream, with ``skip_batches``), ``epoch_batch_count`` and
-``compute_global_cmvn``.  The streams' sharding arguments (``shard_index``,
-``num_shards``, ``row_shard``) wait for the data-parallel slice and are
-refused.
+``compute_global_cmvn``.  The streams shard as the reference's do:
+``shard_index`` / ``num_shards`` stride the seeded plan (each rank takes
+batches p, p + n, ...: the sharded evaluation), and ``row_shard=(r0, r1,
+n_rows)`` keeps every batch of the global plan and assembles only the
+rank's block of its rows (``_slice_rows``: the data-parallel training
+streams, where every rank must see the same buckets at the same step).
 """
 
 from __future__ import annotations
@@ -78,11 +81,25 @@ def assemble_batch(dataset, idxs: list[int], n_real: int,
                  bucket, uids)
 
 
-def _refuse_sharding(shard_index: int, num_shards: int, row_shard) -> None:
-    if shard_index or num_shards != 1 or row_shard:
-        raise NotImplementedError(
-            "sharded streams (shard_index, num_shards, row_shard) are not "
-            "ported yet: they wait for the data-parallel slice")
+def _slice_rows(
+    idxs: list[int], n_real: int, row_shard: tuple[int, int, int] | None
+) -> tuple[list[int], int]:
+    """A rank's rows of a global plan batch.  ``row_shard=(r0, r1,
+    n_rows)`` is the rank's block of the data axis
+    (``parallel.mesh.host_data_rows``); the row range comes from the
+    batch's own length.  Real rows lead the batch, so the slice's real
+    count is ``n_real`` clipped into the range."""
+    if row_shard is None:
+        return idxs, n_real
+    r0, r1, n_rows = row_shard
+    if len(idxs) % n_rows:
+        raise ValueError(
+            f"batch of {len(idxs)} rows does not shard over {n_rows} "
+            "data-parallel ranks: train.batch_size must divide by the "
+            "world size")
+    per = len(idxs) // n_rows
+    lo, hi = r0 * per, r1 * per
+    return idxs[lo:hi], max(0, min(n_real, hi) - lo)
 
 
 _WARNED_DATASETS: set[int] = set()
@@ -116,12 +133,11 @@ def epoch_batch_count(
     drop_remainder: bool = True,
     sort_by_length: bool = False,
 ) -> int:
-    """Batches this epoch would yield: the plan only, nothing assembled
+    """This shard's batches this epoch: the plan only, nothing assembled
     (how a resumed stream skips whole epochs)."""
-    _refuse_sharding(shard_index, num_shards, None)
     plan, _ = plan_epoch(lengths, spec, batch_size, seed, epoch,
                          drop_remainder, sort_by_length)
-    return len(plan)
+    return len(plan[shard_index::num_shards])
 
 
 def epoch_batches(
@@ -138,16 +154,18 @@ def epoch_batches(
     start_batch: int = 0,
     row_shard: tuple[int, int, int] | None = None,
 ) -> Iterator[Batch]:
-    """One epoch of bucketed batches, shuffled from (seed, epoch).
-    ``start_batch`` skips the first N batches without assembling them
-    (exact mid-epoch resume).  Without ``drop_remainder`` a bucket's last
-    partial batch is filled by repeating its rows, which ``real`` marks
-    as filler."""
-    _refuse_sharding(shard_index, num_shards, row_shard)
+    """One epoch of bucketed batches, shuffled from (seed, epoch), or in
+    ascending length with ``sort_by_length`` (SortaGrad).  ``start_batch``
+    skips the shard's first N batches without assembling them (exact
+    mid-epoch resume).  Without ``drop_remainder`` a bucket's last partial
+    batch is filled by repeating its rows, which ``real`` marks as filler.
+    ``shard_index`` / ``num_shards`` take every n-th batch of the plan,
+    ``row_shard`` the rank's rows of each (``_slice_rows``)."""
     plan, skipped = plan_epoch(_audio_lengths(dataset), spec, batch_size,
                                seed, epoch, drop_remainder, sort_by_length)
     _warn_skipped(skipped, dataset)
-    for bucket, idxs, n_real in plan[start_batch:]:
+    for bucket, idxs, n_real in plan[shard_index::num_shards][start_batch:]:
+        idxs, n_real = _slice_rows(idxs, n_real, row_shard)
         yield assemble_batch(dataset, idxs, n_real, bucket, spec, fcfg)
 
 
@@ -177,21 +195,20 @@ def repeating_batches(
     """Endless stream: a new seeded shuffle every epoch.  ``skip_batches``
     fast-forwards past the first N yields at plan cost (a resumed
     semi-supervised run advances each unlabeled stream by the steps
-    already taken)."""
-    _refuse_sharding(shard_index, num_shards, row_shard)
+    already taken).  Sharding as :func:`epoch_batches`."""
     skip = skip_batches
     lengths = _audio_lengths(dataset) if skip > 0 else None
     for epoch in itertools.count(start_epoch):
         if skip > 0:
             n = epoch_batch_count(lengths, spec, batch_size, seed, epoch,
-                                  drop_remainder=drop_remainder)
+                                  shard_index, num_shards, drop_remainder)
             if skip >= n:
                 skip -= n
                 continue
         yielded = False
         for b in epoch_batches(dataset, spec, fcfg, batch_size, seed, epoch,
-                               drop_remainder=drop_remainder,
-                               start_batch=skip):
+                               shard_index, num_shards, drop_remainder,
+                               start_batch=skip, row_shard=row_shard):
             yielded = True
             yield b
         if not yielded:
@@ -215,14 +232,18 @@ def text_batches(
     and PAD-padded to ``token_bucket``; real [B] bool), each epoch a
     permutation from (seed, epoch); the last batch of an epoch is padded
     with all-PAD filler rows.  ``skip_batches`` fast-forwards without
-    assembling."""
-    _refuse_sharding(shard_index, num_shards, row_shard)
+    assembling; ``shard_index`` / ``num_shards`` stride the permutation,
+    ``row_shard`` keeps the rank's rows of each batch."""
     if len(dataset) == 0:
         raise ValueError("text_batches: the dataset is empty")
     skip = skip_batches
     for epoch in itertools.count():
         order = np.random.default_rng((seed, epoch, 17)).permutation(
-            len(dataset))
+            len(dataset))[shard_index::num_shards]
+        if len(order) == 0:
+            raise ValueError(
+                "text_batches: dataset shard is empty (size "
+                f"{len(dataset)}, shard {shard_index}/{num_shards})")
         n_epoch = (len(order) + batch_size - 1) // batch_size
         if skip >= n_epoch:
             skip -= n_epoch
@@ -235,6 +256,11 @@ def text_batches(
                 u = min(len(t), token_bucket)
                 tokens[r, :u] = t[:u]
                 real[r] = True
+            if row_shard is not None:
+                r0, r1, n_rows = row_shard
+                per = batch_size // n_rows
+                tokens, real = (tokens[r0 * per:r1 * per],
+                                real[r0 * per:r1 * per])
             yield tokens, real
         skip = 0
 

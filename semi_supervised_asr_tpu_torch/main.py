@@ -15,6 +15,17 @@ greedy, any other beam size sets ``decode.beam_size``; ``--hyp-out``
 writes the hypotheses and their error analysis.  ``--device`` defaults to
 ``cuda`` and the CLI refuses to start without it; ``--device cpu`` runs
 every kernel's plain version.
+
+Data parallelism: ``--train``, ``--resume`` and ``--test`` run under
+
+    torchrun --nproc_per_node=N -m semi_supervised_asr_tpu_torch.main \
+        --config configs/ls960_dp.yaml --train --workdir DIR [...]
+
+with one rank per card (NCCL; gloo with ``--device cpu``), a global
+``train.batch_size`` that divides by N, and rank 0 writing the workdir's
+files and printing the result.  Without torchrun's environment it runs
+one process; with ``WORLD_SIZE`` > 1 and no process group to be formed it
+raises rather than train alone.
 """
 
 from __future__ import annotations
@@ -60,8 +71,7 @@ def main(argv=None) -> int:
     import torch
 
     from semi_supervised_asr_tpu_torch import strict_fp32
-    from semi_supervised_asr_tpu_torch.config import load_config
-    from semi_supervised_asr_tpu_torch.training.solver import Solver
+    from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
 
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -69,6 +79,17 @@ def main(argv=None) -> int:
             raise SystemExit("CUDA is not available; pass --device cpu to run "
                              "the plain PyTorch versions")
         strict_fp32()
+    device = MESH.maybe_initialize_distributed(device)
+    try:
+        return _run(args, eff_argv, device, MESH.is_primary())
+    finally:
+        MESH.destroy()
+
+
+def _run(args, eff_argv, device, primary: bool) -> int:
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
     cfg = load_config(args.config, args.overrides)
     if args.beam is not None and args.beam > 1:
         cfg = cfg.replace(decode=dataclasses.replace(cfg.decode,
@@ -92,11 +113,14 @@ def main(argv=None) -> int:
                 cmd.insert(cmd.index("--train") + 1 if "--train" in cmd
                            else len(cmd), "--resume")
             os.execv(sys.executable, cmd)
-        print(json.dumps({"final_dev": result}))
+        if primary:
+            print(json.dumps({"final_dev": result}))
         return 0
 
     mode = "greedy" if args.beam == 1 else "beam"
-    print(json.dumps(solver.test(mode=mode, out_path=args.hyp_out)))
+    out = solver.test(mode=mode, out_path=args.hyp_out)
+    if primary:
+        print(json.dumps(out))
     return 0
 
 

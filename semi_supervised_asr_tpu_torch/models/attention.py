@@ -40,7 +40,9 @@ class Attention(nn.Module):
 
     def precompute_keys(self, enc: torch.Tensor) -> torch.Tensor:
         """[B, T, enc_out] -> [B, T, A]; computed once per utterance."""
-        return torch.matmul(enc, self.w_key)
+        # .float(): a bf16 weight (train.bf16_weight_stream) widens to the
+        # float32 activations, as JAX promotes it
+        return torch.matmul(enc, self.w_key.float())
 
     def location_features(self, alpha: torch.Tensor) -> torch.Tensor:
         """Conv over the previous alignment: [B, T] -> [B, T, C], with lax
@@ -65,15 +67,15 @@ class Attention(nn.Module):
         sharpening: float = 1.0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One attention step -> (context [B*, enc_out], alpha [B*, T])."""
-        q = torch.matmul(query, self.w_query)
+        q = torch.matmul(query, self.w_query.float())
         if self.kind == "dot":
             scores = torch.einsum("ba,bta->bt", q, keys) / math.sqrt(q.shape[-1])
         else:
             e = q[:, None, :] + keys + self.bias
             if self.kind == "location":
                 f = self.location_features(prev_alpha)
-                e = e + torch.matmul(f, self.w_loc)
-            scores = torch.matmul(torch.tanh(e), self.v)
+                e = e + torch.matmul(f, self.w_loc.float())
+            scores = torch.matmul(torch.tanh(e), self.v.float())
         scores = torch.where(mask, scores * sharpening,
                              torch.full((), NEG_INF, device=scores.device))
         alpha = torch.softmax(scores, dim=-1)

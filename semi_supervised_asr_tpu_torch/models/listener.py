@@ -117,21 +117,29 @@ def conv_stem_apply(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> ([B, ceil(T/2^N), F'*C] float32, new lens), features F-major and
     C-minor as JAX's NHWC reshape gives them.  Each block: SAME-padded
-    stride-2 conv in the compute dtype, float32 bias, ReLU, then the pad
-    frames are zeroed again (bias + ReLU would leak into them)."""
-    h = x.float()[:, None]                             # [B, 1, T, F]
+    stride-2 3x3 conv in the compute dtype, float32 bias, ReLU, then the
+    pad frames are zeroed again (bias + ReLU would leak into them).  The
+    conv is the 3x3 windows of the padded input (``unfold``) times the
+    [9 * C_in, C] filter: its backward is a gather and a matmul, with no
+    atomics, so that a step's bits do not depend on the run (cuDNN's
+    default backward algorithms for a conv sum with atomics on the
+    card)."""
+    h = x.float()[:, None, :, :].permute(0, 2, 3, 1)   # [B, T, F, 1] NHWC
     for p in convs:
-        pt, pf = _same_pad(h.shape[2]), _same_pad(h.shape[3])
-        hp = Fn.pad(h.to(compute), (*pf, *pt))
-        w = p.w.to(compute).permute(3, 2, 0, 1)        # HWIO -> OIHW
-        y = Fn.conv2d(hp, w, stride=2).float() + p.b.float()[:, None, None]
-        y = torch.relu(y)
+        pt, pf = _same_pad(h.shape[1]), _same_pad(h.shape[2])
+        hp = Fn.pad(h.to(compute), (0, 0, *pf, *pt))
+        # [B, T', F', C_in, 3, 3] -> [B, T', F', 3, 3, C_in], HWI-major as
+        # the HWIO filter's rows
+        win = hp.unfold(1, 3, 2).unfold(2, 3, 2).permute(0, 1, 2, 4, 5, 3)
+        w = p.w.to(compute).reshape(-1, p.w.shape[-1])  # [9 * C_in, C]
+        y = torch.matmul(win.reshape(*win.shape[:3], -1), w).float()
+        y = torch.relu(y + p.b.float())
         lens = torch.div(lens + 1, 2, rounding_mode="floor")
-        keep = torch.arange(y.shape[2], device=y.device)[None, :] < \
+        keep = torch.arange(y.shape[1], device=y.device)[None, :] < \
             lens[:, None]
-        h = torch.where(keep[:, None, :, None], y, 0.0)
-    b, c, t, f = h.shape
-    return h.permute(0, 2, 3, 1).reshape(b, t, f * c), lens
+        h = torch.where(keep[:, :, None, None], y, 0.0)
+    b, t, f, c = h.shape
+    return h.reshape(b, t, f * c), lens
 
 
 class Listener(nn.Module):

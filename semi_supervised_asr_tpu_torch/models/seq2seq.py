@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models.conformer_listener import (
@@ -63,10 +64,33 @@ class Seq2Seq(nn.Module):
     def forward_teacher(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                         tokens_in: torch.Tensor, tf_rate: float = 1.0,
                         gen: torch.Generator | None = None,
-                        backend: str | None = None):
+                        backend: str | None = None, remat: bool = False,
+                        rows: tuple[int, int, int] | None = None):
         """Full teacher-forced pass -> (logits [B, U, V], alphas
-        [B, U, T'])."""
-        enc, enc_lens = self.listener(feats, feat_lens, backend)
+        [B, U, T']).  ``remat`` (``train.remat_encoder``) keeps none of the
+        listener's activations for the backward and runs the listener again
+        there, as the reference's ``jax.checkpoint``; ``rows`` places the
+        batch in a data-parallel global batch (``Speller.forward_teacher``)."""
+        if remat:
+            enc, enc_lens = self._listener_remat(feats, feat_lens, backend)
+        else:
+            enc, enc_lens = self.listener(feats, feat_lens, backend)
         enc_mask = frame_mask(enc_lens, enc.shape[1])
         return self.speller.forward_teacher(enc, enc_mask, tokens_in,
-                                            tf_rate, gen)
+                                            tf_rate, gen, rows)
+
+    def _listener_remat(self, feats, feat_lens, backend):
+        """The listener under a non-reentrant checkpoint.  Its parameters
+        go in as explicit inputs, so that the backward's recomputation uses
+        the tensors this call saw, also when they are stand-ins given by
+        ``torch.func.functional_call`` (``train.bf16_weight_stream``), which
+        are gone from the module by the time the backward runs.  The
+        listener draws nothing at random, so no RNG state is kept."""
+        names, leaves = zip(*self.listener.named_parameters())
+
+        def run(f, n, *ws):
+            return torch.func.functional_call(
+                self.listener, dict(zip(names, ws)), (f, n, backend))
+
+        return checkpoint(run, feats, feat_lens, *leaves,
+                          use_reentrant=False, preserve_rng_state=False)

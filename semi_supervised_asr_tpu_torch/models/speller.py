@@ -106,6 +106,7 @@ class Speller(nn.Module):
         tokens_in: torch.Tensor,    # [B, U] decoder inputs (<sos> first)
         tf_rate: float = 1.0,
         gen: torch.Generator | None = None,
+        rows: tuple[int, int, int] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced decode -> (logits [B, U, V], alphas [B, U, T]).
 
@@ -113,7 +114,10 @@ class Speller(nn.Module):
         ground truth with probability ``tf_rate``, else the argmax (first
         maximum, as ``jnp.argmax``) of the previous step's logits: one
         Bernoulli draw per (step, row) from ``gen`` (a CPU generator; the
-        draws move to the device once).  ``model.speller_grad`` is
+        draws move to the device once).  ``rows=(r0, r1, n)``: the batch is
+        rows [r0, r1) of a global batch of n (a data-parallel rank's), so
+        the draws are made for n rows and these kept (as
+        ``frontend.sample_specaug_params`` does).  ``model.speller_grad`` is
         accepted and has no effect: ``stacked`` reroutes JAX's scan
         autodiff, which a Python loop under autograd does not have.
         """
@@ -130,7 +134,8 @@ class Speller(nn.Module):
         state = self.init_state(b, enc_mask)
         use_gt = None
         if u > 1 and tf_rate < 1.0:
-            draws = torch.rand((u - 1, b), generator=gen)
+            r0, r1, n = rows if rows is not None else (0, b, b)
+            draws = torch.rand((u - 1, n), generator=gen)[:, r0:r1]
             use_gt = (draws < tf_rate).to(enc.device)
         logits_all, alphas = [], []
         tok = tokens_in[:, 0]

@@ -38,9 +38,12 @@ def masked_ce(
     logits: torch.Tensor,       # [B, U, V]
     targets: torch.Tensor,      # [B, U]
     label_smoothing: float = 0.0,
+    denom: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (mean CE over valid tokens, per-token gold log-prob [B, U]).
-    Smoothing spreads ``label_smoothing`` uniformly over the whole vocab."""
+    Smoothing spreads ``label_smoothing`` uniformly over the whole vocab.
+    ``denom`` replaces the batch's own token count (a data-parallel rank
+    divides its sum by the global batch's count)."""
     mask = token_mask(targets)
     logp = torch.log_softmax(logits.float(), dim=-1)
     gold_lp = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
@@ -49,14 +52,18 @@ def masked_ce(
                - label_smoothing * logp.mean(dim=-1))
     else:
         nll = -gold_lp
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
     return (nll * mask).sum() / denom, gold_lp
 
 
-def token_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def token_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                   denom: torch.Tensor | None = None) -> torch.Tensor:
     mask = token_mask(targets)
     correct = (torch.argmax(logits, dim=-1) == targets).float() * mask
-    return correct.sum() / torch.clamp_min(mask.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    return correct.sum() / denom
 
 
 def supervised_loss(
@@ -68,25 +75,32 @@ def supervised_loss(
     tf_rate: float,
     gen: torch.Generator | None = None,
     backend: str | None = None,
+    denom: torch.Tensor | None = None,
+    remat: bool = False,
+    rows: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Supervised CE on labeled (audio, text) pairs -> (loss, {"ce",
-    "acc"}); ``model`` is a ``Seq2Seq``."""
+    "acc"}); ``model`` is a ``Seq2Seq``.  ``denom`` replaces the batch's
+    token count in the CE and the accuracy, ``remat`` recomputes the
+    listener in the backward, ``rows`` places the batch in a global one
+    (``Seq2Seq.forward_teacher``)."""
     tokens_in, targets = shift_targets(tokens)
     logits, _ = model.forward_teacher(feats, feat_lens, tokens_in, tf_rate,
-                                      gen, backend)
-    loss, _ = masked_ce(logits, targets, label_smoothing)
+                                      gen, backend, remat, rows)
+    loss, _ = masked_ce(logits, targets, label_smoothing, denom)
     return loss, {"ce": loss.detach(),
-                  "acc": token_accuracy(logits.detach(), targets)}
+                  "acc": token_accuracy(logits.detach(), targets, denom)}
 
 
 def text_ae_loss(speller, label_smoothing: float,
-                 text_tokens: torch.Tensor) -> torch.Tensor:
+                 text_tokens: torch.Tensor,
+                 denom: torch.Tensor | None = None) -> torch.Tensor:
     """Text autoencoder: label-smoothed CE of unlabeled text ``[B, U]``
     (EOS-terminated, PAD-padded) reconstructed by the shared ``speller``
-    over a zero context."""
+    over a zero context (``denom`` as in :func:`masked_ce`)."""
     tokens_in, targets = shift_targets(text_tokens)
     logits = speller.text_autoencoder_logits(tokens_in)
-    loss, _ = masked_ce(logits, targets, label_smoothing)
+    loss, _ = masked_ce(logits, targets, label_smoothing, denom)
     return loss
 
 
@@ -102,36 +116,14 @@ def teacher_labels(teacher, feats: torch.Tensor, feat_lens: torch.Tensor,
                                   max_len)
 
 
-def pseudo_label_loss(
-    model,
-    teacher,
-    pseudo_confidence: float,
-    feats_clean: torch.Tensor,
-    feats_aug: torch.Tensor,
-    feat_lens: torch.Tensor,
-    max_len: int,
-    row_mask: torch.Tensor | None = None,
-    backend: str | None = None,
-    labels: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
-    """Pseudo-label consistency on unlabeled audio: the student ``model``
-    at teacher-forcing rate 1 on the augmented view, CE against the
-    ``teacher``'s greedy hypotheses on the clean view (no gradient reaches
-    the teacher).  ``pseudo_confidence`` is an absolute probability
-    threshold: an utterance is kept when the mean of its hypothesis'
-    per-token log-prob is >= log(pseudo_confidence); 0 keeps every row.
-    ``row_mask`` drops filler rows.  ``labels`` replaces the teacher's
-    decode with given (hypotheses, log-probs), so that two runs of the
-    student can be compared on the same targets."""
-    hyps, hyp_logp = labels if labels is not None else teacher_labels(
-        teacher, feats_clean, feat_lens, max_len, backend)
-    tokens_in, targets = shift_targets(hyps)
-    logits, _ = model.forward_teacher(feats_aug, feat_lens, tokens_in, 1.0,
-                                      None, backend)
-    mask = token_mask(targets)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    gold_lp = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    nll = -gold_lp * mask
+def pseudo_keep(hyps: torch.Tensor, hyp_logp: torch.Tensor,
+                pseudo_confidence: float,
+                row_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The rows of the teacher's hypotheses the pseudo-label term keeps ->
+    [B] bool: the mean of a hypothesis' per-token log-prob is >=
+    log(``pseudo_confidence``) (0 keeps every row), and ``row_mask`` (the
+    real rows) holds."""
+    mask = token_mask(hyps)
     conf = (hyp_logp * mask).sum(dim=1) / torch.clamp_min(mask.sum(dim=1),
                                                           1.0)
     if pseudo_confidence > 0.0:
@@ -143,6 +135,43 @@ def pseudo_label_loss(
         keep = torch.ones_like(conf, dtype=torch.bool)
     if row_mask is not None:
         keep = keep & row_mask
-    keep_f = keep.float()[:, None]
-    denom = torch.clamp_min((mask * keep_f).sum(), 1.0)
+    return keep
+
+
+def pseudo_label_loss(
+    model,
+    teacher,
+    pseudo_confidence: float,
+    feats_clean: torch.Tensor,
+    feats_aug: torch.Tensor,
+    feat_lens: torch.Tensor,
+    max_len: int,
+    row_mask: torch.Tensor | None = None,
+    backend: str | None = None,
+    labels: tuple[torch.Tensor, torch.Tensor] | None = None,
+    denom: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pseudo-label consistency on unlabeled audio: the student ``model``
+    at teacher-forcing rate 1 on the augmented view, CE against the
+    ``teacher``'s greedy hypotheses on the clean view (no gradient reaches
+    the teacher).  ``pseudo_confidence`` is an absolute probability
+    threshold: an utterance is kept when the mean of its hypothesis'
+    per-token log-prob is >= log(pseudo_confidence); 0 keeps every row.
+    ``row_mask`` drops filler rows.  ``labels`` replaces the teacher's
+    decode with given (hypotheses, log-probs), so that two runs of the
+    student can be compared on the same targets.  ``denom`` replaces the
+    kept-token count (a data-parallel rank's global one)."""
+    hyps, hyp_logp = labels if labels is not None else teacher_labels(
+        teacher, feats_clean, feat_lens, max_len, backend)
+    tokens_in, targets = shift_targets(hyps)
+    logits, _ = model.forward_teacher(feats_aug, feat_lens, tokens_in, 1.0,
+                                      None, backend)
+    mask = token_mask(targets)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gold_lp = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    nll = -gold_lp * mask
+    keep_f = pseudo_keep(hyps, hyp_logp, pseudo_confidence,
+                         row_mask).float()[:, None]
+    if denom is None:
+        denom = torch.clamp_min((mask * keep_f).sum(), 1.0)
     return (nll * keep_f).sum() / denom

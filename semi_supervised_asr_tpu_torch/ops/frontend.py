@@ -166,6 +166,7 @@ def sample_specaug_params(
     n_mels: int,
     feat_lens: torch.Tensor,
     cfg: FrontendConfig,
+    rows: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Draw the mask bands -> (fstarts [B,mF], fwidths [B,mF], tstarts
     [B,mT], twidths [B,mT]), int32 on ``feat_lens``'s device.
@@ -175,12 +176,19 @@ def sample_specaug_params(
     start U[0, max(len - w, 1)): confined to the valid frames.  The
     uniforms come from ``gen`` (a CPU generator, so the draws do not depend
     on the device) and move to the device without a host sync.
+    ``rows=(r0, r1, n)``: the batch is rows [r0, r1) of a global batch of
+    n (a data-parallel rank's); the uniforms are drawn for all n rows and
+    rows [r0, r1) kept, so that the ranks together draw what one process
+    draws for the whole batch and every rank's ``gen`` moves alike.
     """
-    b, m, dev = batch, n_mels, feat_lens.device
+    m, dev = n_mels, feat_lens.device
+    r0, r1, b = rows if rows is not None else (0, batch, batch)
+    if r1 - r0 != batch:
+        raise ValueError(f"rows {rows} do not hold a batch of {batch}")
     nf, nt = cfg.n_freq_masks, cfg.n_time_masks
     fw = torch.randint(0, min(cfg.freq_mask_param, m) + 1, (b, nf),
-                       generator=gen).to(dev)
-    u_fs, u_tw, u_ts = (torch.rand(shape, generator=gen).to(dev)
+                       generator=gen)[r0:r1].to(dev)
+    u_fs, u_tw, u_ts = (torch.rand(shape, generator=gen)[r0:r1].to(dev)
                         for shape in ((b, nf), (b, nt), (b, nt)))
     fs = (u_fs * torch.clamp_min(m - fw, 1)).to(torch.int32)
     lens_f = feat_lens.to(torch.float32)

@@ -22,7 +22,13 @@ The guarantees, as the reference gives them:
   ``_quarantine/`` only by :meth:`Checkpointer.quarantine_stale_tmp`, which
   the Solver calls while it holds the workdir lock.
 
-Saves are synchronous: the Solver refuses ``train.async_ckpt``.
+``Checkpointer(async_save=True)`` (``train.async_ckpt``) takes the host
+snapshot of the state on the calling thread, so the step after the save
+may move the device state at once, and writes it (tmp, fsync, rename,
+retention, the durability check) on one background thread.  The next
+``save``, ``load`` / ``restore`` and :meth:`Checkpointer.wait` wait for
+it, and a background save that failed raises there
+(:class:`CheckpointSaveFailed`), as the reference's orbax manager does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 from pathlib import Path
 
@@ -50,6 +57,10 @@ class CheckpointNotDurable(RuntimeError):
     """A save that was requested never became the latest durable
     checkpoint.  Raised instead of continuing as if it had: a restart that
     trusts such a save re-runs the same steps forever."""
+
+
+class CheckpointSaveFailed(RuntimeError):
+    """A background save raised; surfaced at the next save or wait."""
 
 
 def _fsync_dir(path: Path) -> None:
@@ -96,6 +107,7 @@ class Checkpointer:
         directory: str | Path,
         max_to_keep: int = 3,
         best_metric: str | None = None,
+        async_save: bool = False,
     ):
         self.dir = Path(directory).absolute()
         self.dir.mkdir(parents=True, exist_ok=True)
@@ -105,6 +117,10 @@ class Checkpointer:
         self.quarantined: list[str] = []
         self.max_to_keep = max_to_keep
         self.best_metric = best_metric     # lower is better
+        self.async_save = async_save
+        self._pending: threading.Thread | None = None
+        self._pending_step: int | None = None
+        self._error: BaseException | None = None
 
     def quarantine_stale_tmp(self) -> list[str]:
         """Quarantine dead-save debris.  Call only while holding the
@@ -124,15 +140,49 @@ class Checkpointer:
         data_pos: dict | None = None,
         metrics: dict | None = None,
     ) -> None:
+        """Save ``state`` as step ``step``.  The host snapshot (parameters,
+        EMA buffer, Adam, generator, as CPU copies) is taken here; the
+        writing runs here too, or on the background thread with
+        ``async_save`` (after any earlier one has finished)."""
         step = int(step)
-        tmp = self.dir / f"{step}{TMP_MARK}.{os.getpid()}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir()
+        self.wait()
         sd = state.state_dict()
         meta = {"step": step,
                 "data_pos": dict(data_pos or {"epoch": 0, "batch": 0}),
                 "metrics": {k: float(v) for k, v in (metrics or {}).items()}}
+        if not self.async_save:
+            self._write(step, sd, meta)
+            return
+        self._pending_step = step
+        self._pending = threading.Thread(
+            target=self._write_background, args=(step, sd, meta),
+            name=f"ckpt-save-{step}")
+        self._pending.start()
+
+    def _write_background(self, step: int, sd: dict, meta: dict) -> None:
+        try:
+            self._write(step, sd, meta)
+        except BaseException as e:     # surfaced by the next wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Wait for the background save in flight, if any; raise
+        :class:`CheckpointSaveFailed` if it failed."""
+        t, self._pending = self._pending, None
+        if t is not None:
+            t.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise CheckpointSaveFailed(
+                f"background save of step {self._pending_step} failed: "
+                f"{type(err).__name__}: {err}") from err
+
+    def _write(self, step: int, sd: dict, meta: dict) -> None:
+        """tmp + fsync + rename, retention, then prove the step durable."""
+        tmp = self.dir / f"{step}{TMP_MARK}.{os.getpid()}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
         _write_synced(tmp / STATE_FILE, lambda f: torch.save(sd, f))
         _write_synced(tmp / META_FILE,
                       lambda f: f.write(json.dumps(meta).encode()))
@@ -147,7 +197,7 @@ class Checkpointer:
         if old is not None:
             shutil.rmtree(old)
         self._apply_retention()
-        self.verify_durable(step)
+        self._check_durable(step)
 
     def _apply_retention(self) -> None:
         """Keep the newest two ∪ the best ``max_to_keep`` by the metric
@@ -181,7 +231,11 @@ class Checkpointer:
         """Prove ``step`` is the latest durable checkpoint -- raise
         :class:`CheckpointNotDurable` otherwise.  Called before anything
         that treats the save as done (an exec-restart, the end of
-        training)."""
+        training); waits for a background save first."""
+        self.wait()
+        self._check_durable(step)
+
+    def _check_durable(self, step: int) -> None:
         latest = self.latest_step()
         if latest != step:
             stale = [e.name for e in self.dir.iterdir() if TMP_MARK in e.name]
@@ -226,6 +280,7 @@ class Checkpointer:
     def load(self, step: int | None = None) -> tuple[dict, dict, int]:
         """-> (state dict, meta, step) of ``step`` (default: the latest),
         on the CPU."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         assert step is not None, f"no checkpoint found in {self.dir}"
@@ -248,6 +303,7 @@ class Checkpointer:
         """Elementwise float64 mean of the parameters of the last
         ``last_k`` retained checkpoints, cast back to each parameter's
         dtype -> (flat name -> array, steps used)."""
+        self.wait()
         steps = self.all_steps()[-max(int(last_k), 1):]
         assert steps, f"no checkpoints found in {self.dir}"
         acc: dict[str, np.ndarray] = {}

@@ -1,13 +1,24 @@
 """Solver: the train / eval loop of the PyTorch port.
 
 Counterpart of ``semi_supervised_asr_tpu/training/solver.py`` for the LAS
-family on one device: ``train()``, ``validate()``, ``test()`` around the
-port's step (``training/train_step.py``) and decoders.
+family: ``train()``, ``validate()``, ``test()`` around the port's step
+(``training/train_step.py``) and decoders, on one device or data-parallel
+over the ranks of a torchrun (``parallel/``).
 
 * The labeled stream draws ``data.drop_remainder`` batches of the seeded
-  epoch plan; a semi-supervised run zips it with the unlabeled audio
-  stream (the largest frame and token bucket, seed + 1) and the unlabeled
-  text stream (the largest token bucket, seed + 2).
+  epoch plan, in ascending length for the first ``data.sortagrad_epochs``
+  epochs (SortaGrad); a semi-supervised run zips it with the unlabeled
+  audio stream (the largest frame and token bucket, seed + 1) and the
+  unlabeled text stream (the largest token bucket, seed + 2).
+* Under data parallelism ``train.batch_size`` is global and must divide
+  by the world size: every rank iterates the same global plans and
+  assembles its block of each batch's rows (``pipeline._slice_rows``);
+  the step sums the gradients over the ranks, so the replicas stay
+  bitwise equal.  Rank 0 alone writes ``cmvn.npz``, ``metrics.jsonl`` and
+  the checkpoints (the others wait at a barrier, then read); validation
+  and ``test`` decode every n-th batch on each rank and sum the counters;
+  a resume loads the same checkpoint on every rank.  Each rank holds its
+  own workdir lock, ``.lock.p<rank>``.
 * The next steps' host-to-device copies are issued ``data.device_prefetch``
   deep (pinned memory, ``non_blocking``, on a side stream that the step
   waits for), so that they run beside the steps already queued.
@@ -18,14 +29,16 @@ port's step (``training/train_step.py``) and decoders.
   two and the best ``train.keep_ckpts`` (``training/checkpointing.py``).
 * ``train(resume=True)`` restores the latest checkpoint and continues the
   exact streams: a resumed run is bitwise equal to an uninterrupted one.
+  ``train.async_ckpt`` writes the checkpoints on a background thread
+  (``training/checkpointing.py``).
 * ``decode.use_ema`` validates and decodes with the EMA buffer,
   ``decode.average_ckpts`` with the mean of the last checkpoints.
 
 Not ported (each refused with its key, here or where the step, the model
-or the decoders are built): the feature store, grain threads, SortaGrad,
+or the decoders are built): the feature store, grain threads,
 constant-frames batching, LM fusion, CTC and transducer decoding,
-``train.async_ckpt`` and ``train.debug_nans``; data parallelism waits for
-its own slice.
+``train.debug_nans``, tensor parallelism (``parallel.model_parallel``) and
+exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
 shape) and has no effect.
 """
@@ -50,6 +63,8 @@ from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
 from semi_supervised_asr_tpu_torch.decode.beam import check_supported
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from semi_supervised_asr_tpu_torch.parallel import dp as DP
+from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
 from semi_supervised_asr_tpu_torch.training import train_step as TS
 from semi_supervised_asr_tpu_torch.training.checkpointing import Checkpointer
 from semi_supervised_asr_tpu_torch.transcribe import (
@@ -87,7 +102,6 @@ def check_solver_supported(cfg: Config) -> None:
     (the step's and the model's own options are checked where they are
     built)."""
     unsupported = {
-        "train.async_ckpt": (cfg.train.async_ckpt, False),
         "train.debug_nans": (cfg.train.debug_nans, False),
         "data.grain_threads": (cfg.data.grain_threads, 0),
     }
@@ -96,6 +110,7 @@ def check_solver_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port's Solver "
                 f"runs with {key}={want!r})")
+    MESH.check_parallel_supported(cfg.parallel)
     check_supported(cfg.decode)
 
 
@@ -105,6 +120,21 @@ class Solver:
         self.workdir.mkdir(parents=True, exist_ok=True)
         self.device = torch.device(device)
         check_solver_supported(cfg)
+        # the data-parallel group main.py formed, if any (a world of one
+        # under torchrun included: its reductions run)
+        MESH.require_group()
+        self.dp = DP.current()
+        self.rank, self.world = MESH.rank(), MESH.world_size()
+        self.primary = self.rank == 0
+        if cfg.train.batch_size % self.world:
+            raise ValueError(
+                f"global train.batch_size {cfg.train.batch_size} must divide "
+                f"by the data-parallel world size {self.world}")
+        if self.world > 1 and cfg.train.exec_restart_every > 0:
+            raise NotImplementedError(
+                "train.exec_restart_every under data parallelism is not "
+                "ported yet (a rank that re-executes leaves its process "
+                "group)")
         self.bundle = registry.build_datasets(cfg)
         self.vocab = self.bundle.vocab
         self.cfg = cfg = finalize_config(cfg, self.vocab.size)
@@ -121,21 +151,20 @@ class Solver:
                     "exclusive — pick one weight-smoothing scheme")
         self.spec = make_bucket_spec(cfg.data, cfg.frontend,
                                      cfg.model.time_reduction)
-        self.log = MetricsLogger(self.workdir)
+        self.log = MetricsLogger(self.workdir, write=self.primary)
 
         # global CMVN statistics, cached; written tmp + rename so that a
-        # reader never sees a partial file
+        # reader never sees a partial file; rank 0 writes, the others read
         stats_path = self.workdir / "cmvn.npz"
-        if stats_path.exists():
-            with np.load(stats_path) as z:
-                self.cmvn = (z["mean"], z["inv_std"])
-        else:
+        if self.primary and not stats_path.exists():
             mean, inv_std = pipe.compute_global_cmvn(self.bundle.train,
                                                      cfg.frontend)
             tmp = stats_path.with_suffix(f".{os.getpid()}.tmp.npz")
             np.savez(tmp, mean=mean, inv_std=inv_std)
             os.replace(tmp, stats_path)
-            self.cmvn = (mean, inv_std)
+        MESH.barrier()
+        with np.load(stats_path) as z:
+            self.cmvn = (z["mean"], z["inv_std"])
         self.cmvn_dev = tuple(torch.as_tensor(a, device=self.device)
                               for a in self.cmvn)
 
@@ -146,7 +175,8 @@ class Solver:
                                          cfg.train.seed)
         self.ckpt = Checkpointer(self.workdir / cfg.train.ckpt_dir,
                                  max_to_keep=cfg.train.keep_ckpts,
-                                 best_metric="dev_error")
+                                 best_metric="dev_error",
+                                 async_save=cfg.train.async_ckpt)
         self.data_pos = {"epoch": 0, "batch": 0}
         self.history: list[dict] = []     # the "train" records logged
         self._copy_stream = None          # the card's input copies (_put)
@@ -161,12 +191,25 @@ class Solver:
     # training
     # ------------------------------------------------------------------ #
 
+    def _row_shard(self) -> tuple[int, int, int] | None:
+        """The training streams' ``row_shard``: under data parallelism
+        every rank iterates the same global plan (the same bucket at the
+        same step on every rank) and assembles its block of each batch's
+        rows; one process takes whole batches.  ``train.batch_size`` is
+        global either way."""
+        if self.world > 1:
+            return MESH.host_data_rows(self.rank, self.world)
+        return None
+
     def _labeled_stream(self, start_epoch: int = 0, start_batch: int = 0):
         """Endless labeled stream of ``(epoch, batch_idx, batch)``; the
         train loop mirrors the position into ``self.data_pos`` when a step
         consumes the batch, so a resume continues the exact stream (the
-        first epoch skips ``start_batch`` batches at plan cost)."""
+        first epoch skips ``start_batch`` batches at plan cost).  The first
+        ``data.sortagrad_epochs`` epochs run in ascending length
+        (SortaGrad), the later ones shuffled."""
         cfg = self.cfg
+        row_shard = self._row_shard()
 
         def gen():
             epoch, skip = start_epoch, start_batch
@@ -175,7 +218,8 @@ class Solver:
                     self.bundle.train, self.spec, cfg.frontend,
                     cfg.train.batch_size, cfg.train.seed, epoch,
                     drop_remainder=cfg.data.drop_remainder,
-                    start_batch=skip)
+                    sort_by_length=epoch < cfg.data.sortagrad_epochs,
+                    start_batch=skip, row_shard=row_shard)
                 n_yielded = 0
                 for k, b in enumerate(it, start=skip):
                     yield epoch, k, b
@@ -200,8 +244,9 @@ class Solver:
         """Unlabeled audio padded to the largest frame and token bucket,
         text to the largest token bucket.  Each semi step consumes one
         batch of each, so a resume skips ``skip_batches`` = the restored
-        step count (plan cost only)."""
+        step count (plan cost only).  Sharded as the labeled stream."""
         cfg = self.cfg
+        row_shard = self._row_shard()
         ua = ut = None
         if cfg.objective.lambda_pseudo > 0.0 and self.bundle.unlabeled_audio:
             big = make_bucket_spec(dataclasses.replace(
@@ -211,12 +256,13 @@ class Solver:
             ua = pipe.repeating_batches(
                 self.bundle.unlabeled_audio, big, cfg.frontend,
                 cfg.train.batch_size, cfg.train.seed + 1,
-                drop_remainder=False, skip_batches=skip_batches)
+                drop_remainder=False, skip_batches=skip_batches,
+                row_shard=row_shard)
         if cfg.objective.lambda_text_ae > 0.0 and self.bundle.unlabeled_text:
             ut = pipe.text_batches(
                 self.bundle.unlabeled_text, self.spec.token_buckets[-1],
                 cfg.train.batch_size, cfg.train.seed + 2,
-                skip_batches=skip_batches)
+                skip_batches=skip_batches, row_shard=row_shard)
         return ua, ut
 
     def _put(self, *arrays) -> tuple[torch.Tensor, ...]:
@@ -261,26 +307,27 @@ class Solver:
         """One update of ``self.state`` -> the step's metrics (0-dim
         tensors on the device and floats)."""
         return TS.supervised_step(self.cfg, self.state, *args, self.cmvn_dev,
-                                  **unlab)
+                                  dp=self.dp, **unlab)
 
     def _acquire_workdir_lock(self) -> None:
-        """Exclusive flock on ``<workdir>/.lock.p0``: a second trainer on
-        one workdir would double-write metrics.jsonl and race checkpoint
-        saves, so it fails loudly instead.  flock is released by the
-        kernel when the process dies, so a killed trainer never wedges
-        the workdir."""
+        """Exclusive flock on ``<workdir>/.lock.p<rank>``: a second trainer
+        on one workdir would double-write metrics.jsonl and race checkpoint
+        saves, so it fails loudly instead; the ranks of one data-parallel
+        run hold distinct locks.  flock is released by the kernel when the
+        process dies, so a killed trainer never wedges the workdir."""
         import fcntl
 
         if getattr(self, "_lock_fd", None) is not None:
             return
-        path = self.workdir / ".lock.p0"
+        path = self.workdir / f".lock.p{self.rank}"
         fd = open(path, "w")
         try:
             fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
         except OSError:
             fd.close()
             raise SystemExit(
-                f"{self.workdir}: another trainer already holds {path.name} "
+                f"{self.workdir}: another trainer (rank {self.rank}) already "
+                f"holds {path.name} "
                 "— refusing to double-write metrics and race checkpoint "
                 "saves on a shared workdir. Stop the other trainer or use a "
                 "different --workdir.")
@@ -302,11 +349,26 @@ class Solver:
     def train(self, resume: bool = False) -> dict:
         self._acquire_workdir_lock()
         try:
-            # dead-save debris recovery belongs here, under the lock
-            self.ckpt.quarantine_stale_tmp()
+            # dead-save debris recovery belongs here, under the lock of
+            # the rank that saves
+            if self.primary:
+                self.ckpt.quarantine_stale_tmp()
+            MESH.barrier()
             return self._train_locked(resume)
         finally:
             self._release_workdir_lock()
+
+    def _save(self, step: int, metrics: dict) -> None:
+        """Checkpoint ``self.state`` at ``step``: rank 0 writes (in the
+        background under ``train.async_ckpt``), the replicas being equal."""
+        if self.primary:
+            self.ckpt.save(step, self.state, self.data_pos, metrics)
+
+    def _verify_durable(self, step: int) -> None:
+        """Rank 0 proves ``step`` durable; every rank waits for that."""
+        if self.primary:
+            self.ckpt.verify_durable(step)
+        MESH.barrier()
 
     def _coverage(self) -> dict:
         """Utterances longer than the largest bucket are skipped every
@@ -406,12 +468,12 @@ class Solver:
                                          self.device)
                     prof = None
                     self.log.info(f"profile trace written to {out}")
-            frames_acc += (int(batch.audio_lens[batch.real].sum())
-                           // cfg.frontend.hop_length)
+            # the global batch's frames, summed on the device until a log
+            frames_acc = frames_acc + m["frames"]
             if step % cfg.train.log_every == 0:
                 dt = time.perf_counter() - t_last
                 scalars = {k: float(v) for k, v in m.items()}
-                scalars["frames_per_sec"] = frames_acc / max(dt, 1e-9)
+                scalars["frames_per_sec"] = int(frames_acc) / max(dt, 1e-9)
                 scalars["steps_per_sec"] = cfg.train.log_every / max(dt, 1e-9)
                 self.log.log(step, scalars, "train")
                 self.history.append({"step": step, **scalars})
@@ -427,8 +489,7 @@ class Solver:
                 last_eval = self.validate()
                 eval_wall = time.perf_counter() - t_ev
                 t_ck = time.perf_counter()
-                self.ckpt.save(step, self.state, self.data_pos,
-                               {"dev_error": last_eval["dev_error"]})
+                self._save(step, {"dev_error": last_eval["dev_error"]})
                 self.log.log(step, {
                     **last_eval,
                     "eval_wall_s": eval_wall,
@@ -446,8 +507,7 @@ class Solver:
                             f"{evals_since_best} evals")
                         break
             elif cfg.train.ckpt_every > 0 and step % cfg.train.ckpt_every == 0:
-                self.ckpt.save(step, self.state, self.data_pos,
-                               {"dev_error": last_eval.get("dev_error", 1e9)})
+                self._save(step, {"dev_error": last_eval.get("dev_error", 1e9)})
 
             if (cfg.train.exec_restart_every > 0
                     and step % cfg.train.exec_restart_every == 0
@@ -459,12 +519,11 @@ class Solver:
                         and step % cfg.train.ckpt_every == 0))
                 t_rs = time.perf_counter()
                 if not saved_now:
-                    self.ckpt.save(
-                        step, self.state, self.data_pos,
-                        {"dev_error": last_eval.get("dev_error", 1e9)})
+                    self._save(step,
+                               {"dev_error": last_eval.get("dev_error", 1e9)})
                 # the boundary save must be durable before main.py
                 # re-executes into a resume from it
-                self.ckpt.verify_durable(step)
+                self._verify_durable(step)
                 self.log.log(step, {
                     "restart_save_wall_s": time.perf_counter() - t_rs,
                 }, "wall")
@@ -482,9 +541,8 @@ class Solver:
         if (cfg.train.ckpt_every <= 0
                 or self.state.step % cfg.train.ckpt_every != 0):
             last_eval = self.validate()
-            self.ckpt.save(self.state.step, self.state, self.data_pos,
-                           {"dev_error": last_eval["dev_error"]})
-        self.ckpt.verify_durable(self.state.step)
+            self._save(self.state.step, {"dev_error": last_eval["dev_error"]})
+        self._verify_durable(self.state.step)
         return last_eval
 
     # ------------------------------------------------------------------ #
@@ -494,7 +552,10 @@ class Solver:
     def _score_batches(self, dataset, model: Seq2Seq, mode: str):
         """Decode a dataset -> (error rate, hypothesis records, WER or
         None, the share of hypotheses cut by the length cap).  WER (word
-        level, from the decoded text) is reported for char units only."""
+        level, from the decoded text) is reported for char units only.
+        Under data parallelism each rank decodes every n-th batch of the
+        plan and holds those records; the counters are summed over the
+        ranks, so the rates are the whole set's on every rank."""
         if mode not in ("greedy", "beam"):
             raise NotImplementedError(
                 f"decode mode {mode!r} is not ported yet (the PyTorch port "
@@ -508,7 +569,9 @@ class Solver:
         char = self.cfg.data.unit in ("char", "bpe")
         batches = pipe.epoch_batches(dataset, self.spec, self.cfg.frontend,
                                      self.cfg.train.batch_size, seed=0,
-                                     epoch=0, drop_remainder=False)
+                                     epoch=0, shard_index=self.rank,
+                                     num_shards=self.world,
+                                     drop_remainder=False)
         for batch in batches:
             hyps, _ = rec.decode(batch.audio, batch.audio_lens, mode)
             refs = batch.tokens
@@ -533,6 +596,13 @@ class Solver:
                     wer.update(we, nw)
                     out["word_errors"], out["ref_words"] = we, nw
                 records.append(out)
+        if self.world > 1:
+            counts = DP.all_reduce_counts(torch.tensor(
+                [er.errors, er.total, wer.errors, wer.total, cap_hits,
+                 n_scored], dtype=torch.float64, device=self.device))
+            c = [int(x) for x in counts.tolist()]
+            er, wer = MET.ErrorRate(c[0], c[1]), MET.ErrorRate(c[2], c[3])
+            cap_hits, n_scored = c[4], c[5]
         if n_scored and cap_hits / n_scored > 0.01:
             self.log.warning(
                 f"LENGTH-CAP SATURATION: {cap_hits}/{n_scored} "
@@ -552,7 +622,8 @@ class Solver:
     def validate(self) -> dict:
         rate, _, wrate, cap_rate = self._score_batches(
             self.bundle.dev, self._live_eval_model(), "greedy")
-        self._log_alignment()
+        if self.primary:
+            self._log_alignment()
         out = {"dev_error": rate}
         if wrate is not None:
             out["dev_wer"] = wrate
@@ -623,6 +694,13 @@ class Solver:
                    else self.bundle.dev)
         rate, records, wrate, cap_rate = self._score_batches(eval_ds, model,
                                                              mode)
+        n_utts = len(records)
+        if self.world > 1:
+            n_utts = int(DP.all_reduce_counts(torch.tensor(
+                [n_utts], dtype=torch.float64, device=self.device)).item())
+            if out_path is not None:
+                # each rank holds its shard's hypotheses: one part each
+                out_path = f"{out_path}.part{self.rank}"
         if out_path is not None:
             with open(out_path, "w") as f:
                 for r in records:
@@ -639,7 +717,7 @@ class Solver:
                 self.log.info(EA.summary_line(analysis))
         metric = {"phone": "per", "char": "cer"}.get(self.cfg.data.unit,
                                                      "ter")
-        out = {metric: rate, "n_utts": len(records), "mode": mode}
+        out = {metric: rate, "n_utts": n_utts, "mode": mode}
         if wrate is not None:
             out["wer"] = wrate
         out["cap_hit_rate"] = cap_rate

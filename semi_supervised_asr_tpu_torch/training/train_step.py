@@ -11,10 +11,21 @@ clean view, the student's CE on the augmented view, gated by
 listener), global-norm clip, Adam, the EMA update and the step counter.
 The metrics keep the JAX keys (``loss``, ``ce``, ``acc``, ``grad_norm``,
 ``tf_rate``, ``frames``, and ``text_ae``, ``pseudo``, ``pseudo_gate``
-where the step runs those terms).  What the step does not run yet --
-dropout, CTC, MWER, speed perturbation, noise, time warp, gradient
-accumulation, the bf16 weight stream -- is refused by
-:func:`check_train_supported` with a message naming the key.
+where the step runs those terms).
+
+``train.remat_encoder`` runs the listener again in the backward
+(``Seq2Seq.forward_teacher``); ``train.bf16_weight_stream`` rounds every
+float32 parameter (and the EMA teacher's, for its decode) to bf16 once
+inside the loss, as the reference does, while the float32 masters take
+the gradients.  Under data parallelism (``parallel/dp.py``) each rank
+runs its rows of the global batch: the random draws are made at the global
+batch's shape and the rank's rows kept, every term is divided by the
+global batch's count (summed over the ranks before the forward), and the
+gradients and metrics are summed over the ranks, so that N ranks compute
+what one process computes on the concatenated batch.  What the step does
+not run yet -- dropout, CTC, MWER, speed perturbation, noise, time warp,
+gradient accumulation -- is refused by :func:`check_train_supported` with
+a message naming the key.
 """
 
 from __future__ import annotations
@@ -23,12 +34,14 @@ import copy
 from dataclasses import dataclass
 
 import torch
+from torch import nn
 
 from semi_supervised_asr_tpu_torch.config import Config
 from semi_supervised_asr_tpu_torch.data.vocab import PAD
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
 from semi_supervised_asr_tpu_torch.ops import frontend as F
 from semi_supervised_asr_tpu_torch.ops.fused_frontend import fused_post_fft
+from semi_supervised_asr_tpu_torch.parallel import dp as DP
 from semi_supervised_asr_tpu_torch.training import schedules
 
 SpecAug = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -60,14 +73,11 @@ def check_train_supported(cfg: Config) -> None:
         "objective.lambda_mwer": (o.lambda_mwer, 0.0),
         "train.optimizer": (t.optimizer, "adam"),
         "train.grad_accum": (max(int(t.grad_accum), 1), 1),
-        "train.bf16_weight_stream": (t.bf16_weight_stream, False),
         "train.freeze": (tuple(t.freeze), ()),
         "train.init_encoder_from": (t.init_encoder_from, ""),
-        "train.remat_encoder": (t.remat_encoder, False),
         "train.checkify_errors": (t.checkify_errors, ""),
         "data.use_feature_store": (cfg.data.use_feature_store, False),
         "data.batch_frames": (cfg.data.batch_frames, 0),
-        "data.sortagrad_epochs": (cfg.data.sortagrad_epochs, 0),
     }
     for key, (got, want) in unsupported.items():
         if got != want:
@@ -86,6 +96,7 @@ def featurize(
     backend: str | None = None,
     specaug: SpecAug | None = None,
     gen: torch.Generator | None = None,
+    rows: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Raw audio [B, S] (float, or int16 PCM) -> (features, frame lengths).
 
@@ -93,7 +104,8 @@ def featurize(
     on the fused CUDA kernel K1; otherwise on the unfused plain path.
     ``augment`` (training) applies SpecAugment when ``frontend.spec_augment``
     is on: the bands are ``specaug`` when given (how a test passes the JAX
-    package's draws), else drawn from ``gen``.
+    package's draws), else drawn from ``gen`` (for ``rows`` of a global
+    batch under data parallelism, ``frontend.sample_specaug_params``).
     """
     if audio.dtype == torch.int16:
         audio = audio.float() * (1.0 / 32768.0)
@@ -112,7 +124,7 @@ def featurize(
     bands = None
     if augment and fcfg.spec_augment:
         bands = specaug if specaug is not None else F.sample_specaug_params(
-            gen, audio.shape[0], fcfg.n_mels, lens, fcfg)
+            gen, audio.shape[0], fcfg.n_mels, lens, fcfg, rows)
     if fused:
         return fused_post_fft(pspec, lens, fcfg, mean, inv_std, bands,
                               backend), lens
@@ -199,6 +211,38 @@ def mask_unreal(tokens: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
     return torch.where(real[:, None], tokens, PAD)
 
 
+class _Call(nn.Module):
+    """``fn(module, *args)`` as a module's forward, for
+    ``torch.func.functional_call``."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.m = module
+
+    def forward(self, fn, *args):
+        return fn(self.m, *args)
+
+
+def weight_view(module: nn.Module, bf16: bool):
+    """-> ``run(fn, *args)`` = ``fn(module, *args)``; with ``bf16``
+    (``train.bf16_weight_stream``) every float32 parameter is cast to bf16
+    once, here, and ``fn`` sees the bf16 copies in its place
+    (``torch.func.functional_call``), as the reference casts its parameter
+    tree inside the loss: products take them as they are, float32 operands
+    widen them (JAX's type promotion), and a weight used at every decoder
+    step sums its gradient in bf16, as the reference's scan transpose
+    does.  Autograd returns the gradients through the cast, in float32, to
+    the float32 masters."""
+    if not bf16:
+        return lambda fn, *args: fn(module, *args)
+    rounded = {f"m.{n}": (p.to(torch.bfloat16)
+                          if p.dtype == torch.float32 else p)
+               for n, p in module.named_parameters()}
+    call = _Call(module)
+    return lambda fn, *args: torch.func.functional_call(call, rounded,
+                                                        (fn, *args))
+
+
 def loss_and_grads(
     cfg: Config,
     state: TrainState,
@@ -216,45 +260,82 @@ def loss_and_grads(
     unlab_text_real: torch.Tensor | None = None,   # [B''] bool
     unlab_specaug: SpecAug | None = None,
     pseudo_labels: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dp: DP.DataParallel | None = None,
 ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """The loss of one batch at ``state`` and its gradient with respect to
     every parameter (in ``state.opt.params`` order) -> (loss, {"ce",
-    "acc", "tf_rate"} and, where the step runs them, {"text_ae", "pseudo",
-    "pseudo_gate"}, grads).  The text term runs when
+    "acc", "tf_rate", "frames"} and, where the step runs them, {"text_ae",
+    "pseudo", "pseudo_gate"}, grads).  The text term runs when
     ``objective.lambda_text_ae`` > 0 and ``unlab_text`` is given, the
     pseudo-label term when ``objective.lambda_pseudo`` > 0 and
     ``unlab_audio`` is given.  ``specaug`` / ``unlab_specaug`` fix the
     bands of the labeled and of the augmented unlabeled view (else they
     are drawn from ``state.gen``); ``pseudo_labels`` fixes the teacher's
-    hypotheses (see :func:`LO.pseudo_label_loss`)."""
+    hypotheses (see :func:`LO.pseudo_label_loss`).
+
+    ``dp``: this rank's place in a data-parallel group; the batches are its
+    rows of the global ones.  Each term's denominator is then the global
+    batch's count, summed over the ranks before the forward (the
+    pseudo-label term's kept tokens are known once the teacher has
+    decoded, so the teacher runs first), and the returned loss, metrics
+    and gradients are the sums over the ranks."""
     obj = cfg.objective
     tf_rate = schedules.tf_rate_at(state.step, obj)
     tokens = mask_unreal(tokens, real)
+    rows = dp.rows(tokens.shape[0]) if dp is not None else None
     with torch.no_grad():
         feats, flens = featurize(cfg, audio, audio_lens, cmvn, True, backend,
-                                 specaug, state.gen)
-    loss, aux = LO.supervised_loss(
-        state.model, obj.label_smoothing, feats, flens, tokens,
-        tf_rate, state.gen, backend)
-    aux["tf_rate"] = tf_rate
+                                 specaug, state.gen, rows)
+    bf16 = cfg.train.bf16_weight_stream
+    student = weight_view(state.model, bf16)
+    text = None
     if obj.lambda_text_ae > 0.0 and unlab_text is not None:
         text = mask_unreal(unlab_text, unlab_text_real)
-        ae = LO.text_ae_loss(state.model.speller, obj.label_smoothing, text)
-        loss = loss + obj.lambda_text_ae * ae
-        aux["text_ae"] = ae.detach()
-    if obj.lambda_pseudo > 0.0 and unlab_audio is not None:
-        teacher = state.ema if obj.use_ema_teacher else state.model
+    pseudo = obj.lambda_pseudo > 0.0 and unlab_audio is not None
+    # the terms' token counts and the audio samples of the real rows
+    counts = [LO.token_mask(tokens).sum().double(),
+              torch.zeros((), dtype=torch.float64, device=tokens.device),
+              torch.zeros((), dtype=torch.float64, device=tokens.device),
+              torch.where(real, audio_lens, 0).sum().double()]
+    if text is not None:
+        counts[1] = LO.token_mask(text).sum().double()
+    if pseudo:
         with torch.no_grad():
             clean, clens = featurize(cfg, unlab_audio, unlab_audio_lens,
                                      cmvn, False, backend)
-            augmented, _ = featurize(cfg, unlab_audio, unlab_audio_lens,
-                                     cmvn, True, backend, unlab_specaug,
-                                     state.gen)
         # hypotheses capped by the labeled stream's token bucket
         max_len = min(cfg.decode.max_decode_len, tokens.shape[1])
-        pl = LO.pseudo_label_loss(state.model, teacher, obj.pseudo_confidence,
-                                  clean, augmented, clens, max_len,
-                                  unlab_real, backend, pseudo_labels)
+        if pseudo_labels is None:
+            teacher = (weight_view(state.ema, bf16) if obj.use_ema_teacher
+                       else student)
+            pseudo_labels = teacher(LO.teacher_labels, clean, clens, max_len,
+                                    backend)
+        hyps, hyp_logp = pseudo_labels
+        keep = LO.pseudo_keep(hyps, hyp_logp, obj.pseudo_confidence,
+                              unlab_real)
+        counts[2] = (LO.token_mask(hyps) * keep[:, None]).sum().double()
+    counts = torch.stack(counts)
+    if dp is not None:
+        counts = DP.all_reduce_counts(counts)
+    den = torch.clamp_min(counts[:3].float(), 1.0)
+    loss, aux = student(LO.supervised_loss, obj.label_smoothing, feats,
+                        flens, tokens, tf_rate, state.gen, backend, den[0],
+                        cfg.train.remat_encoder, rows)
+    aux["tf_rate"] = tf_rate
+    if text is not None:
+        ae = student(lambda m, *a: LO.text_ae_loss(m.speller, *a),
+                     obj.label_smoothing, text, den[1])
+        loss = loss + obj.lambda_text_ae * ae
+        aux["text_ae"] = ae.detach()
+    if pseudo:
+        urows = dp.rows(unlab_audio.shape[0]) if dp is not None else None
+        with torch.no_grad():
+            augmented, _ = featurize(cfg, unlab_audio, unlab_audio_lens,
+                                     cmvn, True, backend, unlab_specaug,
+                                     state.gen, urows)
+        pl = student(LO.pseudo_label_loss, None, obj.pseudo_confidence,
+                     clean, augmented, clens, max_len, unlab_real, backend,
+                     pseudo_labels, den[2])
         # the gate multiplies the term, which runs from step 0 (a NaN in
         # it poisons the loss even while the gate is closed, as in JAX)
         gate = float(state.step >= obj.pseudo_warmup_steps)
@@ -265,7 +346,17 @@ def loss_and_grads(
     # a leaf no term reaches gets an exact zero
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    return loss.detach(), aux, grads
+    loss = loss.detach()
+    if dp is not None:
+        # the metrics ride in the gradients' reduction: one sum for all
+        keys = [k for k in ("ce", "acc", "text_ae", "pseudo") if k in aux]
+        vec = torch.stack([loss] + [aux[k].float() for k in keys])
+        *grads, vec = DP.all_reduce_grads([*grads, vec])
+        loss = vec[0]
+        aux.update(zip(keys, vec[1:]))
+    aux["frames"] = (counts[3].long()
+                     // cfg.frontend.hop_length)
+    return loss, aux, grads
 
 
 @torch.no_grad()
@@ -296,15 +387,17 @@ def supervised_step(
     cmvn: tuple[torch.Tensor, torch.Tensor] | None,
     specaug: SpecAug | None = None,
     backend: str | None = None,
+    dp: DP.DataParallel | None = None,
     **unlab,
 ) -> dict:
     """One update of ``state`` in place (arguments as for
     :func:`loss_and_grads`, the unlabeled batches by keyword) -> metrics:
     0-dim tensors on the device, plus the floats ``tf_rate``, ``lr`` and,
-    with the pseudo-label term, ``pseudo_gate``."""
+    with the pseudo-label term, ``pseudo_gate``.  Under ``dp`` every rank
+    clips and steps the same summed gradient, so the replicas stay
+    bitwise equal, and the metrics are the global batch's."""
     loss, aux, grads = loss_and_grads(cfg, state, audio, audio_lens, tokens,
-                                      real, cmvn, specaug, backend, **unlab)
+                                      real, cmvn, specaug, backend, dp=dp,
+                                      **unlab)
     gnorm, lr = apply_grads(cfg, state, grads)
-    frames = (torch.where(real, audio_lens, 0).sum()
-              // cfg.frontend.hop_length)
-    return dict(aux, loss=loss, grad_norm=gnorm, frames=frames, lr=lr)
+    return dict(aux, loss=loss, grad_norm=gnorm, lr=lr)

@@ -4,7 +4,9 @@ The PyTorch port's copy of ``semi_supervised_asr_tpu/utils/logging.py``.
 Every record is one JSON line of ``<workdir>/metrics.jsonl`` with ``step``,
 ``time`` and ``prefix`` (``train``, ``dev``, ``wall``, ``data``) beside its
 scalars.  Tensorboard is best-effort: ``tensorboardX`` when it imports, else
-nothing (``_tb`` is None), which the logger says once.
+nothing (``_tb`` is None), which the logger says once.  A logger built with
+``write=False`` (a data-parallel rank other than 0) writes no file and
+still prints.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ from pathlib import Path
 
 
 class MetricsLogger:
-    def __init__(self, workdir: str | Path, use_tensorboard: bool = True):
+    def __init__(self, workdir: str | Path, use_tensorboard: bool = True,
+                 write: bool = True):
         self.dir = Path(workdir)
         self.dir.mkdir(parents=True, exist_ok=True)
-        self._f = open(self.dir / "metrics.jsonl", "a", buffering=1)
+        self._f = (open(self.dir / "metrics.jsonl", "a", buffering=1)
+                   if write else None)
         self._tb = None
-        if use_tensorboard:
+        if use_tensorboard and write:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -38,7 +42,8 @@ class MetricsLogger:
                 rec[k] = float(v)
             except (TypeError, ValueError):
                 rec[k] = v
-        self._f.write(json.dumps(rec) + "\n")
+        if self._f is not None:
+            self._f.write(json.dumps(rec) + "\n")
         if self._tb is not None:
             for k, v in scalars.items():
                 try:
@@ -65,6 +70,7 @@ class MetricsLogger:
         logging.getLogger("semi_supervised_asr_tpu_torch").warning(msg)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._tb is not None:
             self._tb.close()

@@ -8,9 +8,10 @@ the JAX tree by name.  The port's ``Seq2Seq.encode`` is held against JAX's
 JAX's flash route on the CPU is its plain ``mhsa_reference``, the port's
 for CPU tensors too), the encoder's gradients against ``jax.grad`` (rtol
 2e-4 / atol 2e-5, the training slice's tolerances), the conv stem alone
-at odd and even T against ``conv_stem_apply``; and the port's listeners
-keep the pad contract: valid frames unchanged by a longer bucket, exact
-zeros on pad frames (after tests/test_flash_mhsa.py).
+at odd and even T against ``conv_stem_apply``, forward and gradients (with
+no convolution called: its backward has no atomics on the card); and the
+port's listeners keep the pad contract: valid frames unchanged by a longer
+bucket, exact zeros on pad frames (after tests/test_flash_mhsa.py).
 """
 
 import dataclasses
@@ -152,6 +153,44 @@ def test_conv_stem_matches_jax(t):
     assert got.shape == want.shape == (3, (t + 3) // 4, L.conv_stem_dims(cfg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [23, 24])
+def test_conv_stem_gradients_match_jax(t, monkeypatch):
+    """The stem's gradients (input, every filter and bias) against
+    ``jax.grad`` of JAX's stem, with no convolution anywhere in the port's
+    forward or backward: the windows-times-filter form, whose backward
+    has no atomics on the card."""
+    cfg, jcfg = configs(encoder_arch="conformer")
+    model, tree = model_pair(cfg, seed=5)
+    rng = np.random.default_rng(t + 1)
+    x = rng.standard_normal((3, t, cfg.n_mels)).astype(np.float32)
+    lens = np.asarray([t, t - 6, 1], np.int32)
+    x[np.arange(t)[None, :] >= lens[:, None]] = 0.0
+    dy = rng.standard_normal(
+        (3, (t + 3) // 4, L.conv_stem_dims(cfg))).astype(np.float32)
+
+    def refuse(*a, **k):
+        raise AssertionError("the conv stem ran a convolution")
+
+    for name in ("conv2d", "conv_transpose2d"):
+        monkeypatch.setattr(L.Fn, name, refuse)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out, _ = L.conv_stem_apply(model.listener.conv, xt,
+                               torch.from_numpy(lens), torch.float32)
+    leaves = [xt] + [p for blk in model.listener.conv for p in (blk.w, blk.b)]
+    got = torch.autograd.grad((out * torch.from_numpy(dy)).sum(), leaves)
+
+    def loss(params, xx):
+        y, _ = JL.conv_stem_apply(params, xx, jnp.asarray(lens), jcfg)
+        return jnp.sum(y * dy)
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1))).lower(
+        tree["listener"]["conv"], jnp.asarray(x)).compile(
+        compiler_options=FAST_XLA)(tree["listener"]["conv"], jnp.asarray(x))
+    want = [gx] + [g for blk in gp for g in (blk["w"], blk["b"])]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL_GRAD)
 
 
 def test_blstm_listener_with_conv_stem_matches_jax():

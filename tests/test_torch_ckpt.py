@@ -10,7 +10,10 @@ bounded, ``verify_durable`` raises on a step that is not the latest, a
 second trainer on one workdir exits and the lock is released when
 ``train`` returns.  ``decode.use_ema`` decodes the EMA buffer,
 ``decode.average_ckpts`` the float64 mean of the last checkpoints, and
-the ``main`` and ``transcribe`` CLIs round-trip a workdir.
+the ``main`` and ``transcribe`` CLIs round-trip a workdir.  Background
+saves (``train.async_ckpt``) hold the state as it was when ``save``
+returned, a failed one raises at the next save or wait, and a process
+killed while one writes leaves a tmp directory that is quarantined.
 """
 
 import json
@@ -149,9 +152,105 @@ def test_verify_durable_raises_on_missing_step(state, tmp_path):
     (tmp_path / "c" / "4.ckpt-tmp.1").mkdir()
     with pytest.raises(CheckpointNotDurable, match="stale tmp dirs"):
         ck.verify_durable(4)
-    for key in ("train.async_ckpt", "train.debug_nans"):
+    for key, value in (("train.debug_nans", "true"),
+                       ("parallel.model_parallel", 2)):
         with pytest.raises(NotImplementedError, match=key):
-            Solver(small_cfg(**{key: "true"}), tmp_path / "a", "cpu")
+            Solver(small_cfg(**{key: value}), tmp_path / "a", "cpu")
+
+
+def test_async_save_restores_the_snapshot(state, tmp_path):
+    """A background save holds the state as it was when save() returned,
+    though the state moves on at once, and restores as a synchronous save
+    does; the next save waits for it."""
+    import copy
+
+    snap = copy.deepcopy(state.state_dict())
+    ck = Checkpointer(tmp_path / "a", async_save=True)
+    ck.save(1, state, {"epoch": 0, "batch": 3}, {"dev_error": 0.5})
+    with torch.no_grad():                  # the next step moves the state
+        for p in state.model.parameters():
+            p.add_(1.0)
+    state.step += 1
+    ck.save(2, state)
+    ck.wait()
+    assert ck.all_steps() == [1, 2]
+    sync = Checkpointer(tmp_path / "s")
+    sd1, meta, _ = ck.load(1)
+    assert meta["data_pos"] == {"epoch": 0, "batch": 3}
+    for part in ("model", "ema"):
+        for n, t in snap[part].items():
+            assert torch.equal(sd1[part][n], t), (part, n)
+    sync.save(2, state)
+    sd2, _, _ = ck.load(2)
+    sd2s, _, _ = sync.load(2)
+    for n in sd2["model"]:
+        assert torch.equal(sd2["model"][n], sd2s["model"][n])
+    ck.verify_durable(2)
+
+
+def test_failed_async_save_raises_at_the_next_save(state, tmp_path,
+                                                   monkeypatch):
+    from semi_supervised_asr_tpu_torch.training import checkpointing as CK
+
+    ck = Checkpointer(tmp_path / "c", async_save=True)
+    real = CK._write_synced
+
+    def flaky(path, write):               # steps 1 and 5 hit a full disk
+        if path.parent.name.split(".")[0] in ("1", "5"):
+            raise OSError("disk full")
+        real(path, write)
+
+    monkeypatch.setattr(CK, "_write_synced", flaky)
+    ck.save(1, state)                      # returns; the thread fails
+    with pytest.raises(CK.CheckpointSaveFailed, match="disk full"):
+        ck.save(2, state)
+    ck.save(3, state)                      # the error was surfaced once
+    ck.verify_durable(3)
+    ck.save(5, state)
+    with pytest.raises(CK.CheckpointSaveFailed, match="step 5"):
+        ck.verify_durable(5)
+    assert ck.all_steps() == [3]
+
+
+def test_killed_async_save_leaves_tmp_that_is_quarantined(tmp_path):
+    """A process killed while its background save writes leaves the tmp
+    directory; the next trainer, under the workdir lock, quarantines it
+    and the latest durable step is the one before."""
+    import subprocess
+    import sys
+
+    d = tmp_path / "ck"
+    overrides = [f"{k}={v}" for k, v in SMALL.items()]
+    code = (
+        "import os, torch\n"
+        "from semi_supervised_asr_tpu_torch.config import load_config\n"
+        "from semi_supervised_asr_tpu_torch.training import "
+        "checkpointing as CK\n"
+        "from semi_supervised_asr_tpu_torch.training.solver import Solver\n"
+        f"cfg = load_config({CONFIG!r}, {overrides!r})\n"
+        f"s = Solver(cfg, {str(tmp_path / 'w')!r}, 'cpu')\n"
+        f"ck = CK.Checkpointer({str(d)!r}, async_save=True)\n"
+        "ck.save(1, s.state)\n"
+        "ck.wait()\n"
+        "real = torch.save\n"
+        "def dying(obj, f):\n"
+        "    f.write(b'partial')\n"
+        "    f.flush()\n"
+        "    os._exit(9)\n"
+        "CK.torch.save = dying\n"
+        "ck.save(2, s.state)\n"
+        "ck.wait()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 9, proc.stderr[-2000:]
+    assert any(".ckpt-tmp" in e.name for e in d.iterdir())
+    ck = Checkpointer(d)
+    assert ck.latest_step() == 1
+    moved = ck.quarantine_stale_tmp()
+    assert len(moved) == 1 and moved[0].startswith("2.ckpt-tmp")
+    assert not any(".ckpt-tmp" in e.name for e in d.iterdir())
+    assert (d / "_quarantine").exists()
 
 
 def test_workdir_lock(tmp_path):
@@ -265,9 +364,9 @@ def test_main_cli_round_trip(tmp_path, capsys):
 
     with pytest.raises(SystemExit, match="--beam 0"):
         M.main(["--config", CONFIG, "--test", "--beam", "0"])
-    with pytest.raises(SystemExit, match="train.async_ckpt"):
+    with pytest.raises(SystemExit, match="parallel.model_parallel"):
         M.main(["--config", CONFIG, "--train", "--workdir", wd, "--device",
-                "cpu", "train.async_ckpt=true"])
+                "cpu", "parallel.model_parallel=2"])
     with pytest.raises(SystemExit, match="train.debug_nans"):
         M.main(["--config", CONFIG, "--train", "--workdir", wd, "--device",
                 "cpu", "train.debug_nans=true"])

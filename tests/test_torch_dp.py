@@ -1,0 +1,303 @@
+"""PyTorch port: data parallelism over two gloo ranks on the CPU.
+
+Each test spawns two ranks of this file (``python tests/test_torch_dp.py
+CASE OUT``, torchrun's environment set by hand, one torch thread each) at a
+few layers and narrow widths.  Rank 0 also runs one process's step on the
+concatenated global batch, with no process group in the way.
+
+* The supervised step at global B=4 (rows of unequal token counts, the
+  last a filler row; SpecAugment and scheduled sampling on, so the draws
+  made at the global shape matter): the two ranks' summed loss within
+  1e-6 relative of one process's, every all-reduced gradient leaf within
+  the step test's tolerance (``tests/test_torch_train.py``, rtol 2e-4 /
+  atol 2e-5), the two ranks' gradients bitwise equal, and each rank's
+  generator left where one process's is.
+* The same for the semi-supervised step (text autoencoder, the EMA
+  teacher's pseudo-labels, gate open, a filler row in each unlabeled
+  batch).
+* A 2-rank Solver run of 4 steps (``train.async_ckpt``, validation and a
+  checkpoint every 2): replicas bitwise equal, checkpoints written by rank
+  0 alone, the sharded validation's records summing to the dev set, and a
+  resume from step 2 in a fresh workdir bitwise equal to the straight run
+  at step 4 (after tests/test_multihost.py).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+TOL_GRAD = dict(rtol=2e-4, atol=2e-5)
+# configs/timit.yaml cut to a small width: SpecAugment on, teacher forcing
+# 0.6 (scheduled sampling draws every step), float32
+STEP = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
+        "model.attn_dim=8", "model.attn_conv_channels=2",
+        "model.attn_conv_width=4", "model.embed_dim=8",
+        "model.compute_dtype=float32", "train.batch_size=4",
+        "objective.tf_rate_start=0.6", "objective.tf_rate_end=0.6",
+        "data.dataset=synthetic", "data.num_synthetic_utts=8",
+        "data.frame_buckets=[128]", "data.token_buckets=[12]",
+        "decode.max_decode_len=8"]
+SEMI = ["objective.pseudo_warmup_steps=0", "objective.pseudo_confidence=0"]
+# configs/synthetic_smoke.yaml at a small width, 48 utterances (global
+# batches of 4, 2 rows a rank), a dev set of 12 in 3 batches: rank 0
+# decodes two of them, rank 1 one
+SOLVER = ["data.num_synthetic_utts=48", "train.batch_size=4",
+          "model.enc_hidden=8", "model.enc_layers=1",
+          "model.enc_base_layers=1", "model.attn_dim=8",
+          "model.dec_hidden=16", "model.embed_dim=8",
+          "model.attn_conv_channels=2", "model.attn_conv_width=5",
+          "decode.max_decode_len=6", "train.total_steps=4",
+          "train.eval_every=2", "train.ckpt_every=2", "train.log_every=1",
+          "train.async_ckpt=true", "frontend.spec_augment=true"]
+
+
+# --------------------------------------------------------------------- #
+# the ranks
+# --------------------------------------------------------------------- #
+
+def _step_case(out: Path, semi: bool) -> None:
+    import torch
+
+    from semi_supervised_asr_tpu_torch import weights
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data import pipeline
+    from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
+    from semi_supervised_asr_tpu_torch.data.registry import build_datasets
+    from semi_supervised_asr_tpu_torch.data.vocab import PAD
+    from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+    from semi_supervised_asr_tpu_torch.parallel import dp as DP
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+    from semi_supervised_asr_tpu_torch.transcribe import finalize_config
+
+    config = "configs/ls100_semi.yaml" if semi else "configs/timit.yaml"
+    cfg = load_config(REPO / config, STEP + (SEMI if semi else []))
+    bundle = build_datasets(cfg)
+    cfg = finalize_config(cfg, bundle.vocab.size)
+    spec = make_bucket_spec(cfg.data, cfg.frontend, cfg.model.time_reduction)
+    # four rows of unequal lengths, the last a filler row
+    lab = pipeline.assemble_batch(bundle.train, [0, 1, 2, 0], 3, (128, 12),
+                                  spec, cfg.frontend)
+    cmvn = tuple(torch.as_tensor(a) for a in
+                 pipeline.compute_global_cmvn(bundle.train, cfg.frontend))
+    unlab = {}
+    if semi:
+        ua = pipeline.assemble_batch(bundle.unlabeled_audio, [3, 1, 2, 3],
+                                     3, (128, 12), spec, cfg.frontend)
+        ut = next(pipeline.text_batches(bundle.unlabeled_text, 12, 4, 2))
+        unlab = dict(unlab_audio=ua.audio, unlab_audio_lens=ua.audio_lens,
+                     unlab_real=ua.real, unlab_text=ut[0],
+                     unlab_text_real=ut[1])
+    flat = weights.init_numpy(cfg.model, seed=0)
+
+    def run(lo, hi, dp):
+        model = Seq2Seq(cfg.model)
+        weights.load_flat(model, flat)
+        state = TS.init_train_state(cfg, model, seed=3)
+        if semi:    # a teacher that is not the student
+            for e in state.ema.parameters():
+                e.mul_(0.9)
+        args = [torch.as_tensor(getattr(lab, f)[lo:hi])
+                for f in ("audio", "audio_lens", "tokens", "real")]
+        kw = {k: torch.as_tensor(v[lo:hi]) for k, v in unlab.items()}
+        loss, aux, grads = TS.loss_and_grads(cfg, state, *args, cmvn,
+                                             dp=dp, **kw)
+        return {"loss": loss, "aux": {k: float(v) for k, v in aux.items()},
+                "grads": grads, "gen": state.gen.get_state(),
+                "tokens": int((TS.mask_unreal(args[2], args[3]) != PAD)
+                              .sum())}
+
+    dp = DP.current()
+    res = {"dp": run(2 * dp.rank, 2 * dp.rank + 2, dp)}
+    if dp.rank == 0:
+        res["one"] = run(0, 4, None)
+    torch.save(res, out / f"rank{dp.rank}.pt")
+
+
+def _solver_case(out: Path) -> None:
+    import torch
+
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    cfg = load_config(REPO / "configs/synthetic_smoke.yaml", SOLVER)
+    run, res = out / "run", out / "resumed"
+    s = Solver(cfg, run, "cpu")
+    final = s.train()
+    test = s.test(mode="greedy", out_path=out / "hyps.jsonl")
+    _, records, _, _ = s._score_batches(s.bundle.dev, s.state.model,
+                                        "greedy")
+    sd = s.state.state_dict()
+    if MESH.is_primary():
+        (res / "checkpoints").mkdir(parents=True)
+        shutil.copytree(run / "checkpoints" / "2", res / "checkpoints" / "2")
+        shutil.copy(run / "cmvn.npz", res / "cmvn.npz")
+    MESH.barrier()
+    s2 = Solver(cfg, res, "cpu")
+    s2.train(resume=True)
+    torch.save({"state": sd, "resumed": s2.state.state_dict(),
+                "final": final, "test": test, "n_records": len(records),
+                "history": s.history, "dev_size": len(s.bundle.dev)},
+               out / f"rank{MESH.rank()}.pt")
+
+
+def _worker(case: str, out: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(REPO))
+    from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
+
+    MESH.maybe_initialize_distributed("cpu")
+    try:
+        if case == "solver":
+            _solver_case(Path(out))
+        else:
+            _step_case(Path(out), semi=case == "semi")
+    finally:
+        MESH.destroy()
+
+
+# --------------------------------------------------------------------- #
+# the tests
+# --------------------------------------------------------------------- #
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(case: str, out: Path, world: int = 2) -> list[dict]:
+    """Run ``case`` on ``world`` gloo ranks -> each rank's saved results."""
+    import torch
+
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, case, str(out)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"{case}: a rank hung")
+        errs.append(err)
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _check_step(results) -> None:
+    import numpy as np
+    import torch
+
+    r0, r1 = results
+    one, a, b = r0["one"], r0["dp"], r1["dp"]
+    # the ranks hold unequal token counts, so a mean of per-rank means
+    # would not be the global batch's mean
+    assert a["tokens"] != b["tokens"]
+    np.testing.assert_allclose(a["loss"].item(), one["loss"].item(),
+                               rtol=1e-6)
+    for k in a["aux"]:
+        np.testing.assert_allclose(a["aux"][k], one["aux"][k], rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    for g, w in zip(a["grads"], one["grads"]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL_GRAD)
+    # every rank holds the same reduced gradient and metrics, bit for bit
+    assert torch.equal(a["loss"], b["loss"]) and a["aux"] == b["aux"]
+    assert all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
+    # the draws were made at the global shape on every rank
+    assert torch.equal(a["gen"], one["gen"])
+    assert torch.equal(b["gen"], one["gen"])
+
+
+def test_two_ranks_supervised_step_match_one_process(tmp_path):
+    res = spawn("supervised", tmp_path)
+    assert res[0]["dp"]["aux"]["tf_rate"] == 0.6
+    _check_step(res)
+
+
+def test_two_ranks_semi_step_match_one_process(tmp_path):
+    res = spawn("semi", tmp_path)
+    aux = res[0]["dp"]["aux"]
+    assert aux["pseudo_gate"] == 1.0 and aux["pseudo"] > 0
+    assert aux["text_ae"] > 0
+    _check_step(res)
+
+
+def test_two_rank_solver_run_and_resume(tmp_path):
+    import torch
+
+    r0, r1 = spawn("solver", tmp_path)
+    first = _first_difference(r0["state"], r1["state"])
+    assert first is None, f"replicas differ at {first}"
+    assert r0["state"]["step"] == 4
+    # rank 0 alone wrote the checkpoints and the metrics
+    ckpts = sorted(p.name for p in (tmp_path / "run" / "checkpoints")
+                   .iterdir())
+    assert ckpts == ["2", "4"], ckpts
+    assert (tmp_path / "run" / ".lock.p1").exists()
+    recs = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl")
+            .read_text().splitlines()]
+    assert [r["step"] for r in recs if r["prefix"] == "train"] == [1, 2, 3, 4]
+    timing = ("frames_per_sec", "steps_per_sec")
+    assert ([{k: v for k, v in h.items() if k not in timing}
+             for h in r0["history"]]
+            == [{k: v for k, v in h.items() if k not in timing}
+                for h in r1["history"]])
+    # the sharded evaluation: every rank has the global rates, each
+    # decoded part of the dev set, nothing was lost
+    assert r0["final"] == r1["final"] and r0["test"] == r1["test"]
+    dev = r0["dev_size"]
+    assert r0["n_records"] + r1["n_records"] == dev == r0["test"]["n_utts"]
+    assert 0 < r0["n_records"] < dev
+    parts = [tmp_path / f"hyps.jsonl.part{r}" for r in (0, 1)]
+    assert sum(len(p.read_text().splitlines()) for p in parts) == dev
+    # step 2's checkpoint resumed in a fresh workdir gives step 4 bitwise
+    for r in (r0, r1):
+        first = _first_difference(r["state"], r["resumed"])
+        assert first is None, f"resume differs at {first}"
+    assert isinstance(r0["state"]["gen"], torch.Tensor)
+
+
+def _first_difference(a, b, path=""):
+    import torch
+
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            d = _first_difference(a[k], b[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = _first_difference(x, y, f"{path}.{i}")
+            if d:
+                return d
+        return None
+    if isinstance(a, torch.Tensor):
+        same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        return None if same else path
+    return None if a == b else path
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], sys.argv[2])

@@ -198,7 +198,8 @@ def test_unlabeled_streams_match_jax():
     frame and token bucket, no dropped remainder, train.seed + 1) and of
     the text stream (the largest token bucket, train.seed + 2), array for
     array, across an epoch boundary; the text stream resumed by
-    ``skip_batches``; sharding refused."""
+    ``skip_batches``; both sharded as JAX's: a rank's rows of every global
+    batch (``row_shard``) and every n-th batch (``shard_index``)."""
     pc, jc = semi_configs()
     pspec = PB.make_bucket_spec(dataclasses.replace(
         pc.data, frame_buckets=(1600,), token_buckets=(256,)),
@@ -223,15 +224,30 @@ def test_unlabeled_streams_match_jax():
             itertools.islice(JP.text_batches(jtext, 256, 4, 2), 4)):
         np.testing.assert_array_equal(gt, wt)
         np.testing.assert_array_equal(gr, wr)
-    # a resumed stream skips at plan cost; sharding waits for the
-    # data-parallel slice
+    # a resumed stream skips at plan cost
     gt, gr = next(PP.text_batches(ptext, 256, 4, 2, skip_batches=3))
     wt, wr = next(JP.text_batches(jtext, 256, 4, 2, skip_batches=3))
     np.testing.assert_array_equal(gt, wt)
     np.testing.assert_array_equal(gr, wr)
-    with pytest.raises(NotImplementedError, match="num_shards"):
-        next(PP.repeating_batches(pset, pspec, pc.frontend, 4, 1,
-                                  num_shards=2))
+    # sharded: rank 1 of 2 by rows, and the second of two plan shards,
+    # each resumed past a batch
+    for kw in ({"row_shard": (1, 2, 2)},
+               {"shard_index": 1, "num_shards": 2}):
+        got = PP.repeating_batches(pset, pspec, pc.frontend, 4, 1,
+                                   drop_remainder=False, skip_batches=1,
+                                   **kw)
+        want = JP.repeating_batches(jset, jspec, jc.frontend, 4, 1,
+                                    drop_remainder=False, skip_batches=1,
+                                    **kw)
+        for g, w in zip(got, itertools.islice(want, 2)):
+            for f in ("audio", "audio_lens", "tokens", "real"):
+                np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+        for (gt, gr), (wt, wr) in zip(
+                PP.text_batches(ptext, 256, 4, 2, skip_batches=1, **kw),
+                itertools.islice(JP.text_batches(jtext, 256, 4, 2,
+                                                 skip_batches=1, **kw), 2)):
+            np.testing.assert_array_equal(gt, wt)
+            np.testing.assert_array_equal(gr, wr)
 
 
 def random_rows(rng, b, u, vocab_size):

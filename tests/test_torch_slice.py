@@ -241,7 +241,7 @@ def test_port_imports_no_jax():
         "       'decode.greedy', 'train', 'training.solver',\n"
         "       'training.checkpointing', 'main', 'utils.metrics',\n"
         "       'utils.native_ops', 'utils.error_analysis',\n"
-        "       'utils.logging')\n"
+        "       'utils.logging', 'parallel.mesh', 'parallel.dp')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"

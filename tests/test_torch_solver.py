@@ -3,8 +3,8 @@
 The resumable streams (``epoch_batches`` from ``start_batch``,
 ``repeating_batches`` and ``text_batches`` with ``skip_batches`` across
 epoch boundaries, the synthetic dev split) and the Solver's labeled stream
-at the default ``data.drop_remainder`` are held byte for byte against
-JAX's.  Then a whole run: both Solvers start from the JAX Solver's initial
+at the default ``data.drop_remainder`` and under ``data.sortagrad_epochs``
+are held byte for byte against JAX's.  Then a whole run: both Solvers start from the JAX Solver's initial
 parameters on ``configs/synthetic_smoke.yaml`` at a small width
 (SpecAugment off, teacher forcing 1), take 3 steps with validation every
 2 and a train record every step: the losses agree to 1e-5 relative, the
@@ -117,6 +117,29 @@ def test_solver_run_matches_jax(jax_run, tmp_path):
             == jax_run["final"]["dev_cap_hit_rate"])
     test = solver.test(mode="greedy")
     assert test == jax_run["test"]
+
+
+def test_sortagrad_first_epoch_matches_jax(tmp_path):
+    """data.sortagrad_epochs=1: the Solver's first epoch in ascending
+    length, as JAX's Solver asks of its pipeline (sort_by_length while
+    epoch < sortagrad_epochs), the second shuffled."""
+    pc, jc = small_pair(**{"data.sortagrad_epochs": 1})
+    solver = Solver(pc, tmp_path, "cpu")
+    jb = JR.build_datasets(jc)
+    jspec = jax_bucket_spec(jc.data, jc.frontend, 2)
+    got = list(itertools.takewhile(lambda ekb: ekb[0] <= 1,
+                                   solver._labeled_stream()))
+    for epoch, sort in ((0, True), (1, False)):
+        mine = [b for e, _, b in got if e == epoch]
+        want = list(JP.epoch_batches(jb.train, jspec, jc.frontend, 4, 0,
+                                     epoch, sort_by_length=sort))
+        assert len(mine) == len(want) == 4
+        for g, w in zip(mine, want):
+            assert_batches_equal(g, w)
+    # the setting matters: epoch 0 shuffled holds other batches
+    shuffled = list(JP.epoch_batches(jb.train, jspec, jc.frontend, 4, 0, 0))
+    assert ([b.uids for e, _, b in got if e == 0]
+            != [b.uids for b in shuffled])
 
 
 def small_pair(**extra):

@@ -12,8 +12,11 @@ width in float32 -- loss, ce and acc to 1e-5, every gradient leaf to rtol
 JAX's, moved by what the two gradients' difference does to Adam's first
 update).  The
 port's own SpecAugment draws are checked for their ranges (the bits differ
-from ``jax.random`` by design).  Then the ``train`` CLI end to end on the
-CPU, and its refusals.
+from ``jax.random`` by design).  The step with ``train.remat_encoder`` and
+``train.bf16_weight_stream`` against JAX's with the same settings (the
+bound and its reason at ``BF16_STREAM_GRAD_TOL``), and remat on against
+off, bitwise.  Then the ``train`` CLI end to end on the CPU, and its
+refusals.
 """
 
 import copy
@@ -358,6 +361,80 @@ def check_supervised_step(pcfg, jcfg, batch, cmvn, flat):
                                    atol=1e-6, err_msg=n)
 
 
+# train.remat_encoder + train.bf16_weight_stream against JAX: both cast
+# every float32 parameter to bf16 inside the loss, and a weight used at
+# every decoder step sums its per-step gradients in bf16 (the reference's
+# scan transpose of its bf16 parameters, the port's autograd over the bf16
+# copy).  The two sum in other orders, so an entry can land one bf16 ulp
+# (2^-8 of it) away; elsewhere the float32 sums differ by ~1e-6 relative
+# (test_supervised_step_matches_jax).  So every entry is held within
+# chip_smoke.py's bound for a bf16 step (BF16_STEP_GRAD_TOL of the model's
+# largest gradient entry) or one bf16 ulp of itself, whichever is larger,
+# and the loss within its BF16_STEP_LOSS_TOL.
+BF16_STREAM_LOSS_TOL = 1e-5
+BF16_STREAM_GRAD_TOL = 1e-3
+
+
+def test_remat_and_bf16_weight_stream_step_matches_jax(step_setup):
+    pcfg, jcfg, batch, cmvn, flat = step_setup
+    over = dict(remat_encoder=True, bf16_weight_stream=True)
+    pcfg = pcfg.replace(train=dataclasses.replace(pcfg.train, **over))
+    jcfg = jcfg.replace(train=dataclasses.replace(jcfg.train, **over))
+    tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
+    opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
+    state = JT.TrainState(params=tree, opt_state=opt.init(tree),
+                          ema_params=tree, step=jnp.zeros((), jnp.int32),
+                          rng=jax.random.PRNGKey(0))
+    new_state, ref = run_jax(
+        functools.partial(JT.supervised_step_fn, jcfg, opt), state,
+        jnp.asarray(batch.audio), jnp.asarray(batch.audio_lens),
+        jnp.asarray(batch.tokens), jnp.asarray(batch.real),
+        (jnp.asarray(cmvn[0]), jnp.asarray(cmvn[1])))
+    ref_grads = weights.flatten_tree(
+        jax.tree.map(np.asarray, new_state.opt_state[0]))
+    model = port_model(pcfg, flat)
+    st = TS.init_train_state(pcfg, model, seed=0)
+    loss, aux, grads = TS.loss_and_grads(
+        pcfg, st, t(batch.audio), t(batch.audio_lens), t(batch.tokens),
+        t(batch.real), (t(cmvn[0]), t(cmvn[1])))
+    np.testing.assert_allclose(loss.item(), float(ref["loss"]),
+                               rtol=BF16_STREAM_LOSS_TOL)
+    names = [n for n, _ in model.named_parameters()]
+    scale = max(float(np.abs(g).max()) for g in ref_grads.values())
+    for n, g in zip(names, grads):
+        assert g.dtype == torch.float32
+        got, want = g.numpy(), ref_grads[n]
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(
+            np.abs(got), np.abs(want)) + 1e-30)) - 7)
+        bound = np.maximum(BF16_STREAM_GRAD_TOL * scale, ulp)
+        worst = float((np.abs(got - want) / bound).max())
+        assert worst <= 1.0, (n, worst)
+        # the gradient came back through the bf16 copy
+        assert torch.equal(g, g.to(torch.bfloat16).float()), n
+    # the masters stay float32 and move
+    apply = TS.apply_grads(pcfg, st, grads)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert math.isfinite(float(apply[0]))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_remat_encoder_gradients_bitwise_equal(step_setup, bf16):
+    """The listener recomputed in the backward gives the same bits in
+    float32 on the CPU, with and without the bf16 weight stream."""
+    pcfg, _, batch, cmvn, flat = step_setup
+    args = (t(batch.audio), t(batch.audio_lens), t(batch.tokens),
+            t(batch.real), (t(cmvn[0]), t(cmvn[1])))
+    out = []
+    for remat in (False, True):
+        cfg = pcfg.replace(train=dataclasses.replace(
+            pcfg.train, remat_encoder=remat, bf16_weight_stream=bf16))
+        st = TS.init_train_state(cfg, port_model(cfg, flat), seed=0)
+        out.append(TS.loss_and_grads(cfg, st, *args))
+    (l0, _, g0), (l1, _, g1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
 TINY = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
         "model.attn_dim=8", "model.attn_conv_channels=2",
         "model.attn_conv_width=4", "model.embed_dim=8",
@@ -425,7 +502,7 @@ def test_train_cli_refuses_unported_options(tmp_path, override, message):
 @pytest.mark.parametrize("override, message", [
     ("model.enc_attn_chunk=8", "model.enc_attn_chunk"),
     ("model.enc_dropout=0.1", "model.enc_dropout"),
-    ("train.remat_encoder=true", "train.remat_encoder"),
+    ("parallel.model_parallel=2", "parallel.model_parallel"),
 ])
 def test_train_cli_refuses_unported_conformer_options(tmp_path, override,
                                                       message):
