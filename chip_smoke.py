@@ -88,7 +88,8 @@ failure raises and the script exits non-zero:
     tokens;
 11. the training slice at the same width through the Solver
     (synthetic corpus, bucket 1600 so that T'=400, B=32, bf16, the
-    recipe's SortaGrad epoch and background checkpoint saves): 3 steps,
+    recipe's SortaGrad epoch, background checkpoint saves and encoder
+    dropout 0.1, all as shipped): 3 steps,
     finite losses, K1 once a step, both K5 launch counts > 0; the same run
     stopped at step 2 and resumed must give step 3's state bitwise (the
     conv stem has no atomics in its backward); then one float32 step on
@@ -159,7 +160,26 @@ failure raises and the script exits non-zero:
     on against off (the phase-7 bf16 bounds; K2 8 launches against 4) and
     the bf16 weight stream on against off (the reference's bound), then
     the step kernels against plain; the K2 / K3 launch plans at H=512
-    for B=32 and 16.
+    for B=32 and 16;
+16. the recipes' regularization, augmentation and BPE units: (a)
+    ``configs/ls100_bpe.yaml`` as shipped (enc 384 x (1 + 3) BiLSTM, dec
+    768, embed 384, bf16, B=64, SpecAugment with time warp W=80) with a
+    BPE model trained in the phase over the synthetic corpus's text (the
+    recipe asks 1000 pieces; the size reached is logged), through the
+    Solver: 3 steps with a checkpoint each, each step's launches (K1 1, K2
+    4 and K3 4, the cluster route), ``test`` beam 5 on the mean of the 3
+    checkpoints (``decode.average_ckpts``), one bf16 step kernels against
+    plain; (b) one bf16 step with speed perturbation, noise and decoder
+    dropout, kernels against plain with the same draws, and
+    ``train.grad_accum=2`` against one full step on equal-length rows in
+    float32 (loss 1e-5, GRAD_TOL) with both steps' peak memory; (d)
+    ``configs/ls960_transformer.yaml`` at full width with the flash route:
+    ``main --train`` for 2 steps and the final validation, then remat on
+    (as shipped) against off with encoder dropout 0.1 and the
+    same masks, gradients bitwise equal, K5 forward 24 against 12
+    launches; the step's wall time each way and the device time of a
+    conformer step's dropout masks.  Phase 11 runs (c), ls960_conformer
+    with its dropout.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -251,10 +271,9 @@ CONFORMER_CONFIG = ROOT / "configs" / "ls960_conformer.yaml"
 CONFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
                        "train.batch_size=32"]
 # training: two batches of 32 per epoch in the recipe's largest bucket
-# (T' = 400 after the 4x stem), with the recipe's SortaGrad epoch and
-# background checkpoint saves; dropout is not ported
-CONFORMER_TRAIN = ["model.enc_dropout=0", "data.num_synthetic_utts=64",
-                   "data.frame_buckets=[1600]"]
+# (T' = 400 after the 4x stem), with the recipe's SortaGrad epoch,
+# background checkpoint saves and encoder dropout 0.1
+CONFORMER_TRAIN = ["data.num_synthetic_utts=64", "data.frame_buckets=[1600]"]
 # K5's timing shape: bucket 1600 -> T' = 400, B=32, 8 heads of 64
 K5_TIMING = (32, 400, 8, 64)
 # T' of ls960_conformer's four buckets (400-1600 frames, 4x stem), each
@@ -331,6 +350,31 @@ C5_DEV = 40
 # in the backward's recomputation, K3 once a layer
 C5_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 8,
                     "lstm_scan_bwd": 4}
+
+
+# phase 16: the recipes' regularization, augmentation and BPE units.
+# (a) configs/ls100_bpe.yaml as shipped (enc 384 x (1 + 3) BiLSTM, dec 768,
+# embed 384, bf16, B=64, SpecAugment with time warp W=80) but for its data
+# and the run's length: the synthetic corpus of 64 utterances (all in the
+# 400-frame / 48-token bucket: one batch of 64 an epoch), a BPE model
+# trained in the phase over the corpus's text (the recipe asks 1000
+# pieces), 3 steps with a checkpoint after each, so that --test averages
+# the 3 (decode.average_ckpts)
+BPE_CONFIG = ROOT / "configs" / "ls100_bpe.yaml"
+BPE_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
+BPE_RUN = ["train.total_steps=3", "train.ckpt_every=1",
+           "train.eval_every=0", "train.log_every=1"]
+BPE_PIECES = 1000
+# (b) the options no shipped config sets, one step at (a)'s width
+UNSHIPPED = {"speed_perturb": (0.9, 1.0, 1.1), "noise_aug_prob": 0.5}
+# (d) configs/ls960_transformer.yaml (remat_encoder, enc_dropout 0.1) at
+# full width (12 blocks of d_model 512) with the flash attention route, as
+# the conformer path runs; synthetic data, one batch of 32 in the
+# 1600-frame bucket (T' = 400)
+TRANSFORMER_CONFIG = ROOT / "configs" / "ls960_transformer.yaml"
+TRANSFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
+                         "train.batch_size=32", "data.num_synthetic_utts=32",
+                         "data.frame_buckets=[1600]"]
 
 
 def c4_tag(t: int) -> str:
@@ -1450,7 +1494,8 @@ def phase11(d: Path):
     )
 
     log(f"[phase11] overrides {CONFORMER_OVERRIDES + CONFORMER_TRAIN} "
-        "(model.enc_dropout is not ported)")
+        f"(model.enc_dropout {conformer_config([]).model.enc_dropout}, as "
+        "shipped)")
     s = short_solver(conformer_config(CONFORMER_TRAIN), d / "bf16")
     _native.reset_launches()
     s.train()
@@ -1479,7 +1524,7 @@ def phase11(d: Path):
     sd_b, meta_b, _ = Checkpointer(split / "checkpoints").load(3)
     diff = first_difference(sd_a, sd_b)
     log(f"[phase11] conformer run resumed from step 2: step 3's state "
-        f"(parameters, EMA buffer, Adam moments and count, generator) "
+        f"(parameters, EMA buffer, Adam moments and count, generators) "
         f"{'bitwise equal' if diff is None else 'differs first at ' + diff}"
         f"; data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}")
     require(diff is None, f"conformer resume differs first at {diff}")
@@ -1723,8 +1768,10 @@ def semi_step_check(s, loss_tol: float = 1e-5,
         state.ema = copy.deepcopy(s.state.ema)
         t0 = time.perf_counter()
         loss, aux, grads = TS.loss_and_grads(
-            cfg, state, *tensors, s.cmvn_dev, lab_bands, backend, **unlab,
-            unlab_specaug=unlab_bands, pseudo_labels=labels[None])
+            cfg, state, *tensors, s.cmvn_dev,
+            [TS.StepDraws(TS.Draws(specaug=lab_bands),
+                          TS.Draws(specaug=unlab_bands), labels[None])],
+            backend, **unlab)
         grads = [g.clone() for g in grads]
         TS.apply_grads(cfg, state, [g.clone() for g in grads])
         torch.cuda.synchronize()
@@ -2319,8 +2366,9 @@ def step_check(s, phase: str, loss_tol: float = 1e-5,
     for backend in (None, "reference"):
         model = copy.deepcopy(s.state.model)
         state = TS.init_train_state(s.cfg, model, seed=0)
-        out[backend] = TS.loss_and_grads(s.cfg, state, *tensors,
-                                         s.cmvn_dev, bands, backend)
+        out[backend] = TS.loss_and_grads(
+            s.cfg, state, *tensors, s.cmvn_dev,
+            [TS.StepDraws(TS.Draws(specaug=bands))], backend)
     routes = {k: v for k, v in _native.LAUNCHES.items()
               if k.startswith("lstm_scan_") and v}
     (lk, _, gk), (lr, _, gr) = out[None], out["reference"]
@@ -2711,7 +2759,8 @@ def c5_part_c(d: Path, card: str) -> None:
         state = TS.init_train_state(cfg, copy.deepcopy(s.state.model), 0)
         torch.cuda.synchronize()
         before = dict(_native.LAUNCHES)
-        out = TS.loss_and_grads(cfg, state, *tensors, s.cmvn_dev, bands)
+        out = TS.loss_and_grads(cfg, state, *tensors, s.cmvn_dev,
+                                [TS.StepDraws(TS.Draws(specaug=bands))])
         torch.cuda.synchronize()
         return out, launch_delta(before, _native.LAUNCHES)
 
@@ -2874,6 +2923,265 @@ def phase15(d: Path, card: str) -> tuple[dict, dict]:
     log(f"[phase15] (a) C5 step wall time, median of steps 2-3: "
         f"{wall:.1f} ms ({card})")
     return got["launches"], {"c5_train_step_b32": (step, wall)}
+
+
+# --------------------------------------------------------------------- #
+# phase 16: ls100_bpe (BPE units, time warp), the options no shipped config
+# sets, and ls960_transformer's remat with encoder dropout
+# --------------------------------------------------------------------- #
+
+def train_bpe_model(d: Path) -> tuple[int, int]:
+    """A BPE model trained over the text of phase 16's synthetic corpus
+    (built with the merge-free default vocab), written to d/bpe.json ->
+    (its units, its merges)."""
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data.bpe import train_bpe
+    from semi_supervised_asr_tpu_torch.data.registry import build_datasets
+
+    ds = build_datasets(load_config(BPE_CONFIG,
+                                    [*BPE_DATA, "data.bpe_path="])).train
+    vocab = train_bpe([ds[i].text for i in range(len(ds))], BPE_PIECES)
+    vocab.save(d / "bpe.json")
+    return vocab.size, len(vocab.merges)
+
+
+def variant(s, cfg):
+    """A shallow copy of Solver ``s`` that runs ``cfg``, its model rebuilt
+    for ``cfg.model`` with ``s``'s weights (for step_check)."""
+    from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+
+    v = copy.copy(s)
+    v.cfg = cfg
+    model = Seq2Seq(cfg.model).to(s.device)
+    model.load_state_dict(s.state.model.state_dict())
+    v.state = dataclasses.replace(s.state, model=model)
+    return v
+
+
+def accum_check(s, card: str) -> dict:
+    """``train.grad_accum=2`` against one full-batch step on equal-length
+    rows (every row's audio the whole buffer, its tokens cut to the
+    batch's shortest), float32, augmentation and dropout off: loss within
+    1e-5 relative, every gradient leaf within GRAD_TOL; each step's peak
+    memory above what was allocated before it."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    f32 = variant(s, s.cfg.replace(
+        model=dataclasses.replace(s.cfg.model, compute_dtype="float32"),
+        frontend=dataclasses.replace(s.cfg.frontend, spec_augment=False)))
+    batch, (audio, lens, tokens, real) = first_batch(f32)
+    k = int(batch.token_lens.min())
+    tokens = tokens.clone()
+    tokens[:, k - 1] = EOS
+    tokens[:, k:] = PAD
+    lens = torch.full_like(lens, audio.shape[1])
+    real = torch.ones_like(real)
+    out = {}
+    for accum in (1, 2):
+        cfg = f32.cfg.replace(train=dataclasses.replace(f32.cfg.train,
+                                                        grad_accum=accum))
+        state = TS.init_train_state(cfg, copy.deepcopy(f32.state.model), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _, grads = TS.loss_and_grads(cfg, state, audio, lens, tokens,
+                                           real, f32.cmvn_dev)
+        torch.cuda.synchronize()
+        out[accum] = (loss, grads,
+                      (torch.cuda.max_memory_allocated() - base) / 2**20)
+        del state
+    (l1, g1, m1), (l2, g2, m2) = out[1], out[2]
+    rel = abs(l2.item() - l1.item()) / abs(l1.item())
+    names = [n for n, _ in s.state.model.named_parameters()]
+    errs = dict(zip(names, grad_errs(g2, g1)))
+    worst = max(errs, key=errs.get)
+    log(f"[phase16] grad_accum=2 vs one step, B={audio.shape[0]} rows of "
+        f"{audio.shape[1]} samples and {k} tokens, float32: loss "
+        f"{l2.item():.6f} vs {l1.item():.6f} (rel {rel:.2e}, tol 1e-05); "
+        f"worst gradient leaf {worst} {errs[worst]:.3e} of the model's max "
+        f"|g| (tol {GRAD_TOL:g}); peak memory above the state "
+        f"{m2:.1f} MiB vs {m1:.1f} MiB ({card})")
+    require(rel <= 1e-5, f"accumulated loss differs: rel {rel}")
+    require(errs[worst] <= GRAD_TOL, f"accumulated gradient {worst}")
+    return {"accum_peak_mib": m2, "full_peak_mib": m1}
+
+
+def transformer_remat(d: Path, card: str) -> dict:
+    """ls960_transformer at full width with attn_backend flash: ``main
+    --train`` for 2 steps and the final validation (its launches are the
+    path's); then one step
+    with remat_encoder on (as shipped) and one with it off, enc_dropout
+    0.1 drawing the same masks (both states seeded alike): loss and every
+    gradient bitwise equal; K1 1, K5 forward 24 (12 blocks, again in the
+    recomputation) against 12, K5 backward 12 launches; then the step's
+    wall time each way."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import main as M
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    # main --train as a user runs it: 2 steps and the final validation
+    _native.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = M.main(["--config", str(TRANSFORMER_CONFIG), "--train",
+                     "--workdir", str(d / "transformer_main"),
+                     *TRANSFORMER_OVERRIDES, "train.total_steps=2",
+                     "train.eval_every=0", "train.log_every=1"])
+    torch.cuda.synchronize()
+    run = {k: v for k, v in _native.LAUNCHES.items() if v}
+    final = json.loads(out.getvalue().strip().splitlines()[-1])["final_dev"]
+    log(f"[phase16] ls960_transformer main --train, 2 steps and the final "
+        f"validation: {final}; kernel launches {run}")
+    require(rc == 0 and math.isfinite(final["dev_error"]),
+            f"transformer main --train: rc {rc}, {final}")
+    require(run.get("fused_post_fft", 0) > 0
+            and run.get("flash_mhsa_fwd", 0) > 0
+            and run.get("flash_mhsa_bwd", 0) > 0,
+            f"the transformer path missed a kernel: {run}")
+    t = Solver(load_config(TRANSFORMER_CONFIG, TRANSFORMER_OVERRIDES),
+               d / "transformer", DEVICE)
+    m = t.cfg.model
+    require(t.cfg.train.remat_encoder and m.enc_dropout > 0,
+            "ls960_transformer ships remat_encoder and enc_dropout")
+    _, tensors = first_batch(t)
+
+    def one_step(remat: bool):
+        cfg = t.cfg.replace(train=dataclasses.replace(t.cfg.train,
+                                                      remat_encoder=remat))
+        state = TS.init_train_state(cfg, copy.deepcopy(t.state.model), 0)
+        torch.cuda.synchronize()
+        before = dict(_native.LAUNCHES)
+        t0 = time.perf_counter()
+        out = TS.loss_and_grads(cfg, state, *tensors, t.cmvn_dev)
+        torch.cuda.synchronize()
+        return out, launch_delta(before, _native.LAUNCHES), (
+            time.perf_counter() - t0) * 1e3
+
+    (l1, _, g1), on, _ = one_step(True)
+    (l0, _, g0), off, ms_off = one_step(False)
+    same = bool(torch.equal(l0, l1)) and all(
+        torch.equal(a, b) for a, b in zip(g0, g1))
+    _, _, ms_on = one_step(True)
+    log(f"[phase16] ls960_transformer ({m.enc_blocks} blocks, d_model "
+        f"{m.enc_out_dim}, bf16, B={tensors[0].shape[0]}, bucket 1600, "
+        f"enc_dropout {m.enc_dropout}), remat_encoder on vs off with the "
+        f"same masks: loss {l1.item():.6f} vs {l0.item():.6f}; gradients "
+        f"bitwise equal: {same}; launches on {on}, off {off}; step wall "
+        f"{ms_on:.1f} ms on, {ms_off:.1f} ms off ({card})")
+    require(same, "remat with dropout changes the gradients")
+    blocks = m.enc_blocks
+    require(on.get("fused_post_fft") == 1
+            and on.get("flash_mhsa_fwd") == 2 * blocks
+            and off.get("flash_mhsa_fwd") == blocks
+            and on.get("flash_mhsa_bwd") == off.get("flash_mhsa_bwd")
+            == blocks, f"transformer step launches {on} / {off}")
+    return {"launches": run, "ms_on": ms_on, "ms_off": ms_off}
+
+
+def dropout_draw_ms(card: str) -> dict:
+    """Device time of one conformer step's encoder dropout masks
+    (ls960_conformer: 4 sites a block, [32, 400, 512] each), drawn for the
+    batch alone and, as a rank of two does, for a global batch of 64 with
+    its 32 rows kept."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops.dropout import draw_keep_masks
+
+    m = conformer_config([]).model
+    shapes = [(32, 400, m.enc_out_dim)] * (4 * m.enc_blocks)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    one = cuda_ms(lambda: draw_keep_masks(gen, shapes, m.enc_dropout,
+                                          DEVICE), reps=5)
+    two = cuda_ms(lambda: draw_keep_masks(gen, shapes, m.enc_dropout,
+                                          DEVICE, rows=(0, 32, 64)), reps=5)
+    log(f"[phase16] conformer encoder dropout masks, {len(shapes)} sites of "
+        f"{list(shapes[0])}: {one:.3f} ms device; drawn at a 2-rank global "
+        f"shape (64 rows, 32 kept) {two:.3f} ms (CUDA events, median of 5; "
+        f"{card})")
+    return {"dropout_draw_ms": one, "dropout_draw_dp2_ms": two}
+
+
+def phase16(d: Path, card: str) -> tuple[dict, dict]:
+    """(a) ls100_bpe as shipped through the Solver with a BPE model trained
+    in the phase: 3 steps, each step's launches (K1 1, K2 4, K3 4, the
+    cluster route), a checkpoint every step, --test beam 5 on the average
+    of the 3; one step kernels against plain (SpecAugment bands and time
+    warp fixed, dropout off: ls100_bpe sets none) within the bf16 bounds;
+    (b) one step with speed perturbation, noise and decoder dropout,
+    kernels against plain with the same draws, and grad_accum=2 against
+    one step (accum_check); (d) ls960_transformer's remat with dropout
+    (transformer_remat); the dropout draw's device time."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    size, merges = train_bpe_model(d)
+    log(f"[phase16] BPE trained over the synthetic corpus's text: {size} "
+        f"units ({merges} merges) of the {BPE_PIECES} the recipe asks (the "
+        "text has no more repeating pairs)")
+    cfg = load_config(BPE_CONFIG, [*BPE_DATA, *BPE_RUN,
+                                   f"data.bpe_path={d / 'bpe.json'}"])
+    s = Solver(cfg, d / "run", DEVICE)
+    require(s.vocab.unit == "bpe" and s.vocab.size == size,
+            f"the Solver's vocab {s.vocab.unit} {s.vocab.size}")
+    require(s.cfg.frontend.time_warp_param == 80, "ls100_bpe's W")
+    log(f"[phase16] {BPE_CONFIG.name} at full width (enc "
+        f"{s.cfg.model.enc_hidden} x ({s.cfg.model.enc_base_layers} + "
+        f"{s.cfg.model.enc_layers}), dec {s.cfg.model.dec_hidden}, B="
+        f"{s.cfg.train.batch_size}, {s.cfg.model.compute_dtype}) through "
+        f"the Solver; cuts: {BPE_DATA + BPE_RUN}")
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    _native.reset_launches()
+    s.train()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = s.history
+    require(len(recs) == len(steps) == 3, f"{len(steps)} ls100_bpe steps")
+    for i, (r, st) in enumerate(zip(recs, steps)):
+        log(f"[phase16] step {i + 1}: loss {r['loss']:.4f} acc "
+            f"{r['acc']:.4f} grad_norm {r['grad_norm']:.4f}; wall "
+            f"{walls[i]:.1f} ms; kernel launches {st}")
+        require(all(math.isfinite(r[k]) for k in ("loss", "grad_norm")),
+                f"ls100_bpe step {i + 1} not finite")
+        require_launches(f"ls100_bpe step {i + 1}", st, SOLVER_STEP_LAUNCHES)
+    require(s.ckpt.all_steps() == [1, 2, 3],
+            f"ls100_bpe checkpoints {s.ckpt.all_steps()}")
+    _, avg = s.ckpt.average_params(s.state, s.cfg.decode.average_ckpts)
+    test = s.test(mode="beam")
+    log(f"[phase16] --test beam {s.cfg.decode.beam_size} on the mean of "
+        f"steps {avg}: {test}")
+    require(list(avg) == [1, 2, 3], f"averaged steps {avg}")
+    require("ter" in test and "wer" in test and test["n_utts"] == len(
+        s.bundle.dev) and all(math.isfinite(test[k]) for k in ("ter", "wer")),
+        f"ls100_bpe test {test}")
+    step_check(s, "phase16", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    opts = variant(s, s.cfg.replace(
+        frontend=dataclasses.replace(s.cfg.frontend, **UNSHIPPED),
+        model=dataclasses.replace(s.cfg.model, dec_dropout=0.1)))
+    log(f"[phase16] the options no shipped config sets: {UNSHIPPED}, "
+        "model.dec_dropout 0.1")
+    step_check(opts, "phase16", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    del opts
+    out = accum_check(s, card)
+    out["bpe_step_ms"] = statistics.median(walls[1:])
+    out["bpe_units"] = size
+    del s
+    torch.cuda.empty_cache()
+    tr = transformer_remat(d, card)
+    out.update(dropout_draw_ms(card))
+    out.update(transformer_step_on_ms=tr["ms_on"],
+               transformer_step_off_ms=tr["ms_off"])
+    log(f"[phase16] summary {json.dumps(out)}")
+    return launches, dict(out, transformer_launches=tr["launches"])
 
 
 def k5_work(shape: tuple, lens) -> tuple:
@@ -3107,6 +3415,9 @@ def main(argv=None) -> int:
             profile(c5_work, args.profile)
         del c5_work
     elapsed("phase 15")
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe_launches, p16 = phase16(Path(tmp), card)
+    elapsed("phase 16")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -3150,7 +3461,10 @@ def main(argv=None) -> int:
         f"validation {c4_launches}, C4 step {med['c4_train_step']:.1f} ms "
         f"wall (median of steps 2-3); timit Solver run (4 steps, 2 "
         f"validations) launches {solver_launches}; C5 run under torchrun "
-        f"(3 steps, 1 validation) launches {c5_launches}")
+        f"(3 steps, 1 validation) launches {c5_launches}; ls100_bpe "
+        f"Solver run (3 steps) launches {bpe_launches}, step "
+        f"{p16['bpe_step_ms']:.1f} ms wall; ls960_transformer step "
+        f"launches {p16['transformer_launches']}")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -3168,7 +3482,8 @@ def main(argv=None) -> int:
     paths = {"timit_serve": serve_launches, "timit_train": launches,
              "conformer_serve": conf_serve, "conformer_train": conf_launches,
              "c4_solver": c4_launches, "timit_solver": solver_launches,
-             "c5_dp": c5_launches}
+             "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
+             "transformer_remat": p16["transformer_launches"]}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

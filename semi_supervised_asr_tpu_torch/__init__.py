@@ -11,7 +11,10 @@ package runs, on one NVIDIA H100, the LAS serving path (``transcribe.py``)
 and the supervised LAS train step (``train.py``): the same frontend with
 SpecAugment bands, the listener under autograd with its backward scan on
 a CUDA kernel (csrc/lstm_scan_bwd.cu), teacher forcing with scheduled
-sampling, label-smoothed cross-entropy, global-norm clipping and Adam.
+sampling, label-smoothed cross-entropy, global-norm clipping and Adam,
+with the recipes' regularization and augmentation (encoder and decoder
+dropout, time warp, speed perturbation, additive noise, gradient
+accumulation, constant-frames batching) and char, phone or BPE units.
 Both entry points also run the transformer and conformer listeners
 (``model.encoder_arch``) behind a stride-2 conv stem, whose attention
 under ``model.attn_backend: flash`` goes through the CUDA flash attention

@@ -81,25 +81,36 @@ def assemble_batch(dataset, idxs: list[int], n_real: int,
                  bucket, uids)
 
 
-def _slice_rows(
-    idxs: list[int], n_real: int, row_shard: tuple[int, int, int] | None
-) -> tuple[list[int], int]:
-    """A rank's rows of a global plan batch.  ``row_shard=(r0, r1,
-    n_rows)`` is the rank's block of the data axis
-    (``parallel.mesh.host_data_rows``); the row range comes from the
-    batch's own length.  Real rows lead the batch, so the slice's real
-    count is ``n_real`` clipped into the range."""
-    if row_shard is None:
-        return idxs, n_real
+def rank_rows(b: int, row_shard: tuple[int, int, int],
+              micro: int = 1) -> np.ndarray:
+    """The positions of a rank's rows in a global batch of ``b`` rows.
+    ``row_shard=(r0, r1, n_rows)`` is the rank's block of the data axis
+    (``parallel.mesh.host_data_rows``); the batch is ``micro`` contiguous
+    microbatches (``train.grad_accum``), and the rank holds its block of
+    each, so that its i-th microbatch is its rows of the global i-th."""
     r0, r1, n_rows = row_shard
-    if len(idxs) % n_rows:
+    if b % (n_rows * micro):
         raise ValueError(
-            f"batch of {len(idxs)} rows does not shard over {n_rows} "
-            "data-parallel ranks: train.batch_size must divide by the "
-            "world size")
-    per = len(idxs) // n_rows
-    lo, hi = r0 * per, r1 * per
-    return idxs[lo:hi], max(0, min(n_real, hi) - lo)
+            f"batch of {b} rows does not shard over {n_rows} data-parallel "
+            f"ranks in {micro} microbatches: train.batch_size (and each "
+            "data.batch_frames batch) must divide by the world size times "
+            "train.grad_accum")
+    m = b // micro
+    per = m // n_rows
+    return np.concatenate([np.arange(i * m + r0 * per, i * m + r1 * per)
+                           for i in range(micro)])
+
+
+def _slice_rows(
+    idxs: list[int], n_real: int, row_shard: tuple[int, int, int] | None,
+    micro: int = 1,
+) -> tuple[list[int], np.ndarray]:
+    """A rank's rows of a global plan batch (:func:`rank_rows`; all of them
+    without ``row_shard``) -> (their dataset indices, their real mask).
+    Real rows lead the global batch."""
+    pos = (np.arange(len(idxs)) if row_shard is None
+           else rank_rows(len(idxs), row_shard, micro))
+    return [idxs[j] for j in pos], pos < n_real
 
 
 _WARNED_DATASETS: set[int] = set()
@@ -153,20 +164,25 @@ def epoch_batches(
     sort_by_length: bool = False,
     start_batch: int = 0,
     row_shard: tuple[int, int, int] | None = None,
+    micro: int = 1,
 ) -> Iterator[Batch]:
     """One epoch of bucketed batches, shuffled from (seed, epoch), or in
-    ascending length with ``sort_by_length`` (SortaGrad).  ``start_batch``
-    skips the shard's first N batches without assembling them (exact
-    mid-epoch resume).  Without ``drop_remainder`` a bucket's last partial
-    batch is filled by repeating its rows, which ``real`` marks as filler.
-    ``shard_index`` / ``num_shards`` take every n-th batch of the plan,
-    ``row_shard`` the rank's rows of each (``_slice_rows``)."""
+    ascending length with ``sort_by_length`` (SortaGrad).  ``batch_size``
+    is an int or a bucket -> int function (``data.batch_frames``).
+    ``start_batch`` skips the shard's first N batches without assembling
+    them (exact mid-epoch resume).  Without ``drop_remainder`` a bucket's
+    last partial batch is filled by repeating its rows, which ``real``
+    marks as filler.  ``shard_index`` / ``num_shards`` take every n-th
+    batch of the plan, ``row_shard`` the rank's rows of each, in ``micro``
+    microbatches (``_slice_rows``)."""
     plan, skipped = plan_epoch(_audio_lengths(dataset), spec, batch_size,
                                seed, epoch, drop_remainder, sort_by_length)
     _warn_skipped(skipped, dataset)
     for bucket, idxs, n_real in plan[shard_index::num_shards][start_batch:]:
-        idxs, n_real = _slice_rows(idxs, n_real, row_shard)
-        yield assemble_batch(dataset, idxs, n_real, bucket, spec, fcfg)
+        idxs, real = _slice_rows(idxs, n_real, row_shard, micro)
+        b = assemble_batch(dataset, idxs, len(idxs), bucket, spec, fcfg)
+        b.real = real
+        yield b
 
 
 def _raise_empty_epoch(epoch: int) -> None:
@@ -191,6 +207,7 @@ def repeating_batches(
     start_epoch: int = 0,
     skip_batches: int = 0,
     row_shard: tuple[int, int, int] | None = None,
+    micro: int = 1,
 ) -> Iterator[Batch]:
     """Endless stream: a new seeded shuffle every epoch.  ``skip_batches``
     fast-forwards past the first N yields at plan cost (a resumed
@@ -208,7 +225,8 @@ def repeating_batches(
         yielded = False
         for b in epoch_batches(dataset, spec, fcfg, batch_size, seed, epoch,
                                shard_index, num_shards, drop_remainder,
-                               start_batch=skip, row_shard=row_shard):
+                               start_batch=skip, row_shard=row_shard,
+                               micro=micro):
             yielded = True
             yield b
         if not yielded:
@@ -227,13 +245,15 @@ def text_batches(
     num_shards: int = 1,
     skip_batches: int = 0,
     row_shard: tuple[int, int, int] | None = None,
+    micro: int = 1,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Endless unlabeled-text stream: (tokens [B, U] int32, EOS-terminated
     and PAD-padded to ``token_bucket``; real [B] bool), each epoch a
     permutation from (seed, epoch); the last batch of an epoch is padded
     with all-PAD filler rows.  ``skip_batches`` fast-forwards without
     assembling; ``shard_index`` / ``num_shards`` stride the permutation,
-    ``row_shard`` keeps the rank's rows of each batch."""
+    ``row_shard`` keeps the rank's rows of each batch (in ``micro``
+    microbatches, :func:`rank_rows`)."""
     if len(dataset) == 0:
         raise ValueError("text_batches: the dataset is empty")
     skip = skip_batches
@@ -257,10 +277,8 @@ def text_batches(
                 tokens[r, :u] = t[:u]
                 real[r] = True
             if row_shard is not None:
-                r0, r1, n_rows = row_shard
-                per = batch_size // n_rows
-                tokens, real = (tokens[r0 * per:r1 * per],
-                                real[r0 * per:r1 * per])
+                pos = rank_rows(batch_size, row_shard, micro)
+                tokens, real = tokens[pos], real[pos]
             yield tokens, real
         skip = 0
 

@@ -9,7 +9,8 @@ unlabeled audio at ``+ 2``, the text at ``+ 3``) or from the manifest
 corpora ``timit`` / ``librispeech`` that ``data/preprocess.py`` writes
 (``dev.jsonl``, ``data.test_split`` with a warning when its manifest is
 missing, ``data.unlabeled_audio_split`` / ``unlabeled_text_split`` when
-set).  The HDF5 feature store and BPE units are not ported yet and are
+set).  ``data.unit: bpe`` reads ``data.bpe_path`` (else the merge-free
+``default_bpe``).  The HDF5 feature store is not ported yet and is
 refused with a message naming the key.
 """
 
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from semi_supervised_asr_tpu_torch.config import Config
+from semi_supervised_asr_tpu_torch.data.bpe import BPEVocab, default_bpe
 from semi_supervised_asr_tpu_torch.data.synthetic import SyntheticDataset
 from semi_supervised_asr_tpu_torch.data.vocab import (
     Vocab, char_vocab, timit_vocab,
@@ -36,14 +38,12 @@ class DataBundle:
     test: object | None = None        # scored by --test; None -> dev
 
 
-def build_vocab(cfg: Config) -> Vocab:
+def build_vocab(cfg: Config) -> Vocab | BPEVocab:
     if cfg.data.unit == "phone":
         return timit_vocab(fold48=cfg.data.timit_fold48)
     if cfg.data.unit == "bpe":
-        raise NotImplementedError(
-            "data.unit='bpe' is not ported yet (the PyTorch port has the "
-            "phone and char vocabs)"
-        )
+        return (BPEVocab.load(cfg.data.bpe_path) if cfg.data.bpe_path
+                else default_bpe())
     return char_vocab()
 
 

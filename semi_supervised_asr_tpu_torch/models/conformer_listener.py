@@ -22,9 +22,11 @@ The depthwise conv is the reference's shifted multiply-adds: taps in the
 compute dtype, accumulated in float32 in tap order, SAME left padding
 (width-1)//2.  Outputs are float32 with exact zeros on pad frames.
 
-The chunk-causal and streaming conformer (``model.enc_attn_chunk > 0``)
-and dropout are not ported: the model refuses the first and the train step
-the second.
+In training, ``model.enc_dropout`` drops each block's ff1, attention,
+conv-module and ff2 outputs (sites 4i ... 4i + 3) before their residuals,
+with keep masks the caller draws (``ops/dropout.py``); none of them is
+inside K5.  The chunk-causal and streaming conformer
+(``model.enc_attn_chunk > 0``) is not ported: the model refuses it.
 """
 
 from __future__ import annotations
@@ -127,6 +129,8 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerListener(AttentionListener):
+    SITES_PER_BLOCK = 4
+
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
         d = cfg.enc_out_dim
@@ -137,19 +141,23 @@ class ConformerListener(AttentionListener):
                                      for _ in range(cfg.enc_blocks)])
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                backend: str | None = None):
+                backend: str | None = None,
+                masks: list[torch.Tensor] | None = None):
         """[B, T, n_mels], [B] -> (enc [B, T/2**conv_subsample, d] float32,
-        enc_lens [B])."""
+        enc_lens [B]); ``masks``: the dropout sites' keep masks (ff1,
+        attention, conv module and ff2 of block i at 4i ... 4i + 3)."""
         cfg = self.cfg
         compute = R.dtype_of(cfg.compute_dtype)
         x, lens, mask = self.input_projection(feats, feat_lens, compute)
-        for blk in self.blocks:
-            x = x + 0.5 * _ff(blk.ff1, x, compute)
-            x = x + _mhsa_rope(blk.attn, layer_norm(x, blk.attn.ln), mask,
-                               cfg.enc_heads, compute, cfg.attn_backend,
-                               backend)
-            x = x + _conv_module(blk.conv, x, mask, compute)
-            x = x + 0.5 * _ff(blk.ff2, x, compute)
+        for i, blk in enumerate(self.blocks):
+            x = x + 0.5 * self.drop(_ff(blk.ff1, x, compute), masks, 4 * i)
+            h = _mhsa_rope(blk.attn, layer_norm(x, blk.attn.ln), mask,
+                           cfg.enc_heads, compute, cfg.attn_backend, backend)
+            x = x + self.drop(h, masks, 4 * i + 1)
+            x = x + self.drop(_conv_module(blk.conv, x, mask, compute),
+                              masks, 4 * i + 2)
+            x = x + 0.5 * self.drop(_ff(blk.ff2, x, compute), masks,
+                                    4 * i + 3)
             x = layer_norm(x, blk.ln_out)
         # listener contract: exact zeros on pad frames
         return torch.where(mask[:, :, None], x, 0.0), lens

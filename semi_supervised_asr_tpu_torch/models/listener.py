@@ -4,7 +4,8 @@ Counterpart of ``semi_supervised_asr_tpu/models/listener.py``: an optional
 stride-2 3x3 conv stem (``model.conv_subsample`` blocks, shared with the
 transformer and conformer listeners), then ``enc_base_layers`` full-rate
 BiLSTMs, then ``enc_layers`` pyramid stages (fold T -> T/2, feature dim
-doubles, then a BiLSTM); bidirectional, no dropout.  Outputs are float32
+doubles, then a BiLSTM); bidirectional, with ``model.enc_dropout`` after
+every layer in training (sites 0 ... base + pyramid - 1).  Outputs are float32
 [B, T/2**(enc_layers + conv_subsample), 2*enc_hidden] with exact zeros on
 pad frames.
 
@@ -23,6 +24,7 @@ from torch import nn
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
+from semi_supervised_asr_tpu_torch.ops.dropout import dropout
 from semi_supervised_asr_tpu_torch.ops.lstm_scan import bilstm_kernel
 
 
@@ -101,6 +103,13 @@ def conv_stem_params(cfg: ModelConfig) -> nn.ModuleList:
     return nn.ModuleList(blocks)
 
 
+def stem_frames(t: int, conv_subsample: int) -> int:
+    """Frames after the conv stem: each stride-2 block gives ceil(t / 2)."""
+    for _ in range(conv_subsample):
+        t = -(-t // 2)
+    return t
+
+
 def _same_pad(n: int) -> tuple[int, int]:
     """XLA's SAME padding of a length-n axis for kernel 3, stride 2: (0, 1)
     for even n, (1, 1) for odd n."""
@@ -163,9 +172,23 @@ class Listener(nn.Module):
             in_dim = cfg.enc_out_dim
         self.layers = nn.ModuleList(layers)
 
+    def dropout_shapes(self, b: int, t: int) -> list[tuple[int, ...]]:
+        """The shape of each ``model.enc_dropout`` site for features
+        [b, t, n_mels]: every BiLSTM layer's output, base and pyramid."""
+        t = stem_frames(t, self.cfg.conv_subsample)
+        shapes = []
+        for li in range(len(self.layers)):
+            if li >= self.cfg.enc_base_layers:
+                t //= 2
+            shapes.append((b, t, self.cfg.enc_out_dim))
+        return shapes
+
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                backend: str | None = None):
-        """[B, T, n_mels], [B] -> (enc [B, T', 2H], enc_lens [B])."""
+                backend: str | None = None,
+                masks: list[torch.Tensor] | None = None):
+        """[B, T, n_mels], [B] -> (enc [B, T', 2H], enc_lens [B]).
+        ``masks`` (training): the keep masks of the dropout sites
+        (:meth:`dropout_shapes`), applied after each layer's kernels."""
         compute = R.dtype_of(self.cfg.compute_dtype)
         x, lens = feats.float(), feat_lens
         if self.cfg.conv_subsample > 0:
@@ -174,4 +197,6 @@ class Listener(nn.Module):
             if li >= self.cfg.enc_base_layers:
                 x, lens = R.pyramid_fold(x, lens)
             x = bilstm_kernel(layer.as_dict(), x, lens, compute, backend)
+            if masks is not None:
+                x = dropout(x, masks[li], self.cfg.enc_dropout)
         return x, lens

@@ -7,8 +7,10 @@ speller, with tied or untied output: ``precompute_decode_cache``,
 sampling), and ``text_autoencoder_logits``, the text autoencoder's pass
 over unlabeled text.  The decoder state is a dict of tensors whose
 lattice-row axis is 0 (``h`` and ``c`` are layer-stacked [L, B*, H], row
-axis 1), so the beam reorders it with one index per leaf.  Decoder
-dropout is not ported yet.
+axis 1), so the beam reorders it with one index per leaf.  In training,
+``model.dec_dropout`` drops the [h_top, context] concat before the output
+projection at every teacher-forced step, with keep masks the caller draws
+(``ops/dropout.py``); decoding never drops.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from semi_supervised_asr_tpu_torch.models.listener import (
     LSTMWeights, check_supported,
 )
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
+from semi_supervised_asr_tpu_torch.ops.dropout import dropout
 
 
 class Speller(nn.Module):
@@ -71,8 +74,11 @@ class Speller(nn.Module):
         keys: torch.Tensor,       # [B*, T, A]
         values: torch.Tensor,     # [B*, T, enc_out]
         mask: torch.Tensor,       # [B*, T] bool
+        drop_mask: torch.Tensor | None = None,   # [B*, dec_hidden + enc_out]
     ) -> tuple[dict, torch.Tensor, torch.Tensor]:
-        """-> (new_state, logits [B*, V] float32, alpha [B*, T])."""
+        """-> (new_state, logits [B*, V] float32, alpha [B*, T]).
+        ``drop_mask`` (training): the keep mask of ``model.dec_dropout`` on
+        the [h_top, context] concat."""
         cfg = self.cfg
         compute = R.dtype_of(cfg.compute_dtype)
         emb = self.embedding[tokens.long()].float()
@@ -89,6 +95,8 @@ class Speller(nn.Module):
             h_top, state["alpha"], keys, values, mask, cfg.attn_sharpening,
         )
         out_in = torch.cat([h_top, context], dim=-1)
+        if drop_mask is not None:
+            out_in = dropout(out_in, drop_mask, cfg.dec_dropout)
         if cfg.tie_embedding:
             proj = R.mm(out_in, self.w_tie, compute)
             logits = R.mm(proj, self.embedding.t(), compute)
@@ -107,6 +115,7 @@ class Speller(nn.Module):
         tf_rate: float = 1.0,
         gen: torch.Generator | None = None,
         rows: tuple[int, int, int] | None = None,
+        drop_masks: torch.Tensor | None = None,   # [B, U, dec_hidden + enc]
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced decode -> (logits [B, U, V], alphas [B, U, T]).
 
@@ -120,12 +129,10 @@ class Speller(nn.Module):
         ``frontend.sample_specaug_params`` does).  ``model.speller_grad`` is
         accepted and has no effect: ``stacked`` reroutes JAX's scan
         autodiff, which a Python loop under autograd does not have.
+        ``drop_masks[:, s]`` is step s's decoder dropout mask (training;
+        :meth:`dropout_shape`), step 0 included.
         """
         cfg = self.cfg
-        if cfg.dec_dropout > 0.0:
-            raise NotImplementedError(
-                f"model.dec_dropout={cfg.dec_dropout} is not ported yet (the "
-                "PyTorch port trains with model.dec_dropout=0)")
         if cfg.speller_grad not in ("scan", "stacked"):
             raise ValueError(f"unknown model.speller_grad "
                              f"{cfg.speller_grad!r}")
@@ -146,10 +153,16 @@ class Speller(nn.Module):
                     sampled = torch.argmax(logits_all[-1].detach(), dim=-1)
                     tok = torch.where(use_gt[s - 1], tok,
                                       sampled.to(tok.dtype))
-            state, logits, alpha = self.step(state, tok, keys, enc, enc_mask)
+            state, logits, alpha = self.step(
+                state, tok, keys, enc, enc_mask,
+                None if drop_masks is None else drop_masks[:, s])
             logits_all.append(logits)
             alphas.append(alpha)
         return torch.stack(logits_all, dim=1), torch.stack(alphas, dim=1)
+
+    def dropout_shape(self, b: int, u: int) -> tuple[int, int, int]:
+        """The shape of :meth:`forward_teacher`'s ``drop_masks``."""
+        return (b, u, self.cfg.dec_hidden + self.cfg.enc_out_dim)
 
     def text_autoencoder_logits(
         self,

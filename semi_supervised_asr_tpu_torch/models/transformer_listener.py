@@ -14,8 +14,10 @@ statistics, residuals and the softmax are float32.  ``model.attn_backend``
 picks the attention core: ``flash`` goes through ``ops/flash_mhsa.py``
 (kernel K5 on the card), ``xla`` through the materialised scores (plain
 products).  Each keeps the reference's own scale operation (a multiply by
-1/sqrt(hd) in ``flash``, a divide in ``xla``).  Dropout is not ported
-(the train step refuses ``model.enc_dropout``).
+1/sqrt(hd) in ``flash``, a divide in ``xla``).  In training,
+``model.enc_dropout`` drops each block's attention output (site 2i) and
+feed-forward output (site 2i + 1) before its residual, with keep masks
+the caller draws (``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from torch import nn
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models.listener import (
     Leaves, check_supported, conv_stem_apply, conv_stem_dims,
-    conv_stem_params,
+    conv_stem_params, stem_frames,
 )
 from semi_supervised_asr_tpu_torch.ops import flash_mhsa as FM
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
+from semi_supervised_asr_tpu_torch.ops.dropout import dropout
 
 
 def ln_params(d: int) -> Leaves:
@@ -122,6 +125,24 @@ class AttentionListener(nn.Module):
             in_dim = conv_stem_dims(cfg)
         self.proj = Leaves(w=(in_dim, d), b=(d,))
 
+    # model.enc_dropout sites per block
+    SITES_PER_BLOCK = 0
+
+    def dropout_shapes(self, b: int, t: int) -> list[tuple[int, ...]]:
+        """The shape of each ``model.enc_dropout`` site for features
+        [b, t, n_mels]: [b, T', d] each, site ``SITES_PER_BLOCK * i + j``
+        the j-th of block i."""
+        cfg = self.cfg
+        shape = (b, stem_frames(t, cfg.conv_subsample), cfg.enc_out_dim)
+        return [shape] * (self.SITES_PER_BLOCK * cfg.enc_blocks)
+
+    def drop(self, h: torch.Tensor, masks: list[torch.Tensor] | None,
+             i: int) -> torch.Tensor:
+        """Site ``i``'s dropout of ``h`` when ``masks`` are given."""
+        if masks is None:
+            return h
+        return dropout(h, masks[i], self.cfg.enc_dropout)
+
     def input_projection(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                          compute: torch.dtype):
         """The stem (if any) and the projection -> (x float32 [B, T', d],
@@ -146,6 +167,8 @@ class TransformerBlock(nn.Module):
 
 
 class TransformerListener(AttentionListener):
+    SITES_PER_BLOCK = 2
+
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
         d = cfg.enc_out_dim
@@ -154,22 +177,25 @@ class TransformerListener(AttentionListener):
         self.ln_f = ln_params(d)
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                backend: str | None = None):
+                backend: str | None = None,
+                masks: list[torch.Tensor] | None = None):
         """[B, T, n_mels], [B] -> (enc [B, T/2**conv_subsample, d] float32,
-        enc_lens [B])."""
+        enc_lens [B]); ``masks``: the dropout sites' keep masks."""
         cfg = self.cfg
         compute = R.dtype_of(cfg.compute_dtype)
         d = cfg.enc_out_dim
         x, lens, mask = self.input_projection(feats, feat_lens, compute)
         pos = torch.from_numpy(sinusoidal_positions(x.shape[1], d))
         x = x * np.sqrt(d) + pos.to(x.device)
-        for blk in self.blocks:
-            x = x + mhsa(blk.attn, layer_norm(x, blk.ln1), mask,
-                         cfg.enc_heads, compute, cfg.attn_backend, backend)
+        for i, blk in enumerate(self.blocks):
+            h = mhsa(blk.attn, layer_norm(x, blk.ln1), mask, cfg.enc_heads,
+                     compute, cfg.attn_backend, backend)
+            x = x + self.drop(h, masks, 2 * i)
             f = blk.ffn
             h = Fn.gelu(linear(layer_norm(x, blk.ln2), f.w1, f.b1, compute),
                         approximate="tanh")
-            x = x + ((h @ f.w2.to(compute)).float() + f.b2.float())
+            h = (h @ f.w2.to(compute)).float() + f.b2.float()
+            x = x + self.drop(h, masks, 2 * i + 1)
         x = layer_norm(x, self.ln_f)
         # listener contract: exact zeros on pad frames
         return torch.where(mask[:, :, None], x, 0.0), lens

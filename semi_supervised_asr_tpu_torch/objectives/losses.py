@@ -78,15 +78,17 @@ def supervised_loss(
     denom: torch.Tensor | None = None,
     remat: bool = False,
     rows: tuple[int, int, int] | None = None,
+    masks: tuple | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Supervised CE on labeled (audio, text) pairs -> (loss, {"ce",
     "acc"}); ``model`` is a ``Seq2Seq``.  ``denom`` replaces the batch's
     token count in the CE and the accuracy, ``remat`` recomputes the
-    listener in the backward, ``rows`` places the batch in a global one
-    (``Seq2Seq.forward_teacher``)."""
+    listener in the backward, ``rows`` places the batch in a global one,
+    ``masks`` are the pass's dropout masks (``Seq2Seq.forward_teacher``:
+    this pass trains, so it drops)."""
     tokens_in, targets = shift_targets(tokens)
     logits, _ = model.forward_teacher(feats, feat_lens, tokens_in, tf_rate,
-                                      gen, backend, remat, rows)
+                                      gen, backend, remat, rows, masks)
     loss, _ = masked_ce(logits, targets, label_smoothing, denom)
     return loss, {"ce": loss.detach(),
                   "acc": token_accuracy(logits.detach(), targets, denom)}
@@ -97,7 +99,8 @@ def text_ae_loss(speller, label_smoothing: float,
                  denom: torch.Tensor | None = None) -> torch.Tensor:
     """Text autoencoder: label-smoothed CE of unlabeled text ``[B, U]``
     (EOS-terminated, PAD-padded) reconstructed by the shared ``speller``
-    over a zero context (``denom`` as in :func:`masked_ce`)."""
+    over a zero context (``denom`` as in :func:`masked_ce`), without
+    dropout, as the reference's pass runs."""
     tokens_in, targets = shift_targets(text_tokens)
     logits = speller.text_autoencoder_logits(tokens_in)
     loss, _ = masked_ce(logits, targets, label_smoothing, denom)
@@ -150,6 +153,7 @@ def pseudo_label_loss(
     backend: str | None = None,
     labels: tuple[torch.Tensor, torch.Tensor] | None = None,
     denom: torch.Tensor | None = None,
+    masks: tuple | None = None,
 ) -> torch.Tensor:
     """Pseudo-label consistency on unlabeled audio: the student ``model``
     at teacher-forcing rate 1 on the augmented view, CE against the
@@ -160,12 +164,14 @@ def pseudo_label_loss(
     ``row_mask`` drops filler rows.  ``labels`` replaces the teacher's
     decode with given (hypotheses, log-probs), so that two runs of the
     student can be compared on the same targets.  ``denom`` replaces the
-    kept-token count (a data-parallel rank's global one)."""
+    kept-token count (a data-parallel rank's global one).  ``masks`` are
+    the student's dropout masks (it trains; the teacher's decode never
+    drops)."""
     hyps, hyp_logp = labels if labels is not None else teacher_labels(
         teacher, feats_clean, feat_lens, max_len, backend)
     tokens_in, targets = shift_targets(hyps)
     logits, _ = model.forward_teacher(feats_aug, feat_lens, tokens_in, 1.0,
-                                      None, backend)
+                                      None, backend, masks=masks)
     mask = token_mask(targets)
     logp = torch.log_softmax(logits.float(), dim=-1)
     gold_lp = torch.gather(logp, -1, targets.long()[..., None])[..., 0]

@@ -97,3 +97,14 @@ def all_reduce_counts(t: torch.Tensor) -> torch.Tensor:
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
     return t
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) concatenated along axis
+    0 in rank order -> a new tensor: the global batch of which ``t`` holds
+    this rank's rows (babble noise mixes rows of other ranks)."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+    return torch.cat(parts)

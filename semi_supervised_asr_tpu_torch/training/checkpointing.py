@@ -3,8 +3,9 @@
 Counterpart of ``semi_supervised_asr_tpu/training/checkpointing.py`` (orbax
 there).  A checkpoint is a directory ``<dir>/<step>/`` holding ``state.pt``
 (:meth:`TrainState.state_dict`: parameters, EMA buffer, Adam's moments and
-count, step, generator state) and ``meta.json`` (the data-iterator position
-and the metrics it was saved with).  Resume continues the exact stream: the
+count, step, the states of the host generator and of the device generator
+that draws the dropout masks and the white noise) and ``meta.json`` (the
+data-iterator position and the metrics it was saved with).  Resume continues the exact stream: the
 Solver fast-forwards the labeled epoch plan past the recorded batch and
 each unlabeled stream by the restored step count, so a resumed run is
 bitwise equal to an uninterrupted one.

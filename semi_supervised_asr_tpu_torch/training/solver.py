@@ -33,10 +33,15 @@ over the ranks of a torchrun (``parallel/``).
   (``training/checkpointing.py``).
 * ``decode.use_ema`` validates and decodes with the EMA buffer,
   ``decode.average_ckpts`` with the mean of the last checkpoints.
+* ``data.batch_frames`` sizes each labeled bucket's batch to a constant
+  frame count (``_train_batch_size``); ``train.grad_accum`` = A makes
+  every rank hold its share of each of a batch's A microbatches
+  (``pipeline.rank_rows``), so N ranks with accumulation step what one
+  process steps on the concatenated batch.
 
 Not ported (each refused with its key, here or where the step, the model
 or the decoders are built): the feature store, grain threads,
-constant-frames batching, LM fusion, CTC and transducer decoding,
+LM fusion, CTC and transducer decoding,
 ``train.debug_nans``, tensor parallelism (``parallel.model_parallel``) and
 exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
@@ -59,7 +64,9 @@ from semi_supervised_asr_tpu_torch import weights
 from semi_supervised_asr_tpu_torch.config import Config
 from semi_supervised_asr_tpu_torch.data import pipeline as pipe
 from semi_supervised_asr_tpu_torch.data import registry
-from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
+from semi_supervised_asr_tpu_torch.data.bucketing import (
+    make_batch_sizer, make_bucket_spec,
+)
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
 from semi_supervised_asr_tpu_torch.decode.beam import check_supported
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
@@ -201,6 +208,23 @@ class Solver:
             return MESH.host_data_rows(self.rank, self.world)
         return None
 
+    def _accum(self) -> int:
+        return max(int(self.cfg.train.grad_accum), 1)
+
+    def _train_batch_size(self):
+        """The labeled training stream's batch size: ``train.batch_size``,
+        or under constant-frames batching (``data.batch_frames``) a bucket
+        -> size function rounding each bucket's batch down to a granule
+        (``data/bucketing.py::make_batch_sizer``).  The granule is the
+        reference's ``lcm(world, grad_accum)`` on one process; under data
+        parallelism it is ``world * grad_accum``, since each rank holds its
+        share of every microbatch (the two agree unless the world size and
+        ``grad_accum`` share a factor).  Evaluation and the unlabeled
+        streams keep ``train.batch_size``."""
+        return make_batch_sizer(self.cfg.train.batch_size,
+                                self.cfg.data.batch_frames,
+                                self.world * self._accum())
+
     def _labeled_stream(self, start_epoch: int = 0, start_batch: int = 0):
         """Endless labeled stream of ``(epoch, batch_idx, batch)``; the
         train loop mirrors the position into ``self.data_pos`` when a step
@@ -210,16 +234,18 @@ class Solver:
         (SortaGrad), the later ones shuffled."""
         cfg = self.cfg
         row_shard = self._row_shard()
+        bs = self._train_batch_size()
 
         def gen():
             epoch, skip = start_epoch, start_batch
             while True:
                 it = pipe.epoch_batches(
-                    self.bundle.train, self.spec, cfg.frontend,
-                    cfg.train.batch_size, cfg.train.seed, epoch,
+                    self.bundle.train, self.spec, cfg.frontend, bs,
+                    cfg.train.seed, epoch,
                     drop_remainder=cfg.data.drop_remainder,
                     sort_by_length=epoch < cfg.data.sortagrad_epochs,
-                    start_batch=skip, row_shard=row_shard)
+                    start_batch=skip, row_shard=row_shard,
+                    micro=self._accum())
                 n_yielded = 0
                 for k, b in enumerate(it, start=skip):
                     yield epoch, k, b
@@ -257,12 +283,13 @@ class Solver:
                 self.bundle.unlabeled_audio, big, cfg.frontend,
                 cfg.train.batch_size, cfg.train.seed + 1,
                 drop_remainder=False, skip_batches=skip_batches,
-                row_shard=row_shard)
+                row_shard=row_shard, micro=self._accum())
         if cfg.objective.lambda_text_ae > 0.0 and self.bundle.unlabeled_text:
             ut = pipe.text_batches(
                 self.bundle.unlabeled_text, self.spec.token_buckets[-1],
                 cfg.train.batch_size, cfg.train.seed + 2,
-                skip_batches=skip_batches, row_shard=row_shard)
+                skip_batches=skip_batches, row_shard=row_shard,
+                micro=self._accum())
         return ua, ut
 
     def _put(self, *arrays) -> tuple[torch.Tensor, ...]:

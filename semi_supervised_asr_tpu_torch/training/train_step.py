@@ -1,8 +1,9 @@
 """Featurization and the train step, supervised and semi-supervised.
 
 Counterpart of ``semi_supervised_asr_tpu/training/train_step.py`` for the
-LAS family: ``featurize`` (inference and augmenting branches) and
-``supervised_step_fn``: features under no-grad, teacher-forced CE with
+LAS family: ``featurize`` (inference and augmenting branches: speed
+perturbation, additive noise, SpecAugment bands and time warp) and
+``supervised_step``: features under no-grad, teacher-forced CE with
 label smoothing, and, when the objective weighs them and the step is given
 the unlabeled batches, the text autoencoder on unlabeled text and the
 pseudo-label term on unlabeled audio (the teacher's greedy decode of the
@@ -13,25 +14,41 @@ The metrics keep the JAX keys (``loss``, ``ce``, ``acc``, ``grad_norm``,
 ``tf_rate``, ``frames``, and ``text_ae``, ``pseudo``, ``pseudo_gate``
 where the step runs those terms).
 
+The training passes drop out (``model.enc_dropout`` after the listener's
+sites, ``model.dec_dropout`` before the speller's output projection): the
+supervised pass and the pseudo-label student; the text autoencoder and the
+teacher's decode do not.  ``train.grad_accum`` = A splits every field of
+the step's batches into A equal microbatches, each normalized by its own
+counts and with its own draws; loss, metrics and gradients are the mean
+over them (float32), then one clip, one Adam update and one EMA update.
+
+Random draws: the per-row ones (SpecAugment bands, time warp, the speed
+factor, the noise decisions, scheduled sampling) come from the state's CPU
+generator ``gen``, the large ones (dropout masks, white noise) from its
+device generator ``dgen``; both are in the checkpoint.  :class:`Draws`
+hands given draws in instead (how a test passes the JAX package's).
+
 ``train.remat_encoder`` runs the listener again in the backward
-(``Seq2Seq.forward_teacher``); ``train.bf16_weight_stream`` rounds every
-float32 parameter (and the EMA teacher's, for its decode) to bf16 once
-inside the loss, as the reference does, while the float32 masters take
-the gradients.  Under data parallelism (``parallel/dp.py``) each rank
-runs its rows of the global batch: the random draws are made at the global
-batch's shape and the rank's rows kept, every term is divided by the
-global batch's count (summed over the ranks before the forward), and the
-gradients and metrics are summed over the ranks, so that N ranks compute
-what one process computes on the concatenated batch.  What the step does
-not run yet -- dropout, CTC, MWER, speed perturbation, noise, time warp,
-gradient accumulation -- is refused by :func:`check_train_supported` with
-a message naming the key.
+(``Seq2Seq.forward_teacher``, its dropout masks passed in);
+``train.bf16_weight_stream`` rounds every float32 parameter (and the EMA
+teacher's, for its decode) to bf16 once inside the loss, as the reference
+does, while the float32 masters take the gradients.  Under data
+parallelism (``parallel/dp.py``) each rank runs its rows of the global
+batch (of each global microbatch under accumulation): the random draws are
+made at the global (micro)batch's shape and the rank's rows kept, babble
+noise mixes rows gathered from every rank, every term is divided by the
+global microbatch's count (summed over the ranks before the forward), and
+the gradients and metrics are summed over the ranks, so that N ranks
+compute what one process computes on the concatenated batch.  What the
+step does not run yet -- CTC, MWER, another optimizer, frozen or
+transplanted weights, checkify -- is refused by
+:func:`check_train_supported` with a message naming the key.
 """
 
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
@@ -47,44 +64,49 @@ from semi_supervised_asr_tpu_torch.training import schedules
 SpecAug = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def check_augment_supported(cfg: Config) -> None:
-    fcfg = cfg.frontend
-    unsupported = {
-        "speed_perturb": bool(fcfg.speed_perturb),
-        "noise_aug_prob": fcfg.noise_aug_prob > 0.0,
-        "time_warp_param": fcfg.spec_augment and fcfg.time_warp_param > 0,
-    }
-    for key, on in unsupported.items():
-        if on:
-            raise NotImplementedError(
-                f"frontend.{key}={getattr(fcfg, key)!r} is not ported yet "
-                "(the PyTorch port augments with SpecAugment bands only)")
-
-
 def check_train_supported(cfg: Config) -> None:
-    """Refuse training options outside this slice with a clear message
-    (model options are checked by the model's constructor)."""
+    """Refuse training options outside the ported slices with a clear
+    message (model options are checked by the model's constructor)."""
     m, o, t = cfg.model, cfg.objective, cfg.train
     unsupported = {
-        "model.enc_dropout": (m.enc_dropout, 0.0),
-        "model.dec_dropout": (m.dec_dropout, 0.0),
         "model.param_dtype": (m.param_dtype, "float32"),
         "objective.lambda_ctc": (o.lambda_ctc, 0.0),
         "objective.lambda_mwer": (o.lambda_mwer, 0.0),
         "train.optimizer": (t.optimizer, "adam"),
-        "train.grad_accum": (max(int(t.grad_accum), 1), 1),
         "train.freeze": (tuple(t.freeze), ()),
         "train.init_encoder_from": (t.init_encoder_from, ""),
         "train.checkify_errors": (t.checkify_errors, ""),
         "data.use_feature_store": (cfg.data.use_feature_store, False),
-        "data.batch_frames": (cfg.data.batch_frames, 0),
     }
     for key, (got, want) in unsupported.items():
         if got != want:
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port trains "
                 f"with {key}={want!r})")
-    check_augment_supported(cfg)
+
+
+@dataclass
+class Draws:
+    """Given random draws of one augmented view and its training pass; a
+    field left None is drawn from the state's generators (how a test hands
+    in the JAX package's draws)."""
+
+    specaug: SpecAug | None = None
+    warp: tuple[torch.Tensor, torch.Tensor] | None = None  # (w, d) [B]
+    speed: torch.Tensor | None = None           # [B] speed factor index
+    noise: F.NoiseDraws | None = None
+    masks: tuple | None = None      # (listener masks, speller masks)
+
+
+@dataclass
+class StepDraws:
+    """Given draws of one (micro)batch of a step: its labeled view, the
+    augmented view of its unlabeled audio, and the teacher's hypotheses
+    (tokens, per-token log-prob) in place of its decode."""
+
+    labeled: Draws = field(default_factory=Draws)
+    unlabeled: Draws = field(default_factory=Draws)
+    pseudo_labels: tuple[torch.Tensor, torch.Tensor] | None = None
 
 
 def featurize(
@@ -94,24 +116,47 @@ def featurize(
     cmvn: tuple[torch.Tensor, torch.Tensor] | None,
     augment: bool = False,
     backend: str | None = None,
-    specaug: SpecAug | None = None,
+    draws: Draws | None = None,
     gen: torch.Generator | None = None,
     rows: tuple[int, int, int] | None = None,
+    speed: bool = False,
+    dgen: torch.Generator | None = None,
+    dp: DP.DataParallel | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Raw audio [B, S] (float, or int16 PCM) -> (features, frame lengths).
 
     With ``frontend.fused_pallas`` and global CMVN the post-FFT chain runs
     on the fused CUDA kernel K1; otherwise on the unfused plain path.
-    ``augment`` (training) applies SpecAugment when ``frontend.spec_augment``
-    is on: the bands are ``specaug`` when given (how a test passes the JAX
-    package's draws), else drawn from ``gen`` (for ``rows`` of a global
-    batch under data parallelism, ``frontend.sample_specaug_params``).
+    ``augment`` (training) applies, in the reference's order: speed
+    perturbation (``frontend.speed_perturb``, only with ``speed``: the
+    labeled view, since it changes the frame lengths), additive noise
+    (``frontend.noise_aug_prob``), the SpecAugment bands (in K1 or after
+    the plain chain) and time warp (``frontend.time_warp_param``, after
+    CMVN and the bands).  The draws are ``draws``' where given, else drawn
+    from ``gen`` (per row) and ``dgen`` (white noise) for ``rows`` of a
+    global batch; ``dp`` gathers that global batch's audio for babble.
     """
     if audio.dtype == torch.int16:
         audio = audio.float() * (1.0 / 32768.0)
     fcfg = cfg.frontend
-    if augment:
-        check_augment_supported(cfg)
+    d = draws if draws is not None else Draws()
+    dev = audio.device
+    if speed and augment and fcfg.speed_perturb:
+        idx = d.speed if d.speed is not None else F.sample_speed_index(
+            gen, audio.shape[0], len(fcfg.speed_perturb), dev, rows)
+        audio, audio_lens = F.apply_speed_perturb(
+            audio, audio_lens, tuple(fcfg.speed_perturb), idx)
+    if augment and fcfg.noise_aug_prob > 0.0:
+        sources = tuple(fcfg.noise_sources)
+        noise = d.noise if d.noise is not None else F.sample_noise_params(
+            gen, dgen, tuple(audio.shape), sources, dev, rows)
+        pool, row0 = None, 0
+        if dp is not None and "babble" in sources:
+            # babble mixes rows of the whole (micro)batch
+            pool, row0 = DP.all_gather_rows(audio), rows[0]
+        audio = F.apply_noise(audio, audio_lens, fcfg.noise_aug_prob,
+                              tuple(fcfg.noise_snr_db), sources, noise,
+                              pool, row0)
     mean, inv_std = cmvn if cmvn is not None else (None, None)
     fused = fcfg.fused_pallas and fcfg.cmvn == "global" and mean is not None
     if fused:
@@ -123,13 +168,18 @@ def featurize(
                                          inv_std)
     bands = None
     if augment and fcfg.spec_augment:
-        bands = specaug if specaug is not None else F.sample_specaug_params(
-            gen, audio.shape[0], fcfg.n_mels, lens, fcfg, rows)
+        bands = d.specaug if d.specaug is not None else \
+            F.sample_specaug_params(gen, audio.shape[0], fcfg.n_mels, lens,
+                                    fcfg, rows)
     if fused:
-        return fused_post_fft(pspec, lens, fcfg, mean, inv_std, bands,
-                              backend), lens
-    if bands is not None:
+        feats = fused_post_fft(pspec, lens, fcfg, mean, inv_std, bands,
+                               backend)
+    elif bands is not None:
         feats = F.apply_specaug_masks(feats, *bands)
+    if augment and fcfg.spec_augment and fcfg.time_warp_param > 0:
+        w, dd = d.warp if d.warp is not None else F.sample_time_warp(
+            gen, lens, fcfg.time_warp_param, rows)
+        feats = F.apply_time_warp(feats, lens, fcfg.time_warp_param, w, dd)
     return feats, lens
 
 
@@ -164,17 +214,19 @@ class TrainState:
     ema: torch.nn.Module          # Seq2Seq: the EMA of ``model``, no grad
     opt: schedules.Adam
     step: int
-    gen: torch.Generator          # SpecAugment bands and scheduled sampling
+    gen: torch.Generator          # per-row draws (CPU)
+    dgen: torch.Generator         # dropout masks, white noise (the device's)
 
     def state_dict(self) -> dict:
         """Everything an exact resume needs, as CPU tensors: the
         parameters, the EMA buffer, Adam's moments and count, the step and
-        the generator's state."""
+        both generators' states."""
         return {"model": module_state(self.model),
                 "ema": module_state(self.ema),
                 "opt": self.opt.state_dict(),
                 "step": int(self.step),
-                "gen": self.gen.get_state()}
+                "gen": self.gen.get_state(),
+                "dgen": self.dgen.get_state()}
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore :meth:`state_dict` into this state's own tensors."""
@@ -183,15 +235,20 @@ class TrainState:
         self.opt.load_state_dict(sd["opt"])
         self.step = int(sd["step"])
         self.gen.set_state(sd["gen"])
+        self.dgen.set_state(sd["dgen"])
 
 
 def init_train_state(cfg: Config, model: torch.nn.Module,
                      seed: int) -> TrainState:
+    """The state of step 0 around ``model`` (its device holds ``dgen``);
+    both generators are seeded with ``seed``."""
     check_train_supported(cfg)
+    dev = next(model.parameters()).device
     return TrainState(model=model,
                       ema=copy.deepcopy(model).requires_grad_(False),
                       opt=schedules.Adam(list(model.parameters()), cfg.train),
-                      step=0, gen=torch.Generator().manual_seed(seed))
+                      step=0, gen=torch.Generator().manual_seed(seed),
+                      dgen=torch.Generator(dev).manual_seed(seed))
 
 
 def ema_decay(cfg: Config) -> float | None:
@@ -243,6 +300,21 @@ def weight_view(module: nn.Module, bf16: bool):
                                                         (fn, *args))
 
 
+def microbatches(accum: int, **fields) -> list[dict]:
+    """Split every given tensor (None skipped) into ``accum`` equal
+    microbatches along axis 0 -> one dict of fields per microbatch."""
+    out = [{} for _ in range(accum)]
+    for k, x in fields.items():
+        if x is None:
+            continue
+        if x.shape[0] % accum:
+            raise ValueError(f"{k}: batch {x.shape[0]} not divisible by "
+                             f"train.grad_accum {accum}")
+        for mb, part in zip(out, x.chunk(accum)):
+            mb[k] = part
+    return out
+
+
 def loss_and_grads(
     cfg: Config,
     state: TrainState,
@@ -251,15 +323,13 @@ def loss_and_grads(
     tokens: torch.Tensor,         # [B, U] EOS-terminated, PAD-padded
     real: torch.Tensor,           # [B] bool, False on filler rows
     cmvn: tuple[torch.Tensor, torch.Tensor] | None,
-    specaug: SpecAug | None = None,
+    draws: list[StepDraws] | None = None,
     backend: str | None = None,
     unlab_audio: torch.Tensor | None = None,       # [B', S'] as ``audio``
     unlab_audio_lens: torch.Tensor | None = None,  # [B'] samples
     unlab_real: torch.Tensor | None = None,        # [B'] bool
     unlab_text: torch.Tensor | None = None,        # [B'', U''] as ``tokens``
     unlab_text_real: torch.Tensor | None = None,   # [B''] bool
-    unlab_specaug: SpecAug | None = None,
-    pseudo_labels: tuple[torch.Tensor, torch.Tensor] | None = None,
     dp: DP.DataParallel | None = None,
 ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """The loss of one batch at ``state`` and its gradient with respect to
@@ -268,85 +338,49 @@ def loss_and_grads(
     "pseudo", "pseudo_gate"}, grads).  The text term runs when
     ``objective.lambda_text_ae`` > 0 and ``unlab_text`` is given, the
     pseudo-label term when ``objective.lambda_pseudo`` > 0 and
-    ``unlab_audio`` is given.  ``specaug`` / ``unlab_specaug`` fix the
-    bands of the labeled and of the augmented unlabeled view (else they
-    are drawn from ``state.gen``); ``pseudo_labels`` fixes the teacher's
-    hypotheses (see :func:`LO.pseudo_label_loss`).
+    ``unlab_audio`` is given.  ``train.grad_accum`` splits every batch
+    into microbatches (:func:`microbatches`); loss, metrics and gradients
+    are their means.  ``draws`` (one :class:`StepDraws` per microbatch)
+    fixes what it gives of each microbatch's random draws.
 
     ``dp``: this rank's place in a data-parallel group; the batches are its
-    rows of the global ones.  Each term's denominator is then the global
-    batch's count, summed over the ranks before the forward (the
-    pseudo-label term's kept tokens are known once the teacher has
-    decoded, so the teacher runs first), and the returned loss, metrics
-    and gradients are the sums over the ranks."""
-    obj = cfg.objective
-    tf_rate = schedules.tf_rate_at(state.step, obj)
-    tokens = mask_unreal(tokens, real)
-    rows = dp.rows(tokens.shape[0]) if dp is not None else None
-    with torch.no_grad():
-        feats, flens = featurize(cfg, audio, audio_lens, cmvn, True, backend,
-                                 specaug, state.gen, rows)
-    bf16 = cfg.train.bf16_weight_stream
-    student = weight_view(state.model, bf16)
-    text = None
-    if obj.lambda_text_ae > 0.0 and unlab_text is not None:
-        text = mask_unreal(unlab_text, unlab_text_real)
-    pseudo = obj.lambda_pseudo > 0.0 and unlab_audio is not None
-    # the terms' token counts and the audio samples of the real rows
-    counts = [LO.token_mask(tokens).sum().double(),
-              torch.zeros((), dtype=torch.float64, device=tokens.device),
-              torch.zeros((), dtype=torch.float64, device=tokens.device),
-              torch.where(real, audio_lens, 0).sum().double()]
-    if text is not None:
-        counts[1] = LO.token_mask(text).sum().double()
-    if pseudo:
-        with torch.no_grad():
-            clean, clens = featurize(cfg, unlab_audio, unlab_audio_lens,
-                                     cmvn, False, backend)
-        # hypotheses capped by the labeled stream's token bucket
-        max_len = min(cfg.decode.max_decode_len, tokens.shape[1])
-        if pseudo_labels is None:
-            teacher = (weight_view(state.ema, bf16) if obj.use_ema_teacher
-                       else student)
-            pseudo_labels = teacher(LO.teacher_labels, clean, clens, max_len,
-                                    backend)
-        hyps, hyp_logp = pseudo_labels
-        keep = LO.pseudo_keep(hyps, hyp_logp, obj.pseudo_confidence,
-                              unlab_real)
-        counts[2] = (LO.token_mask(hyps) * keep[:, None]).sum().double()
-    counts = torch.stack(counts)
-    if dp is not None:
-        counts = DP.all_reduce_counts(counts)
-    den = torch.clamp_min(counts[:3].float(), 1.0)
-    loss, aux = student(LO.supervised_loss, obj.label_smoothing, feats,
-                        flens, tokens, tf_rate, state.gen, backend, den[0],
-                        cfg.train.remat_encoder, rows)
-    aux["tf_rate"] = tf_rate
-    if text is not None:
-        ae = student(lambda m, *a: LO.text_ae_loss(m.speller, *a),
-                     obj.label_smoothing, text, den[1])
-        loss = loss + obj.lambda_text_ae * ae
-        aux["text_ae"] = ae.detach()
-    if pseudo:
-        urows = dp.rows(unlab_audio.shape[0]) if dp is not None else None
-        with torch.no_grad():
-            augmented, _ = featurize(cfg, unlab_audio, unlab_audio_lens,
-                                     cmvn, True, backend, unlab_specaug,
-                                     state.gen, urows)
-        pl = student(LO.pseudo_label_loss, None, obj.pseudo_confidence,
-                     clean, augmented, clens, max_len, unlab_real, backend,
-                     pseudo_labels, den[2])
-        # the gate multiplies the term, which runs from step 0 (a NaN in
-        # it poisons the loss even while the gate is closed, as in JAX)
-        gate = float(state.step >= obj.pseudo_warmup_steps)
-        loss = loss + obj.lambda_pseudo * gate * pl
-        aux.update(pseudo=pl.detach(), pseudo_gate=gate)
+    rows of the global ones (of each global microbatch).  Each term's
+    denominator is then the global microbatch's count, summed over the
+    ranks before the forward (the pseudo-label term's kept tokens are known
+    once the teacher has decoded, so the teacher runs first), and the
+    returned loss, metrics and gradients are the sums over the ranks."""
+    accum = max(int(cfg.train.grad_accum), 1)
+    tf_rate = schedules.tf_rate_at(state.step, cfg.objective)
+    micro = microbatches(
+        accum, audio=audio, audio_lens=audio_lens, tokens=tokens, real=real,
+        unlab_audio=unlab_audio, unlab_audio_lens=unlab_audio_lens,
+        unlab_real=unlab_real, unlab_text=unlab_text,
+        unlab_text_real=unlab_text_real)
+    if draws is not None and len(draws) != accum:
+        raise ValueError(f"{len(draws)} draws for {accum} microbatches")
     params = state.opt.params
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    # a leaf no term reaches gets an exact zero
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    loss = loss.detach()
+    loss = grads = None
+    aux: dict = {}
+    for i, mb in enumerate(micro):
+        li, ai = _micro_loss(cfg, state, mb, cmvn, tf_rate,
+                             draws[i] if draws is not None else StepDraws(),
+                             backend, dp)
+        gi = torch.autograd.grad(li, params, allow_unused=True)
+        # a leaf no term reaches gets an exact zero
+        gi = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(params, gi)]
+        li = li.detach()
+        if grads is None:
+            loss, grads, aux = li, gi, ai
+        else:
+            loss = loss + li
+            grads = [a + b for a, b in zip(grads, gi)]
+            aux = {k: aux[k] + ai[k] for k in aux}
+    # the mean over the microbatches, as the reference scales its sums
+    inv = 1.0 / accum
+    loss = loss * inv
+    grads = [g * inv for g in grads]
+    aux = {k: v * inv for k, v in aux.items()}
     if dp is not None:
         # the metrics ride in the gradients' reduction: one sum for all
         keys = [k for k in ("ce", "acc", "text_ae", "pseudo") if k in aux]
@@ -354,9 +388,92 @@ def loss_and_grads(
         *grads, vec = DP.all_reduce_grads([*grads, vec])
         loss = vec[0]
         aux.update(zip(keys, vec[1:]))
-    aux["frames"] = (counts[3].long()
-                     // cfg.frontend.hop_length)
+    aux["tf_rate"] = tf_rate
+    samples = torch.where(real, audio_lens, 0).sum()
+    if dp is not None:
+        samples = DP.all_reduce_counts(samples.double())
+    aux["frames"] = samples.long() // cfg.frontend.hop_length
     return loss, aux, grads
+
+
+def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
+                tf_rate: float, draws: StepDraws, backend: str | None,
+                dp: DP.DataParallel | None) -> tuple[torch.Tensor, dict]:
+    """The loss of one microbatch ``mb`` (the fields of
+    :func:`loss_and_grads`) with its graph -> (loss, {"ce", "acc"} and
+    {"text_ae"}, {"pseudo", "pseudo_gate"} where the step runs them),
+    normalized by the microbatch's own (global) counts."""
+    obj = cfg.objective
+    tokens = mask_unreal(mb["tokens"], mb["real"])
+    b, u = tokens.shape
+    rows = dp.rows(b) if dp is not None else None
+    with torch.no_grad():
+        feats, flens = featurize(cfg, mb["audio"], mb["audio_lens"], cmvn,
+                                 True, backend, draws.labeled, state.gen,
+                                 rows, speed=True, dgen=state.dgen, dp=dp)
+    bf16 = cfg.train.bf16_weight_stream
+    student = weight_view(state.model, bf16)
+    text = None
+    if obj.lambda_text_ae > 0.0 and "unlab_text" in mb:
+        text = mask_unreal(mb["unlab_text"], mb["unlab_text_real"])
+    pseudo = obj.lambda_pseudo > 0.0 and "unlab_audio" in mb
+    # the terms' token counts
+    zero = torch.zeros((), dtype=torch.float64, device=tokens.device)
+    counts = [LO.token_mask(tokens).sum().double(), zero, zero]
+    if text is not None:
+        counts[1] = LO.token_mask(text).sum().double()
+    if pseudo:
+        ua, ua_lens, ureal = (mb["unlab_audio"], mb["unlab_audio_lens"],
+                              mb["unlab_real"])
+        with torch.no_grad():
+            clean, clens = featurize(cfg, ua, ua_lens, cmvn, False, backend)
+        # hypotheses capped by the labeled stream's token bucket
+        max_len = min(cfg.decode.max_decode_len, u)
+        labels = draws.pseudo_labels
+        if labels is None:
+            teacher = (weight_view(state.ema, bf16) if obj.use_ema_teacher
+                       else student)
+            labels = teacher(LO.teacher_labels, clean, clens, max_len,
+                             backend)
+        hyps, hyp_logp = labels
+        keep = LO.pseudo_keep(hyps, hyp_logp, obj.pseudo_confidence, ureal)
+        counts[2] = (LO.token_mask(hyps) * keep[:, None]).sum().double()
+    counts = torch.stack(counts)
+    if dp is not None:
+        counts = DP.all_reduce_counts(counts)
+    den = torch.clamp_min(counts.float(), 1.0)
+    masks = draws.labeled.masks
+    if masks is None:
+        masks = state.model.dropout_masks(state.dgen, b, feats.shape[1], u,
+                                          feats.device, rows)
+    loss, aux = student(LO.supervised_loss, obj.label_smoothing, feats,
+                        flens, tokens, tf_rate, state.gen, backend, den[0],
+                        cfg.train.remat_encoder, rows, masks)
+    if text is not None:
+        ae = student(lambda m, *a: LO.text_ae_loss(m.speller, *a),
+                     obj.label_smoothing, text, den[1])
+        loss = loss + obj.lambda_text_ae * ae
+        aux["text_ae"] = ae.detach()
+    if pseudo:
+        urows = dp.rows(ua.shape[0]) if dp is not None else None
+        with torch.no_grad():
+            augmented, _ = featurize(cfg, ua, ua_lens, cmvn, True, backend,
+                                     draws.unlabeled, state.gen, urows,
+                                     dgen=state.dgen, dp=dp)
+        umasks = draws.unlabeled.masks
+        if umasks is None:
+            umasks = state.model.dropout_masks(
+                state.dgen, ua.shape[0], augmented.shape[1], max_len,
+                augmented.device, urows)
+        pl = student(LO.pseudo_label_loss, None, obj.pseudo_confidence,
+                     clean, augmented, clens, max_len, ureal, backend,
+                     labels, den[2], umasks)
+        # the gate multiplies the term, which runs from step 0 (a NaN in
+        # it poisons the loss even while the gate is closed, as in JAX)
+        gate = float(state.step >= obj.pseudo_warmup_steps)
+        loss = loss + obj.lambda_pseudo * gate * pl
+        aux.update(pseudo=pl.detach(), pseudo_gate=gate)
+    return loss, aux
 
 
 @torch.no_grad()
@@ -385,7 +502,7 @@ def supervised_step(
     tokens: torch.Tensor,
     real: torch.Tensor,
     cmvn: tuple[torch.Tensor, torch.Tensor] | None,
-    specaug: SpecAug | None = None,
+    draws: list[StepDraws] | None = None,
     backend: str | None = None,
     dp: DP.DataParallel | None = None,
     **unlab,
@@ -397,7 +514,7 @@ def supervised_step(
     clips and steps the same summed gradient, so the replicas stay
     bitwise equal, and the metrics are the global batch's."""
     loss, aux, grads = loss_and_grads(cfg, state, audio, audio_lens, tokens,
-                                      real, cmvn, specaug, backend, dp=dp,
+                                      real, cmvn, draws, backend, dp=dp,
                                       **unlab)
     gnorm, lr = apply_grads(cfg, state, grads)
     return dict(aux, loss=loss, grad_norm=gnorm, lr=lr)

@@ -89,15 +89,42 @@ def test_encode_matches_jax(arch, attn):
 def test_encoder_grads_match_jax(arch):
     """d(sum(enc * cot)) for every listener leaf and the features, through
     the flash route (the autograd of the plain MHSA on the CPU)."""
-    cfg, jcfg = configs(encoder_arch=arch, attn_backend="flash")
+    check_encoder_grads(*configs(encoder_arch=arch, attn_backend="flash"))
+
+
+@pytest.mark.parametrize("encoder", ["blstm", "transformer", "conformer"])
+def test_encoder_dropout_grads_match_jax(encoder):
+    """The same in training with ``model.enc_dropout`` 0.3: the port's
+    listener takes the keep masks JAX's ``encode(..., train=True,
+    dropout_rng)`` draws at each site (every BiLSTM layer; a transformer
+    block's attention and FFN outputs; a conformer block's ff1, attention,
+    conv module and ff2)."""
+    kw = dict(encoder_arch=encoder, attn_backend="flash", enc_dropout=0.3)
+    if encoder == "blstm":
+        kw.update(enc_base_layers=1, enc_layers=1)
+    check_encoder_grads(*configs(**kw), dropout_rng=jax.random.PRNGKey(8))
+
+
+def check_encoder_grads(cfg, jcfg, dropout_rng=None):
     model, tree = model_pair(cfg, seed=1)
     x, lens = feats(seed=4)
+    shapes = model.listener.dropout_shapes(*x.shape[:2])
+    masks = None
+    if dropout_rng is not None:
+        keep = 1.0 - cfg.enc_dropout
+        masks = [torch.from_numpy(np.asarray(jax.random.bernoulli(
+            jax.random.fold_in(dropout_rng, i), keep, shape)))
+            for i, shape in enumerate(shapes)]
+        assert len(masks) == {"blstm": 2, "transformer": 4,
+                              "conformer": 8}[cfg.encoder_arch]
+    t_out = shapes[-1][1]
     cot = np.random.default_rng(5).standard_normal(
-        (len(LENS), 6, cfg.enc_out_dim)).astype(np.float32)
+        (len(LENS), t_out, cfg.enc_out_dim)).astype(np.float32)
 
     def jloss(lp, xx):
         enc, _, _ = JM.encode({**tree, "listener": lp}, xx, jnp.asarray(lens),
-                              jcfg)
+                              jcfg, train=dropout_rng is not None,
+                              dropout_rng=dropout_rng)
         return jnp.sum(enc * cot)
 
     args = (tree["listener"], jnp.asarray(x))
@@ -105,7 +132,7 @@ def test_encoder_grads_match_jax(arch):
         compiler_options=FAST_XLA)(*args)
     want = weights.flatten_tree(jax.tree.map(np.asarray, jg))
     xt = torch.from_numpy(x).requires_grad_(True)
-    enc, _, _ = model.encode(xt, torch.from_numpy(lens))
+    enc, _ = model.listener(xt, torch.from_numpy(lens), None, masks)
     names, leaves = zip(*model.listener.named_parameters())
     grads = torch.autograd.grad((enc * torch.from_numpy(cot)).sum(),
                                 [*leaves, xt])

@@ -64,16 +64,27 @@ def assert_state_bitwise_equal(a, b):
     assert sa["opt"]["count"] == sb["opt"]["count"]
     assert sa["step"] == sb["step"]
     assert torch.equal(sa["gen"], sb["gen"])
+    assert torch.equal(sa["dgen"], sb["dgen"])
 
 
-@pytest.mark.parametrize("semi", [False, True], ids=["supervised", "semi"])
-def test_exact_resume_is_bitwise(semi, tmp_path):
+# dropout in the listener and the speller, time warp and white noise: draws
+# from the device generator too
+AUGMENT = {"model.enc_dropout": 0.2, "model.dec_dropout": 0.2,
+           "frontend.time_warp_param": 5, "frontend.noise_aug_prob": 0.5}
+
+
+@pytest.mark.parametrize("semi, augment", [(False, False), (True, False),
+                                           (False, True)],
+                         ids=["supervised", "semi", "dropout"])
+def test_exact_resume_is_bitwise(semi, augment, tmp_path):
     """4 batches an epoch; stop at step 5 (mid epoch 1), resume to 7: the
     state and the train records equal the uninterrupted run's bitwise,
-    with SpecAugment and scheduled sampling drawing from the generator."""
+    with SpecAugment and scheduled sampling drawing from the generator,
+    and in the third case dropout, time warp and noise drawing from both
+    generators."""
     extra = {"train.ckpt_every": 5, "frontend.spec_augment": "true",
              "objective.tf_rate_end": 0.5, "objective.tf_decay_steps": 4,
-             **(SEMI if semi else {})}
+             **(SEMI if semi else {}), **(AUGMENT if augment else {})}
     full = Solver(small_cfg(**extra, **{"train.total_steps": 7}),
                   tmp_path / "full", "cpu")
     full.train()

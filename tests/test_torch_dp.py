@@ -15,6 +15,10 @@ concatenated global batch, with no process group in the way.
 * The same for the semi-supervised step (text autoencoder, the EMA
   teacher's pseudo-labels, gate open, a filler row in each unlabeled
   batch).
+* The supervised step at global B=8 with encoder and decoder dropout,
+  white and babble noise and ``train.grad_accum=2`` (each rank holding its
+  rows of each microbatch; babble mixing rows of both ranks): as above,
+  and both generators left where one process's are.
 * A 2-rank Solver run of 4 steps (``train.async_ckpt``, validation and a
   checkpoint every 2): replicas bitwise equal, checkpoints written by rank
   0 alone, the sharded validation's records summing to the dev set, and a
@@ -45,6 +49,13 @@ STEP = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
         "data.frame_buckets=[128]", "data.token_buckets=[12]",
         "decode.max_decode_len=8"]
 SEMI = ["objective.pseudo_warmup_steps=0", "objective.pseudo_confidence=0"]
+# dropout in the listener and the speller, white and babble noise on every
+# row, two microbatches: a global batch of 8, each rank holding 2 rows of
+# each microbatch of 4
+AUGMENT = ["model.enc_dropout=0.2", "model.dec_dropout=0.2",
+           "frontend.noise_aug_prob=1.0",
+           "frontend.noise_sources=[white,babble]", "train.grad_accum=2",
+           "train.batch_size=8"]
 # configs/synthetic_smoke.yaml at a small width, 48 utterances (global
 # batches of 4, 2 rows a rank), a dev set of 12 in 3 batches: rank 0
 # decodes two of them, rank 1 one
@@ -62,7 +73,7 @@ SOLVER = ["data.num_synthetic_utts=48", "train.batch_size=4",
 # the ranks
 # --------------------------------------------------------------------- #
 
-def _step_case(out: Path, semi: bool) -> None:
+def _step_case(out: Path, case: str) -> None:
     import torch
 
     from semi_supervised_asr_tpu_torch import weights
@@ -76,14 +87,18 @@ def _step_case(out: Path, semi: bool) -> None:
     from semi_supervised_asr_tpu_torch.training import train_step as TS
     from semi_supervised_asr_tpu_torch.transcribe import finalize_config
 
+    semi = case == "semi"
     config = "configs/ls100_semi.yaml" if semi else "configs/timit.yaml"
-    cfg = load_config(REPO / config, STEP + (SEMI if semi else []))
+    cfg = load_config(REPO / config, STEP + {"semi": SEMI,
+                                             "augment": AUGMENT}.get(case, []))
     bundle = build_datasets(cfg)
     cfg = finalize_config(cfg, bundle.vocab.size)
     spec = make_bucket_spec(cfg.data, cfg.frontend, cfg.model.time_reduction)
-    # four rows of unequal lengths, the last a filler row
-    lab = pipeline.assemble_batch(bundle.train, [0, 1, 2, 0], 3, (128, 12),
-                                  spec, cfg.frontend)
+    # rows of unequal lengths, the last a filler row
+    rows = [0, 1, 2, 0] if case != "augment" else [0, 1, 2, 3, 4, 5, 6, 0]
+    lab = pipeline.assemble_batch(bundle.train, rows, len(rows) - 1,
+                                  (128, 12), spec, cfg.frontend)
+    n = len(rows)
     cmvn = tuple(torch.as_tensor(a) for a in
                  pipeline.compute_global_cmvn(bundle.train, cfg.frontend))
     unlab = {}
@@ -96,27 +111,31 @@ def _step_case(out: Path, semi: bool) -> None:
                      unlab_text_real=ut[1])
     flat = weights.init_numpy(cfg.model, seed=0)
 
-    def run(lo, hi, dp):
+    def run(pos, dp):
         model = Seq2Seq(cfg.model)
         weights.load_flat(model, flat)
         state = TS.init_train_state(cfg, model, seed=3)
         if semi:    # a teacher that is not the student
             for e in state.ema.parameters():
                 e.mul_(0.9)
-        args = [torch.as_tensor(getattr(lab, f)[lo:hi])
+        args = [torch.as_tensor(getattr(lab, f)[pos])
                 for f in ("audio", "audio_lens", "tokens", "real")]
-        kw = {k: torch.as_tensor(v[lo:hi]) for k, v in unlab.items()}
+        kw = {k: torch.as_tensor(v[pos]) for k, v in unlab.items()}
         loss, aux, grads = TS.loss_and_grads(cfg, state, *args, cmvn,
                                              dp=dp, **kw)
         return {"loss": loss, "aux": {k: float(v) for k, v in aux.items()},
                 "grads": grads, "gen": state.gen.get_state(),
+                "dgen": state.dgen.get_state(),
                 "tokens": int((TS.mask_unreal(args[2], args[3]) != PAD)
                               .sum())}
 
     dp = DP.current()
-    res = {"dp": run(2 * dp.rank, 2 * dp.rank + 2, dp)}
+    # the rank's rows of each microbatch (the Solver's streams give these)
+    mine = pipeline.rank_rows(n, (dp.rank, dp.rank + 1, dp.world),
+                              max(cfg.train.grad_accum, 1))
+    res = {"dp": run(mine, dp)}
     if dp.rank == 0:
-        res["one"] = run(0, 4, None)
+        res["one"] = run(slice(0, n), None)
     torch.save(res, out / f"rank{dp.rank}.pt")
 
 
@@ -160,7 +179,7 @@ def _worker(case: str, out: str) -> None:
         if case == "solver":
             _solver_case(Path(out))
         else:
-            _step_case(Path(out), semi=case == "semi")
+            _step_case(Path(out), case)
     finally:
         MESH.destroy()
 
@@ -223,8 +242,8 @@ def _check_step(results) -> None:
     assert torch.equal(a["loss"], b["loss"]) and a["aux"] == b["aux"]
     assert all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
     # the draws were made at the global shape on every rank
-    assert torch.equal(a["gen"], one["gen"])
-    assert torch.equal(b["gen"], one["gen"])
+    for k in ("gen", "dgen"):
+        assert torch.equal(a[k], one[k]) and torch.equal(b[k], one[k]), k
 
 
 def test_two_ranks_supervised_step_match_one_process(tmp_path):
@@ -238,6 +257,16 @@ def test_two_ranks_semi_step_match_one_process(tmp_path):
     aux = res[0]["dp"]["aux"]
     assert aux["pseudo_gate"] == 1.0 and aux["pseudo"] > 0
     assert aux["text_ae"] > 0
+    _check_step(res)
+
+
+def test_two_ranks_dropout_noise_accum_match_one_process(tmp_path):
+    """Encoder and decoder dropout, white and babble noise and
+    ``train.grad_accum=2``: each rank draws the masks and the noise at the
+    global microbatch's shape and keeps its rows, babble mixes rows
+    gathered from both ranks, and each microbatch's counts are summed over
+    the ranks."""
+    res = spawn("augment", tmp_path)
     _check_step(res)
 
 

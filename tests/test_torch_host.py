@@ -69,9 +69,56 @@ def test_vocabs_match_jax():
     cfg = PC.load_config(REPO / "configs" / "timit.yaml")
     assert PR.build_vocab(cfg).tokens == JR.build_vocab(
         JC.load_config(REPO / "configs" / "timit.yaml")).tokens
-    with pytest.raises(NotImplementedError, match="data.unit='bpe'"):
-        PR.build_vocab(cfg.replace(data=dataclasses.replace(cfg.data,
-                                                            unit="bpe")))
+    # data.unit=bpe: the merge-free default, and a trained model's file
+    bpe = cfg.replace(data=dataclasses.replace(cfg.data, unit="bpe",
+                                               bpe_path=""))
+    jbpe = JC.load_config(REPO / "configs" / "timit.yaml",
+                          ["data.unit=bpe", "data.bpe_path="])
+    got, want = PR.build_vocab(bpe), JR.build_vocab(jbpe)
+    assert (got.tokens, got.merges, got.unit) == (want.tokens, want.merges,
+                                                  want.unit)
+
+
+def bpe_texts(seed: int, n: int = 60) -> list[str]:
+    """Sentences of random words over a small alphabet, so that pairs
+    repeat and ties on count occur."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdeilnorst'"))
+    words = ["".join(rng.choice(letters, rng.integers(1, 7)))
+             for _ in range(40)]
+    return [" ".join(rng.choice(words, rng.integers(3, 12)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("size", [30, 80, 1000])
+def test_bpe_matches_jax(size, tmp_path):
+    """train_bpe's pieces and merges, encode_text / decode_text, save /
+    load and the registry's bpe branch are the JAX package's; 1000 asks
+    for more merges than the texts hold, so training stops where no pair
+    repeats."""
+    from semi_supervised_asr_tpu.data import bpe as JBPE
+    from semi_supervised_asr_tpu_torch.data import bpe as PBPE
+
+    texts = bpe_texts(size)
+    got, want = PBPE.train_bpe(texts, size), JBPE.train_bpe(texts, size)
+    assert (got.tokens, got.merges) == (want.tokens, want.merges)
+    assert got.size == want.size <= size
+    probe = texts[:5] + ["unseen zzz words", "Mixed CASE text"]
+    for text in probe:
+        ids = got.encode_text(text, add_sos_eos=True)
+        assert ids == want.encode_text(text, add_sos_eos=True)
+        assert got.decode_text(ids) == want.decode_text(ids)
+        assert got.decode(ids, False) == want.decode(ids, False)
+    got.save(tmp_path / "p.json")
+    want.save(tmp_path / "j.json")
+    assert (tmp_path / "p.json").read_text() == (tmp_path / "j.json"
+                                                 ).read_text()
+    loaded = PBPE.BPEVocab.load(tmp_path / "j.json")
+    assert (loaded.tokens, loaded.merges) == (want.tokens, want.merges)
+    over = ["data.unit=bpe", f"data.bpe_path={tmp_path / 'p.json'}"]
+    path = REPO / "configs" / "ls100_bpe.yaml"
+    assert PR.build_vocab(PC.load_config(path, over)).tokens == \
+        JR.build_vocab(JC.load_config(path, over)).tokens
 
 
 @pytest.mark.parametrize("difficulty", [0.0, 0.5])

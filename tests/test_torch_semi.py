@@ -40,8 +40,8 @@ from semi_supervised_asr_tpu_torch.data.registry import build_datasets
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
 from semi_supervised_asr_tpu_torch.training import train_step as TS
 from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
-    CONFIG, FAST_XLA, SMALL, TOL_GRAD, one_thread, port_model, run_jax,
-    stash, t,
+    CONFIG, EVERY_DRAW, FAST_XLA, SMALL, TOL_GRAD, jax_step_draws,
+    one_thread, port_model, run_jax, stash, t,
 )
 
 WARMUP = 2
@@ -214,11 +214,12 @@ def test_semi_step_matches_jax(setup, jax_semi_step, step):
     st.step = step
     loss, aux, grads = TS.loss_and_grads(
         pcfg, st, t(lab.audio), t(lab.audio_lens), t(lab.tokens),
-        t(lab.real), ptorch, bands(k_feat, lab),
+        t(lab.real), ptorch,
+        [TS.StepDraws(TS.Draws(specaug=bands(k_feat, lab)),
+                      TS.Draws(specaug=bands(k_pl_feat, unlab)))],
         unlab_audio=t(unlab.audio), unlab_audio_lens=t(unlab.audio_lens),
         unlab_real=t(unlab.real), unlab_text=t(s["text"]),
-        unlab_text_real=t(s["text_real"]),
-        unlab_specaug=bands(k_pl_feat, unlab))
+        unlab_text_real=t(s["text_real"]))
     got = dict(aux, loss=loss)
     for k in ("loss", "ce", "acc", "text_ae", "pseudo"):
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
@@ -248,4 +249,50 @@ def test_semi_step_matches_jax(setup, jax_semi_step, step):
     for n, e in st.ema.named_parameters():
         assert not e.requires_grad
         np.testing.assert_allclose(e.numpy(), ref_ema[n], rtol=0, atol=1e-6,
+                                   err_msg=n)
+
+
+def test_accumulated_semi_step_with_every_draw_matches_jax(setup):
+    """The semi step under ``train.grad_accum=2`` with dropout, speed,
+    noise, the SpecAugment bands and time warp (EVERY_DRAW): the labeled,
+    unlabeled-audio and text batches each split in two, each microbatch
+    fed JAX's draws for its labeled view, its augmented unlabeled view and
+    the student's dropout; metrics to 1e-5 and gradients to TOL_GRAD, the
+    pseudo-label gate open."""
+    s = setup
+    pcfg = load_config(CONFIG, SEMI + EVERY_DRAW)
+    pcfg = TR.finalize_config(pcfg, s["pcfg"].model.vocab_size)
+    jcfg = jax_load_config(CONFIG, SEMI + EVERY_DRAW)
+    jcfg = jcfg.replace(model=dataclasses.replace(
+        jcfg.model, vocab_size=s["pcfg"].model.vocab_size, n_mels=80))
+    lab, unlab, cmvn = s["lab"], s["unlab"], s["cmvn"]
+    opt, state, jargs = jax_inputs(dict(s, jcfg=jcfg), WARMUP)
+    new_state, ref = jax.jit(functools.partial(
+        JT.supervised_step_fn, jcfg, opt)).lower(state, *jargs).compile(
+        compiler_options=FAST_XLA)(state, *jargs)
+    ref_grads = weights.flatten_tree(
+        jax.tree.map(np.asarray, new_state.opt_state[0]))
+
+    model = port_model(pcfg, s["flat"])
+    draws = jax_step_draws(jcfg, model, state.rng, lab.audio,
+                           lab.audio_lens, lab.tokens, unlab.audio,
+                           unlab.audio_lens)
+    assert all(d.unlabeled.masks[0] is not None for d in draws)
+    st = TS.init_train_state(pcfg, model, seed=0)
+    st.ema = port_model(pcfg, s["teacher"]).requires_grad_(False)
+    st.step = WARMUP
+    loss, aux, grads = TS.loss_and_grads(
+        pcfg, st, t(lab.audio), t(lab.audio_lens), t(lab.tokens),
+        t(lab.real), (t(cmvn[0]), t(cmvn[1])), draws,
+        unlab_audio=t(unlab.audio), unlab_audio_lens=t(unlab.audio_lens),
+        unlab_real=t(unlab.real), unlab_text=t(s["text"]),
+        unlab_text_real=t(s["text_real"]))
+    got = dict(aux, loss=loss)
+    for k in ("loss", "ce", "acc", "text_ae", "pseudo"):
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
+                                   err_msg=k)
+    assert got["pseudo_gate"] == float(ref["pseudo_gate"]) == 1.0
+    names = [n for n, _ in model.named_parameters()]
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), ref_grads[n], **TOL_GRAD,
                                    err_msg=n)

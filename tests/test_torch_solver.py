@@ -12,6 +12,7 @@ dev error of each validation is equal, and so is ``test(mode="greedy")``'s
 PER.  The JAX Solver is built and run once for the file.
 """
 
+import dataclasses
 import itertools
 import json
 
@@ -43,6 +44,8 @@ SMALL = {"data.num_synthetic_utts": 18, "train.batch_size": 4,
          "model.enc_base_layers": 1, "train.total_steps": 3,
          "train.eval_every": 2, "train.log_every": 1}
 BATCH_FIELDS = ("audio", "audio_lens", "tokens", "token_lens", "real")
+# constant-frames batching with two microbatches a step
+FRAMES = {"data": {"batch_frames": 450}, "train": {"grad_accum": 2}}
 
 
 def overrides(**extra):
@@ -73,9 +76,18 @@ def jax_run(tmp_path_factory):
     init = weights.flatten_tree(jax.tree.map(np.asarray, solver.state.params))
     labeled = list(itertools.takewhile(
         lambda ekb: ekb[0] == 0, solver._labeled_stream()))
+    # the stream under constant-frames batching, from the same Solver
+    cfg = solver.cfg
+    solver.cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, **FRAMES["data"]),
+        train=dataclasses.replace(cfg.train, **FRAMES["train"]))
+    frames = list(itertools.takewhile(
+        lambda ekb: ekb[0] == 0, solver._labeled_stream()))
+    solver.cfg = cfg
     final = solver.train()
     test = solver.test(mode="greedy")
     return dict(init=init, labeled=[b for _, _, b in labeled],
+                frames=[b for _, _, b in frames],
                 train=records(workdir, "train"), dev=records(workdir, "dev"),
                 final=final, test=test)
 
@@ -96,6 +108,22 @@ def test_labeled_stream_first_epoch_matches_jax(jax_run, tmp_path):
                                  solver.cfg.frontend, 4, 0, 0,
                                  drop_remainder=False))
     assert len(kept) == 5 and any(not b.real.all() for b in kept)
+
+
+def test_batch_frames_first_epoch_matches_jax(jax_run, tmp_path):
+    """data.batch_frames=450 under train.grad_accum=2: each (144, 12)
+    batch holds 450 // 144 = 3 rows, rounded down to the granule 2; the
+    first epoch's batch sizes and rows are the JAX Solver's, byte for
+    byte."""
+    solver = Solver(load_config(CONFIG, overrides(**{
+        f"{sec}.{k}": v for sec, kv in FRAMES.items()
+        for k, v in kv.items()})), tmp_path, "cpu")
+    got = [b for _, _, b in itertools.takewhile(
+        lambda ekb: ekb[0] == 0, solver._labeled_stream())]
+    assert [len(b.uids) for b in got] == [2] * 9
+    assert len(got) == len(jax_run["frames"])
+    for g, w in zip(got, jax_run["frames"]):
+        assert_batches_equal(g, w)
 
 
 def test_solver_run_matches_jax(jax_run, tmp_path):

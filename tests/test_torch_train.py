@@ -49,6 +49,7 @@ from semi_supervised_asr_tpu_torch.config import (
 from semi_supervised_asr_tpu_torch.data import pipeline
 from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
 from semi_supervised_asr_tpu_torch.data.registry import build_datasets
+from semi_supervised_asr_tpu_torch.data.vocab import EOS
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
 from semi_supervised_asr_tpu_torch.ops import frontend as F
@@ -107,6 +108,106 @@ def t(a):
 def run_jax(fn, *args):
     """fn(*args) through jit, compiled with FAST_XLA."""
     return jax.jit(fn).lower(*args).compile(compiler_options=FAST_XLA)(*args)
+
+
+def jax_feat_draws(jcfg, key, audio, audio_lens, speed=False):
+    """The draws the JAX package's ``featurize(..., rng=key,
+    augment=True, speed=speed)`` makes for this batch (speed factor
+    indices, the noise's uniforms and white noise, the SpecAugment bands,
+    the warp's w and d), as the port's ``TS.Draws``; computed in one jit,
+    as the step computes them."""
+    got = run_cached(_feat_draws(jcfg.frontend, speed), key,
+                     jnp.asarray(audio).astype(jnp.float32),
+                     jnp.asarray(audio_lens))
+    def torch_of(v):
+        if isinstance(v, tuple):
+            return tuple(map(torch_of, v))
+        return None if v is None else t(v)
+
+    return TS.Draws(**{k: torch_of(v) for k, v in got.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def _feat_draws(fc, speed):
+    def draws(key, wave, lens):
+        b, s = wave.shape
+        out = dict(speed=None, noise=None, specaug=None, warp=None)
+        if speed and fc.speed_perturb:
+            k = jax.random.fold_in(key, 11)
+            out["speed"] = jax.random.randint(k, (b,), 0,
+                                              len(fc.speed_perturb))
+            _, lens = JF.speed_perturb(k, wave, lens, fc.speed_perturb)
+        if fc.noise_aug_prob > 0.0:
+            src = tuple(fc.noise_sources)
+            ka, ks, kc, kw = jax.random.split(jax.random.fold_in(key, 13), 4)
+            out["noise"] = (
+                jax.random.uniform(ka, (b,)), jax.random.uniform(ks, (b,)),
+                jax.random.randint(kc, (b,), 0, len(src))
+                if len(src) > 1 else None,
+                jax.random.normal(kw, (b, s))
+                if "white" in src or b == 1 else None)
+        frames = JF.frame_lengths(jnp.asarray([s]), fc)[0]
+        flens = jnp.minimum(JF.frame_lengths(lens, fc), frames)
+        if fc.spec_augment:
+            out["specaug"] = JF.sample_specaug_params(key, b, fc.n_mels,
+                                                      flens, fc)
+            if fc.time_warp_param > 0:
+                w_ = fc.time_warp_param
+                kw, kd = jax.random.split(jax.random.fold_in(key, 7))
+                lf = flens.astype(jnp.float32)
+                w = jnp.floor(w_ + jax.random.uniform(kw, (b,))
+                              * jnp.maximum(lf - 2 * w_, 1.0))
+                d = jnp.round(jax.random.uniform(kd, (b,)) * (2 * w_) - w_)
+                out["warp"] = (w, d)
+        return out
+
+    return draws
+
+
+def jax_pass_masks(mcfg, model, rng, b, frames, u):
+    """The dropout keep masks of the JAX package's ``forward_teacher(...,
+    rng, train=True)`` for features [b, frames] and u decoder steps ->
+    (listener masks, speller masks [b, u, D]), each None at rate 0."""
+    enc_shapes = tuple(model.listener.dropout_shapes(b, frames)) \
+        if mcfg.enc_dropout > 0.0 else ()
+    dec_shape = model.speller.dropout_shape(b, u) \
+        if mcfg.dec_dropout > 0.0 else None
+    enc, dec = run_cached(_pass_masks(mcfg.enc_dropout, mcfg.dec_dropout,
+                                      enc_shapes, dec_shape), rng)
+    return ([t(m) for m in enc] if enc_shapes else None,
+            None if dec is None else t(dec))
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_masks(enc_rate, dec_rate, enc_shapes, dec_shape):
+    def masks(rng):
+        rng, drop = jax.random.split(rng)
+        enc = [jax.random.bernoulli(jax.random.fold_in(drop, i),
+                                    1.0 - enc_rate, shape)
+               for i, shape in enumerate(enc_shapes)]
+        dec = None
+        if dec_shape is not None:
+            b, u, width = dec_shape
+            steps = jax.random.split(rng, u)
+            dec = jnp.stack([jax.random.bernoulli(
+                jax.random.fold_in(steps[i], 1), 1.0 - dec_rate, (b, width))
+                for i in range(u)], axis=1)
+        return enc, dec
+
+    return masks
+
+
+_COMPILED = {}
+
+
+def run_cached(fn, *args):
+    """fn(*args) through jit, compiled with FAST_XLA once per function and
+    argument shapes."""
+    sig = (fn, *((a.shape, a.dtype) for a in args))
+    if sig not in _COMPILED:
+        _COMPILED[sig] = jax.jit(fn).lower(*args).compile(
+            compiler_options=FAST_XLA)
+    return _COMPILED[sig](*args)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.05])
@@ -196,13 +297,51 @@ def test_specaug_draws_respect_the_ranges():
     assert seen_w == set(range(16))      # every width 0..F is drawn
 
 
-def make_step_setup(config, overrides):
+def jax_step_draws(jcfg, model, rng, audio, audio_lens, tokens,
+                   unlab_audio=None, unlab_lens=None):
+    """Every draw of the JAX package's ``supervised_step_fn`` from
+    ``state.rng = rng``, as the port's one ``TS.StepDraws`` per
+    microbatch: microbatch i's key is ``fold_in(k_step, i)`` under
+    ``train.grad_accum`` (else ``k_step``), split into the labeled view's
+    featurize key, the supervised pass's, the augmented unlabeled view's
+    and the pseudo-label student's."""
+    accum = max(int(jcfg.train.grad_accum), 1)
+    _, k_step = jax.random.split(rng)
+
+    def frames(a):
+        return int(JF.frame_lengths(jnp.asarray([a.shape[1]]),
+                                    jcfg.frontend)[0])
+
+    m, u = audio.shape[0] // accum, tokens.shape[1]
+    out = []
+    for i in range(accum):
+        key = jax.random.fold_in(k_step, i) if accum > 1 else k_step
+        k_feat, k_tf, k_pl_feat, k_pl = jax.random.split(key, 4)
+        sl = slice(i * m, (i + 1) * m)
+        lab = jax_feat_draws(jcfg, k_feat, audio[sl], audio_lens[sl],
+                             speed=True)
+        lab.masks = jax_pass_masks(jcfg.model, model, k_tf, m, frames(audio),
+                                   u)
+        step = TS.StepDraws(lab)
+        if unlab_audio is not None:
+            mu = unlab_audio.shape[0] // accum
+            su = slice(i * mu, (i + 1) * mu)
+            step.unlabeled = jax_feat_draws(jcfg, k_pl_feat, unlab_audio[su],
+                                            unlab_lens[su])
+            step.unlabeled.masks = jax_pass_masks(
+                jcfg.model, model, k_pl, mu, frames(unlab_audio),
+                min(jcfg.decode.max_decode_len, u))
+        out.append(step)
+    return out
+
+
+def make_step_setup(config, overrides, after=("frontend.spec_augment=false",)):
     """Both configs, the JAX parameter tree, a batch with a filler row, and
-    the CMVN statistics."""
-    pcfg = load_config(config, overrides + ["frontend.spec_augment=false"])
+    the CMVN statistics (``after``: overrides applied last)."""
+    pcfg = load_config(config, overrides + list(after))
     bundle = build_datasets(pcfg)
     pcfg = TR.finalize_config(pcfg, bundle.vocab.size)
-    jcfg = jax_load_config(config, overrides + ["frontend.spec_augment=false"])
+    jcfg = jax_load_config(config, overrides + list(after))
     jcfg = jcfg.replace(model=dataclasses.replace(
         jcfg.model, vocab_size=bundle.vocab.size, n_mels=80))
     spec = make_bucket_spec(pcfg.data, pcfg.frontend,
@@ -229,9 +368,21 @@ def port_model(cfg, flat):
 def test_forward_teacher_matches_jax(tf_rate):
     """tf_rate 1 (ground truth) and 0 (argmax feedback) are deterministic
     on both sides; B=8, U=6, enc 128, dec 128, vocab 65."""
-    cfg = load_config(CONFIG, ["model.enc_hidden=64", "model.dec_hidden=128",
-                               "model.compute_dtype=float32"])
-    cfg = TR.finalize_config(cfg, 65)
+    check_forward_teacher(tf_rate)
+
+
+@pytest.mark.parametrize("tf_rate", [1.0, 0.0])
+def test_forward_teacher_with_dec_dropout_matches_jax(tf_rate):
+    """``model.dec_dropout`` 0.3 in training: the port's speller takes the
+    per-step keep masks JAX's ``forward_teacher(..., train=True)`` draws
+    (``fold_in(step_rngs[s], 1)``, step 0 included)."""
+    check_forward_teacher(tf_rate, dec_dropout=0.3)
+
+
+def check_forward_teacher(tf_rate, dec_dropout=0.0):
+    over = ["model.enc_hidden=64", "model.dec_hidden=128",
+            "model.compute_dtype=float32", f"model.dec_dropout={dec_dropout}"]
+    cfg = TR.finalize_config(load_config(CONFIG, over), 65)
     flat = weights.init_numpy(cfg.model, seed=2)
     speller = port_model(cfg, flat).speller
     rng = np.random.default_rng(3)
@@ -242,19 +393,27 @@ def test_forward_teacher_matches_jax(tf_rate):
                                                )[:, None]
     tokens = rng.integers(3, 65, (b, u)).astype(np.int32)
     tokens[:, 0] = 1
-    jcfg = jax_load_config(CONFIG, ["model.enc_hidden=64",
-                                    "model.dec_hidden=128",
-                                    "model.compute_dtype=float32"])
+    jcfg = jax_load_config(CONFIG, over)
     jcfg = dataclasses.replace(jcfg.model, vocab_size=65, n_mels=80)
     sp = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat)["speller"])
+    train = dec_dropout > 0
     ref = run_jax(
         lambda p, e, m, tk, k: JS.forward_teacher(p, jcfg, e, m, tk,
-                                                  tf_rate, k),
+                                                  tf_rate, k, train),
         sp, jnp.asarray(enc), jnp.asarray(mask), jnp.asarray(tokens),
         jax.random.PRNGKey(0))
+    masks = None
+    if train:
+        steps = jax.random.split(jax.random.PRNGKey(0), u)
+        masks = torch.stack([t(jax.random.bernoulli(
+            jax.random.fold_in(steps[s], 1), 1.0 - dec_dropout,
+            (b, cfg.model.dec_hidden + cfg.model.enc_out_dim)))
+            for s in range(u)], dim=1)
+        assert speller.dropout_shape(b, u) == tuple(masks.shape)
     with torch.no_grad():
         got = speller.forward_teacher(t(enc), t(mask), t(tokens), tf_rate,
-                                      torch.Generator().manual_seed(0))
+                                      torch.Generator().manual_seed(0),
+                                      drop_masks=masks)
     for a, r in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-5)
@@ -283,7 +442,8 @@ def test_featurize_with_jax_specaug_bands_matches_jax(step_setup):
         pcfg.frontend, spec_augment=True))
     got, got_lens = TS.featurize(pcfg, t(audio), t(lens),
                                  (t(cmvn[0]), t(cmvn[1])), augment=True,
-                                 specaug=tuple(t(x) for x in bands))
+                                 draws=TS.Draws(
+                                     specaug=tuple(t(x) for x in bands)))
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(ref_lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
@@ -309,7 +469,68 @@ def test_conformer_supervised_step_matches_jax():
                                        "model.conformer_conv_width=3"]))
 
 
-def check_supervised_step(pcfg, jcfg, batch, cmvn, flat):
+# every regularization and augmentation option of the recipes at once,
+# with two microbatches
+EVERY_DRAW = [
+    "train.grad_accum=2", "model.enc_dropout=0.2", "model.dec_dropout=0.2",
+    "frontend.spec_augment=true", "frontend.time_warp_param=5",
+    "frontend.speed_perturb=[0.9,1.0,1.1]", "frontend.noise_aug_prob=0.7",
+    "frontend.noise_sources=[white,babble]"]
+
+
+def test_accumulated_step_with_every_draw_matches_jax():
+    """``train.grad_accum=2`` with encoder and decoder dropout, speed
+    perturbation, white and babble noise, the SpecAugment bands and time
+    warp: JAX's step against the port's, each microbatch fed JAX's draws
+    (its own key, ``fold_in(k_step, i)``), at the step test's
+    tolerances."""
+    setup = make_step_setup(CONFIG, SMALL, after=EVERY_DRAW)
+    pcfg, _, batch, _, flat = setup
+    draws = jax_step_draws(setup[1], port_model(pcfg, flat),
+                           jax.random.PRNGKey(0), batch.audio,
+                           batch.audio_lens, batch.tokens)
+    assert len(draws) == 2 and all(
+        d.labeled.masks[0] is not None and d.labeled.masks[1] is not None
+        and d.labeled.warp is not None for d in draws)
+    check_supervised_step(*setup, draws=draws)
+
+
+def test_accum_matches_full_batch(step_setup):
+    """The identity of tests/test_train_step.py::
+    test_accum_matches_full_batch: with equal audio and token lengths in
+    every row (so each microbatch's own normalization equals the full
+    batch's), ``train.grad_accum=2`` gives the full batch's loss (1e-5)
+    and, through a plain gradient step (linear in the gradient, as the
+    reference's SGD), its parameters (rtol 1e-3 / atol 1e-5).  A batch
+    that does not divide raises."""
+    pcfg, _, batch, cmvn, flat = step_setup
+    rng = np.random.default_rng(7)
+    audio = (rng.standard_normal(batch.audio.shape) * 0.1).astype(
+        np.float32)
+    tokens = np.zeros_like(batch.tokens)
+    tokens[:, :7] = rng.integers(3, pcfg.model.vocab_size, (4, 7))
+    tokens[:, 7] = EOS
+    args = (t(audio), torch.full((4,), audio.shape[1], dtype=torch.int32),
+            t(tokens), torch.ones(4, dtype=torch.bool),
+            (t(cmvn[0]), t(cmvn[1])))
+    out = {}
+    for accum in (1, 2, 3):
+        cfg = pcfg.replace(train=dataclasses.replace(pcfg.train,
+                                                     grad_accum=accum))
+        st = TS.init_train_state(cfg, port_model(cfg, flat), seed=0)
+        if accum == 3:
+            with pytest.raises(ValueError, match="grad_accum 3"):
+                TS.loss_and_grads(cfg, st, *args)
+            continue
+        loss, _, grads = TS.loss_and_grads(cfg, st, *args)
+        out[accum] = loss, [(p - 0.1 * g).detach().numpy()
+                            for p, g in zip(st.opt.params, grads)]
+    np.testing.assert_allclose(out[2][0].item(), out[1][0].item(), rtol=1e-5)
+    for a, b in zip(out[2][1], out[1][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5)
+
+
+def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None):
     tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
     opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
     state = JT.TrainState(params=tree, opt_state=opt.init(tree),
@@ -329,9 +550,9 @@ def check_supervised_step(pcfg, jcfg, batch, cmvn, flat):
             t(batch.real), (t(cmvn[0]), t(cmvn[1])))
     model = port_model(pcfg, flat)
     st = TS.init_train_state(pcfg, copy.deepcopy(model), seed=0)
-    _, _, grads = TS.loss_and_grads(pcfg, st, *args)
+    _, _, grads = TS.loss_and_grads(pcfg, st, *args, draws)
     st = TS.init_train_state(pcfg, model, seed=0)
-    got = TS.supervised_step(pcfg, st, *args)
+    got = TS.supervised_step(pcfg, st, *args, draws)
     for k in ("loss", "ce", "acc", "grad_norm"):
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
                                    err_msg=k)
@@ -417,13 +638,19 @@ def test_remat_and_bf16_weight_stream_step_matches_jax(step_setup):
     assert math.isfinite(float(apply[0]))
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-def test_remat_encoder_gradients_bitwise_equal(step_setup, bf16):
+@pytest.mark.parametrize("bf16, dropout", [(False, 0.0), (True, 0.0),
+                                           (False, 0.2)],
+                         ids=["False", "True", "dropout"])
+def test_remat_encoder_gradients_bitwise_equal(step_setup, bf16, dropout):
     """The listener recomputed in the backward gives the same bits in
-    float32 on the CPU, with and without the bf16 weight stream."""
+    float32 on the CPU, with and without the bf16 weight stream, and with
+    encoder and decoder dropout (the masks drawn once, before the
+    checkpointed region, and handed to the recomputation)."""
     pcfg, _, batch, cmvn, flat = step_setup
     args = (t(batch.audio), t(batch.audio_lens), t(batch.tokens),
             t(batch.real), (t(cmvn[0]), t(cmvn[1])))
+    pcfg = pcfg.replace(model=dataclasses.replace(
+        pcfg.model, enc_dropout=dropout, dec_dropout=dropout))
     out = []
     for remat in (False, True):
         cfg = pcfg.replace(train=dataclasses.replace(
@@ -433,6 +660,12 @@ def test_remat_encoder_gradients_bitwise_equal(step_setup, bf16):
     (l0, _, g0), (l1, _, g1) = out
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    if dropout:
+        # the masks did drop: the loss moved off the dropout-free one
+        st = TS.init_train_state(step_setup[0],
+                                 port_model(step_setup[0], flat), seed=0)
+        assert not torch.equal(TS.loss_and_grads(step_setup[0], st,
+                                                 *args)[0], l0)
 
 
 TINY = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
@@ -488,9 +721,9 @@ def test_train_cli_semi_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override, message", [
-    ("model.dec_dropout=0.1", "model.dec_dropout"),
-    ("frontend.speed_perturb=[0.9,1.1]", "frontend.speed_perturb"),
-    ("train.grad_accum=2", "train.grad_accum"),
+    ("model.param_dtype=bfloat16", "model.param_dtype"),
+    ("train.freeze=[listener]", "train.freeze"),
+    ("train.checkify_errors=nan", "train.checkify_errors"),
     ("objective.lambda_mwer=0.2", "objective.lambda_mwer"),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, override, message):
@@ -501,7 +734,7 @@ def test_train_cli_refuses_unported_options(tmp_path, override, message):
 
 @pytest.mark.parametrize("override, message", [
     ("model.enc_attn_chunk=8", "model.enc_attn_chunk"),
-    ("model.enc_dropout=0.1", "model.enc_dropout"),
+    ("data.use_feature_store=true", "data.use_feature_store"),
     ("parallel.model_parallel=2", "parallel.model_parallel"),
 ])
 def test_train_cli_refuses_unported_conformer_options(tmp_path, override,
@@ -509,6 +742,49 @@ def test_train_cli_refuses_unported_conformer_options(tmp_path, override,
     with pytest.raises(SystemExit, match=message):
         TRN.main(["--config", CONFORMER_CONFIG, "--workdir", str(tmp_path),
                   "--steps", "1", "--device", "cpu", *CONFORMER, override])
+
+
+# the three recipes whose options this slice ports, at a tiny width: each
+# keeps what it ships (ls100_bpe: BPE units, time warp W=80;
+# ls960_conformer: enc_dropout; ls960_transformer: enc_dropout under
+# remat_encoder)
+RECIPE_TINY = ["model.enc_hidden=16", "model.dec_hidden=16",
+               "model.attn_dim=8", "model.attn_conv_channels=2",
+               "model.attn_conv_width=4", "model.embed_dim=8",
+               "train.batch_size=4", "data.dataset=synthetic",
+               "data.num_synthetic_utts=8", "data.token_buckets=[12]",
+               "decode.max_decode_len=8", "train.total_steps=1",
+               "train.eval_every=0", "train.log_every=1"]
+RECIPES = {
+    "ls100_bpe": ["model.enc_layers=1", "data.bpe_path=",
+                  "data.frame_buckets=[128]"],
+    "ls960_conformer": ["model.enc_blocks=1", "model.enc_heads=2",
+                        "model.enc_ff_dim=32", "model.dec_layers=1",
+                        "model.attn_backend=flash",
+                        "data.frame_buckets=[160]"],
+    "ls960_transformer": ["model.enc_blocks=1", "model.enc_heads=2",
+                          "model.enc_ff_dim=32", "model.dec_layers=1",
+                          "model.attn_backend=flash",
+                          "data.frame_buckets=[160]"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPES))
+def test_main_trains_the_recipe_as_shipped(name, tmp_path, capsys):
+    from semi_supervised_asr_tpu_torch import main as M
+
+    config = f"configs/{name}.yaml"
+    over = RECIPE_TINY + RECIPES[name]
+    cfg = load_config(config, over)
+    assert (cfg.data.unit == "bpe" and cfg.frontend.time_warp_param == 80
+            if name == "ls100_bpe" else cfg.model.enc_dropout == 0.1)
+    assert cfg.train.remat_encoder == (name == "ls960_transformer")
+    assert M.main(["--config", config, "--train", "--workdir",
+                   str(tmp_path), "--device", "cpu", *over]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert math.isfinite(out["final_dev"]["dev_error"])
+    rec, = train_records(tmp_path)
+    assert math.isfinite(rec["loss"])
 
 
 def test_train_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch):
