@@ -180,6 +180,23 @@ failure raises and the script exits non-zero:
     launches; the step's wall time each way and the device time of a
     conformer step's dropout masks.  Phase 11 runs (c), ls960_conformer
     with its dropout.
+17. the CTC family, the transformer speller and the joint CTC head: (a)
+    ``configs/ls100_ctc.yaml`` as shipped (enc 384 x (1 + 2) BiLSTM,
+    bf16, remat, B=64) through the Solver: 3 steps with their launches
+    (K1 1, K2 6, K3 3, the cluster route), step 2's checkpoint resumed
+    in a fresh workdir to step 3 bitwise, the same step twice bitwise
+    (the CTC loss's backward has no atomic sums), a bf16 step kernels
+    against plain, ``test`` by best path and by the prefix beam of 8;
+    the step and the CTC loss alone at the 1600-frame bucket; (b)
+    ``configs/ls960_aed.yaml`` at full width (one chip's batch of 32):
+    ``main --train`` for 3 steps (K1 launched, K5 not), the teacher
+    pass's operator count at U=64 and 128 (equal), greedy and beam 5 on
+    one dev batch with their peak memory and KV-cache bytes, the beam's
+    cache reorder, and the KV write by index against the reference's
+    one-hot write (equal logits); (c) timit with
+    ``objective.lambda_ctc=0.3``: a step, beam 5 with
+    ``decode.ctc_weight=0.3`` rescoring and one-pass, ``main --test
+    --beam 0``.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -375,6 +392,35 @@ TRANSFORMER_CONFIG = ROOT / "configs" / "ls960_transformer.yaml"
 TRANSFORMER_OVERRIDES = ["model.attn_backend=flash", "data.dataset=synthetic",
                          "train.batch_size=32", "data.num_synthetic_utts=32",
                          "data.frame_buckets=[1600]"]
+
+
+# phase 17: (a) configs/ls100_ctc.yaml as shipped (enc 384 x (1 + 2)
+# BiLSTM, 4x reduction, bf16, remat_encoder, B=64) but for its data and the
+# run's length: the synthetic corpus of 64 utterances (at most 10
+# characters in 1.2 s, so T' >= 25 frames hold the 2U + 1 = 21 a CTC path
+# needs), all in one 400-frame / 128-token batch of 64, 3 steps with a
+# checkpoint at step 2; then the same corpus in the 1600-frame bucket
+# (T' = 400) for the step's and the CTC loss's time
+CTC_CONFIG = ROOT / "configs" / "ls100_ctc.yaml"
+CTC_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
+CTC_RUN = ["data.frame_buckets=[400]", "train.total_steps=3",
+           "train.ckpt_every=2", "train.eval_every=0", "train.log_every=1"]
+# an ls100_ctc step under remat: K1 once, K2 once a layer and again in the
+# backward's recomputation, K3 once a layer; a validation batch K1 once and
+# K2 once a layer
+CTC_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 6,
+                     "lstm_scan_bwd": 3}
+CTC_EVAL_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 3}
+# (b) configs/ls960_aed.yaml at full width (12 encoder blocks and 6 decoder
+# blocks of 512, dec_max_len 512, tied embedding, bf16, enc and dec dropout
+# 0.1) but for its data and batch: one chip's batch of 32 (the recipe's 256
+# is global over a mesh), the synthetic corpus of 32 in one 800-frame /
+# 128-token bucket, 3 steps through main --train
+AED_CONFIG = ROOT / "configs" / "ls960_aed.yaml"
+AED_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=32",
+                 "train.batch_size=32", "data.frame_buckets=[800]",
+                 "data.token_buckets=[128]"]
+AED_RUN = ["train.total_steps=3", "train.eval_every=0", "train.log_every=1"]
 
 
 def c4_tag(t: int) -> str:
@@ -2667,10 +2713,10 @@ def c5_rank_b(out: Path) -> None:
                out / "f32", device)
     init = copy.deepcopy(s.state.model)
     _, _, batch = next(s._labeled_stream())
-    tensors, _ = s.step_inputs(batch)
+    tensors, sizes = s.step_inputs(batch)
     state = TS.init_train_state(s.cfg, copy.deepcopy(init), s.cfg.train.seed)
     loss, _, grads = TS.loss_and_grads(s.cfg, state, *tensors, s.cmvn_dev,
-                                       dp=s.dp)
+                                       dp=s.dp, **sizes)
     res["rows"] = int(tensors[0].shape[0])
     res["grad_sha"] = hashlib.sha256(b"".join(
         g.detach().cpu().numpy().tobytes() for g in grads)).hexdigest()
@@ -3184,6 +3230,416 @@ def phase16(d: Path, card: str) -> tuple[dict, dict]:
     return launches, dict(out, transformer_launches=tr["launches"])
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the CTC family (ls100_ctc), the transformer speller (ls960_aed)
+# and the LAS joint-CTC head
+# --------------------------------------------------------------------- #
+
+class OpCount:
+    """Counts the aten operators dispatched inside a ``with`` block (each
+    launches at least one kernel on the card)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def ctc_step_twice(s) -> bool:
+    """The same step (weights, batch, SpecAugment bands) run twice: loss
+    and every gradient bitwise equal (the CTC loss's backward has no
+    atomic sums)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    batch, tensors = first_batch(s)
+    fcfg = s.cfg.frontend
+    flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
+                            batch.bucket[0])
+    bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
+                                    flens.shape[0], fcfg.n_mels, flens, fcfg)
+    outs = []
+    for _ in range(2):
+        state = TS.init_train_state(s.cfg, copy.deepcopy(s.state.model), 0)
+        outs.append(TS.loss_and_grads(s.cfg, state, *tensors, s.cmvn_dev,
+                                      [TS.StepDraws(TS.Draws(specaug=bands))]))
+    (la, _, ga), (lb, _, gb) = outs
+    return bool(torch.equal(la, lb)) and all(
+        torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+def ctc_loss_ms(s, reps: int = 3) -> tuple[float, tuple]:
+    """Wall time of the CTC NLL's forward and backward alone at the step's
+    shapes of the Solver ``s``'s first batch (the encoder's output drawn,
+    float32, every frame valid: the recursion runs over all T' frames
+    either way) -> (median ms, [B, T', e] shape)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.objectives import losses as LO
+
+    batch, (_, _, tokens, _) = first_batch(s)
+    m = s.cfg.model
+    t_enc = batch.bucket[0] // m.time_reduction
+    mask = torch.ones((tokens.shape[0], t_enc), dtype=torch.bool,
+                      device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    enc = torch.randn((tokens.shape[0], t_enc, m.enc_out_dim), device=DEVICE,
+                      generator=gen, requires_grad=True)
+    ms = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nll, _ = LO.ctc_per_utt_nll(s.state.model.ctc, enc, mask, tokens)
+        nll.sum().backward()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:]), tuple(enc.shape)
+
+
+def phase17_ctc(d: Path, card: str) -> tuple[dict, dict]:
+    """(a) configs/ls100_ctc.yaml at full width through the Solver: 3 steps
+    with their launches (K1 1, K2 6 under remat, K3 3), a checkpoint at
+    step 2 resumed in a fresh workdir to step 3 bitwise, the same step
+    twice bitwise, a bf16 step kernels against plain, test by best path
+    and by the shipped prefix beam; then the step and the CTC loss alone
+    at the 1600-frame bucket (T' = 400)."""
+    import shutil
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    def solver(wd, extra=()):
+        return Solver(load_config(CTC_CONFIG, [*CTC_DATA, *CTC_RUN, *extra]),
+                      wd, DEVICE)
+
+    run = d / "run"
+    s = solver(run)
+    m = s.cfg.model
+    require(m.family == "ctc" and s.cfg.train.remat_encoder
+            and m.enc_layers == 2 and m.compute_dtype == "bfloat16",
+            f"ls100_ctc as shipped: {m}")
+    log(f"[phase17] {CTC_CONFIG.name} at full width (enc {m.enc_hidden} x "
+        f"({m.enc_base_layers} + {m.enc_layers}), {m.compute_dtype}, "
+        f"remat_encoder, B={s.cfg.train.batch_size}, vocab {m.vocab_size}) "
+        f"through the Solver; cuts: {CTC_DATA + CTC_RUN}")
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    _native.reset_launches()
+    final = s.train()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = s.history
+    require(len(recs) == len(steps) == 3, f"{len(steps)} ls100_ctc steps")
+    for i, (r, st) in enumerate(zip(recs, steps)):
+        log(f"[phase17] ls100_ctc step {i + 1}: loss {r['loss']:.4f} "
+            f"nll_per_label {r['nll_per_label']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f}; wall {walls[i]:.1f} ms; kernel launches "
+            f"{st}")
+        require(all(math.isfinite(r[k]) for k in ("loss", "grad_norm")),
+                f"ls100_ctc step {i + 1} not finite")
+        require_launches(f"ls100_ctc step {i + 1}", st, CTC_STEP_LAUNCHES)
+    n_dev = -(-len(s.bundle.dev) // s.cfg.train.batch_size)
+    require(len(evals) == 1, f"{len(evals)} validations")
+    require_launches("ls100_ctc validation", evals[0][0],
+                     {k: n * n_dev for k, n in CTC_EVAL_LAUNCHES.items()})
+    log(f"[phase17] ls100_ctc validation (best path, {len(s.bundle.dev)} "
+        f"utterances): {final}; kernel launches {evals[0][0]}; run "
+        f"launches {launches}")
+    require(math.isfinite(final["dev_error"]), f"ls100_ctc dev {final}")
+    res = d / "resumed"
+    shutil.copytree(run / "checkpoints" / "2", res / "checkpoints" / "2")
+    shutil.copy(run / "cmvn.npz", res / "cmvn.npz")
+    solver(res).train(resume=True)
+    sd_a, meta_a, _ = Checkpointer(run / "checkpoints").load(3)
+    sd_b, meta_b, _ = Checkpointer(res / "checkpoints").load(3)
+    diff = first_difference(sd_a, sd_b)
+    log(f"[phase17] ls100_ctc resumed from step 2 in a fresh workdir: step "
+        f"3's state {'bitwise equal' if diff is None else 'differs at ' + diff}"
+        f"; data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}")
+    require(diff is None and meta_a["data_pos"] == meta_b["data_pos"],
+            f"ls100_ctc resume differs at {diff}")
+    del sd_a, sd_b
+    same = ctc_step_twice(s)
+    log(f"[phase17] ls100_ctc: the same step twice, loss and every gradient "
+        f"bitwise equal: {same}")
+    require(same, "two runs of one ls100_ctc step differ")
+    step_check(s, "phase17", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    out = {"ctc_step_ms": statistics.median(walls[1:])}
+    for mode, what in (("greedy", "best path (--beam 1)"),
+                       ("beam", f"prefix beam {s.cfg.decode.beam_size}")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test = s.test(mode=mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[f"ctc_test_{mode}_ms"] = ms
+        log(f"[phase17] ls100_ctc --test {what} on the dev batch "
+            f"({len(s.bundle.dev)} utterances in {n_dev} batch of "
+            f"{s.cfg.train.batch_size}): {test}; {ms:.1f} ms wall ({card})")
+        require(test["n_utts"] == len(s.bundle.dev)
+                and math.isfinite(test["cer"]), f"ls100_ctc test {test}")
+    del s
+    torch.cuda.empty_cache()
+    big = solver(d / "t1600", ["data.frame_buckets=[1600]"])
+    lab = big._labeled_stream()
+    walls_1600 = []
+    for _ in range(3):
+        args, unlab = big.step_inputs(next(lab)[2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big.run_step(args, unlab)
+        torch.cuda.synchronize()
+        walls_1600.append((time.perf_counter() - t0) * 1e3)
+    loss_ms, shape = ctc_loss_ms(big)
+    out.update(ctc_step_1600_ms=statistics.median(walls_1600[1:]),
+               ctc_loss_1600_ms=loss_ms)
+    out["ctc_loss_share_1600"] = loss_ms / out["ctc_step_1600_ms"]
+    log(f"[phase17] ls100_ctc at the 1600-frame bucket: step "
+        f"{out['ctc_step_1600_ms']:.1f} ms wall (median of steps 2-3); the "
+        f"CTC NLL's forward + backward alone at enc {list(shape)}, labels "
+        f"[{shape[0]}, 128]: {loss_ms:.1f} ms wall (median of 3), "
+        f"{out['ctc_loss_share_1600']:.3f} of the step; at bucket 400 the "
+        f"step takes {out['ctc_step_ms']:.1f} ms ({card})")
+    return launches, out
+
+
+def aed_first_dev_batch(t):
+    from semi_supervised_asr_tpu_torch.data import pipeline as pipe
+
+    return next(iter(pipe.epoch_batches(
+        t.bundle.dev, t.spec, t.cfg.frontend, t.cfg.train.batch_size,
+        seed=0, epoch=0, drop_remainder=False)))
+
+
+def phase17_aed(d: Path, card: str) -> tuple[dict, dict]:
+    """(b) configs/ls960_aed.yaml at full width: ``main --train`` for 3
+    steps and the final validation (K1 launched, K5 not), the teacher
+    pass's operator count at U=64 and U=128 (equal: one parallel pass),
+    greedy and beam-5 decoding of one dev batch (wall time, peak memory,
+    KV-cache bytes, the beam's cache reorder), and the step's write into
+    the KV cache by index against the reference's one-hot form (equal
+    logits)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import main as M
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.models.transformer_speller import (
+        TransformerSpeller,
+    )
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    wd = d / "aed"
+    _native.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as so:
+        rc = M.main(["--config", str(AED_CONFIG), "--train", "--workdir",
+                     str(wd), *AED_OVERRIDES, *AED_RUN])
+    torch.cuda.synchronize()
+    run = {k: v for k, v in _native.LAUNCHES.items() if v}
+    final = json.loads(so.getvalue().strip().splitlines()[-1])["final_dev"]
+    recs = [r for r in read_records(wd) if r.get("prefix") == "train"]
+    step_ms = [1e3 / r["steps_per_sec"] for r in recs]
+    t = Solver(load_config(AED_CONFIG, AED_OVERRIDES), wd, DEVICE)
+    m = t.cfg.model
+    log(f"[phase17] {AED_CONFIG.name} at full width ({m.enc_blocks} encoder "
+        f"blocks x {m.enc_out_dim}, {m.dec_blocks} decoder blocks x "
+        f"{m.dec_hidden}, dec_max_len {m.dec_max_len}, tied embedding "
+        f"{m.tie_embedding}, {m.compute_dtype}, enc/dec dropout "
+        f"{m.enc_dropout}/{m.dec_dropout}, attn_backend {m.attn_backend}); "
+        f"cut: one chip's batch of {t.cfg.train.batch_size} (the recipe's "
+        f"256 is global over a mesh), synthetic data; {AED_OVERRIDES}")
+    for i, (r, ms) in enumerate(zip(recs, step_ms)):
+        log(f"[phase17] ls960_aed step {i + 1}: loss {r['loss']:.4f} ce "
+            f"{r['ce']:.4f} grad_norm {r['grad_norm']:.4f}; {ms:.1f} ms wall "
+            f"(the log interval)")
+    log(f"[phase17] ls960_aed main --train, {len(recs)} steps and the final "
+        f"validation: {final}; kernel launches {run}")
+    require(rc == 0 and len(recs) == 3 and math.isfinite(final["dev_error"])
+            and all(math.isfinite(r["loss"]) for r in recs),
+            f"ls960_aed main --train: rc {rc}, {final}")
+    require(run.get("fused_post_fft", 0) > 0
+            and run.get("flash_mhsa_fwd", 0) == 0
+            and run.get("flash_mhsa_bwd", 0) == 0,
+            f"ls960_aed launches {run}: K1 must run and K5 must not")
+    model = t.eval_params()
+    speller = model.speller
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    t_enc = 800 // m.time_reduction
+    enc = torch.randn((32, t_enc, m.enc_out_dim), device=DEVICE,
+                      generator=gen)
+    mask = torch.ones((32, t_enc), dtype=torch.bool, device=DEVICE)
+    ops = {}
+    for u in (64, 128):
+        tokens = torch.randint(3, m.vocab_size, (32, u), device=DEVICE,
+                               generator=gen)
+        with OpCount() as c:
+            logits, _ = speller.forward_teacher(enc, mask, tokens)
+        logits.float().sum().backward()
+        ops[u] = c.n
+    log(f"[phase17] ls960_aed teacher pass, operators dispatched (each "
+        f"launches >= 1 kernel): U=64 {ops[64]}, U=128 {ops[128]}")
+    require(ops[64] == ops[128], f"the teacher pass grows with U: {ops}")
+    model.zero_grad(set_to_none=True)
+    rec = TR.Recognizer(t.cfg, model, t.cmvn, t.vocab, torch.device(DEVICE))
+    batch = aed_first_dev_batch(t)
+    out = {"aed_step_ms": statistics.median(step_ms[1:])}
+    t_dev = batch.bucket[0] // m.time_reduction
+    max_u = TR.max_decode_steps(t.cfg, t_dev)
+    b = batch.audio.shape[0]
+    for mode, k in (("greedy", 1), ("beam", t.cfg.decode.beam_size)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        hyps, _ = rec.decode(batch.audio, batch.audio_lens, mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        cache = 2 * b * k * m.dec_blocks * max_u * m.dec_hidden * 4
+        out[f"aed_{mode}_ms"] = ms
+        log(f"[phase17] ls960_aed {mode} (beam {k}) on one dev batch of {b} "
+            f"rows ({len(t.bundle.dev)} real), {max_u} steps: {ms:.1f} ms "
+            f"wall, peak memory {peak:.1f} MiB above the model, KV cache "
+            f"{cache / 2**20:.1f} MiB (k and v, float32) ({card})")
+        require(hyps.shape == (b, max_u), f"{mode} hypotheses {hyps.shape}")
+    # the beam's reorder of the cache leaves, one step
+    state = speller.init_state(b * t.cfg.decode.beam_size, mask, max_u)
+    rows = torch.arange(state["kv_k"].shape[0], device=DEVICE).flip(0)
+    reorder = cuda_ms(lambda: {n: v.index_select(0, rows)
+                               for n, v in state.items()}, reps=5)
+    out["aed_beam_reorder_ms"] = reorder
+    log(f"[phase17] ls960_aed beam: one step's reorder of the KV cache "
+        f"({2 * state['kv_k'].numel() * 4 / 2**20:.1f} MiB) {reorder:.3f} ms "
+        f"device (CUDA events, median of 5), x {max_u} steps a batch "
+        f"({card})")
+    del state
+    # the cache write: by index against the reference's one-hot where
+    with torch.inference_mode():
+        cache_kv = speller.precompute_decode_cache(enc)
+        logits = {}
+        for name, write in (("index", TransformerSpeller.write_kv),
+                            ("onehot", onehot_write)):
+            st = speller.init_state(32, mask, 16)
+            toks = torch.full((32,), 1, dtype=torch.int32, device=DEVICE)
+            seq = []
+            with mock_attr(TransformerSpeller, "write_kv",
+                           staticmethod(write)):
+                for _ in range(16):
+                    st, lg, _ = speller.step(st, toks, cache_kv, enc, mask)
+                    toks = lg.argmax(-1).to(torch.int32)
+                    seq.append(lg)
+            logits[name] = torch.stack(seq)
+    same = bool(torch.equal(logits["index"], logits["onehot"]))
+    log(f"[phase17] ls960_aed KV-cache write by index vs the reference's "
+        f"one-hot where, 16 greedy steps at B=32: logits bitwise equal "
+        f"{same}")
+    require(same, "the KV-cache write by index changes the logits")
+    return run, out
+
+
+def onehot_write(kv, li, pos, new):
+    """The reference's cache write: a one-hot ``where`` over every slot."""
+    import torch
+
+    hit = torch.arange(kv.shape[2], device=kv.device)[None, :] \
+        == pos[:, None]
+    kv[:, li] = torch.where(hit[..., None], new[:, None, :], kv[:, li])
+
+
+@contextlib.contextmanager
+def mock_attr(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def phase17_joint(d: Path, card: str) -> dict:
+    """(c) LAS with the joint CTC head at timit width
+    (``objective.lambda_ctc=0.3``): one step through the Solver, beam 5
+    with ``decode.ctc_weight=0.3`` (n-best rescoring) and with
+    ``decode.ctc_one_pass``, and ``main --test --beam 0``."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import main as M
+    from semi_supervised_asr_tpu_torch.config import load_config
+
+    over = [*TRAIN_OVERRIDES, "objective.lambda_ctc=0.3"]
+    s = short_solver(load_config(CONFIG, over), d / "joint", steps=1)
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    s.train()
+    r = s.history[0]
+    log(f"[phase17] timit + objective.lambda_ctc=0.3 ("
+        f"{s.cfg.model.compute_dtype}, B={s.cfg.train.batch_size}): step 1 "
+        f"loss {r['loss']:.4f} ce {r['ce']:.4f} ctc {r['ctc']:.4f}; wall "
+        f"{walls[0]:.1f} ms; kernel launches {steps[0]}")
+    require(all(math.isfinite(r[k]) for k in ("loss", "ce", "ctc")),
+            f"joint step not finite: {r}")
+    require_launches("joint-CTC step", steps[0], SOLVER_STEP_LAUNCHES)
+    out = {}
+    for name, kw in (("rescoring", {"ctc_weight": 0.3}),
+                     ("one_pass", {"ctc_weight": 0.3, "ctc_one_pass": True})):
+        v = copy.copy(s)
+        v.cfg = s.cfg.replace(decode=dataclasses.replace(
+            s.cfg.decode, beam_size=5, **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test = v.test(mode="beam")
+        torch.cuda.synchronize()
+        out[f"joint_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"[phase17] joint CTC-attention beam 5, {name} {kw}: {test}; "
+            f"{out[f'joint_{name}_ms']:.1f} ms wall ({card})")
+        require(math.isfinite(test["per"]), f"joint {name}: {test}")
+    with contextlib.redirect_stdout(io.StringIO()) as so:
+        rc = M.main(["--config", str(CONFIG), "--test", "--load-dir",
+                     str(d / "joint"), "--beam", "0", *over])
+    test = json.loads(so.getvalue().strip().splitlines()[-1])
+    log(f"[phase17] main --test --beam 0 (the CTC head's best path): {test}")
+    require(rc == 0 and test["mode"] == "ctc" and math.isfinite(test["per"]),
+            f"--beam 0: rc {rc}, {test}")
+    return out
+
+
+def phase17(d: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 17: (a) ls100_ctc, (b) ls960_aed, (c) the joint-CTC head ->
+    (ls100_ctc's launches, ls960_aed's, the numbers)."""
+    import torch
+
+    ctc_launches, out = phase17_ctc(d / "ctc", card)
+    torch.cuda.empty_cache()
+    aed_launches, aed = phase17_aed(d, card)
+    out.update(aed)
+    torch.cuda.empty_cache()
+    out.update(phase17_joint(d, card))
+    log(f"[phase17] summary {json.dumps(out)}")
+    return ctc_launches, aed_launches, out
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -3418,6 +3874,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         bpe_launches, p16 = phase16(Path(tmp), card)
     elapsed("phase 16")
+    with tempfile.TemporaryDirectory() as tmp:
+        ctc_launches, aed_launches, p17 = phase17(Path(tmp), card)
+    elapsed("phase 17")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -3464,7 +3923,12 @@ def main(argv=None) -> int:
         f"(3 steps, 1 validation) launches {c5_launches}; ls100_bpe "
         f"Solver run (3 steps) launches {bpe_launches}, step "
         f"{p16['bpe_step_ms']:.1f} ms wall; ls960_transformer step "
-        f"launches {p16['transformer_launches']}")
+        f"launches {p16['transformer_launches']}; ls100_ctc Solver run (3 "
+        f"steps, 1 validation) launches {ctc_launches}, step "
+        f"{p17['ctc_step_ms']:.1f} ms wall at bucket 400, "
+        f"{p17['ctc_step_1600_ms']:.1f} ms at 1600; ls960_aed main --train "
+        f"(3 steps, 1 validation) launches {aed_launches}, step "
+        f"{p17['aed_step_ms']:.1f} ms wall")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -3483,7 +3947,8 @@ def main(argv=None) -> int:
              "conformer_serve": conf_serve, "conformer_train": conf_launches,
              "c4_solver": c4_launches, "timit_solver": solver_launches,
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
-             "transformer_remat": p16["transformer_launches"]}
+             "transformer_remat": p16["transformer_launches"],
+             "ls100_ctc": ctc_launches, "ls960_aed": aed_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

@@ -18,7 +18,13 @@ accumulation, constant-frames batching) and char, phone or BPE units.
 Both entry points also run the transformer and conformer listeners
 (``model.encoder_arch``) behind a stride-2 conv stem, whose attention
 under ``model.attn_backend: flash`` goes through the CUDA flash attention
-kernels (csrc/flash_mhsa_fwd.cu, csrc/flash_mhsa_bwd.cu).
+kernels (csrc/flash_mhsa_fwd.cu, csrc/flash_mhsa_bwd.cu); the transformer
+speller (``model.decoder_arch: transformer``: one parallel causal pass in
+training, a KV-cache step in decoding); the joint CTC-attention head
+(``objective.lambda_ctc``, ``decode.ctc_weight``, ``decode.ctc_one_pass``,
+``--beam 0``); and the encoder-only CTC family (``model.family: ctc``:
+the CTC NLL, best-path and prefix-beam decoding).  ``data/preprocess.py``
+writes the corpus manifests, the vocab and the BPE model.
 
 The port imports nothing of the JAX package: it keeps its own copies of
 the host-side modules (config, vocab, bucketing, the synthetic corpus,

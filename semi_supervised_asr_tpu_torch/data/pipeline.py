@@ -87,17 +87,20 @@ def rank_rows(b: int, row_shard: tuple[int, int, int],
     ``row_shard=(r0, r1, n_rows)`` is the rank's block of the data axis
     (``parallel.mesh.host_data_rows``); the batch is ``micro`` contiguous
     microbatches (``train.grad_accum``), and the rank holds its block of
-    each, so that its i-th microbatch is its rows of the global i-th."""
+    each, in blocks of ceil(m / n_rows) rows of a microbatch of m as GSPMD
+    shards a batch axis (``parallel/dp.py::ceil_block``: the last blocks
+    short, or empty), so that its i-th microbatch is its rows of the
+    global i-th."""
     r0, r1, n_rows = row_shard
-    if b % (n_rows * micro):
+    if b % micro:
         raise ValueError(
-            f"batch of {b} rows does not shard over {n_rows} data-parallel "
-            f"ranks in {micro} microbatches: train.batch_size (and each "
-            "data.batch_frames batch) must divide by the world size times "
-            "train.grad_accum")
+            f"batch of {b} rows does not split into {micro} microbatches: "
+            "train.batch_size (and each data.batch_frames batch) must divide "
+            "by train.grad_accum")
     m = b // micro
-    per = m // n_rows
-    return np.concatenate([np.arange(i * m + r0 * per, i * m + r1 * per)
+    c = -(-m // n_rows)
+    lo, hi = min(r0 * c, m), min(r1 * c, m)
+    return np.concatenate([np.arange(i * m + lo, i * m + hi, dtype=np.int64)
                            for i in range(micro)])
 
 

@@ -1,7 +1,8 @@
-"""Greedy decoding for the LSTM speller.
+"""Greedy decoding for either speller.
 
 Counterpart of ``semi_supervised_asr_tpu/decode/greedy.py``: a fixed
-``max_len`` loop with a done mask; finished rows emit PAD.
+``max_len`` loop with a done mask; finished rows emit PAD.  ``keys`` is the
+speller's decode cache (``precompute_decode_cache``).
 """
 
 from __future__ import annotations
@@ -9,19 +10,18 @@ from __future__ import annotations
 import torch
 
 from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD, SOS
-from semi_supervised_asr_tpu_torch.models.speller import Speller
 
 
 def greedy_decode_from_enc(
-    speller: Speller,
+    speller,
     enc: torch.Tensor,        # [B, T, enc_out]
     enc_mask: torch.Tensor,   # [B, T] bool
-    keys: torch.Tensor,       # [B, T, A]
+    keys,                     # the speller's decode cache
     max_len: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (tokens [B, max_len] int32 (EOS then PADs), logp [B, max_len])."""
     b, dev = enc.shape[0], enc.device
-    state = speller.init_state(b, enc_mask)
+    state = speller.init_state(b, enc_mask, max_len)
     tok = torch.full((b,), SOS, dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     toks, lps = [], []

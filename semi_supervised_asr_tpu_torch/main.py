@@ -11,7 +11,9 @@ steps, checkpoints, ``--resume`` from the latest one) and prints
 process replaces itself with a fresh one that resumes.  ``--test`` scores
 the best (else latest) checkpoint of ``--load-dir`` and prints the error
 rate, the decode mode and the length-cap hit rate; ``--beam 1`` decodes
-greedy, any other beam size sets ``decode.beam_size``; ``--hyp-out``
+greedy, ``--beam 0`` by the CTC head's best path (a LAS model with the
+joint CTC head; the CTC family's greedy), any other beam size sets
+``decode.beam_size``; ``--hyp-out``
 writes the hypotheses and their error analysis.  ``--device`` defaults to
 ``cuda`` and the CLI refuses to start without it; ``--device cpu`` runs
 every kernel's plain version.
@@ -50,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-dir", default=None,
                    help="(test) workdir holding the checkpoint to score")
     p.add_argument("--beam", type=int, default=None,
-                   help="(test) beam size override; 1 = greedy")
+                   help="(test) beam size override; 1 = greedy, 0 = the "
+                        "CTC head's best path")
     p.add_argument("--hyp-out", default=None,
                    help="(test) write hypotheses jsonl here")
     p.add_argument("--device", default="cuda",
@@ -65,8 +68,6 @@ def main(argv=None) -> int:
     # the effective argv: what an exec-restart rebuilds the command from
     eff_argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.beam == 0:
-        raise SystemExit("--beam 0 (CTC greedy) is not ported yet")
 
     import torch
 
@@ -117,7 +118,7 @@ def _run(args, eff_argv, device, primary: bool) -> int:
             print(json.dumps({"final_dev": result}))
         return 0
 
-    mode = "greedy" if args.beam == 1 else "beam"
+    mode = {0: "ctc", 1: "greedy"}.get(args.beam, "beam")
     out = solver.test(mode=mode, out_path=args.hyp_out)
     if primary:
         print(json.dumps(out))

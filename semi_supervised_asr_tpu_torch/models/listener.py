@@ -65,19 +65,19 @@ class BiLSTMWeights(nn.Module):
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse model options outside the ported slices with a clear
     message."""
-    unsupported = {
-        "model.family": (cfg.family, "las"),
-        "model.decoder_arch": (cfg.decoder_arch, "lstm"),
-        "model.enc_bidirectional": (cfg.enc_bidirectional, True),
-        "model.enc_attn_chunk": (cfg.enc_attn_chunk, 0),
-        "model.lm_fusion": (cfg.lm_fusion, "none"),
-        "model.ctc_head": (cfg.ctc_head, False),
+    ported = {
+        "model.family": (cfg.family, ("las", "ctc")),
+        "model.decoder_arch": (cfg.decoder_arch, ("lstm", "transformer")),
+        "model.enc_bidirectional": (cfg.enc_bidirectional, (True,)),
+        "model.enc_attn_chunk": (cfg.enc_attn_chunk, (0,)),
+        "model.lm_fusion": (cfg.lm_fusion, ("none",)),
     }
-    for key, (got, want) in unsupported.items():
-        if got != want:
+    for key, (got, want) in ported.items():
+        if got not in want:
+            serves = " or ".join(f"{key}={w!r}" for w in want)
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port serves "
-                f"{key}={want!r})"
+                f"{serves})"
             )
     if cfg.lstm_backend not in ("pallas", "xla"):
         raise ValueError(f"unknown model.lstm_backend {cfg.lstm_backend!r}")

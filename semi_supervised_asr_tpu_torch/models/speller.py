@@ -4,10 +4,11 @@ Counterpart of ``semi_supervised_asr_tpu/models/speller.py`` for the LSTM
 speller, with tied or untied output: ``precompute_decode_cache``,
 ``init_state`` and ``step`` (``speller_step``) for decoding,
 ``forward_teacher`` for training (teacher forcing with scheduled
-sampling), and ``text_autoencoder_logits``, the text autoencoder's pass
-over unlabeled text.  The decoder state is a dict of tensors whose
-lattice-row axis is 0 (``h`` and ``c`` are layer-stacked [L, B*, H], row
-axis 1), so the beam reorders it with one index per leaf.  In training,
+sampling); ``text_autoencoder_logits``, the text autoencoder's pass over
+unlabeled text, serves either speller.  The decoder state is a dict of
+tensors whose lattice-row axis is 0 (``h`` and ``c`` are layer-stacked
+[L, B*, H], row axis 1: ``ROW_AXIS1``), so the beam reorders it with one
+index per leaf.  In training,
 ``model.dec_dropout`` drops the [h_top, context] concat before the output
 projection at every teacher-forced step, with keep masks the caller draws
 (``ops/dropout.py``); decoding never drops.
@@ -30,6 +31,9 @@ from semi_supervised_asr_tpu_torch.ops.dropout import dropout
 
 
 class Speller(nn.Module):
+    # the state leaves whose lattice row is axis 1 (layer-stacked)
+    ROW_AXIS1: tuple[str, ...] = ("h", "c")
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
@@ -54,8 +58,11 @@ class Speller(nn.Module):
         """Attention key projections [B, T, A], computed once per batch."""
         return self.attention.precompute_keys(enc)
 
-    def init_state(self, batch: int, mask: torch.Tensor) -> dict:
-        """Fresh decoder state for ``batch`` lattice rows."""
+    def init_state(self, batch: int, mask: torch.Tensor,
+                   max_steps: int | None = None) -> dict:
+        """Fresh decoder state for ``batch`` lattice rows (the state does
+        not depend on ``max_steps``, which sizes the transformer speller's
+        cache)."""
         cfg, dev = self.cfg, mask.device
         zeros = torch.zeros((cfg.dec_layers, batch, cfg.dec_hidden),
                             dtype=torch.float32, device=dev)
@@ -164,18 +171,17 @@ class Speller(nn.Module):
         """The shape of :meth:`forward_teacher`'s ``drop_masks``."""
         return (b, u, self.cfg.dec_hidden + self.cfg.enc_out_dim)
 
-    def text_autoencoder_logits(
-        self,
-        tokens_in: torch.Tensor,    # [B, U] decoder inputs (<sos> first)
-    ) -> torch.Tensor:
-        """The text autoencoder: the shared speller at teacher-forcing rate
-        1 over one zero frame with an all-true mask -> logits [B, U, V].
-        The attention context is zero, so the gradient reaches the
-        speller's own weights only (the reference's
-        ``text_autoencoder_logits``)."""
-        b, dev = tokens_in.shape[0], tokens_in.device
-        enc = torch.zeros((b, 1, self.cfg.enc_out_dim), dtype=torch.float32,
-                          device=dev)
-        mask = torch.ones((b, 1), dtype=torch.bool, device=dev)
-        logits, _ = self.forward_teacher(enc, mask, tokens_in, 1.0)
-        return logits
+
+def text_autoencoder_logits(speller: nn.Module,
+                            tokens_in: torch.Tensor) -> torch.Tensor:
+    """The text autoencoder: the shared ``speller`` (either architecture)
+    at teacher-forcing rate 1 over one zero frame with an all-true mask ->
+    logits [B, U, V].  The attention context is zero, so the gradient
+    reaches the speller's own weights only (the reference's
+    ``text_autoencoder_logits``)."""
+    b, dev = tokens_in.shape[0], tokens_in.device
+    enc = torch.zeros((b, 1, speller.cfg.enc_out_dim), dtype=torch.float32,
+                      device=dev)
+    mask = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    logits, _ = speller.forward_teacher(enc, mask, tokens_in, 1.0)
+    return logits

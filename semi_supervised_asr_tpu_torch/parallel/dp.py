@@ -1,7 +1,11 @@
 """Data parallelism by explicit collectives.
 
 Counterpart of ``semi_supervised_asr_tpu/parallel/dp.py``.  Each rank runs
-the step on its rows of the global batch, with every loss term normalized
+the step on its rows of the global batch -- of each global microbatch
+under ``train.grad_accum``, in ceil-sized blocks as GSPMD shards a batch
+axis (:func:`ceil_block`: a rank's share may be short, or empty, when the
+microbatch does not divide by the world size) -- with every loss term
+normalized
 by the global batch's count (``training/train_step.py`` sums those counts
 first with :func:`all_reduce_counts`), so that the SUM of the ranks'
 gradients is the gradient of the concatenated batch; :func:`all_reduce_grads`
@@ -39,11 +43,39 @@ class DataParallel:
     rank: int
     world: int
 
-    def rows(self, local_batch: int) -> tuple[int, int, int]:
-        """(first row, end row, global rows) of this rank's block of a
-        global batch whose ranks each hold ``local_batch`` rows."""
-        return (self.rank * local_batch, (self.rank + 1) * local_batch,
-                self.world * local_batch)
+
+def ceil_block(rank: int, world: int, m: int) -> tuple[int, int]:
+    """Rank ``rank``'s rows [r0, r1) of an axis of ``m`` rows split over
+    ``world`` ranks in blocks of ceil(m / world) (the last blocks short or
+    empty)."""
+    c = -(-m // world)
+    return min(rank * c, m), min((rank + 1) * c, m)
+
+
+def microbatch_blocks(dp: DataParallel, accum: int,
+                      local: list[int | None], global_rows: list[int]
+                      ) -> list[tuple[int, int, int] | None]:
+    """Per stream of a step (``local``: this rank's rows of each batch,
+    None where the step has no such stream; ``global_rows``: the global
+    batches' sizes): (r0, r1, m), the rank's rows [r0, r1) of each of the
+    batch's ``accum`` global microbatches of m rows."""
+    out = []
+    for n, g in zip(local, global_rows):
+        if n is None:
+            out.append(None)
+            continue
+        if g % accum:
+            raise ValueError(f"global batch of {g} rows does not split into "
+                             f"train.grad_accum={accum} microbatches")
+        m = g // accum
+        r0, r1 = ceil_block(dp.rank, dp.world, m)
+        if (r1 - r0) * accum != n:
+            raise ValueError(
+                f"rank {dp.rank} holds {n} rows of a global batch of {g}; "
+                f"its ceil-sized blocks of {accum} microbatches hold "
+                f"{(r1 - r0) * accum} (data/pipeline.py::rank_rows)")
+        out.append((r0, r1, m))
+    return out
 
 
 def current() -> DataParallel | None:
@@ -99,12 +131,22 @@ def all_reduce_counts(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (the same shape on each) concatenated along axis
-    0 in rank order -> a new tensor: the global batch of which ``t`` holds
-    this rank's rows (babble noise mixes rows of other ranks)."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t.contiguous())
+def all_gather_rows(t: torch.Tensor, m: int) -> torch.Tensor:
+    """The global (micro)batch of ``m`` rows of which ``t`` holds this
+    rank's :func:`ceil_block` (every rank's block concatenated in rank
+    order) -> a new tensor (babble noise mixes rows of other ranks).  Each
+    rank sends its block cut or padded to ceil(m / world) rows, so a rank
+    with an empty block sends whatever stand-in rows it holds, and they
+    are dropped."""
+    world = dist.get_world_size()
+    c = -(-m // world)
+    send = t[:c]
+    if send.shape[0] < c:
+        send = torch.cat([send, send.new_zeros((c - send.shape[0],
+                                                *t.shape[1:]))])
+    parts = [torch.empty_like(send) for _ in range(world)]
+    dist.all_gather(parts, send.contiguous())
     STATS["calls"] += 1
-    STATS["bytes"] += t.numel() * t.element_size()
-    return torch.cat(parts)
+    STATS["bytes"] += send.numel() * send.element_size()
+    return torch.cat([p[:r1 - r0] for p, (r0, r1) in zip(
+        parts, (ceil_block(q, world, m) for q in range(world)))])

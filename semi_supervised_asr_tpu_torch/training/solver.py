@@ -1,6 +1,7 @@
 """Solver: the train / eval loop of the PyTorch port.
 
 Counterpart of ``semi_supervised_asr_tpu/training/solver.py`` for the LAS
+family (either speller, with or without the joint CTC head) and the CTC
 family: ``train()``, ``validate()``, ``test()`` around the port's step
 (``training/train_step.py``) and decoders, on one device or data-parallel
 over the ranks of a torchrun (``parallel/``).
@@ -23,8 +24,11 @@ over the ranks of a torchrun (``parallel/``).
   deep (pinned memory, ``non_blocking``, on a side stream that the step
   waits for), so that they run beside the steps already queued.
 * Every ``eval_every`` steps it greedy-decodes the dev set (through K1 and
-  K2 on the card), scores PER (phones) or CER / WER (chars) with the
-  native edit distance, and saves a checkpoint ranked by ``dev_error``;
+  K2 on the card; the CTC family by best path), scores PER (phones) or
+  CER / WER (chars) with the native edit distance, and saves a checkpoint
+  ranked by ``dev_error``; ``test`` decodes ``beam`` (the CTC family's
+  prefix beam), ``greedy`` or ``ctc`` (the CTC head's best path, for a
+  LAS model with the joint head: ``main --beam 0``);
   ``ckpt_every`` saves without evaluating.  Checkpoints keep the newest
   two and the best ``train.keep_ckpts`` (``training/checkpointing.py``).
 * ``train(resume=True)`` restores the latest checkpoint and continues the
@@ -35,13 +39,13 @@ over the ranks of a torchrun (``parallel/``).
   ``decode.average_ckpts`` with the mean of the last checkpoints.
 * ``data.batch_frames`` sizes each labeled bucket's batch to a constant
   frame count (``_train_batch_size``); ``train.grad_accum`` = A makes
-  every rank hold its share of each of a batch's A microbatches
-  (``pipeline.rank_rows``), so N ranks with accumulation step what one
-  process steps on the concatenated batch.
+  every rank hold its ceil-sized share of each of a batch's A
+  microbatches (``pipeline.rank_rows``), so N ranks with accumulation
+  step what one process steps on the concatenated batch.
 
 Not ported (each refused with its key, here or where the step, the model
 or the decoders are built): the feature store, grain threads,
-LM fusion, CTC and transducer decoding,
+LM fusion, the transducer family,
 ``train.debug_nans``, tensor parallelism (``parallel.model_parallel``) and
 exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
@@ -52,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from collections import deque
@@ -69,7 +74,7 @@ from semi_supervised_asr_tpu_torch.data.bucketing import (
 )
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
 from semi_supervised_asr_tpu_torch.decode.beam import check_supported
-from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.parallel import dp as DP
 from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
 from semi_supervised_asr_tpu_torch.training import train_step as TS
@@ -175,7 +180,7 @@ class Solver:
         self.cmvn_dev = tuple(torch.as_tensor(a, device=self.device)
                               for a in self.cmvn)
 
-        model = Seq2Seq(cfg.model)
+        model = build_model(cfg.model)
         weights.load_flat(model, weights.init_numpy(cfg.model,
                                                     cfg.train.seed))
         self.state = TS.init_train_state(cfg, model.to(self.device),
@@ -215,15 +220,14 @@ class Solver:
         """The labeled training stream's batch size: ``train.batch_size``,
         or under constant-frames batching (``data.batch_frames``) a bucket
         -> size function rounding each bucket's batch down to a granule
-        (``data/bucketing.py::make_batch_sizer``).  The granule is the
-        reference's ``lcm(world, grad_accum)`` on one process; under data
-        parallelism it is ``world * grad_accum``, since each rank holds its
-        share of every microbatch (the two agree unless the world size and
-        ``grad_accum`` share a factor).  Evaluation and the unlabeled
-        streams keep ``train.batch_size``."""
+        (``data/bucketing.py::make_batch_sizer``), the reference's
+        ``lcm(world, grad_accum)``: every batch splits into its
+        microbatches and over the ranks, a rank's share of a microbatch
+        being a ceil-sized block (``pipeline.rank_rows``).  Evaluation and
+        the unlabeled streams keep ``train.batch_size``."""
         return make_batch_sizer(self.cfg.train.batch_size,
                                 self.cfg.data.batch_frames,
-                                self.world * self._accum())
+                                math.lcm(self.world, self._accum()))
 
     def _labeled_stream(self, start_epoch: int = 0, start_batch: int = 0):
         """Endless labeled stream of ``(epoch, batch_idx, batch)``; the
@@ -315,11 +319,16 @@ class Solver:
 
     def step_inputs(self, batch, ua_stream=None, ut_stream=None):
         """One labeled batch and the next batch of each unlabeled stream
-        -> (the step's positional device tensors, its unlabeled keyword
-        tensors)."""
+        -> (the step's positional device tensors, its keyword arguments:
+        the unlabeled tensors and, under data parallelism, the global
+        batches' sizes)."""
         args = self._put(batch.audio, batch.audio_lens, batch.tokens,
                          batch.real)
         unlab = {}
+        if self.dp is not None:
+            bs, n = self._train_batch_size(), self.cfg.train.batch_size
+            unlab["global_rows"] = (bs if isinstance(bs, int)
+                                    else bs(batch.bucket), n, n)
         if ua_stream is not None:
             ub = next(ua_stream)
             a, n, r = self._put(ub.audio, ub.audio_lens, ub.real)
@@ -504,9 +513,10 @@ class Solver:
                 scalars["steps_per_sec"] = cfg.train.log_every / max(dt, 1e-9)
                 self.log.log(step, scalars, "train")
                 self.history.append({"step": step, **scalars})
+                acc = (f"acc {scalars['acc']:.3f} " if "acc" in scalars
+                       else "")
                 self.log.info(
-                    f"step {step} loss {scalars['loss']:.4f} "
-                    f"acc {scalars['acc']:.3f} "
+                    f"step {step} loss {scalars['loss']:.4f} {acc}"
                     f"fps {scalars['frames_per_sec']:.0f}")
                 t_last = time.perf_counter()
                 frames_acc = 0
@@ -576,22 +586,24 @@ class Solver:
     # evaluation
     # ------------------------------------------------------------------ #
 
-    def _score_batches(self, dataset, model: Seq2Seq, mode: str):
+    def _score_batches(self, dataset, model, mode: str):
         """Decode a dataset -> (error rate, hypothesis records, WER or
-        None, the share of hypotheses cut by the length cap).  WER (word
-        level, from the decoded text) is reported for char units only.
-        Under data parallelism each rank decodes every n-th batch of the
-        plan and holds those records; the counters are summed over the
-        ranks, so the rates are the whole set's on every rank."""
-        if mode not in ("greedy", "beam"):
-            raise NotImplementedError(
-                f"decode mode {mode!r} is not ported yet (the PyTorch port "
-                "decodes greedy and beam)")
-        rec = Recognizer(self.cfg, model, self.cmvn, self.vocab, self.device)
+        None, the share of hypotheses cut by the length cap: LAS decodes
+        but ``ctc`` only, 0 elsewhere).  WER (word level, from the decoded
+        text) is reported for char units only.  Under data parallelism
+        each rank decodes every n-th batch of the plan and holds those
+        records; the counters are summed over the ranks, so the rates are
+        the whole set's on every rank."""
+        if mode not in ("greedy", "beam", "ctc"):
+            raise ValueError(f"unknown decode mode {mode!r}")
+        rec = Recognizer(self.cfg, model, self.cmvn, self.vocab, self.device,
+                         warn=self.log.info)
         er, wer = MET.ErrorRate(), MET.ErrorRate()
         records = []
-        # length-cap telemetry: a hypothesis that fills max_decode_len
-        # without emitting EOS was cut by the cap
+        # length-cap telemetry: an EOS-terminated (LAS) hypothesis that
+        # fills max_decode_len without emitting EOS was cut by the cap; CTC
+        # hypotheses are frame-synchronous, with no EOS budget
+        track_cap = self.cfg.model.family == "las" and mode != "ctc"
         cap_hits, n_scored = 0, 0
         char = self.cfg.data.unit in ("char", "bpe")
         batches = pipe.epoch_batches(dataset, self.spec, self.cfg.frontend,
@@ -615,7 +627,7 @@ class Solver:
                        "hyp": self.vocab.decode_text(hyps[r]),
                        "errors": int(d[r]), "ref_len": int(n[r])}
                 n_scored += 1
-                if not bool((hyps[r] == EOS).any()):
+                if track_cap and not bool((hyps[r] == EOS).any()):
                     cap_hits += 1
                     out["no_eos"] = True
                 if char:
@@ -641,7 +653,7 @@ class Solver:
         return (er.rate, records, (wer.rate if char else None),
                 cap_hits / max(n_scored, 1))
 
-    def _live_eval_model(self) -> Seq2Seq:
+    def _live_eval_model(self):
         """What validate() scores mid-training: the EMA buffer under
         decode.use_ema, else the live model."""
         return self.state.ema if self.cfg.decode.use_ema else self.state.model
@@ -654,14 +666,15 @@ class Solver:
         out = {"dev_error": rate}
         if wrate is not None:
             out["dev_wer"] = wrate
-        out["dev_cap_hit_rate"] = cap_rate
+        if self.cfg.model.family == "las":
+            out["dev_cap_hit_rate"] = cap_rate
         return out
 
     @torch.inference_mode()
     def _log_alignment(self) -> None:
         """Teacher-forced attention of one dev utterance -> a tensorboard
         image.  Best-effort; skipped without tensorboard."""
-        if self.log._tb is None:
+        if self.log._tb is None or self.cfg.model.family != "las":
             return
         try:
             from semi_supervised_asr_tpu_torch.objectives.losses import (
@@ -685,12 +698,12 @@ class Solver:
         except Exception as e:  # never fail training over a plot
             self.log.info(f"alignment plot skipped: {e}")
 
-    def _model_from(self, flat: dict) -> Seq2Seq:
-        model = Seq2Seq(self.cfg.model)
+    def _model_from(self, flat: dict):
+        model = build_model(self.cfg.model)
         weights.load_flat(model, {k: np.asarray(v) for k, v in flat.items()})
         return model.to(self.device)
 
-    def eval_params(self, require_ckpt: bool = False) -> Seq2Seq:
+    def eval_params(self, require_ckpt: bool = False):
         """The model decode-time consumers use: the average of the last
         checkpoints (decode.average_ckpts), else the best (then latest)
         checkpoint, its EMA buffer under decode.use_ema -- the same for
@@ -747,7 +760,8 @@ class Solver:
         out = {metric: rate, "n_utts": n_utts, "mode": mode}
         if wrate is not None:
             out["wer"] = wrate
-        out["cap_hit_rate"] = cap_rate
+        if self.cfg.model.family == "las" and mode != "ctc":
+            out["cap_hit_rate"] = cap_rate
         return out
 
 

@@ -1,18 +1,21 @@
 """Featurization and the train step, supervised and semi-supervised.
 
 Counterpart of ``semi_supervised_asr_tpu/training/train_step.py`` for the
-LAS family: ``featurize`` (inference and augmenting branches: speed
-perturbation, additive noise, SpecAugment bands and time warp) and
-``supervised_step``: features under no-grad, teacher-forced CE with
-label smoothing, and, when the objective weighs them and the step is given
-the unlabeled batches, the text autoencoder on unlabeled text and the
-pseudo-label term on unlabeled audio (the teacher's greedy decode of the
-clean view, the student's CE on the augmented view, gated by
-``objective.pseudo_warmup_steps``); then backward (through K3 for the
-listener), global-norm clip, Adam, the EMA update and the step counter.
-The metrics keep the JAX keys (``loss``, ``ce``, ``acc``, ``grad_norm``,
-``tf_rate``, ``frames``, and ``text_ae``, ``pseudo``, ``pseudo_gate``
-where the step runs those terms).
+LAS family (either speller) and the CTC family: ``featurize`` (inference
+and augmenting branches: speed perturbation, additive noise, SpecAugment
+bands and time warp) and ``supervised_step``: features under no-grad,
+teacher-forced CE with label smoothing (plus ``objective.lambda_ctc``
+times the joint CTC head's loss on the same encoder pass), or the CTC
+family's label-normalized NLL, and, when the objective weighs them and
+the step is given the unlabeled batches, the text autoencoder on
+unlabeled text and the pseudo-label term on unlabeled audio (the
+teacher's greedy decode of the clean view, the student's CE on the
+augmented view, gated by ``objective.pseudo_warmup_steps``); then
+backward (through K3 for the listener), global-norm clip, Adam, the EMA
+update and the step counter.  The metrics keep the JAX keys (``loss``,
+``ce``, ``acc``, ``ctc``, ``nll_per_label``, ``grad_norm``, ``tf_rate``,
+``frames``, and ``text_ae``, ``pseudo``, ``pseudo_gate`` where the step
+runs those terms).
 
 The training passes drop out (``model.enc_dropout`` after the listener's
 sites, ``model.dec_dropout`` before the speller's output projection): the
@@ -34,15 +37,18 @@ hands given draws in instead (how a test passes the JAX package's).
 teacher's, for its decode) to bf16 once inside the loss, as the reference
 does, while the float32 masters take the gradients.  Under data
 parallelism (``parallel/dp.py``) each rank runs its rows of the global
-batch (of each global microbatch under accumulation): the random draws are
+batch (its ceil-sized block of each global microbatch under accumulation;
+an empty block runs one unreal stand-in row): the random draws are
 made at the global (micro)batch's shape and the rank's rows kept, babble
 noise mixes rows gathered from every rank, every term is divided by the
 global microbatch's count (summed over the ranks before the forward), and
 the gradients and metrics are summed over the ranks, so that N ranks
 compute what one process computes on the concatenated batch.  What the
-step does not run yet -- CTC, MWER, another optimizer, frozen or
-transplanted weights, checkify -- is refused by
-:func:`check_train_supported` with a message naming the key.
+step does not run yet -- MWER, the CTC family's pseudo-label term,
+another optimizer, frozen or transplanted weights, checkify -- is refused
+by :func:`check_train_supported` with a message naming the key, as are
+the reference's own refusals for the CTC family and the transformer
+speller.
 """
 
 from __future__ import annotations
@@ -66,11 +72,12 @@ SpecAug = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def check_train_supported(cfg: Config) -> None:
     """Refuse training options outside the ported slices with a clear
-    message (model options are checked by the model's constructor)."""
+    message (model options are checked by the model's constructor), and
+    what the reference's step refuses for the CTC family and the
+    transformer speller, with its messages."""
     m, o, t = cfg.model, cfg.objective, cfg.train
     unsupported = {
         "model.param_dtype": (m.param_dtype, "float32"),
-        "objective.lambda_ctc": (o.lambda_ctc, 0.0),
         "objective.lambda_mwer": (o.lambda_mwer, 0.0),
         "train.optimizer": (t.optimizer, "adam"),
         "train.freeze": (tuple(t.freeze), ()),
@@ -78,11 +85,36 @@ def check_train_supported(cfg: Config) -> None:
         "train.checkify_errors": (t.checkify_errors, ""),
         "data.use_feature_store": (cfg.data.use_feature_store, False),
     }
+    if m.family == "ctc":
+        # objectives/ctc_semi.py is not ported yet
+        unsupported["objective.lambda_pseudo"] = (o.lambda_pseudo, 0.0)
     for key, (got, want) in unsupported.items():
         if got != want:
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port trains "
                 f"with {key}={want!r})")
+    if m.family == "ctc":
+        if o.lambda_ctc:
+            raise ValueError(
+                "model.family=ctc: the CTC head IS the model — leave "
+                "objective.lambda_ctc at 0 (it is the joint CTC-ATTENTION "
+                "aux weight for the LAS family)")
+        if o.lambda_text_ae:
+            raise ValueError(
+                "model.family=ctc has no decoder to train on unlabeled text "
+                "— use lambda_pseudo for unlabeled audio, and unlabeled text "
+                "via an external LM (lm_trainer + decode.lm_weight fusion)")
+    if m.family == "las" and m.decoder_arch == "transformer":
+        if o.tf_rate_start != 1.0 or o.tf_rate_end != 1.0:
+            raise ValueError(
+                "decoder_arch=transformer trains with ONE parallel causal "
+                "pass — scheduled sampling (tf_rate < 1.0) needs the serial "
+                "LSTM scan; pin objective.tf_rate_start/end at 1.0")
+        if m.speller_grad != "scan":
+            raise ValueError(
+                "model.speller_grad=stacked reroutes the LSTM scan's dW "
+                "accumulators; the transformer speller has no decode-step "
+                "scan to reroute — leave speller_grad at 'scan'")
 
 
 @dataclass
@@ -153,7 +185,7 @@ def featurize(
         pool, row0 = None, 0
         if dp is not None and "babble" in sources:
             # babble mixes rows of the whole (micro)batch
-            pool, row0 = DP.all_gather_rows(audio), rows[0]
+            pool, row0 = DP.all_gather_rows(audio, rows[2]), rows[0]
         audio = F.apply_noise(audio, audio_lens, fcfg.noise_aug_prob,
                               tuple(fcfg.noise_snr_db), sources, noise,
                               pool, row0)
@@ -302,7 +334,8 @@ def weight_view(module: nn.Module, bf16: bool):
 
 def microbatches(accum: int, **fields) -> list[dict]:
     """Split every given tensor (None skipped) into ``accum`` equal
-    microbatches along axis 0 -> one dict of fields per microbatch."""
+    microbatches along axis 0 (empty ones where the tensor is) -> one dict
+    of fields per microbatch."""
     out = [{} for _ in range(accum)]
     for k, x in fields.items():
         if x is None:
@@ -310,9 +343,28 @@ def microbatches(accum: int, **fields) -> list[dict]:
         if x.shape[0] % accum:
             raise ValueError(f"{k}: batch {x.shape[0]} not divisible by "
                              f"train.grad_accum {accum}")
-        for mb, part in zip(out, x.chunk(accum)):
+        for mb, part in zip(out, x.tensor_split(accum)):
             mb[k] = part
     return out
+
+
+# the fields of each stream of a step's batches
+STREAMS = (("audio", "audio_lens", "tokens", "real"),
+           ("unlab_audio", "unlab_audio_lens", "unlab_real"),
+           ("unlab_text", "unlab_text_real"))
+
+
+def _stand_in(mb: dict, fields: tuple[str, ...]) -> None:
+    """Give a stream that holds no row of this microbatch one unreal row of
+    zeros (silence over the whole buffer, all-PAD tokens), which every term
+    weighs out: a rank whose block is empty still runs the step's draws and
+    joins its reductions."""
+    for f in fields:
+        x = mb[f]
+        mb[f] = x.new_zeros((1, *x.shape[1:]))
+    if "audio_lens" in fields or "unlab_audio_lens" in fields:
+        a, n = fields[:2]
+        mb[n] = torch.full_like(mb[n], mb[a].shape[1])
 
 
 def loss_and_grads(
@@ -331,6 +383,7 @@ def loss_and_grads(
     unlab_text: torch.Tensor | None = None,        # [B'', U''] as ``tokens``
     unlab_text_real: torch.Tensor | None = None,   # [B''] bool
     dp: DP.DataParallel | None = None,
+    global_rows: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """The loss of one batch at ``state`` and its gradient with respect to
     every parameter (in ``state.opt.params`` order) -> (loss, {"ce",
@@ -344,11 +397,15 @@ def loss_and_grads(
     fixes what it gives of each microbatch's random draws.
 
     ``dp``: this rank's place in a data-parallel group; the batches are its
-    rows of the global ones (of each global microbatch).  Each term's
-    denominator is then the global microbatch's count, summed over the
-    ranks before the forward (the pseudo-label term's kept tokens are known
-    once the teacher has decoded, so the teacher runs first), and the
-    returned loss, metrics and gradients are the sums over the ranks."""
+    rows of the global ones (its ceil-sized block of each global
+    microbatch, ``parallel/dp.py::ceil_block``; an empty block runs one
+    unreal stand-in row).  ``global_rows``, required with ``dp``, are the
+    global labeled, unlabeled-audio and text batches' sizes
+    (``Solver.step_inputs`` gives them).  Each term's denominator is the
+    global microbatch's count, summed over the ranks before the forward
+    (the pseudo-label term's kept tokens are known once the teacher has
+    decoded, so the teacher runs first), and the returned loss, metrics and
+    gradients are the sums over the ranks."""
     accum = max(int(cfg.train.grad_accum), 1)
     tf_rate = schedules.tf_rate_at(state.step, cfg.objective)
     micro = microbatches(
@@ -358,13 +415,26 @@ def loss_and_grads(
         unlab_text_real=unlab_text_real)
     if draws is not None and len(draws) != accum:
         raise ValueError(f"{len(draws)} draws for {accum} microbatches")
+    blocks = [None, None, None]
+    if dp is not None:
+        local = [audio.shape[0],
+                 None if unlab_audio is None else unlab_audio.shape[0],
+                 None if unlab_text is None else unlab_text.shape[0]]
+        if global_rows is None:
+            raise ValueError("a data-parallel step needs global_rows, the "
+                             "global batches' sizes")
+        blocks = DP.microbatch_blocks(dp, accum, local, global_rows)
+        for mb in micro:
+            for fields, block in zip(STREAMS, blocks):
+                if block is not None and block[0] == block[1]:
+                    _stand_in(mb, fields)
     params = state.opt.params
     loss = grads = None
     aux: dict = {}
     for i, mb in enumerate(micro):
         li, ai = _micro_loss(cfg, state, mb, cmvn, tf_rate,
                              draws[i] if draws is not None else StepDraws(),
-                             backend, dp)
+                             backend, dp, blocks)
         gi = torch.autograd.grad(li, params, allow_unused=True)
         # a leaf no term reaches gets an exact zero
         gi = [torch.zeros_like(p) if g is None else g
@@ -383,7 +453,8 @@ def loss_and_grads(
     aux = {k: v * inv for k, v in aux.items()}
     if dp is not None:
         # the metrics ride in the gradients' reduction: one sum for all
-        keys = [k for k in ("ce", "acc", "text_ae", "pseudo") if k in aux]
+        keys = [k for k in ("ce", "acc", "ctc", "nll_per_label", "text_ae",
+                            "pseudo") if k in aux]
         vec = torch.stack([loss] + [aux[k].float() for k in keys])
         *grads, vec = DP.all_reduce_grads([*grads, vec])
         loss = vec[0]
@@ -396,17 +467,31 @@ def loss_and_grads(
     return loss, aux, grads
 
 
+def _block_rows(block: tuple[int, int, int] | None
+                ) -> tuple[int, int, int] | None:
+    """The ``rows`` a stream's draws take: its block, or for an empty block
+    row 0's (the stand-in's draws are weighed out with it)."""
+    if block is None or block[0] < block[1]:
+        return block
+    return (0, 1, block[2])
+
+
 def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
                 tf_rate: float, draws: StepDraws, backend: str | None,
-                dp: DP.DataParallel | None) -> tuple[torch.Tensor, dict]:
+                dp: DP.DataParallel | None,
+                blocks: list | None = None) -> tuple[torch.Tensor, dict]:
     """The loss of one microbatch ``mb`` (the fields of
     :func:`loss_and_grads`) with its graph -> (loss, {"ce", "acc"} and
-    {"text_ae"}, {"pseudo", "pseudo_gate"} where the step runs them),
-    normalized by the microbatch's own (global) counts."""
+    {"ctc"}, {"text_ae"}, {"pseudo", "pseudo_gate"} where the step runs
+    them; the CTC family's {"nll_per_label"}), normalized by the
+    microbatch's own (global) counts; ``blocks``: each stream's block
+    (:func:`loss_and_grads`)."""
     obj = cfg.objective
+    blocks = blocks or [None, None, None]
+    ctc_family = cfg.model.family == "ctc"
     tokens = mask_unreal(mb["tokens"], mb["real"])
     b, u = tokens.shape
-    rows = dp.rows(b) if dp is not None else None
+    rows = _block_rows(blocks[0])
     with torch.no_grad():
         feats, flens = featurize(cfg, mb["audio"], mb["audio_lens"], cmvn,
                                  True, backend, draws.labeled, state.gen,
@@ -417,9 +502,11 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     if obj.lambda_text_ae > 0.0 and "unlab_text" in mb:
         text = mask_unreal(mb["unlab_text"], mb["unlab_text_real"])
     pseudo = obj.lambda_pseudo > 0.0 and "unlab_audio" in mb
-    # the terms' token counts
+    # the terms' counts: tokens, text tokens, kept pseudo tokens, CTC labels
     zero = torch.zeros((), dtype=torch.float64, device=tokens.device)
-    counts = [LO.token_mask(tokens).sum().double(), zero, zero]
+    counts = [LO.token_mask(tokens).sum().double(), zero, zero, zero]
+    if ctc_family or obj.lambda_ctc > 0.0:
+        counts[3] = LO.ctc_label_count(tokens).double()
     if text is not None:
         counts[1] = LO.token_mask(text).sum().double()
     if pseudo:
@@ -446,16 +533,20 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     if masks is None:
         masks = state.model.dropout_masks(state.dgen, b, feats.shape[1], u,
                                           feats.device, rows)
+    if ctc_family:
+        return student(LO.ctc_family_loss, feats, flens, tokens, mb["real"],
+                       backend, den[3], cfg.train.remat_encoder, masks)
     loss, aux = student(LO.supervised_loss, obj.label_smoothing, feats,
                         flens, tokens, tf_rate, state.gen, backend, den[0],
-                        cfg.train.remat_encoder, rows, masks)
+                        cfg.train.remat_encoder, rows, masks, obj.lambda_ctc,
+                        den[3])
     if text is not None:
         ae = student(lambda m, *a: LO.text_ae_loss(m.speller, *a),
                      obj.label_smoothing, text, den[1])
         loss = loss + obj.lambda_text_ae * ae
         aux["text_ae"] = ae.detach()
     if pseudo:
-        urows = dp.rows(ua.shape[0]) if dp is not None else None
+        urows = _block_rows(blocks[1])
         with torch.no_grad():
             augmented, _ = featurize(cfg, ua, ua_lens, cmvn, True, backend,
                                      draws.unlabeled, state.gen, urows,

@@ -8,7 +8,10 @@ Counterpart of the offline path of ``semi_supervised_asr_tpu/
 transcribe.py``: files are bucketed by frame count (the training buckets),
 files longer than the largest bucket are decoded in bucket-sized chunks and
 their texts joined, rows are padded to ``train.batch_size``, and each
-batch is decoded with beam search (default) or greedy (``--beam 1``).
+batch is decoded with beam search (default: the attention beam, or the
+CTC family's prefix beam), greedy (``--beam 1``: the CTC family's best
+path) or the CTC head's best path (``--beam 0``: a LAS model with the
+joint CTC head, or the CTC family).
 Each file prints one JSON object ``{"audio", "text", "score"}`` (plus
 ``nbest`` with ``--nbest N``, ``no_eos`` when the length cap cut it,
 ``chunks`` for chunked files).
@@ -42,8 +45,10 @@ from semi_supervised_asr_tpu_torch import strict_fp32, weights
 from semi_supervised_asr_tpu_torch.decode.beam import (
     beam_decode_from_enc, check_supported,
 )
+from semi_supervised_asr_tpu_torch.decode.ctc import ctc_greedy_from_enc
+from semi_supervised_asr_tpu_torch.decode.ctc_beam import ctc_beam_from_enc
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
-from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
 
 AUDIO_EXTS = (".wav", ".npy", ".flac")
@@ -81,12 +86,18 @@ def max_decode_steps(cfg: Config, enc_frames: int) -> int:
                       ratio_cap))
 
 
-class Recognizer:
-    """A model, its CMVN statistics and vocab on one device: decodes
-    padded audio batches."""
+def _stderr(msg: str) -> None:
+    print(msg, file=sys.stderr)
 
-    def __init__(self, cfg: Config, model: Seq2Seq, cmvn: tuple, vocab,
-                 device: torch.device, backend: str | None = None):
+
+class Recognizer:
+    """A model (``Seq2Seq`` or ``CTCModel``), its CMVN statistics and vocab
+    on one device: decodes padded audio batches.  ``warn`` reports a
+    ``decode.ctc_weight`` that cannot apply (stderr by default)."""
+
+    def __init__(self, cfg: Config, model, cmvn: tuple, vocab,
+                 device: torch.device, backend: str | None = None,
+                 warn=_stderr):
         self.cfg, self.vocab, self.device = cfg, vocab, device
         self.model = model.to(device).eval()
         self.mean = torch.as_tensor(np.asarray(cmvn[0]), dtype=torch.float32,
@@ -96,6 +107,19 @@ class Recognizer:
         self.backend = backend
         self.spec = make_bucket_spec(cfg.data, cfg.frontend,
                                      cfg.model.time_reduction)
+        self.ctc_family = cfg.model.family == "ctc"
+        # the joint CTC-attention beam: the LAS family with its CTC head
+        self.joint_ctc = None
+        if cfg.decode.ctc_weight > 0.0:
+            if self.ctc_family:
+                warn("WARNING: decode.ctc_weight rescoring is LAS-only — the "
+                     "CTC family's beam IS the CTC score")
+            elif not hasattr(self.model, "ctc"):
+                warn("WARNING: decode.ctc_weight > 0 but the model has no CTC "
+                     "head (train with objective.lambda_ctc > 0) — CTC "
+                     "rescoring DISABLED")
+            else:
+                self.joint_ctc = self.model.ctc
 
     @classmethod
     def from_dir(cls, cfg: Config, load_dir: str | Path, device,
@@ -118,7 +142,7 @@ class Recognizer:
                 "Solver's checkpoints) nor params.npz to decode with")
         vocab = build_vocab(cfg)
         cfg = finalize_config(cfg, vocab.size)
-        model = Seq2Seq(cfg.model)
+        model = build_model(cfg.model)
         weights.load_npz(model, load_dir / "params.npz")
         with np.load(load_dir / "cmvn.npz") as z:
             cmvn = (z["mean"], z["inv_std"])
@@ -126,7 +150,8 @@ class Recognizer:
 
     @torch.inference_mode()
     def encode(self, audio: torch.Tensor, lens: torch.Tensor):
-        """Padded audio [B, S] -> (enc, enc_mask, keys) on the device."""
+        """Padded audio [B, S] -> (enc, enc_mask, the speller's decode
+        cache) on the device; the CTC family's (enc, enc_mask)."""
         feats, flens = featurize(self.cfg, audio, lens,
                                  (self.mean, self.inv_std),
                                  backend=self.backend)
@@ -136,19 +161,39 @@ class Recognizer:
     def decode(self, audio: np.ndarray, lens: np.ndarray, mode: str,
                nbest: bool = False):
         """[B, S] padded audio, [B] sample lengths -> (tokens, scores) as
-        numpy: greedy gives per-step log-probs, beam the normalized
-        score (or all K lattices and scores with ``nbest``)."""
+        numpy.  ``mode`` ``greedy`` gives per-step log-probs (the CTC
+        family: its best path and the path's log-prob), ``beam`` the
+        normalized score (the CTC family: the prefix's log-marginal; with
+        ``nbest`` all K lattices and scores), ``ctc`` the CTC head's best
+        path."""
         a = torch.as_tensor(audio, device=self.device)
         n = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
+        cfg = self.cfg
+        if self.ctc_family:
+            enc, enc_mask = self.encode(a, n)
+            if mode == "beam":
+                out = ctc_beam_from_enc(
+                    self.model.ctc, enc, enc_mask,
+                    max_decode_steps(cfg, enc.shape[1]),
+                    cfg.decode.beam_size, return_nbest=nbest)
+            else:
+                out = ctc_greedy_from_enc(self.model.ctc, enc, enc_mask)
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
+        if mode == "ctc" and not hasattr(self.model, "ctc"):
+            raise SystemExit("CTC decode needs a CTC head — train with "
+                             "objective.lambda_ctc > 0 (or model.ctc_head: "
+                             "true)")
         enc, enc_mask, keys = self.encode(a, n)
-        max_u = max_decode_steps(self.cfg, enc.shape[1])
+        max_u = max_decode_steps(cfg, enc.shape[1])
         speller = self.model.speller
-        if mode == "greedy":
+        if mode == "ctc":
+            out = ctc_greedy_from_enc(self.model.ctc, enc, enc_mask)
+        elif mode == "greedy":
             out = greedy_decode_from_enc(speller, enc, enc_mask, keys, max_u)
         else:
-            out = beam_decode_from_enc(speller, self.cfg.decode, enc,
-                                       enc_mask, keys, max_u,
-                                       return_nbest=nbest)
+            out = beam_decode_from_enc(speller, cfg.decode, enc, enc_mask,
+                                       keys, max_u, return_nbest=nbest,
+                                       ctc=self.joint_ctc)
         return out[0].cpu().numpy(), out[1].cpu().numpy()
 
 
@@ -170,11 +215,11 @@ def pad_batch(pieces: list[np.ndarray], s_len: int,
 def transcribe(rec: Recognizer, files: list[Path], mode: str,
                nbest: int = 1) -> list[dict]:
     """Bucket + batch the files, decode -> [{audio, text, score, ...}]."""
-    if mode not in ("beam", "greedy"):
+    if mode not in ("beam", "greedy", "ctc"):
         raise SystemExit(f"unknown decode mode {mode!r}")
     if nbest > 1 and mode != "beam":
         raise SystemExit(f"--nbest needs beam decoding (got mode={mode!r}); "
-                         "drop --beam 1 or --nbest")
+                         "drop --beam 0/1 or --nbest")
     use_nbest = nbest > 1
     spec, cfg = rec.spec, rec.cfg
     max_bucket = spec.frame_buckets[-1]
@@ -198,6 +243,8 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
             by_bucket.setdefault(fb, []).append(((f, ci), piece))
 
     batch_size = cfg.train.batch_size
+    # the length cap cuts EOS-terminated (LAS) hypotheses only
+    track_cap = cfg.model.family == "las" and mode != "ctc"
     cap_hits, n_hyps = 0, 0
     chunk_results: dict[tuple[str, int], dict] = {}
     for fb, items in sorted(by_bucket.items()):
@@ -222,10 +269,11 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
                            "score": float(scores[r].sum()
                                           if scores[r].ndim else scores[r])}
                     best = hyps[r]
-                n_hyps += 1
-                if not bool((best == EOS).any()):
-                    cap_hits += 1
-                    res["no_eos"] = True
+                if track_cap:
+                    n_hyps += 1
+                    if not bool((best == EOS).any()):
+                        cap_hits += 1
+                        res["no_eos"] = True
                 chunk_results[(str(path), ci)] = res
 
     results = []
@@ -260,7 +308,8 @@ def main(argv=None) -> int:
                    help="a Solver's workdir (checkpoints/), or a directory "
                         "holding params.npz and cmvn.npz")
     p.add_argument("--beam", type=int, default=None,
-                   help="beam size; 1 = greedy")
+                   help="beam size; 1 = greedy, 0 = the CTC head's best "
+                        "path")
     p.add_argument("--nbest", type=int, default=1,
                    help="(beam) emit the top-N hypotheses per file")
     p.add_argument("--out", default=None, help="write jsonl here too")
@@ -274,8 +323,6 @@ def main(argv=None) -> int:
                         "then section.key=value overrides")
     args, overrides = p.parse_known_args(argv)
 
-    if args.beam == 0:
-        raise SystemExit("--beam 0 (CTC greedy) is not ported yet")
     for flag in ("timestamps", "streaming"):
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not ported yet")
@@ -287,7 +334,7 @@ def main(argv=None) -> int:
     if args.beam is not None and args.beam > 1:
         cfg = cfg.replace(decode=dataclasses.replace(cfg.decode,
                                                      beam_size=args.beam))
-    mode = "greedy" if args.beam == 1 else "beam"
+    mode = {0: "ctc", 1: "greedy"}.get(args.beam, "beam")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

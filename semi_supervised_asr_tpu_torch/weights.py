@@ -108,7 +108,7 @@ ZERO_LEAVES = ("b", "bq", "bk", "bv", "bo", "b1", "b2", "b_pw1", "b_dw",
 
 
 def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
-              cfg: ModelConfig, lstm: bool) -> np.ndarray:
+              lstm: bool) -> np.ndarray:
     """Distribution per leaf, after the JAX initializers; ``lstm`` says
     that the leaf's group is an LSTM cell (it holds a ``w_hh``)."""
     leaf = name.rsplit(".", 1)[-1]
@@ -116,12 +116,14 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
         hidden = shape[-1] // 4
         bound = 1.0 / math.sqrt(hidden)
         return rng.uniform(-bound, bound, shape)
-    if leaf == "g":                             # LayerNorm gain
+    if leaf == "g" or leaf.endswith("_g"):      # LayerNorm gain (ln1_g, ..)
         return np.ones(shape)
-    if leaf in ZERO_LEAVES:
+    if leaf in ZERO_LEAVES or leaf.endswith("_b"):
         return np.zeros(shape)
-    if leaf == "embedding":
-        return rng.standard_normal(shape) / math.sqrt(cfg.embed_dim)
+    if leaf == "embedding":                     # [V, width]
+        return rng.standard_normal(shape) / math.sqrt(shape[-1])
+    if leaf == "pos":                           # transformer speller [L, d]
+        return rng.standard_normal(shape) * 0.02
     if leaf == "conv":                          # [W, 1, C]
         return rng.standard_normal(shape) / math.sqrt(shape[0])
     if leaf == "v":                             # glorot of an [A, 1] matrix
@@ -129,25 +131,27 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
     elif len(shape) == 4:                       # conv stem [3, 3, C_in, C]
         field = shape[0] * shape[1]
         fan_in, fan_out = field * shape[2], field * shape[3]
-    else:                                       # glorot uniform matrices
-        fan_in, fan_out = shape[0], shape[-1]
+    else:   # glorot uniform matrices; [in, heads, d_head] as [in, d_model]
+        fan_in, fan_out = shape[0], int(np.prod(shape[1:]))
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     return rng.uniform(-bound, bound, shape)
 
 
 def init_numpy(cfg: ModelConfig, seed: int) -> dict[str, np.ndarray]:
-    """Random float32 weights with the names and shapes of ``Seq2Seq(cfg)``,
-    drawn from ``seed`` (the JAX init's shapes and distributions, not its
-    values): LayerNorm gains ones, biases zeros, LSTM cells uniform, the
-    rest glorot (the conv stem's with its receptive field)."""
-    from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+    """Random float32 weights with the names and shapes of
+    ``build_model(cfg)``, drawn from ``seed`` (the JAX init's shapes and
+    distributions, not its values), decided by path: LayerNorm gains ones,
+    biases zeros, LSTM cells uniform, embeddings normal / sqrt(width), the
+    transformer speller's positions normal * 0.02, the rest glorot (the
+    conv stem's with its receptive field; the CTC head's matrix too)."""
+    from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 
     rng = np.random.default_rng(seed)
-    params = dict(Seq2Seq(cfg).named_parameters())
+    params = dict(build_model(cfg).named_parameters())
     out = {}
     for name, p in params.items():
         group = name.rsplit(".", 1)[0]
-        out[name] = _fan_init(rng, name, tuple(p.shape), cfg,
+        out[name] = _fan_init(rng, name, tuple(p.shape),
                               lstm=f"{group}.w_hh" in params
                               ).astype(np.float32)
     return out

@@ -19,8 +19,18 @@ concatenated global batch, with no process group in the way.
   white and babble noise and ``train.grad_accum=2`` (each rank holding its
   rows of each microbatch; babble mixing rows of both ranks): as above,
   and both generators left where one process's are.
+* The same at global B=6 and B=2 with ``train.grad_accum=2`` (the
+  reference's lcm granule, not a multiple of world x accumulation): each
+  rank holds a ceil-sized block of every microbatch, 2 rows and 1 of a
+  microbatch of 3, or 1 and none of a microbatch of 1 (the empty rank runs
+  an unreal stand-in row, makes the draws and joins the reductions);
+  the Solver's granule is held against the reference's in
+  tests/test_torch_solver.py.
 * A 2-rank Solver run of 4 steps (``train.async_ckpt``, validation and a
-  checkpoint every 2): replicas bitwise equal, checkpoints written by rank
+  checkpoint every 2; constant-frames batches of 6 rows with
+  ``train.grad_accum=2``, so each microbatch of 3 splits 2 + 1 and the
+  step takes the global sizes the Solver passes, as training does):
+  replicas bitwise equal, checkpoints written by rank
   0 alone, the sharded validation's records summing to the dev set, and a
   resume from step 2 in a fresh workdir bitwise equal to the straight run
   at step 4 (after tests/test_multihost.py).
@@ -56,10 +66,15 @@ AUGMENT = ["model.enc_dropout=0.2", "model.dec_dropout=0.2",
            "frontend.noise_aug_prob=1.0",
            "frontend.noise_sources=[white,babble]", "train.grad_accum=2",
            "train.batch_size=8"]
-# configs/synthetic_smoke.yaml at a small width, 48 utterances (global
-# batches of 4, 2 rows a rank), a dev set of 12 in 3 batches: rank 0
-# decodes two of them, rank 1 one
+# the global batches of the uneven cases (train.grad_accum=2, 2 ranks)
+UNEVEN = {"uneven": 6, "empty": 2}
+# configs/synthetic_smoke.yaml at a small width, 48 utterances in its
+# 144-frame bucket, constant-frames batches of 900 // 144 = 6 rows (the
+# lcm(2, 2) granule) in 2 microbatches of 3: rank 0 holds 2 rows of each,
+# rank 1 one, the sizes the step takes from the Solver; a dev set of 12
+# in 3 batches of train.batch_size: rank 0 decodes two of them, rank 1 one
 SOLVER = ["data.num_synthetic_utts=48", "train.batch_size=4",
+          "data.batch_frames=900", "train.grad_accum=2",
           "model.enc_hidden=8", "model.enc_layers=1",
           "model.enc_base_layers=1", "model.attn_dim=8",
           "model.dec_hidden=16", "model.embed_dim=8",
@@ -73,7 +88,7 @@ SOLVER = ["data.num_synthetic_utts=48", "train.batch_size=4",
 # the ranks
 # --------------------------------------------------------------------- #
 
-def _step_case(out: Path, case: str) -> None:
+def _step_case(case: str) -> dict:
     import torch
 
     from semi_supervised_asr_tpu_torch import weights
@@ -89,13 +104,16 @@ def _step_case(out: Path, case: str) -> None:
 
     semi = case == "semi"
     config = "configs/ls100_semi.yaml" if semi else "configs/timit.yaml"
-    cfg = load_config(REPO / config, STEP + {"semi": SEMI,
-                                             "augment": AUGMENT}.get(case, []))
+    extra = {"semi": SEMI, "augment": AUGMENT}.get(case, [])
+    if case in UNEVEN:
+        extra = AUGMENT + [f"train.batch_size={UNEVEN[case]}"]
+    cfg = load_config(REPO / config, STEP + extra)
     bundle = build_datasets(cfg)
     cfg = finalize_config(cfg, bundle.vocab.size)
     spec = make_bucket_spec(cfg.data, cfg.frontend, cfg.model.time_reduction)
     # rows of unequal lengths, the last a filler row
-    rows = [0, 1, 2, 0] if case != "augment" else [0, 1, 2, 3, 4, 5, 6, 0]
+    rows = {"augment": [0, 1, 2, 3, 4, 5, 6, 0], "uneven": [0, 1, 2, 3, 4, 0],
+            "empty": [4, 0]}.get(case, [0, 1, 2, 0])
     lab = pipeline.assemble_batch(bundle.train, rows, len(rows) - 1,
                                   (128, 12), spec, cfg.frontend)
     n = len(rows)
@@ -121,6 +139,8 @@ def _step_case(out: Path, case: str) -> None:
         args = [torch.as_tensor(getattr(lab, f)[pos])
                 for f in ("audio", "audio_lens", "tokens", "real")]
         kw = {k: torch.as_tensor(v[pos]) for k, v in unlab.items()}
+        if dp is not None:     # the global batches' sizes, as the Solver
+            kw["global_rows"] = (n, 4, 4)
         loss, aux, grads = TS.loss_and_grads(cfg, state, *args, cmvn,
                                              dp=dp, **kw)
         return {"loss": loss, "aux": {k: float(v) for k, v in aux.items()},
@@ -136,7 +156,7 @@ def _step_case(out: Path, case: str) -> None:
     res = {"dp": run(mine, dp)}
     if dp.rank == 0:
         res["one"] = run(slice(0, n), None)
-    torch.save(res, out / f"rank{dp.rank}.pt")
+    return res
 
 
 def _solver_case(out: Path) -> None:
@@ -149,6 +169,7 @@ def _solver_case(out: Path) -> None:
     cfg = load_config(REPO / "configs/synthetic_smoke.yaml", SOLVER)
     run, res = out / "run", out / "resumed"
     s = Solver(cfg, run, "cpu")
+    rows = next(s._labeled_stream())[2].audio.shape[0]
     final = s.train()
     test = s.test(mode="greedy", out_path=out / "hyps.jsonl")
     _, records, _, _ = s._score_batches(s.bundle.dev, s.state.model,
@@ -163,7 +184,8 @@ def _solver_case(out: Path) -> None:
     s2.train(resume=True)
     torch.save({"state": sd, "resumed": s2.state.state_dict(),
                 "final": final, "test": test, "n_records": len(records),
-                "history": s.history, "dev_size": len(s.bundle.dev)},
+                "history": s.history, "dev_size": len(s.bundle.dev),
+                "rows": rows},
                out / f"rank{MESH.rank()}.pt")
 
 
@@ -179,7 +201,12 @@ def _worker(case: str, out: str) -> None:
         if case == "solver":
             _solver_case(Path(out))
         else:
-            _step_case(Path(out), case)
+            import torch
+
+            # the uneven cases share one pair of ranks
+            res = ({c: _step_case(c) for c in UNEVEN} if case == "uneven"
+                   else _step_case(case))
+            torch.save(res, Path(out) / f"rank{MESH.rank()}.pt")
     finally:
         MESH.destroy()
 
@@ -231,6 +258,7 @@ def _check_step(results) -> None:
     # the ranks hold unequal token counts, so a mean of per-rank means
     # would not be the global batch's mean
     assert a["tokens"] != b["tokens"]
+    assert a["tokens"] + b["tokens"] == one["tokens"]
     np.testing.assert_allclose(a["loss"].item(), one["loss"].item(),
                                rtol=1e-6)
     for k in a["aux"]:
@@ -270,6 +298,22 @@ def test_two_ranks_dropout_noise_accum_match_one_process(tmp_path):
     _check_step(res)
 
 
+def test_two_ranks_uneven_microbatches_match_one_process(tmp_path):
+    """``train.grad_accum=2`` over 2 ranks at global batches the world does
+    not divide per microbatch: ceil-sized blocks (2 + 1 rows of a
+    microbatch of 3, or 1 + an empty block of a microbatch of 1), the
+    draws made at the microbatch's shape."""
+    from semi_supervised_asr_tpu_torch.data.pipeline import rank_rows
+
+    assert [rank_rows(6, (r, r + 1, 2), 2).tolist() for r in (0, 1)] \
+        == [[0, 1, 3, 4], [2, 5]]
+    assert [rank_rows(2, (r, r + 1, 2), 2).tolist() for r in (0, 1)] \
+        == [[0, 1], []]
+    res = spawn("uneven", tmp_path)
+    for case in UNEVEN:
+        _check_step([r[case] for r in res])
+
+
 def test_two_rank_solver_run_and_resume(tmp_path):
     import torch
 
@@ -277,6 +321,8 @@ def test_two_rank_solver_run_and_resume(tmp_path):
     first = _first_difference(r0["state"], r1["state"])
     assert first is None, f"replicas differ at {first}"
     assert r0["state"]["step"] == 4
+    # the ranks' shares of a batch of 6 in microbatches of 3: 2 + 2, 1 + 1
+    assert [r0["rows"], r1["rows"]] == [4, 2]
     # rank 0 alone wrote the checkpoints and the metrics
     ckpts = sorted(p.name for p in (tmp_path / "run" / "checkpoints")
                    .iterdir())

@@ -419,3 +419,72 @@ def test_metrics_logger_writes_the_reference_records(tmp_path):
     assert set(rec) == {"step", "time", "prefix", "loss", "n", "tag"}
     assert (rec["step"], rec["prefix"], rec["loss"], rec["n"], rec["tag"]
             ) == (3, "dev", 1.5, 2.0, "x")
+
+
+def _corpus_trees(root: Path) -> None:
+    """Tiny TIMIT and LibriSpeech trees, written with the port's FLAC
+    encoder: TIMIT holds a RIFF WAV, a NIST SPHERE .WAV, a dialect
+    sentence (skipped) and a FLAC (not a TIMIT extension: ignored);
+    LibriSpeech one speaker with a WAV and a FLAC utterance, and a
+    transcript line without audio (skipped)."""
+    from semi_supervised_asr_tpu_torch.utils.flac import write_flac_verbatim
+    from tests.test_sphere import write_sphere
+
+    rng = np.random.default_rng(4)
+
+    def pcm(n):
+        return rng.integers(-3000, 3000, n).astype(np.int16)
+
+    spk = root / "timit" / "TRAIN" / "DR1" / "FAKS0"
+    spk.mkdir(parents=True)
+    wavfile.write(spk / "SI943.WAV", 16000, pcm(1200))
+    write_sphere(spk / "SX13.WAV", pcm(900))
+    wavfile.write(spk / "SA1.WAV", 16000, pcm(300))
+    write_flac_verbatim(spk / "SX99.flac", pcm(500))
+    for stem, phones in (("SI943", "h# sh iy hh ae dcl h#"),
+                         ("SX13", "h# dh ax h#"), ("SA1", "h# aa h#"),
+                         ("SX99", "h# iy h#")):
+        (spk / f"{stem}.PHN").write_text("".join(
+            f"{i * 100} {i * 100 + 100} {p}\n"
+            for i, p in enumerate(phones.split())))
+    for split in ("train-clean-100", "dev-clean"):
+        d = root / "ls" / split / "19" / "198"
+        d.mkdir(parents=True)
+        wavfile.write(d / "19-198-0000.wav", 16000, pcm(1500))
+        write_flac_verbatim(d / "19-198-0001.flac", pcm(2100))
+        (d / "19-198.trans.txt").write_text(
+            "19-198-0000 THE CAT SAT ON THE MAT\n"
+            "19-198-0001 A CAT AND A HAT\n19-198-0002 NO AUDIO HERE\n")
+
+
+@pytest.mark.parametrize("corpus, argv", [
+    ("timit", ["--splits", "TRAIN"]),
+    ("timit", ["--splits", "train", "--fold48"]),
+    ("librispeech", ["--bpe", "40"]),
+])
+def test_preprocess_matches_jax(corpus, argv, tmp_path, capsys):
+    """The port's corpus CLI writes the reference's manifests, vocab.json
+    and bpe.json byte for byte."""
+    from semi_supervised_asr_tpu.data import preprocess as JPRE
+    from semi_supervised_asr_tpu_torch.data import preprocess as PPRE
+
+    _corpus_trees(tmp_path)
+    root = tmp_path / ("timit" if corpus == "timit" else "ls")
+    outs = {}
+    for name, mod in (("jax", JPRE), ("port", PPRE)):
+        out = tmp_path / f"out_{name}"
+        assert mod.main([corpus, "--root", str(root), "--out", str(out),
+                         *argv]) == 0
+        outs[name] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+    assert outs["port"] == outs["jax"]
+    names = set(outs["port"])
+    assert "vocab.json" in names
+    assert ("bpe.json" in names) == ("--bpe" in argv)
+    manifest = [json.loads(line) for name in sorted(names - {"vocab.json",
+                                                             "bpe.json"})
+                for line in outs["port"][name].decode().splitlines()]
+    assert len(manifest) == (2 if corpus == "timit" else 4)
+    assert all(e["n_samples"] > 0 for e in manifest)
+    with pytest.raises(SystemExit, match="h5py"):
+        PPRE.main([corpus, "--root", str(root), "--out",
+                   str(tmp_path / "f"), "--features"])

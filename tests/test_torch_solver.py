@@ -213,3 +213,23 @@ def test_resumable_streams_match_jax():
                                      drop_remainder=drop)
                 == JP.epoch_batch_count(lens, jspec, 4, 0, 0,
                                         drop_remainder=drop))
+
+
+@pytest.mark.parametrize("world, accum, frames", [(2, 2, 48), (2, 3, 40),
+                                                  (4, 2, 16), (1, 2, 12)])
+def test_batch_granule_is_the_reference_lcm(world, accum, frames):
+    """The labeled stream's ``data.batch_frames`` batch sizes under data
+    parallelism and accumulation: the reference's ``lcm(data-axis size,
+    grad_accum)`` granule (``_train_batch_size`` of both Solvers)."""
+    from types import SimpleNamespace
+
+    over = ["train.batch_size=64", f"train.grad_accum={accum}",
+            f"data.batch_frames={frames * 100}"]
+    ref = JaxSolver._train_batch_size(SimpleNamespace(
+        mesh=SimpleNamespace(devices=np.zeros((world, 1))),
+        cfg=jax_load_config("configs/timit.yaml", over)))
+    port = SimpleNamespace(cfg=load_config("configs/timit.yaml", over),
+                           world=world, _accum=lambda: accum)
+    got = Solver._train_batch_size(port)
+    for key in [(f, u) for f in (100, 200, 400, 800) for u in (10, 50)]:
+        assert got(key) == ref(key), key

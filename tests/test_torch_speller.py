@@ -204,7 +204,7 @@ def test_beam_tokens_identical_to_jax(coverage, encoded):
 
 def test_beam_refuses_unported_options(encoded):
     _, model, _, t = _decode_inputs(encoded)
-    for dcfg in (DecodeConfig(lm_weight=0.3), DecodeConfig(ctc_weight=0.5),
+    for dcfg in (DecodeConfig(lm_weight=0.3), DecodeConfig(lm_ckpt="lm"),
                  DecodeConfig(bias_phrases="hot.txt")):
         with pytest.raises(NotImplementedError):
             beam_decode_from_enc(model.speller, dcfg, *t, MAX_LEN)

@@ -50,7 +50,7 @@ from semi_supervised_asr_tpu_torch.data import pipeline
 from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
 from semi_supervised_asr_tpu_torch.data.registry import build_datasets
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
-from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
 from semi_supervised_asr_tpu_torch.ops import frontend as F
 from semi_supervised_asr_tpu_torch.training import schedules as SCH
@@ -186,7 +186,14 @@ def _pass_masks(enc_rate, dec_rate, enc_shapes, dec_shape):
                                     1.0 - enc_rate, shape)
                for i, shape in enumerate(enc_shapes)]
         dec = None
-        if dec_shape is not None:
+        if dec_shape is not None and len(dec_shape) == 4:
+            # the transformer speller: site i of [b, u, d] from
+            # fold_in(rng, i), stacked on axis 1
+            b, sites, u, width = dec_shape
+            dec = jnp.stack([jax.random.bernoulli(
+                jax.random.fold_in(rng, i), 1.0 - dec_rate, (b, u, width))
+                for i in range(sites)], axis=1)
+        elif dec_shape is not None:
             b, u, width = dec_shape
             steps = jax.random.split(rng, u)
             dec = jnp.stack([jax.random.bernoulli(
@@ -359,7 +366,7 @@ def step_setup():
 
 
 def port_model(cfg, flat):
-    model = Seq2Seq(cfg.model)
+    model = build_model(cfg.model)
     weights.load_flat(model, flat)
     return model
 
@@ -530,7 +537,10 @@ def test_accum_matches_full_batch(step_setup):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5)
 
 
-def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None):
+def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None,
+                          keys=("loss", "ce", "acc", "grad_norm")):
+    """The port's step against JAX's from the same state -> the port's
+    metrics (``keys``: the metrics compared)."""
     tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
     opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
     state = JT.TrainState(params=tree, opt_state=opt.init(tree),
@@ -553,7 +563,7 @@ def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None):
     _, _, grads = TS.loss_and_grads(pcfg, st, *args, draws)
     st = TS.init_train_state(pcfg, model, seed=0)
     got = TS.supervised_step(pcfg, st, *args, draws)
-    for k in ("loss", "ce", "acc", "grad_norm"):
+    for k in (*keys, *(k for k in ("ctc", "nll_per_label") if k in ref)):
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
                                    err_msg=k)
     assert got["tf_rate"] == float(ref["tf_rate"]) == 1.0
@@ -580,6 +590,7 @@ def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None):
         want = ref_params[n] - lr * (u(g.numpy()) - u(ref_grads[n]))
         np.testing.assert_allclose(p.detach().numpy(), want, rtol=0,
                                    atol=1e-6, err_msg=n)
+    return got
 
 
 # train.remat_encoder + train.bf16_weight_stream against JAX: both cast
