@@ -117,7 +117,8 @@ failure raises and the script exits non-zero:
     buffer, Adam moments and count, generator) bitwise;
     a float32 step from fresh weights and a bf16 step from the trained
     ones with the gate open and every row kept, kernels against plain:
-    the clean view, the teacher's hypotheses, then the loss and every
+    the clean view, the teacher's encoder output (K2_TOL in float32,
+    BF16_TOL in bf16) and hypotheses, then the loss and every
     gradient on the same hypotheses (1e-5 / GRAD_TOL in float32, the
     phase-7 bounds in bf16) and the EMA buffer after the update (1e-6);
     K2 and K3 at the step's first-layer shapes (B=64, H=384, T=400 and
@@ -197,13 +198,35 @@ failure raises and the script exits non-zero:
     ``objective.lambda_ctc=0.3``: a step, beam 5 with
     ``decode.ctc_weight=0.3`` rescoring and one-pass, ``main --test
     --beam 0``.
+18. the transducer family: (a) ``configs/ls100_transducer.yaml`` as
+    shipped (enc 384 x (1 + 3) BiLSTM, pred 512, joint 512, embed 256,
+    bf16, remat, B=64) through the Solver: 3 steps with their launches
+    (K1 1, K2 9, K3 5: the listener's 4, again under remat, and the
+    predictor's), the greedy validation (K1 1, K2 4 a dev batch), step 2's
+    checkpoint resumed in a fresh workdir to step 3 bitwise, the same step
+    twice bitwise (the lattice loss's backward has no atomic sums), a
+    bf16 and a float32 step kernels against plain, ``test`` greedy and
+    beam 4; a step at the 1600-frame / 256-token bucket (T' = 200, U + 1
+    = 257) with its peak memory and the lattice loss's share; (b)
+    ``configs/ls100_transducer_semi.yaml``: 3 steps (K1 3, K2 19, K3 11),
+    the gate open from step 2, a bf16 and a float32 step kernels against
+    plain (the teacher's encoder output and hypotheses, loss, gradients,
+    EMA buffer), ``test`` beam
+    4 and the
+    4-best of a dev batch; (c) ``configs/ls100_transducer_streaming.yaml``
+    offline: 2 steps (the forward-only listener's K2 and K3 on the
+    CUDA-core route, the predictor's on the cluster route), the
+    validation, ``test`` beam 4, a bf16 step kernels against plain; K2 and
+    K3 at D=1, B=64: H=768 at T=1600 and 200 (ragged rows) and H=512 at
+    T=257, against their plain versions, then timed with every step valid
+    beside cuDNN's one-direction layer.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
 was taken, and its design; launches from the timit Solver run (phase 14)
 for K1-K3, from the conformer training run for K5, and per path in
 ``launches_by_path``, the C5 run as ``c5_dp``; K2 and K3 also at the C4
-shapes in ``at_c4``); the
+shapes in ``at_c4`` and at phase 18's in ``at_transducer``); the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
 of each path (the C4 step included) there.
@@ -421,6 +444,62 @@ AED_OVERRIDES = ["data.dataset=synthetic", "data.num_synthetic_utts=32",
                  "train.batch_size=32", "data.frame_buckets=[800]",
                  "data.token_buckets=[128]"]
 AED_RUN = ["train.total_steps=3", "train.eval_every=0", "train.log_every=1"]
+
+
+# phase 18: the transducer family.  (a) configs/ls100_transducer.yaml as
+# shipped (enc 384 x (1 + 3) BiLSTM, pred 512 x 1, joint 512, embed 256,
+# bf16, remat_encoder, B=64, char units) but for its data and the run's
+# length: the synthetic corpus of 64 utterances, all in one 400-frame /
+# 128-token batch of 64, 3 steps with a checkpoint at step 2 and the final
+# greedy validation; then the same corpus padded to the 1600-frame /
+# 256-token bucket (T' = 200, U + 1 = 257) for the step's time and memory
+TD_CONFIG = ROOT / "configs" / "ls100_transducer.yaml"
+TD_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
+TD_RUN = ["data.frame_buckets=[400]", "train.total_steps=3",
+          "train.ckpt_every=2", "train.eval_every=0", "train.log_every=1"]
+# a transducer step under remat: K1 once; K2 once a listener layer, again
+# in the backward's recomputation, and once for the predictor; K3 once a
+# listener layer and once for the predictor.  A validation batch: K1 once
+# and K2 once a listener layer (the greedy walk steps the predictor with
+# the plain cell)
+TD_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 9,
+                    "lstm_scan_bwd": 5}
+TD_EVAL_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4}
+# (b) configs/ls100_transducer_semi.yaml: labeled, unlabeled-audio and
+# unlabeled-text batches of 64 from the same corpus, 3 steps with a
+# checkpoint at step 2 and the final validation; the one cut beside the
+# data and the run's length is the pseudo-label gate opened after one
+# step.  The labeled stream lands in the 400-frame / 128-token bucket, the
+# unlabeled streams in 1600 / 256 (T' = 200, pseudo-labels capped at the
+# labeled bucket's 128).  A step: K1
+# for the labeled, the clean and the augmented view; K2 9 as (a), 1 for
+# the internal LM's predictor on the text, 4 for the teacher's clean
+# encode, 4 + 1 for the student on the augmented view; K3 5 as (a), 1 for
+# the internal LM, 4 + 1 for the student
+TD_SEMI_CONFIG = ROOT / "configs" / "ls100_transducer_semi.yaml"
+TD_SEMI_RUN = ["train.total_steps=3", "train.ckpt_every=2",
+               "train.eval_every=0", "train.log_every=1",
+               "objective.pseudo_warmup_steps=1"]
+TD_SEMI_LAUNCHES = {"fused_post_fft": 3, "lstm_scan_fwd": 19,
+                    "lstm_scan_bwd": 11}
+# (c) configs/ls100_transducer_streaming.yaml offline (forward-only
+# listener of 768, VALID framing), 2 steps at the 400-frame bucket and
+# the final validation: the listener's K2 and K3 run on the CUDA-core
+# route (H=768 is above CLUSTER_MAX_HIDDEN), the predictor's on the
+# cluster route
+TD_STREAM_CONFIG = ROOT / "configs" / "ls100_transducer_streaming.yaml"
+TD_STREAM_RUN = ["data.frame_buckets=[400]", "train.total_steps=2",
+                 "train.ckpt_every=0", "train.eval_every=0",
+                 "train.log_every=1"]
+TD_STREAM_ROUTES = {"lstm_scan_fwd_simt": 8, "lstm_scan_fwd_cluster": 1,
+                    "lstm_scan_bwd_simt": 4, "lstm_scan_bwd_cluster": 1}
+# K2 and K3 at the family's new one-direction shapes, B=64, bf16: (tag, T,
+# input width, H, every step valid on the path) -- the streaming listener's
+# first layer (80 mels at T=1600) and last pyramid layer (T=200), ragged
+# rows, and the predictor over [SOS, y] at the 256-token bucket
+TD_LSTM_SHAPES = (("listener_t1600", 1600, 80, 768, False),
+                  ("listener_t200", 200, 1536, 768, False),
+                  ("predictor_t257", 257, 256, 512, True))
 
 
 def c4_tag(t: int) -> str:
@@ -1755,14 +1834,20 @@ def semi_solver(d: Path, dtype: str, extra=()):
 
 
 def semi_step_check(s, loss_tol: float = 1e-5,
-                    grad_tol: float = GRAD_TOL) -> None:
-    """One C4 step from the Solver's weights (student and EMA teacher),
+                    grad_tol: float = GRAD_TOL, phase: str = "phase13"
+                    ) -> None:
+    """One semi-supervised step (C4, or the transducer's: the family of the
+    Solver's model) from the Solver's weights (student and EMA teacher),
     the first batch of its streams and fixed SpecAugment bands, gate open
     and every row kept (SEMI_CHECK), in its compute dtype, kernels against
     plain:
-    the clean view and the teacher's hypotheses are compared first, then
-    both runs take the kernel teacher's hypotheses, so that the student's
-    loss and gradients are compared on the same targets (loss within
+    the clean view (within K1_TOL in float32) and the teacher's encoder
+    output on the kernels' clean view (no grad, within K2_TOL in float32,
+    BF16_TOL in bf16) are compared first, and the share of rows whose
+    greedy hypotheses agree is logged (required >= 0.95 in float32 only:
+    in bf16 a near-tie of two logits flips a row's argmax); then both
+    runs take the kernel teacher's hypotheses, so that the student's loss
+    and gradients are compared on the same targets (loss within
     ``loss_tol`` relative, every gradient leaf within ``grad_tol`` of the
     model's largest entry); the EMA buffer after the update within 1e-6."""
     import numpy as np
@@ -1770,12 +1855,17 @@ def semi_step_check(s, loss_tol: float = 1e-5,
 
     from semi_supervised_asr_tpu_torch import _native
     from semi_supervised_asr_tpu_torch.objectives import losses as LO
+    from semi_supervised_asr_tpu_torch.objectives import (
+        transducer_semi as TSEMI,
+    )
     from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     cfg = dataclasses.replace(s.cfg, objective=dataclasses.replace(
         s.cfg.objective, **SEMI_CHECK))
     dtype = cfg.model.compute_dtype
+    fam = TSEMI if cfg.model.family == "transducer" else LO
+    keys = ("ce" if fam is LO else "nll_per_label", fam.TEXT_KEY, "pseudo")
     fcfg = cfg.frontend
     _, _, batch = next(s._labeled_stream())
     tensors, unlab = s.step_inputs(batch, *s._unlabeled_streams())
@@ -1793,15 +1883,27 @@ def semi_step_check(s, loss_tol: float = 1e-5,
         views[backend] = TS.featurize(cfg, unlab["unlab_audio"],
                                       unlab["unlab_audio_lens"], s.cmvn_dev,
                                       False, backend)
-        labels[backend] = LO.teacher_labels(s.state.ema, *views[backend],
-                                            max_len, backend)
+        labels[backend] = fam.step_teacher_labels(
+            s.state.ema, cfg, *views[backend], max_len, backend)
     unlab_bands = bands(unlab["unlab_audio_lens"], views[None][0].shape[1])
     view_err = (views[None][0] - views["reference"][0]).abs().max().item()
+    with torch.inference_mode():
+        enc = {backend: s.state.ema.encode(*views[None], backend)[:2]
+               for backend in (None, "reference")}
+    require(bool(torch.equal(enc[None][1], enc["reference"][1])),
+            "the teacher's encoder masks differ")
+    require(bool(torch.isfinite(enc[None][0]).all()),
+            "the teacher's encoder output is not finite")
+    enc_err = (enc[None][0] - enc["reference"][0]).abs().max().item()
+    enc_tol = K2_TOL if dtype == "float32" else BF16_TOL
+    del enc
     same = float(np.mean(np.all(
         (labels[None][0] == labels["reference"][0]).cpu().numpy(), axis=1)))
-    log(f"[phase13] {dtype} clean view (K1 vs plain) max_abs_err "
-        f"{view_err:.3e}; teacher's greedy hypotheses (K2 no-grad vs "
-        f"plain) identical in {same:.3f} of the rows")
+    log(f"[{phase}] {dtype} clean view (K1 vs plain) max_abs_err "
+        f"{view_err:.3e}; teacher's encoder output on it (K2 no-grad vs "
+        f"plain) max_abs_err {enc_err:.3e} (tol {enc_tol:g}); teacher's "
+        f"greedy hypotheses identical in {same:.3f} of the rows")
+    require(enc_err <= enc_tol, f"{dtype} teacher encoder error {enc_err}")
     if dtype == "float32":
         require(view_err <= K1_TOL, f"clean view error {view_err}")
         # a near-tie of two logits can flip one row's argmax; a fault in
@@ -1823,10 +1925,10 @@ def semi_step_check(s, loss_tol: float = 1e-5,
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         out[backend] = (loss, aux, grads, list(state.ema.parameters()))
-        log(f"[phase13] {dtype} check step on "
+        log(f"[{phase}] {dtype} check step on "
             f"{backend or 'the kernels'}: {ms:.0f} ms; "
             + ", ".join(f"{k} {float(aux[k]):.6f}"
-                        for k in ("ce", "text_ae", "pseudo", "pseudo_gate")))
+                        for k in (*keys, "pseudo_gate")))
         del state
     routes = {k: v for k, v in _native.LAUNCHES.items() if v}
     (lk, ak, gk, ek), (lr, ar, gr, er) = out[None], out["reference"]
@@ -1835,17 +1937,17 @@ def semi_step_check(s, loss_tol: float = 1e-5,
     errs = dict(zip(names, grad_errs(gk, gr)))
     worst = max(errs, key=errs.get)
     ema_err = max((a - b).abs().max().item() for a, b in zip(ek, er))
-    log(f"[phase13] {dtype} C4 step, kernels vs plain (kernel launches "
+    log(f"[{phase}] {dtype} semi step, kernels vs plain (kernel launches "
         f"{routes}): loss {lk.item():.6f} vs {lr.item():.6f} (rel "
         f"{rel:.2e}, tol {loss_tol:g}); worst gradient leaf {worst} "
         f"{errs[worst]:.3e} of the model's max |g| over {len(errs)} leaves "
         f"(tol {grad_tol:g}); EMA buffer max_abs_err {ema_err:.3e} (tol "
         f"1e-6)")
-    require(all(float(ak[k]) > 0 for k in ("ce", "text_ae", "pseudo")),
-            "a term of the C4 loss is zero")
-    require(rel <= loss_tol, f"{dtype} C4 step loss differs: rel {rel}")
-    require(errs[worst] <= grad_tol, f"C4 gradient {worst} differs")
-    require(ema_err <= 1e-6, f"C4 EMA buffer differs by {ema_err}")
+    require(all(float(ak[k]) > 0 for k in keys),
+            f"a term of the {phase} semi loss is zero")
+    require(rel <= loss_tol, f"{dtype} semi step loss differs: rel {rel}")
+    require(errs[worst] <= grad_tol, f"semi gradient {worst} differs")
+    require(ema_err <= 1e-6, f"semi EMA buffer differs by {ema_err}")
 
 
 def c4_lstm_times(times: dict, card: str) -> None:
@@ -1907,11 +2009,13 @@ def launch_delta(before: dict, after: dict) -> dict:
             if after[k] - before.get(k, 0)}
 
 
-def counting(solver, steps: list, evals: list, walls: list) -> None:
+def counting(solver, steps: list, evals: list, walls: list,
+             peaks: list | None = None) -> None:
     """Record each step's and each validation's kernel launches (the
     difference of the counts around the call, so the run's own counts
-    stay whole) and each step's wall time, by wrapping the Solver's
-    ``run_step`` and ``validate`` on this instance."""
+    stay whole), each step's wall time and, given ``peaks``, its peak
+    device memory (GiB), by wrapping the Solver's ``run_step`` and
+    ``validate`` on this instance."""
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
@@ -1920,12 +2024,16 @@ def counting(solver, steps: list, evals: list, walls: list) -> None:
 
     def counted_step(args, unlab):
         torch.cuda.synchronize()
+        if peaks is not None:
+            torch.cuda.reset_peak_memory_stats()
         before = dict(_native.LAUNCHES)
         t0 = time.perf_counter()
         m = run_step(args, unlab)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         steps.append(launch_delta(before, _native.LAUNCHES))
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         return m
 
     def counted_validate():
@@ -1965,12 +2073,18 @@ def first_difference(a, b, path: str = "") -> str | None:
     return None if a == b else path
 
 
-def require_launches(what: str, got: dict, want: dict) -> None:
-    """``got`` holds exactly ``want``'s counts, every K2 / K3 launch on the
-    cluster route."""
+def require_launches(what: str, got: dict, want: dict,
+                     routes: dict | None = None) -> None:
+    """``got`` holds exactly ``want``'s counts, and ``routes``' launches by
+    route (``lstm_scan_{fwd,bwd}_{cluster,simt}``), by default every K2 /
+    K3 launch on the cluster route."""
     main = {k: got.get(k, 0) for k in LSTM_PATH}
     require(main == {k: want.get(k, 0) for k in LSTM_PATH},
             f"{what}: kernel launches {got}, not {want}")
+    if routes is not None:
+        require(all(got.get(k, 0) == n for k, n in routes.items()),
+                f"{what}: launches by route {got}, not {routes}")
+        return
     for k in ("fwd", "bwd"):
         require(got.get(f"lstm_scan_{k}_cluster", 0)
                 == got.get(f"lstm_scan_{k}", 0),
@@ -2437,16 +2551,17 @@ def step_check(s, phase: str, loss_tol: float = 1e-5,
 
 
 def cudnn_lstm(x, w_ih, bias, w_hh, valid):
-    """torch.nn.LSTM (cuDNN) holding the layer's weights, bf16 when the
-    cell takes it, and its packed input -> (module, packed, dtype)."""
+    """torch.nn.LSTM (cuDNN) holding the layer's weights (w_hh [D, H, 4H]:
+    one direction or both), bf16 when the cell takes it, and its packed
+    input -> (module, packed, dtype)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
     b, t, i = x.shape
-    h = w_hh.shape[1]
-    lstm = torch.nn.LSTM(i, h, batch_first=True, bidirectional=True)
+    d, h = w_hh.shape[:2]
+    lstm = torch.nn.LSTM(i, h, batch_first=True, bidirectional=d == 2)
     with torch.no_grad():
-        for sfx, dd in (("", 0), ("_reverse", 1)):
+        for sfx, dd in (("", 0), ("_reverse", 1))[:d]:
             cols = slice(dd * 4 * h, (dd + 1) * 4 * h)
             getattr(lstm, "weight_ih_l0" + sfx).copy_(w_ih[:, cols].t())
             getattr(lstm, "weight_hh_l0" + sfx).copy_(w_hh[dd].t())
@@ -3258,10 +3373,10 @@ class OpCount:
         self._mode.__exit__(*exc)
 
 
-def ctc_step_twice(s) -> bool:
+def same_step_twice(s) -> bool:
     """The same step (weights, batch, SpecAugment bands) run twice: loss
-    and every gradient bitwise equal (the CTC loss's backward has no
-    atomic sums)."""
+    and every gradient bitwise equal (the CTC and transducer losses'
+    backwards have no atomic sums)."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import frontend as F
@@ -3380,7 +3495,7 @@ def phase17_ctc(d: Path, card: str) -> tuple[dict, dict]:
     require(diff is None and meta_a["data_pos"] == meta_b["data_pos"],
             f"ls100_ctc resume differs at {diff}")
     del sd_a, sd_b
-    same = ctc_step_twice(s)
+    same = same_step_twice(s)
     log(f"[phase17] ls100_ctc: the same step twice, loss and every gradient "
         f"bitwise equal: {same}")
     require(same, "two runs of one ls100_ctc step differ")
@@ -3640,6 +3755,434 @@ def phase17(d: Path, card: str) -> tuple[dict, dict, dict]:
     return ctc_launches, aed_launches, out
 
 
+def td_solver(config: Path, d: Path, extra=()):
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training.solver import Solver
+
+    return Solver(load_config(config, [*TD_DATA, *extra]), d, DEVICE)
+
+
+def td_run(s, what: str, want: dict, eval_want: dict | None,
+           routes: dict | None = None, eval_routes: dict | None = None
+           ) -> tuple[dict, list, list, list, dict]:
+    """``s.train()`` with each step's launches (``want``, by route
+    ``routes``: default all on the cluster route), wall time and peak
+    memory, and its one validation's launches (``eval_want`` a dev batch)
+    -> (the run's launches, the steps' records, walls, peaks, the final
+    validation)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+
+    steps, evals, walls, peaks = [], [], [], []
+    counting(s, steps, evals, walls, peaks)
+    _native.reset_launches()
+    final = s.train()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = s.history
+    require(len(recs) == len(steps) == s.cfg.train.total_steps,
+            f"{what}: {len(steps)} steps")
+    keys = [k for k in ("loss", "nll_per_label", "text_ilm", "pseudo",
+                        "pseudo_gate", "grad_norm") if k in recs[0]]
+    for i, (r, st) in enumerate(zip(recs, steps)):
+        log(f"[phase18] {what} step {i + 1}: "
+            + " ".join(f"{k} {r[k]:.4f}" for k in keys)
+            + f"; wall {walls[i]:.1f} ms; peak memory {peaks[i]:.2f} GiB; "
+            f"kernel launches {st}")
+        require(all(math.isfinite(r[k]) for k in keys),
+                f"{what} step {i + 1} not finite")
+        require_launches(f"{what} step {i + 1}", st, want, routes)
+    n_dev = -(-len(s.bundle.dev) // s.cfg.train.batch_size)
+    require(len(evals) == 1, f"{what}: {len(evals)} validations")
+    scale = {k: n * n_dev for k, n in (eval_want or {}).items()}
+    require_launches(f"{what} validation", evals[0][0], scale,
+                     eval_routes and {k: n * n_dev
+                                      for k, n in eval_routes.items()})
+    log(f"[phase18] {what} validation (greedy, {len(s.bundle.dev)} "
+        f"utterances in {n_dev} batch): {final}; kernel launches "
+        f"{evals[0][0]}; run launches {launches}")
+    require(math.isfinite(final["dev_error"]), f"{what} dev {final}")
+    return launches, recs, walls, peaks, final
+
+
+def td_test(s, mode: str, what: str, card: str, beam: int | None = None
+            ) -> float:
+    """``Solver.test`` (``main --test``) on the dev set by ``mode``, the
+    beam at ``beam`` -> host ms; the error rate must be finite."""
+    import torch
+
+    cfg = s.cfg
+    if beam is not None:
+        s.cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
+            cfg.decode, beam_size=beam))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = s.test(mode=mode)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    s.cfg = cfg
+    log(f"[phase18] {what} --test {mode}"
+        f"{'' if beam is None else f' {beam}'} on the dev set "
+        f"({len(s.bundle.dev)} utterances): {out}; {ms:.1f} ms wall "
+        f"({card})")
+    require(out["n_utts"] == len(s.bundle.dev) and math.isfinite(out["cer"]),
+            f"{what} test {out}")
+    return ms
+
+
+def lattice_ms(s, reps: int = 3) -> tuple[float, float, tuple]:
+    """Wall ms of the transducer loss's forward + backward at the step
+    shapes of the Solver ``s``'s first batch (every frame and label
+    valid: the passes run over every diagonal either way): the lattice
+    Function alone on drawn terms, and the joint grid + lattice terms +
+    Function on the model's joint -> (Function ms, whole loss ms, [B, T',
+    U + 1])."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.models import transducer as TDM
+    from semi_supervised_asr_tpu_torch.objectives import transducer_loss as TL
+
+    batch, (_, _, tokens, _) = first_batch(s)
+    m = s.cfg.model
+    b, u = tokens.shape
+    t_enc = batch.bucket[0] // m.time_reduction
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    enc_lens = torch.full((b,), t_enc, dtype=torch.int32, device=DEVICE)
+    label_lens = torch.full((b,), u, dtype=torch.int32, device=DEVICE)
+    labels = torch.randint(4, m.vocab_size, (b, u), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    terms = [torch.log_softmax(torch.randn((b, t_enc, u + 1, 2),
+                                           generator=gen, device=DEVICE),
+                               -1)[..., i].requires_grad_(True)
+             for i in range(2)]
+    enc = torch.randn((b, t_enc, m.enc_out_dim), generator=gen,
+                      device=DEVICE, requires_grad=True)
+    pred = torch.randn((b, u + 1, m.pred_hidden), generator=gen,
+                       device=DEVICE, requires_grad=True)
+
+    joint = s.state.model.joint
+
+    def lattice():
+        loss, _ = TL.transducer_loss_from_parts(*terms, enc_lens, label_lens)
+        torch.autograd.grad(loss, terms)
+
+    def whole():
+        logits = TDM.joint_logits(joint, enc, pred, m)
+        loss, _ = TL.transducer_loss(logits, enc_lens, labels, label_lens)
+        torch.autograd.grad(loss, [enc, pred, *joint.parameters()])
+
+    out = []
+    for fn in (lattice, whole):
+        ms = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(statistics.median(ms[1:]))
+    return out[0], out[1], (b, t_enc, u + 1)
+
+
+def phase18_td(d: Path, card: str) -> tuple[dict, dict]:
+    """(a) configs/ls100_transducer.yaml at full width through the Solver:
+    3 steps (K1 1, K2 9, K3 5 under remat), the greedy validation, step 2's
+    checkpoint resumed in a fresh workdir to step 3 bitwise, the same step
+    twice bitwise, a bf16 and a float32 step kernels against plain, test
+    greedy and beam 4; then a step and the loss alone at the 1600-frame /
+    256-token bucket with its peak memory."""
+    import shutil
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch.training.checkpointing import (
+        Checkpointer,
+    )
+
+    run = d / "run"
+    s = td_solver(TD_CONFIG, run, TD_RUN)
+    m = s.cfg.model
+    require(m.family == "transducer" and s.cfg.train.remat_encoder
+            and m.enc_layers == 3 and m.pred_hidden == 512
+            and m.joint_dim == 512 and m.compute_dtype == "bfloat16",
+            f"ls100_transducer as shipped: {m}")
+    log(f"[phase18] {TD_CONFIG.name} at full width (enc {m.enc_hidden} x "
+        f"({m.enc_base_layers} + {m.enc_layers}), pred {m.pred_hidden}, "
+        f"joint {m.joint_dim}, embed {m.embed_dim}, {m.compute_dtype}, "
+        f"remat_encoder, B={s.cfg.train.batch_size}, vocab {m.vocab_size}) "
+        f"through the Solver; cuts: {TD_DATA + TD_RUN}")
+    launches, _, walls, peaks, _ = td_run(s, "ls100_transducer",
+                                          TD_STEP_LAUNCHES, TD_EVAL_LAUNCHES)
+    res = d / "resumed"
+    shutil.copytree(run / "checkpoints" / "2", res / "checkpoints" / "2")
+    shutil.copy(run / "cmvn.npz", res / "cmvn.npz")
+    td_solver(TD_CONFIG, res, TD_RUN).train(resume=True)
+    sd_a, meta_a, _ = Checkpointer(run / "checkpoints").load(3)
+    sd_b, meta_b, _ = Checkpointer(res / "checkpoints").load(3)
+    diff = first_difference(sd_a, sd_b)
+    log(f"[phase18] ls100_transducer resumed from step 2 in a fresh "
+        f"workdir: step 3's state "
+        f"{'bitwise equal' if diff is None else 'differs at ' + diff}; "
+        f"data_pos {meta_b['data_pos']} vs {meta_a['data_pos']}")
+    require(diff is None and meta_a["data_pos"] == meta_b["data_pos"],
+            f"ls100_transducer resume differs at {diff}")
+    del sd_a, sd_b
+    same = same_step_twice(s)
+    log(f"[phase18] ls100_transducer: the same step twice, loss and every "
+        f"gradient bitwise equal: {same}")
+    require(same, "two runs of one ls100_transducer step differ")
+    step_check(s, "phase18", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    step_check(td_solver(TD_CONFIG, d / "f32",
+                         [*TD_RUN, "model.compute_dtype=float32"]),
+               "phase18")
+    out = {"td_step_ms": statistics.median(walls[1:]),
+           "td_step_peak_gib": max(peaks)}
+    out["td_test_greedy_ms"] = td_test(s, "greedy", "ls100_transducer",
+                                       card)
+    out["td_test_beam4_ms"] = td_test(s, "beam", "ls100_transducer", card,
+                                      beam=4)
+    del s
+    torch.cuda.empty_cache()
+    big = td_solver(TD_CONFIG, d / "t1600",
+                    ["data.frame_buckets=[1600]", "data.token_buckets=[256]"])
+    lab = big._labeled_stream()
+    walls_1600, peaks_1600 = [], []
+    for _ in range(3):
+        args, unlab = big.step_inputs(next(lab)[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        big.run_step(args, unlab)
+        torch.cuda.synchronize()
+        walls_1600.append((time.perf_counter() - t0) * 1e3)
+        peaks_1600.append(torch.cuda.max_memory_allocated() / 2**30)
+    lat_ms, whole_ms, shape = lattice_ms(big)
+    out.update(td_step_1600_ms=statistics.median(walls_1600[1:]),
+               td_step_1600_peak_gib=max(peaks_1600),
+               td_lattice_1600_ms=lat_ms, td_loss_1600_ms=whole_ms)
+    out["td_lattice_share_1600"] = lat_ms / out["td_step_1600_ms"]
+    out["td_loss_share_1600"] = whole_ms / out["td_step_1600_ms"]
+    log(f"[phase18] ls100_transducer at the 1600-frame / 256-token bucket: "
+        f"step {out['td_step_1600_ms']:.1f} ms wall (median of steps 2-3), "
+        f"peak memory {out['td_step_1600_peak_gib']:.2f} GiB; the lattice "
+        f"Function's forward + backward alone at [B, T', U+1] = "
+        f"{list(shape)}: {lat_ms:.1f} ms wall (median of 3), "
+        f"{out['td_lattice_share_1600']:.3f} of the step; the joint grid + "
+        f"lattice terms + Function: {whole_ms:.1f} ms, "
+        f"{out['td_loss_share_1600']:.3f} of the step; at bucket 400 the "
+        f"step takes {out['td_step_ms']:.1f} ms, peak "
+        f"{out['td_step_peak_gib']:.2f} GiB ({card})")
+    return launches, out
+
+
+def phase18_semi(d: Path, card: str) -> tuple[dict, dict]:
+    """(b) configs/ls100_transducer_semi.yaml at full width through the
+    Solver: 3 steps with labeled, unlabeled-audio and text batches of 64
+    (K1 3, K2 19, K3 11), the gate open from step 2; a bf16 step from the
+    trained weights and a float32 step from fresh ones, kernels against
+    plain; test beam 4 and the 4-best of one dev batch."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.data import pipeline as pipe
+
+    s = td_solver(TD_SEMI_CONFIG, d / "semi", TD_SEMI_RUN)
+    o = s.cfg.objective
+    require(o.lambda_text_ae > 0 and o.lambda_pseudo > 0
+            and o.use_ema_teacher and s.cfg.decode.beam_size == 4,
+            f"ls100_transducer_semi as shipped: {o}")
+    log(f"[phase18] {TD_SEMI_CONFIG.name} at full width, B=64, bf16, "
+        f"through the Solver; cuts: {TD_DATA + TD_SEMI_RUN}")
+    launches, recs, walls, peaks, _ = td_run(
+        s, "ls100_transducer_semi", TD_SEMI_LAUNCHES, TD_EVAL_LAUNCHES)
+    require([r["pseudo_gate"] for r in recs] == [0.0, 1.0, 1.0],
+            "the pseudo-label gate did not open after step 1")
+    semi_step_check(s, BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL, "phase18")
+    semi_step_check(td_solver(TD_SEMI_CONFIG, d / "semi_f32", [
+        *TD_SEMI_RUN, "model.compute_dtype=float32"]), phase="phase18")
+    torch.cuda.empty_cache()
+    out = {"td_semi_step_ms": statistics.median(walls[1:]),
+           "td_semi_step_peak_gib": max(peaks)}
+    out["td_semi_test_beam4_ms"] = td_test(s, "beam",
+                                           "ls100_transducer_semi", card)
+    rec = TR.Recognizer(s.cfg, s.state.model, s.cmvn, s.vocab,
+                        torch.device(DEVICE))
+    batch = next(iter(pipe.epoch_batches(
+        s.bundle.dev, s.spec, s.cfg.frontend, s.cfg.train.batch_size,
+        seed=0, epoch=0, drop_remainder=False)))
+    hyps, scores = rec.decode(batch.audio, batch.audio_lens, "beam",
+                              nbest=True)
+    log(f"[phase18] ls100_transducer_semi 4-best of a dev batch: tokens "
+        f"{hyps.shape}, scores of row 0 {scores[0].tolist()}")
+    require(hyps.shape[1] == 4 and np.isfinite(scores).all()
+            and (np.diff(scores, axis=1) <= 0).all(),
+            "the 4-best is not sorted best first")
+    return launches, out
+
+
+def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
+    """K2 and K3 at TD_LSTM_SHAPES (D=1, B=64, bf16): each against its
+    plain version (bf16 bound) with the path's masking (the listener's
+    ragged rows with a zero-length one), and the route each launch took;
+    then, with every step valid, so that the work is the T x B steps that
+    ``bounds`` counts: the device time of each by CUDA events over
+    back-to-back calls, the plain version's call time, and cuDNN's
+    one-direction layer forward and backward (training forward + backward
+    minus training forward) beside the port's layer (projection + K2; K3
+    + the dW_hh product + the projection's backward), CUDA events over
+    back-to-back calls."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+    from semi_supervised_asr_tpu_torch.ops import recurrent as R
+
+    bf16 = torch.bfloat16
+    for tag, t, i, h, full in TD_LSTM_SHAPES:
+        x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=64, h=h)
+        w_ih, bias, w_hh = w_ih[:, :4 * h], bias[:4 * h], w_hh[:1]
+        if full:
+            valid = torch.ones_like(valid)
+        with torch.inference_mode():
+            gx = (R.mm(x, w_ih, bf16) + bias).transpose(0, 1)[None]
+            gx = gx.contiguous()
+        g = torch.Generator().manual_seed(19)
+        dh_out = torch.randn((1, t, 64, h), generator=g).to(DEVICE)
+        fwd = (gx, w_hh, valid, bf16, (False,))
+        _native.reset_launches()
+        with torch.inference_mode():
+            got = K.lstm_scan(*fwd, residuals=True)
+            torch.cuda.synchronize()
+            want = K.lstm_scan_reference(*fwd, residuals=True)
+        route_f = [k for k in ("cluster", "simt")
+                   if _native.LAUNCHES[f"lstm_scan_fwd_{k}"]]
+        err_f = max((a - b).abs().max().item() for a, b in zip(got, want))
+        bwd = (w_hh, valid, got[3], got[2], dh_out, bf16, (False,))
+        with torch.inference_mode():
+            dg = K.lstm_scan_bwd(*bwd)
+            torch.cuda.synchronize()
+            dg_want = K.lstm_scan_bwd_reference(*bwd)
+        route_b = [k for k in ("cluster", "simt")
+                   if _native.LAUNCHES[f"lstm_scan_bwd_{k}"]]
+        err_b = (dg - dg_want).abs().max().item()
+        log(f"[phase18] K2 at {tag} (D=1, B=64, T={t}, H={h}, bf16, "
+            f"{route_f} route): h, hprev, cprev, acts max_abs_err "
+            f"{err_f:.3e}; K3 ({route_b} route): dgates max_abs_err "
+            f"{err_b:.3e} (tol {BF16_TOL:g})")
+        require(err_f <= BF16_TOL and err_b <= BF16_TOL,
+                f"K2/K3 at {tag} differ from plain: {err_f}, {err_b}")
+        require(route_f == route_b == (["simt"] if h > K.CLUSTER_MAX_HIDDEN
+                                       else ["cluster"]),
+                f"K2/K3 at {tag} took the routes {route_f}, {route_b}")
+        errs[tag] = (err_f, err_b, route_f[0])
+        del got, want, dg, dg_want
+        if not full:
+            # the timing runs every step of every row
+            valid = torch.ones_like(valid)
+            fwd = (gx, w_hh, valid, bf16, (False,))
+            with torch.inference_mode():
+                got = K.lstm_scan(*fwd, residuals=True)
+            bwd = (w_hh, valid, got[3], got[2], dh_out, bf16, (False,))
+            del got
+        with torch.inference_mode():
+            for fn, key in (
+                    (lambda: K.lstm_scan_reference(*fwd), "fwd_plain_call"),
+                    (lambda: K.lstm_scan(*fwd), "fwd_b2b"),
+                    (lambda: K.lstm_scan_bwd_reference(*bwd),
+                     "bwd_plain_call"),
+                    (lambda: K.lstm_scan_bwd(*bwd), "bwd_b2b"),
+                    (lambda: K.lstm_scan(*fwd), "fwd_b2b"),
+                    (lambda: K.lstm_scan_bwd(*bwd), "bwd_b2b")):
+                ms = (back_to_back_ms(fn, reps=4) if key.endswith("b2b")
+                      else cuda_ms(fn, reps=1, warmup=0))
+                times.setdefault(f"td_{tag}_{key}", []).append(ms)
+        del fwd, bwd, gx
+        # the library column: cuDNN's layer against the port's, like with
+        # like (input projection included), forward and backward
+        mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid)
+        require(dtype == bf16, f"cuDNN's layer at {tag} ran in {dtype}")
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (x, w_ih, w_hh[0], bias)]
+        lens = valid.sum(0).to(torch.int32)
+
+        def port_fwd():
+            xg, wi, wh, bb = leaves
+            # the listener's layer takes lengths (all T here), the
+            # predictor's none
+            return K.lstm_kernel({"w_ih": wi, "w_hh": wh, "b": bb}, xg,
+                                 None if full else lens, False, bf16)
+
+        def cudnn_fwd():
+            return mod(packed)[0].data
+
+        for name, fn, params in (("port", port_fwd, leaves),
+                                 ("cudnn", cudnn_fwd,
+                                  [packed.data, *mod.parameters()])):
+            dy = torch.randn_like(fn())
+            with torch.no_grad():
+                f_ms = back_to_back_ms(fn, reps=4)
+            ft_ms = back_to_back_ms(fn, reps=4)
+            both = back_to_back_ms(
+                lambda: torch.autograd.grad(fn(), params, dy), reps=4)
+            times.setdefault(f"td_{tag}_{name}_layer_fwd_b2b", []).append(
+                f_ms)
+            times.setdefault(f"td_{tag}_{name}_layer_bwd_b2b", []).append(
+                both - ft_ms)
+        del mod, packed, leaves, x
+        torch.cuda.empty_cache()
+
+
+def phase18_stream(d: Path, card: str) -> tuple[dict, dict, dict]:
+    """(c) configs/ls100_transducer_streaming.yaml offline at full width:
+    2 steps (the listener's K2 and K3 on the CUDA-core route, the
+    predictor's on the cluster route), the greedy validation, test beam 4;
+    then K2 and K3 at TD_LSTM_SHAPES against plain and cuDNN."""
+    s = td_solver(TD_STREAM_CONFIG, d / "stream", TD_STREAM_RUN)
+    m = s.cfg.model
+    require(not m.enc_bidirectional and m.enc_hidden == 768
+            and m.enc_out_dim == 768 and not s.cfg.frontend.center,
+            f"ls100_transducer_streaming as shipped: {m}")
+    log(f"[phase18] {TD_STREAM_CONFIG.name} offline at full width "
+        f"(forward-only enc {m.enc_hidden} x ({m.enc_base_layers} + "
+        f"{m.enc_layers}), VALID framing, pred {m.pred_hidden}, bf16, remat, "
+        f"B=64) through the Solver; cuts: {TD_DATA + TD_STREAM_RUN}")
+    launches, _, walls, peaks, _ = td_run(
+        s, "ls100_transducer_streaming", TD_STEP_LAUNCHES, TD_EVAL_LAUNCHES,
+        TD_STREAM_ROUTES, {"lstm_scan_fwd_simt": 4})
+    out = {"td_stream_step_ms": statistics.median(walls[1:]),
+           "td_stream_step_peak_gib": max(peaks)}
+    out["td_stream_test_beam4_ms"] = td_test(
+        s, "beam", "ls100_transducer_streaming", card)
+    step_check(s, "phase18", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    del s
+    times, errs = {}, {}
+    td_lstm_shapes(times, errs, card)
+    med = report("phase18", times, card, "D=1, B=64, bf16")
+    out.update(med)
+    return launches, out, errs
+
+
+def phase18(d: Path, card: str) -> tuple[dict, dict, dict, dict]:
+    """Phase 18: the transducer family, (a) ls100_transducer, (b)
+    ls100_transducer_semi, (c) ls100_transducer_streaming offline -> (each
+    one's launches, the numbers, K2/K3 errors at the new shapes)."""
+    import torch
+
+    launches = {}
+    launches["ls100_transducer"], out = phase18_td(d / "td", card)
+    torch.cuda.empty_cache()
+    launches["ls100_transducer_semi"], semi = phase18_semi(d, card)
+    out.update(semi)
+    torch.cuda.empty_cache()
+    launches["ls100_transducer_streaming"], stream, errs = phase18_stream(
+        d, card)
+    out.update(stream)
+    log(f"[phase18] summary {json.dumps(out)}")
+    return launches, out, errs
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -3692,7 +4235,9 @@ def bounds() -> dict:
     over HBM bandwidth and its bf16 products over the tensor-core peak, and
     which of the two.  K1-K3 at phases 5 and 8's (bucket 400, B=32, H=256,
     D=2, bf16 weights), K1 also at B=32, T=1600, K2 and K3 also at phase
-    13's (ls100_semi: B=64, H=384, T=400 and 1600); K5 at phase 12's
+    13's (ls100_semi: B=64, H=384, T=400 and 1600) and phase 18's
+    (TD_LSTM_SHAPES: D=1, B=64, H=768 at T=1600 and 200, H=512 at T=257,
+    timed with every step valid, as counted here); K5 at phase 12's
     (B=32, T'=400, 8 heads of 64, bf16), counting the products these
     lengths need: every query row against the valid keys of its batch row
     (all T keys for an empty row, whose weights are uniform)."""
@@ -3715,6 +4260,9 @@ def bounds() -> dict:
         k2, k3 = lstm_work(tt, 64, 384)
         work[f"lstm_scan_fwd{c4_tag(tt)}"] = k2
         work[f"lstm_scan_bwd{c4_tag(tt)}"] = k3
+    for tag, tt, _, h, _ in TD_LSTM_SHAPES:
+        k2, k3 = lstm_work(tt, 64, h, d=1)
+        work[f"lstm_scan_fwd_{tag}"], work[f"lstm_scan_bwd_{tag}"] = k2, k3
     lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
     work["flash_mhsa_fwd"], work["flash_mhsa_bwd"] = k5_work(K5_TIMING, lens)
     out = {}
@@ -3877,6 +4425,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ctc_launches, aed_launches, p17 = phase17(Path(tmp), card)
     elapsed("phase 17")
+    with tempfile.TemporaryDirectory() as tmp:
+        td_launches, p18, td_errs = phase18(Path(tmp), card)
+    elapsed("phase 18")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -3928,7 +4479,25 @@ def main(argv=None) -> int:
         f"{p17['ctc_step_ms']:.1f} ms wall at bucket 400, "
         f"{p17['ctc_step_1600_ms']:.1f} ms at 1600; ls960_aed main --train "
         f"(3 steps, 1 validation) launches {aed_launches}, step "
-        f"{p17['aed_step_ms']:.1f} ms wall")
+        f"{p17['aed_step_ms']:.1f} ms wall; transducer Solver runs "
+        f"launches {td_launches}, ls100_transducer step "
+        f"{p18['td_step_ms']:.1f} ms wall at bucket 400, "
+        f"{p18['td_step_1600_ms']:.1f} ms at 1600 / 256 (peak "
+        f"{p18['td_step_1600_peak_gib']:.2f} GiB), ls100_transducer_semi "
+        f"step {p18['td_semi_step_ms']:.1f} ms, streaming step "
+        f"{p18['td_stream_step_ms']:.1f} ms")
+    for kind in ("fwd", "bwd"):
+        name = "lstm_scan_" + kind
+        for tag, t, _, h, _ in TD_LSTM_SHAPES:
+            key = f"td_{tag}_"
+            ms, (bms, by) = p18[key + kind + "_b2b"], bound[f"{name}_{tag}"]
+            log(f"[summary] {name} at {tag} (B=64, T={t}, H={h}, D=1, bf16, "
+                f"{td_errs[tag][2]} route): {ms:.4f} ms device (back to "
+                f"back), bound {bms:.4f} ms ({by}), share {bms / ms:.3f}; "
+                f"plain {p18[key + kind + '_plain_call']:.1f} ms a call; the "
+                f"port's layer {kind} {p18[key + 'port_layer_' + kind + '_b2b']:.4f}"
+                f" ms against cuDNN's {p18[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
+                f" ms ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -3948,7 +4517,8 @@ def main(argv=None) -> int:
              "c4_solver": c4_launches, "timit_solver": solver_launches,
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
              "transformer_remat": p16["transformer_launches"],
-             "ls100_ctc": ctc_launches, "ls960_aed": aed_launches}
+             "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
+             **td_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,
@@ -4003,6 +4573,22 @@ def main(argv=None) -> int:
                  "bound_ms": bound[name + c4_tag(t)][0],
                  "bound_by": bound[name + c4_tag(t)][1]}
                 for t in C4_LSTM_T]
+            kind = name[len("lstm_scan_"):]
+            out["at_transducer"] = [
+                {"shape": f"{tag}: B=64 T={t} H={h} D=1 bf16",
+                 "route": td_errs[tag][2],
+                 "max_abs_err": td_errs[tag][0 if kind == "fwd" else 1],
+                 "ms": p18[f"td_{tag}_{kind}_b2b"],
+                 "method": METHODS["b2b"][1],
+                 "plain_call_ms": p18[f"td_{tag}_{kind}_plain_call"],
+                 "bound_ms": bound[f"{name}_{tag}"][0],
+                 "bound_by": bound[f"{name}_{tag}"][1],
+                 "port_layer_ms": p18[f"td_{tag}_port_layer_{kind}_b2b"],
+                 "library_ms": p18[f"td_{tag}_cudnn_layer_{kind}_b2b"],
+                 "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "
+                               "packed, bf16), the whole layer " + kind
+                               + " against the port's layer"}
+                for tag, t, _, h, _ in TD_LSTM_SHAPES]
         return out
 
     print(json.dumps({"kernels": [entry(*row) for row in rows]}), flush=True)

@@ -23,7 +23,12 @@ speller (``model.decoder_arch: transformer``: one parallel causal pass in
 training, a KV-cache step in decoding); the joint CTC-attention head
 (``objective.lambda_ctc``, ``decode.ctc_weight``, ``decode.ctc_one_pass``,
 ``--beam 0``); and the encoder-only CTC family (``model.family: ctc``:
-the CTC NLL, best-path and prefix-beam decoding).  ``data/preprocess.py``
+the CTC NLL, best-path and prefix-beam decoding); and the RNN-T
+transducer family (``model.family: transducer``: the lattice NLL as one
+autograd Function with explicit alpha and beta passes, the predictor on
+the LSTM scan kernels, greedy and beam decoding, the internal-LM text and
+pseudo-label terms), with the forward-only listener
+(``model.enc_bidirectional: false``).  ``data/preprocess.py``
 writes the corpus manifests, the vocab and the BPE model.
 
 The port imports nothing of the JAX package: it keeps its own copies of

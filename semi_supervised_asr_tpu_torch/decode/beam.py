@@ -44,6 +44,10 @@ def check_supported(dcfg: DecodeConfig) -> None:
     message."""
     if dcfg.lm_weight != 0.0 or dcfg.lm_ckpt:
         raise NotImplementedError("shallow LM fusion is not ported yet")
+    if dcfg.ilm_weight != 0.0:
+        raise NotImplementedError(
+            "decode.ilm_weight (the transducer beam's internal-LM "
+            "subtraction under LM fusion) is not ported yet")
     if dcfg.bias_phrases:
         raise NotImplementedError("contextual biasing is not ported yet")
 

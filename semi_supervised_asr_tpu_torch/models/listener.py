@@ -4,10 +4,12 @@ Counterpart of ``semi_supervised_asr_tpu/models/listener.py``: an optional
 stride-2 3x3 conv stem (``model.conv_subsample`` blocks, shared with the
 transformer and conformer listeners), then ``enc_base_layers`` full-rate
 BiLSTMs, then ``enc_layers`` pyramid stages (fold T -> T/2, feature dim
-doubles, then a BiLSTM); bidirectional, with ``model.enc_dropout`` after
-every layer in training (sites 0 ... base + pyramid - 1).  Outputs are float32
-[B, T/2**(enc_layers + conv_subsample), 2*enc_hidden] with exact zeros on
-pad frames.
+doubles, then a BiLSTM), with ``model.enc_dropout`` after every layer in
+training (sites 0 ... base + pyramid - 1).  ``model.enc_bidirectional:
+false`` (the streaming recipe's causal listener) gives every layer one
+forward-only cell (``w_ih``, ``w_hh``, ``b``) in place of the pair.  Outputs
+are float32 [B, T/2**(enc_layers + conv_subsample), enc_out_dim] (2H, or H
+forward-only) with exact zeros on pad frames.
 
 Every layer runs on the CUDA scan kernel (``ops/lstm_scan.py``) whatever
 ``model.lstm_backend`` says: the reference's ``xla`` scan exists for its
@@ -25,7 +27,9 @@ from torch import nn
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
 from semi_supervised_asr_tpu_torch.ops.dropout import dropout
-from semi_supervised_asr_tpu_torch.ops.lstm_scan import bilstm_kernel
+from semi_supervised_asr_tpu_torch.ops.lstm_scan import (
+    bilstm_kernel, lstm_kernel,
+)
 
 
 class Leaves(nn.Module):
@@ -66,12 +70,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Refuse model options outside the ported slices with a clear
     message."""
     ported = {
-        "model.family": (cfg.family, ("las", "ctc")),
+        "model.family": (cfg.family, ("las", "ctc", "transducer")),
         "model.decoder_arch": (cfg.decoder_arch, ("lstm", "transformer")),
-        "model.enc_bidirectional": (cfg.enc_bidirectional, (True,)),
         "model.enc_attn_chunk": (cfg.enc_attn_chunk, (0,)),
         "model.lm_fusion": (cfg.lm_fusion, ("none",)),
     }
+    if cfg.family == "transducer" and cfg.lm_fusion != "none":
+        # the reference's own refusal (its train step's)
+        raise ValueError("model.family=transducer has no LM fusion yet")
     for key, (got, want) in ported.items():
         if got not in want:
             serves = " or ".join(f"{key}={w!r}" for w in want)
@@ -152,7 +158,8 @@ def conv_stem_apply(
 
 
 class Listener(nn.Module):
-    """The pyramidal BiLSTM listener (``encoder_arch: blstm``)."""
+    """The pyramidal BiLSTM listener (``encoder_arch: blstm``), or its
+    forward-only variant (``model.enc_bidirectional: false``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -162,13 +169,14 @@ class Listener(nn.Module):
         if cfg.conv_subsample > 0:
             self.conv = conv_stem_params(cfg)
             in_dim = conv_stem_dims(cfg)
+        cell = BiLSTMWeights if cfg.enc_bidirectional else LSTMWeights
         layers = []
         for _ in range(cfg.enc_base_layers):
-            layers.append(BiLSTMWeights(in_dim, cfg.enc_hidden))
+            layers.append(cell(in_dim, cfg.enc_hidden))
             in_dim = cfg.enc_out_dim
         for _ in range(cfg.enc_layers):
-            # the pyramid fold doubles the feature dim before the BiLSTM
-            layers.append(BiLSTMWeights(2 * in_dim, cfg.enc_hidden))
+            # the pyramid fold doubles the feature dim before the (Bi)LSTM
+            layers.append(cell(2 * in_dim, cfg.enc_hidden))
             in_dim = cfg.enc_out_dim
         self.layers = nn.ModuleList(layers)
 
@@ -186,7 +194,7 @@ class Listener(nn.Module):
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 backend: str | None = None,
                 masks: list[torch.Tensor] | None = None):
-        """[B, T, n_mels], [B] -> (enc [B, T', 2H], enc_lens [B]).
+        """[B, T, n_mels], [B] -> (enc [B, T', enc_out_dim], enc_lens [B]).
         ``masks`` (training): the keep masks of the dropout sites
         (:meth:`dropout_shapes`), applied after each layer's kernels."""
         compute = R.dtype_of(self.cfg.compute_dtype)
@@ -196,7 +204,11 @@ class Listener(nn.Module):
         for li, layer in enumerate(self.layers):
             if li >= self.cfg.enc_base_layers:
                 x, lens = R.pyramid_fold(x, lens)
-            x = bilstm_kernel(layer.as_dict(), x, lens, compute, backend)
+            if self.cfg.enc_bidirectional:
+                x = bilstm_kernel(layer.as_dict(), x, lens, compute, backend)
+            else:
+                x = lstm_kernel(layer.as_dict(), x, lens, False, compute,
+                                backend)
             if masks is not None:
                 x = dropout(x, masks[li], self.cfg.enc_dropout)
         return x, lens

@@ -8,8 +8,9 @@ listener is the pyramidal BiLSTM, the transformer or the conformer, after
 ``model.encoder_arch``; the speller the LSTM or the transformer speller,
 after ``model.decoder_arch``; ``model.ctc_head`` adds the joint
 CTC-attention head ``ctc.{w, b}`` on the encoder (``decode/ctc.py``).
-:func:`build_model` builds this model or the CTC family's
-(``models/ctc_model.py``) after ``model.family``.
+:func:`build_model` builds this model, the CTC family's
+(``models/ctc_model.py``) or the transducer (``models/transducer.py``)
+after ``model.family``.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ def listener_class(cfg: ModelConfig) -> type[nn.Module]:
     if not (cfg.enc_bidirectional or cfg.encoder_arch == "blstm"):
         raise ValueError(
             "model.enc_bidirectional=false (streaming encoder) is only "
-            "meaningful for encoder_arch=blstm -- the attention listeners "
-            f"are inherently full-context (got {cfg.encoder_arch!r})")
+            "meaningful for encoder_arch=blstm — the attention listeners "
+            f"are inherently full-context (got {cfg.encoder_arch!r}); the "
+            "conformer streams via model.enc_attn_chunk instead")
     if not (cfg.enc_attn_chunk == 0 or cfg.encoder_arch == "conformer"):
         raise ValueError(
             "model.enc_attn_chunk (chunk-causal attention) is conformer-only "
@@ -100,13 +102,20 @@ def run_listener(listener: nn.Module, feats: torch.Tensor,
 
 
 def build_model(cfg: ModelConfig) -> nn.Module:
-    """The model of ``model.family``: :class:`Seq2Seq` (``las``) or the
-    encoder-only CTC model (``ctc``)."""
+    """The model of ``model.family``: :class:`Seq2Seq` (``las``), the
+    encoder-only CTC model (``ctc``) or the RNN-T transducer
+    (``transducer``)."""
     check_supported(cfg)
     if cfg.family == "ctc":
         from semi_supervised_asr_tpu_torch.models.ctc_model import CTCModel
 
         return CTCModel(cfg)
+    if cfg.family == "transducer":
+        from semi_supervised_asr_tpu_torch.models.transducer import (
+            Transducer,
+        )
+
+        return Transducer(cfg)
     return Seq2Seq(cfg)
 
 

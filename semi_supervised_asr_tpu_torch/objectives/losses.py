@@ -330,3 +330,70 @@ def pseudo_label_loss(
     if denom is None:
         denom = torch.clamp_min((mask * keep_f).sum(), 1.0)
     return (nll * keep_f).sum() / denom
+
+
+# The train step's view of the family's terms (the LAS family's, and the
+# CTC family's supervised term), shared with ``transducer_semi.py``:
+# ``training/train_step.py`` picks the module once.  ``den`` holds the
+# step's clamped counts: supervised, text, pseudo, CTC labels.
+TEXT_KEY = "text_ae"
+
+
+def step_counts(cfg, tokens: torch.Tensor, real: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The labeled batch's counts -> (target tokens; CTC labels, 0 without
+    a CTC term); ``tokens`` has its unreal rows masked."""
+    aux = (ctc_label_count(tokens)
+           if cfg.model.family == "ctc" or cfg.objective.lambda_ctc > 0.0
+           else torch.zeros((), device=tokens.device))
+    return token_mask(tokens).sum(), aux
+
+
+def step_supervised(model, cfg, feats, feat_lens, tokens, real, tf_rate,
+                    gen, backend, den, remat, rows, masks
+                    ) -> tuple[torch.Tensor, dict]:
+    """The supervised term of a step: :func:`supervised_loss`, or the CTC
+    family's :func:`ctc_family_loss`."""
+    if cfg.model.family == "ctc":
+        return ctc_family_loss(model, feats, feat_lens, tokens, real,
+                               backend, den[3], remat, masks)
+    obj = cfg.objective
+    return supervised_loss(model, obj.label_smoothing, feats, feat_lens,
+                           tokens, tf_rate, gen, backend, den[0], remat,
+                           rows, masks, obj.lambda_ctc, den[3])
+
+
+def text_count(text: torch.Tensor) -> torch.Tensor:
+    """The text term's target count."""
+    return token_mask(text).sum()
+
+
+def step_text(model, cfg, text: torch.Tensor, denom: torch.Tensor,
+              backend: str | None = None) -> torch.Tensor:
+    """The text term of a step: :func:`text_ae_loss`."""
+    return text_ae_loss(model.speller, cfg.objective.label_smoothing, text,
+                        denom)
+
+
+def step_teacher_labels(teacher, cfg, feats, feat_lens, max_len: int,
+                        backend: str | None = None) -> tuple:
+    """:func:`teacher_labels` of a step."""
+    return teacher_labels(teacher, feats, feat_lens, max_len, backend)
+
+
+def kept_count(labels: tuple, pseudo_confidence: float,
+               row_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The pseudo term's count before the clamp: the tokens of the rows
+    :func:`pseudo_keep` keeps."""
+    hyps, hyp_logp = labels
+    keep = pseudo_keep(hyps, hyp_logp, pseudo_confidence, row_mask)
+    return (token_mask(hyps) * keep[:, None]).sum()
+
+
+def step_pseudo(model, cfg, feats_clean, feats_aug, feat_lens, max_len,
+                row_mask, backend, labels, denom, masks) -> torch.Tensor:
+    """The pseudo-label term of a step: :func:`pseudo_label_loss` on the
+    given ``labels``."""
+    return pseudo_label_loss(model, None, cfg.objective.pseudo_confidence,
+                             feats_clean, feats_aug, feat_lens, max_len,
+                             row_mask, backend, labels, denom, masks)

@@ -1,8 +1,9 @@
 """Solver: the train / eval loop of the PyTorch port.
 
 Counterpart of ``semi_supervised_asr_tpu/training/solver.py`` for the LAS
-family (either speller, with or without the joint CTC head) and the CTC
-family: ``train()``, ``validate()``, ``test()`` around the port's step
+family (either speller, with or without the joint CTC head), the CTC
+family and the transducer family: ``train()``, ``validate()``, ``test()``
+around the port's step
 (``training/train_step.py``) and decoders, on one device or data-parallel
 over the ranks of a torchrun (``parallel/``).
 
@@ -24,11 +25,14 @@ over the ranks of a torchrun (``parallel/``).
   deep (pinned memory, ``non_blocking``, on a side stream that the step
   waits for), so that they run beside the steps already queued.
 * Every ``eval_every`` steps it greedy-decodes the dev set (through K1 and
-  K2 on the card; the CTC family by best path), scores PER (phones) or
-  CER / WER (chars) with the native edit distance, and saves a checkpoint
-  ranked by ``dev_error``; ``test`` decodes ``beam`` (the CTC family's
-  prefix beam), ``greedy`` or ``ctc`` (the CTC head's best path, for a
-  LAS model with the joint head: ``main --beam 0``);
+  K2 on the card; the CTC family by best path, the transducer by its
+  frame-synchronous walk), scores PER (phones) or CER / WER (chars) with
+  the native edit distance, and saves a checkpoint ranked by
+  ``dev_error``; ``test`` decodes ``beam`` (the CTC family's prefix beam,
+  the transducer's alignment-synchronous beam of ``decode.beam_size``),
+  ``greedy`` or ``ctc`` (the CTC head's best path, for a LAS model with
+  the joint head: ``main --beam 0``; the transducer logs that the mode is
+  LAS-only and decodes greedy);
   ``ckpt_every`` saves without evaluating.  Checkpoints keep the newest
   two and the best ``train.keep_ckpts`` (``training/checkpointing.py``).
 * ``train(resume=True)`` restores the latest checkpoint and continues the
@@ -45,9 +49,8 @@ over the ranks of a torchrun (``parallel/``).
 
 Not ported (each refused with its key, here or where the step, the model
 or the decoders are built): the feature store, grain threads,
-LM fusion, the transducer family,
-``train.debug_nans``, tensor parallelism (``parallel.model_parallel``) and
-exec-restarts under data parallelism.
+LM fusion, streaming decoding, ``train.debug_nans``, tensor parallelism
+(``parallel.model_parallel``) and exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
 shape) and has no effect.
 """
@@ -596,6 +599,10 @@ class Solver:
         the whole set's on every rank."""
         if mode not in ("greedy", "beam", "ctc"):
             raise ValueError(f"unknown decode mode {mode!r}")
+        if self.cfg.model.family == "transducer" and mode == "ctc":
+            self.log.info("decode mode 'ctc' is LAS-only — transducer "
+                          "decodes frame-synchronous greedy")
+            mode = "greedy"
         rec = Recognizer(self.cfg, model, self.cmvn, self.vocab, self.device,
                          warn=self.log.info)
         er, wer = MET.ErrorRate(), MET.ErrorRate()

@@ -1,21 +1,23 @@
 """Featurization and the train step, supervised and semi-supervised.
 
 Counterpart of ``semi_supervised_asr_tpu/training/train_step.py`` for the
-LAS family (either speller) and the CTC family: ``featurize`` (inference
-and augmenting branches: speed perturbation, additive noise, SpecAugment
-bands and time warp) and ``supervised_step``: features under no-grad,
-teacher-forced CE with label smoothing (plus ``objective.lambda_ctc``
-times the joint CTC head's loss on the same encoder pass), or the CTC
-family's label-normalized NLL, and, when the objective weighs them and
-the step is given the unlabeled batches, the text autoencoder on
-unlabeled text and the pseudo-label term on unlabeled audio (the
-teacher's greedy decode of the clean view, the student's CE on the
-augmented view, gated by ``objective.pseudo_warmup_steps``); then
-backward (through K3 for the listener), global-norm clip, Adam, the EMA
+LAS family (either speller), the CTC family and the transducer family:
+``featurize`` (inference and augmenting branches: speed perturbation,
+additive noise, SpecAugment bands and time warp) and ``supervised_step``:
+features under no-grad, teacher-forced CE with label smoothing (plus
+``objective.lambda_ctc`` times the joint CTC head's loss on the same
+encoder pass), the CTC family's label-normalized NLL, or the transducer's
+lattice NLL (its mean over the real rows), and, when the objective weighs
+them and the step is given the unlabeled batches, the text term on
+unlabeled text (the LAS text autoencoder; the transducer's internal-LM
+CE) and the pseudo-label term on unlabeled audio (the teacher's greedy
+decode of the clean view, the student's CE or lattice NLL on the augmented
+view, gated by ``objective.pseudo_warmup_steps``); then backward (through
+K3 for the listener and the predictor), global-norm clip, Adam, the EMA
 update and the step counter.  The metrics keep the JAX keys (``loss``,
 ``ce``, ``acc``, ``ctc``, ``nll_per_label``, ``grad_norm``, ``tf_rate``,
-``frames``, and ``text_ae``, ``pseudo``, ``pseudo_gate`` where the step
-runs those terms).
+``frames``, and ``text_ae`` or ``text_ilm``, ``pseudo``, ``pseudo_gate``
+where the step runs those terms).
 
 The training passes drop out (``model.enc_dropout`` after the listener's
 sites, ``model.dec_dropout`` before the speller's output projection): the
@@ -62,6 +64,7 @@ from torch import nn
 from semi_supervised_asr_tpu_torch.config import Config
 from semi_supervised_asr_tpu_torch.data.vocab import PAD
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
+from semi_supervised_asr_tpu_torch.objectives import transducer_semi as TSEMI
 from semi_supervised_asr_tpu_torch.ops import frontend as F
 from semi_supervised_asr_tpu_torch.ops.fused_frontend import fused_post_fft
 from semi_supervised_asr_tpu_torch.parallel import dp as DP
@@ -93,6 +96,13 @@ def check_train_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port trains "
                 f"with {key}={want!r})")
+    if m.family == "transducer":
+        # the reference's refusal (its LM-fusion one is the model's)
+        if o.lambda_ctc:
+            raise ValueError(
+                "model.family=transducer: disable objective.lambda_ctc (the "
+                "CTC aux head targets the attention stack); the semi terms "
+                "(transducer_semi.py) are supported")
     if m.family == "ctc":
         if o.lambda_ctc:
             raise ValueError(
@@ -133,8 +143,9 @@ class Draws:
 @dataclass
 class StepDraws:
     """Given draws of one (micro)batch of a step: its labeled view, the
-    augmented view of its unlabeled audio, and the teacher's hypotheses
-    (tokens, per-token log-prob) in place of its decode."""
+    augmented view of its unlabeled audio, and the teacher's hypotheses in
+    place of its decode (``LO.teacher_labels``' pair; the transducer's
+    ``TSEMI.teacher_labels`` triple)."""
 
     labeled: Draws = field(default_factory=Draws)
     unlabeled: Draws = field(default_factory=Draws)
@@ -453,8 +464,7 @@ def loss_and_grads(
     aux = {k: v * inv for k, v in aux.items()}
     if dp is not None:
         # the metrics ride in the gradients' reduction: one sum for all
-        keys = [k for k in ("ce", "acc", "ctc", "nll_per_label", "text_ae",
-                            "pseudo") if k in aux]
+        keys = [k for k, v in aux.items() if torch.is_tensor(v)]
         vec = torch.stack([loss] + [aux[k].float() for k in keys])
         *grads, vec = DP.all_reduce_grads([*grads, vec])
         loss = vec[0]
@@ -483,12 +493,14 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     """The loss of one microbatch ``mb`` (the fields of
     :func:`loss_and_grads`) with its graph -> (loss, {"ce", "acc"} and
     {"ctc"}, {"text_ae"}, {"pseudo", "pseudo_gate"} where the step runs
-    them; the CTC family's {"nll_per_label"}), normalized by the
-    microbatch's own (global) counts; ``blocks``: each stream's block
-    (:func:`loss_and_grads`)."""
+    them; the CTC family's {"nll_per_label"}; the transducer's
+    {"nll_per_label"} and {"text_ilm"}, {"pseudo", "pseudo_gate"}),
+    normalized by the microbatch's own (global) counts; ``blocks``: each
+    stream's block (:func:`loss_and_grads`)."""
     obj = cfg.objective
     blocks = blocks or [None, None, None]
-    ctc_family = cfg.model.family == "ctc"
+    # the family's terms, one module with one interface
+    fam = TSEMI if cfg.model.family == "transducer" else LO
     tokens = mask_unreal(mb["tokens"], mb["real"])
     b, u = tokens.shape
     rows = _block_rows(blocks[0])
@@ -502,13 +514,13 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     if obj.lambda_text_ae > 0.0 and "unlab_text" in mb:
         text = mask_unreal(mb["unlab_text"], mb["unlab_text_real"])
     pseudo = obj.lambda_pseudo > 0.0 and "unlab_audio" in mb
-    # the terms' counts: tokens, text tokens, kept pseudo tokens, CTC labels
+    # the terms' counts: the supervised term's, text targets, kept pseudo
+    # labels, the labels of the CTC term or of the transducer's lattice
     zero = torch.zeros((), dtype=torch.float64, device=tokens.device)
-    counts = [LO.token_mask(tokens).sum().double(), zero, zero, zero]
-    if ctc_family or obj.lambda_ctc > 0.0:
-        counts[3] = LO.ctc_label_count(tokens).double()
+    sup, aux_count = fam.step_counts(cfg, tokens, mb["real"])
+    counts = [sup.double(), zero, zero, aux_count.double()]
     if text is not None:
-        counts[1] = LO.token_mask(text).sum().double()
+        counts[1] = fam.text_count(text).double()
     if pseudo:
         ua, ua_lens, ureal = (mb["unlab_audio"], mb["unlab_audio_lens"],
                               mb["unlab_real"])
@@ -520,11 +532,10 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
         if labels is None:
             teacher = (weight_view(state.ema, bf16) if obj.use_ema_teacher
                        else student)
-            labels = teacher(LO.teacher_labels, clean, clens, max_len,
-                             backend)
-        hyps, hyp_logp = labels
-        keep = LO.pseudo_keep(hyps, hyp_logp, obj.pseudo_confidence, ureal)
-        counts[2] = (LO.token_mask(hyps) * keep[:, None]).sum().double()
+            labels = teacher(fam.step_teacher_labels, cfg, clean, clens,
+                             max_len, backend)
+        counts[2] = fam.kept_count(labels, obj.pseudo_confidence,
+                                   ureal).double()
     counts = torch.stack(counts)
     if dp is not None:
         counts = DP.all_reduce_counts(counts)
@@ -533,18 +544,13 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     if masks is None:
         masks = state.model.dropout_masks(state.dgen, b, feats.shape[1], u,
                                           feats.device, rows)
-    if ctc_family:
-        return student(LO.ctc_family_loss, feats, flens, tokens, mb["real"],
-                       backend, den[3], cfg.train.remat_encoder, masks)
-    loss, aux = student(LO.supervised_loss, obj.label_smoothing, feats,
-                        flens, tokens, tf_rate, state.gen, backend, den[0],
-                        cfg.train.remat_encoder, rows, masks, obj.lambda_ctc,
-                        den[3])
+    loss, aux = student(fam.step_supervised, cfg, feats, flens, tokens,
+                        mb["real"], tf_rate, state.gen, backend, den,
+                        cfg.train.remat_encoder, rows, masks)
     if text is not None:
-        ae = student(lambda m, *a: LO.text_ae_loss(m.speller, *a),
-                     obj.label_smoothing, text, den[1])
-        loss = loss + obj.lambda_text_ae * ae
-        aux["text_ae"] = ae.detach()
+        term = student(fam.step_text, cfg, text, den[1], backend)
+        loss = loss + obj.lambda_text_ae * term
+        aux[fam.TEXT_KEY] = term.detach()
     if pseudo:
         urows = _block_rows(blocks[1])
         with torch.no_grad():
@@ -556,9 +562,8 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
             umasks = state.model.dropout_masks(
                 state.dgen, ua.shape[0], augmented.shape[1], max_len,
                 augmented.device, urows)
-        pl = student(LO.pseudo_label_loss, None, obj.pseudo_confidence,
-                     clean, augmented, clens, max_len, ureal, backend,
-                     labels, den[2], umasks)
+        pl = student(fam.step_pseudo, cfg, clean, augmented, clens, max_len,
+                     ureal, backend, labels, den[2], umasks)
         # the gate multiplies the term, which runs from step 0 (a NaN in
         # it poisons the loss even while the gate is closed, as in JAX)
         gate = float(state.step >= obj.pseudo_warmup_steps)

@@ -8,10 +8,12 @@ Counterpart of the offline path of ``semi_supervised_asr_tpu/
 transcribe.py``: files are bucketed by frame count (the training buckets),
 files longer than the largest bucket are decoded in bucket-sized chunks and
 their texts joined, rows are padded to ``train.batch_size``, and each
-batch is decoded with beam search (default: the attention beam, or the
-CTC family's prefix beam), greedy (``--beam 1``: the CTC family's best
-path) or the CTC head's best path (``--beam 0``: a LAS model with the
-joint CTC head, or the CTC family).
+batch is decoded with beam search (default: the attention beam, the CTC
+family's prefix beam or the transducer's alignment-synchronous beam),
+greedy (``--beam 1``: the CTC family's best path, the transducer's
+frame-synchronous walk) or the CTC head's best path (``--beam 0``: a LAS
+model with the joint CTC head, or the CTC family; the transducer refuses
+it).
 Each file prints one JSON object ``{"audio", "text", "score"}`` (plus
 ``nbest`` with ``--nbest N``, ``no_eos`` when the length cap cut it,
 ``chunks`` for chunked files).
@@ -48,6 +50,12 @@ from semi_supervised_asr_tpu_torch.decode.beam import (
 from semi_supervised_asr_tpu_torch.decode.ctc import ctc_greedy_from_enc
 from semi_supervised_asr_tpu_torch.decode.ctc_beam import ctc_beam_from_enc
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
+from semi_supervised_asr_tpu_torch.decode.transducer_beam import (
+    transducer_beam_from_enc,
+)
+from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
+    transducer_greedy_from_enc,
+)
 from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
 
@@ -91,9 +99,10 @@ def _stderr(msg: str) -> None:
 
 
 class Recognizer:
-    """A model (``Seq2Seq`` or ``CTCModel``), its CMVN statistics and vocab
-    on one device: decodes padded audio batches.  ``warn`` reports a
-    ``decode.ctc_weight`` that cannot apply (stderr by default)."""
+    """A model (``Seq2Seq``, ``CTCModel`` or ``Transducer``), its CMVN
+    statistics and vocab on one device: decodes padded audio batches.
+    ``warn`` reports a ``decode.ctc_weight`` that cannot apply (stderr by
+    default)."""
 
     def __init__(self, cfg: Config, model, cmvn: tuple, vocab,
                  device: torch.device, backend: str | None = None,
@@ -108,10 +117,14 @@ class Recognizer:
         self.spec = make_bucket_spec(cfg.data, cfg.frontend,
                                      cfg.model.time_reduction)
         self.ctc_family = cfg.model.family == "ctc"
+        self.transducer = cfg.model.family == "transducer"
         # the joint CTC-attention beam: the LAS family with its CTC head
         self.joint_ctc = None
         if cfg.decode.ctc_weight > 0.0:
-            if self.ctc_family:
+            if self.transducer:
+                warn("WARNING: decode.ctc_weight > 0 is LAS-only — ignored "
+                     "for the transducer beam")
+            elif self.ctc_family:
                 warn("WARNING: decode.ctc_weight rescoring is LAS-only — the "
                      "CTC family's beam IS the CTC score")
             elif not hasattr(self.model, "ctc"):
@@ -151,7 +164,8 @@ class Recognizer:
     @torch.inference_mode()
     def encode(self, audio: torch.Tensor, lens: torch.Tensor):
         """Padded audio [B, S] -> (enc, enc_mask, the speller's decode
-        cache) on the device; the CTC family's (enc, enc_mask)."""
+        cache) on the device; the CTC and transducer families' (enc,
+        enc_mask)."""
         feats, flens = featurize(self.cfg, audio, lens,
                                  (self.mean, self.inv_std),
                                  backend=self.backend)
@@ -162,13 +176,32 @@ class Recognizer:
                nbest: bool = False):
         """[B, S] padded audio, [B] sample lengths -> (tokens, scores) as
         numpy.  ``mode`` ``greedy`` gives per-step log-probs (the CTC
-        family: its best path and the path's log-prob), ``beam`` the
-        normalized score (the CTC family: the prefix's log-marginal; with
-        ``nbest`` all K lattices and scores), ``ctc`` the CTC head's best
-        path."""
+        family: its best path and the path's log-prob; the transducer: its
+        walk and the walk's log-prob), ``beam`` the normalized score (the
+        CTC family: the prefix's log-marginal; the transducer: the path's
+        log-prob; with ``nbest`` all K lattices and scores), ``ctc`` the
+        CTC head's best path."""
         a = torch.as_tensor(audio, device=self.device)
         n = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
         cfg = self.cfg
+        if self.transducer:
+            if mode == "ctc":       # the reference's refusal
+                raise SystemExit(
+                    "--beam 0 (CTC greedy) is LAS-only; the transducer "
+                    "decodes greedy (--beam 1) or alignment-synchronous beam "
+                    "(--beam K)")
+            enc, enc_mask = self.encode(a, n)
+            max_u = max_decode_steps(cfg, enc.shape[1])
+            dcfg = cfg.decode
+            if mode == "beam":
+                out = transducer_beam_from_enc(
+                    self.model, cfg.model, enc, enc_mask, max_u,
+                    dcfg.beam_size, dcfg.max_symbols, return_nbest=nbest)
+            else:
+                out = transducer_greedy_from_enc(
+                    self.model, cfg.model, enc, enc_mask, max_u,
+                    dcfg.max_symbols)
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
         if self.ctc_family:
             enc, enc_mask = self.encode(a, n)
             if mode == "beam":

@@ -122,6 +122,8 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
         return np.zeros(shape)
     if leaf == "embedding":                     # [V, width]
         return rng.standard_normal(shape) / math.sqrt(shape[-1])
+    if leaf == "embed":                         # the transducer's predictor
+        return rng.standard_normal(shape) * 0.02
     if leaf == "pos":                           # transformer speller [L, d]
         return rng.standard_normal(shape) * 0.02
     if leaf == "conv":                          # [W, 1, C]
@@ -142,8 +144,10 @@ def init_numpy(cfg: ModelConfig, seed: int) -> dict[str, np.ndarray]:
     ``build_model(cfg)``, drawn from ``seed`` (the JAX init's shapes and
     distributions, not its values), decided by path: LayerNorm gains ones,
     biases zeros, LSTM cells uniform, embeddings normal / sqrt(width), the
-    transformer speller's positions normal * 0.02, the rest glorot (the
-    conv stem's with its receptive field; the CTC head's matrix too)."""
+    transformer speller's positions and the transducer's predictor
+    embedding normal * 0.02, the rest glorot (the conv stem's with its
+    receptive field; the CTC head's matrix and the transducer's joint
+    too)."""
     from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 
     rng = np.random.default_rng(seed)

@@ -29,7 +29,9 @@ from semi_supervised_asr_tpu_torch import weights
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.models import listener as L
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
-from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
+from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
+    one_thread, run_jax,
+)
 
 KW = dict(n_mels=20, vocab_size=16, enc_hidden=16, enc_heads=2,
           enc_ff_dim=32, enc_blocks=2, conv_subsample=2, conv_channels=4,
@@ -79,7 +81,8 @@ def test_encode_matches_jax(arch, attn):
     x, lens = feats()
     with torch.no_grad():
         got = model.encode(torch.from_numpy(x), torch.from_numpy(lens))
-    want = JM.encode(tree, jnp.asarray(x), jnp.asarray(lens), jcfg)
+    want = run_jax(lambda p, f, n: JM.encode(p, f, n, jcfg), tree,
+                   jnp.asarray(x), jnp.asarray(lens))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     for a, w in zip((got[0], got[2]), (want[0], want[2])):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5,
@@ -112,9 +115,10 @@ def check_encoder_grads(cfg, jcfg, dropout_rng=None):
     masks = None
     if dropout_rng is not None:
         keep = 1.0 - cfg.enc_dropout
-        masks = [torch.from_numpy(np.asarray(jax.random.bernoulli(
-            jax.random.fold_in(dropout_rng, i), keep, shape)))
-            for i, shape in enumerate(shapes)]
+        masks = [torch.from_numpy(np.array(m)) for m in run_jax(
+            lambda k: [jax.random.bernoulli(jax.random.fold_in(k, i), keep,
+                                            shape)
+                       for i, shape in enumerate(shapes)], dropout_rng)]
         assert len(masks) == {"blstm": 2, "transformer": 4,
                               "conformer": 8}[cfg.encoder_arch]
     t_out = shapes[-1][1]
@@ -173,9 +177,9 @@ def test_conv_stem_matches_jax(t):
                                           torch.from_numpy(x),
                                           torch.from_numpy(lens),
                                           torch.float32)
-    want, want_lens = JL.conv_stem_apply(tree["listener"]["conv"],
-                                         jnp.asarray(x), jnp.asarray(lens),
-                                         jcfg)
+    want, want_lens = run_jax(
+        lambda p, f, n: JL.conv_stem_apply(p, f, n, jcfg),
+        tree["listener"]["conv"], jnp.asarray(x), jnp.asarray(lens))
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
     assert got.shape == want.shape == (3, (t + 3) // 4, L.conv_stem_dims(cfg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -227,7 +231,8 @@ def test_blstm_listener_with_conv_stem_matches_jax():
     x, lens = feats()
     with torch.no_grad():
         got = model.encode(torch.from_numpy(x), torch.from_numpy(lens))
-    want = JM.encode(tree, jnp.asarray(x), jnp.asarray(lens), jcfg)
+    want = run_jax(lambda p, f, n: JM.encode(p, f, n, jcfg), tree,
+                   jnp.asarray(x), jnp.asarray(lens))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=1e-5, atol=1e-5)

@@ -109,8 +109,8 @@ def test_ctc_nll_and_gradient_match_optax():
                                    atol=1e-4, err_msg=k)
     # the joint CTC-attention term: all-PAD rows weighed out, per label
     got = LO.ctc_loss(port_head(p), t(enc), t(mask), t(tokens))
-    want = JL.ctc_loss(jhead(p), jnp.asarray(enc), jnp.asarray(mask),
-                       jnp.asarray(tokens))
+    want = run_jax(lambda h, e, m, y: JL.ctc_loss(h, e, m, y), jhead(p),
+                   jnp.asarray(enc), jnp.asarray(mask), jnp.asarray(tokens))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
@@ -162,8 +162,8 @@ def test_joint_ctc_beam_matches_jax(one_pass):
     enc = rng.standard_normal((b, tt, JOINT.enc_out_dim)).astype(np.float32)
     mask = np.arange(tt)[None, :] < np.asarray([11, 8, 4])[:, None]
     enc *= mask[..., None]
-    keys = JM.S.precompute_decode_cache(params["speller"], JOINT,
-                                        jnp.asarray(enc))
+    keys = run_jax(lambda sp, e: JM.S.precompute_decode_cache(sp, JOINT, e),
+                   params["speller"], jnp.asarray(enc))
     dcfg = DecodeConfig(beam_size=3, ctc_weight=0.3, ctc_one_pass=one_pass)
     ref = run_jax(lambda p, e, m, k: JB.beam_decode_from_enc(
         p["speller"], JOINT, dcfg, e, m, k, 7, ctc_params=p["ctc"],

@@ -1,9 +1,11 @@
 """PyTorch port: data parallelism over two gloo ranks on the CPU.
 
-Each test spawns two ranks of this file (``python tests/test_torch_dp.py
-CASE OUT``, torchrun's environment set by hand, one torch thread each) at a
-few layers and narrow widths.  Rank 0 also runs one process's step on the
-concatenated global batch, with no process group in the way.
+Two ranks of this file run each case (``python tests/test_torch_dp.py CASE
+OUT``, torchrun's environment set by hand, one torch thread each) at a few
+layers and narrow widths: the step cases all on one pair of ranks, spawned
+once for the module (their start-up paid once), the Solver run on its own.
+Rank 0 also runs one process's step on the concatenated global batch, with
+no process group in the way.
 
 * The supervised step at global B=4 (rows of unequal token counts, the
   last a filler row; SpecAugment and scheduled sampling on, so the draws
@@ -14,7 +16,9 @@ concatenated global batch, with no process group in the way.
   generator left where one process's is.
 * The same for the semi-supervised step (text autoencoder, the EMA
   teacher's pseudo-labels, gate open, a filler row in each unlabeled
-  batch).
+  batch), and for the transducer's (``configs/ls100_transducer_semi.yaml``:
+  the lattice NLL over the global real rows, the internal-LM term over the
+  global text labels, the pseudo-label term over the global kept labels).
 * The supervised step at global B=8 with encoder and decoder dropout,
   white and babble noise and ``train.grad_accum=2`` (each rank holding its
   rows of each microbatch; babble mixing rows of both ranks): as above,
@@ -46,6 +50,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 TOL_GRAD = dict(rtol=2e-4, atol=2e-5)
 # configs/timit.yaml cut to a small width: SpecAugment on, teacher forcing
@@ -59,6 +65,9 @@ STEP = ["model.enc_hidden=16", "model.enc_layers=1", "model.dec_hidden=16",
         "data.frame_buckets=[128]", "data.token_buckets=[12]",
         "decode.max_decode_len=8"]
 SEMI = ["objective.pseudo_warmup_steps=0", "objective.pseudo_confidence=0"]
+# configs/ls100_transducer_semi.yaml at the same small width
+TRANSDUCER = ["model.pred_hidden=16", "model.joint_dim=16",
+              "decode.max_symbols=2"]
 # dropout in the listener and the speller, white and babble noise on every
 # row, two microbatches: a global batch of 8, each rank holding 2 rows of
 # each microbatch of 4
@@ -68,6 +77,8 @@ AUGMENT = ["model.enc_dropout=0.2", "model.dec_dropout=0.2",
            "train.batch_size=8"]
 # the global batches of the uneven cases (train.grad_accum=2, 2 ranks)
 UNEVEN = {"uneven": 6, "empty": 2}
+# the step cases, run in turn by one pair of ranks
+STEP_CASES = ("supervised", "semi", "transducer_semi", "augment", *UNEVEN)
 # configs/synthetic_smoke.yaml at a small width, 48 utterances in its
 # 144-frame bucket, constant-frames batches of 900 // 144 = 6 rows (the
 # lcm(2, 2) granule) in 2 microbatches of 3: rank 0 holds 2 rows of each,
@@ -97,14 +108,17 @@ def _step_case(case: str) -> dict:
     from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
     from semi_supervised_asr_tpu_torch.data.registry import build_datasets
     from semi_supervised_asr_tpu_torch.data.vocab import PAD
-    from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
+    from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
     from semi_supervised_asr_tpu_torch.parallel import dp as DP
     from semi_supervised_asr_tpu_torch.training import train_step as TS
     from semi_supervised_asr_tpu_torch.transcribe import finalize_config
 
-    semi = case == "semi"
-    config = "configs/ls100_semi.yaml" if semi else "configs/timit.yaml"
-    extra = {"semi": SEMI, "augment": AUGMENT}.get(case, [])
+    semi = case in ("semi", "transducer_semi")
+    config = {"semi": "configs/ls100_semi.yaml",
+              "transducer_semi": "configs/ls100_transducer_semi.yaml"}.get(
+        case, "configs/timit.yaml")
+    extra = {"semi": SEMI, "augment": AUGMENT,
+             "transducer_semi": SEMI + TRANSDUCER}.get(case, [])
     if case in UNEVEN:
         extra = AUGMENT + [f"train.batch_size={UNEVEN[case]}"]
     cfg = load_config(REPO / config, STEP + extra)
@@ -130,7 +144,7 @@ def _step_case(case: str) -> dict:
     flat = weights.init_numpy(cfg.model, seed=0)
 
     def run(pos, dp):
-        model = Seq2Seq(cfg.model)
+        model = build_model(cfg.model)
         weights.load_flat(model, flat)
         state = TS.init_train_state(cfg, model, seed=3)
         if semi:    # a teacher that is not the student
@@ -203,9 +217,9 @@ def _worker(case: str, out: str) -> None:
         else:
             import torch
 
-            # the uneven cases share one pair of ranks
-            res = ({c: _step_case(c) for c in UNEVEN} if case == "uneven"
-                   else _step_case(case))
+            # the step cases share one pair of ranks
+            res = ({c: _step_case(c) for c in STEP_CASES}
+                   if case == "steps" else _step_case(case))
             torch.save(res, Path(out) / f"rank{MESH.rank()}.pt")
     finally:
         MESH.destroy()
@@ -249,6 +263,14 @@ def spawn(case: str, out: Path, world: int = 2) -> list[dict]:
             for r in range(world)]
 
 
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    """Every step case on one pair of ranks -> {case: [rank 0's results,
+    rank 1's]}."""
+    r0, r1 = spawn("steps", tmp_path_factory.mktemp("steps"))
+    return {c: [r0[c], r1[c]] for c in STEP_CASES}
+
+
 def _check_step(results) -> None:
     import numpy as np
     import torch
@@ -274,31 +296,42 @@ def _check_step(results) -> None:
         assert torch.equal(a[k], one[k]) and torch.equal(b[k], one[k]), k
 
 
-def test_two_ranks_supervised_step_match_one_process(tmp_path):
-    res = spawn("supervised", tmp_path)
+def test_two_ranks_supervised_step_match_one_process(steps):
+    res = steps["supervised"]
     assert res[0]["dp"]["aux"]["tf_rate"] == 0.6
     _check_step(res)
 
 
-def test_two_ranks_semi_step_match_one_process(tmp_path):
-    res = spawn("semi", tmp_path)
+def test_two_ranks_semi_step_match_one_process(steps):
+    res = steps["semi"]
     aux = res[0]["dp"]["aux"]
     assert aux["pseudo_gate"] == 1.0 and aux["pseudo"] > 0
     assert aux["text_ae"] > 0
     _check_step(res)
 
 
-def test_two_ranks_dropout_noise_accum_match_one_process(tmp_path):
+def test_two_ranks_transducer_semi_step_match_one_process(steps):
+    """The transducer's semi step: each term over its global count (real
+    rows, text labels, kept pseudo labels + 1), summed before the
+    forward."""
+    res = steps["transducer_semi"]
+    aux = res[0]["dp"]["aux"]
+    assert aux["pseudo_gate"] == 1.0 and aux["pseudo"] > 0
+    assert aux["text_ilm"] > 0 and aux["nll_per_label"] > 0
+    _check_step(res)
+
+
+def test_two_ranks_dropout_noise_accum_match_one_process(steps):
     """Encoder and decoder dropout, white and babble noise and
     ``train.grad_accum=2``: each rank draws the masks and the noise at the
     global microbatch's shape and keeps its rows, babble mixes rows
     gathered from both ranks, and each microbatch's counts are summed over
     the ranks."""
-    res = spawn("augment", tmp_path)
+    res = steps["augment"]
     _check_step(res)
 
 
-def test_two_ranks_uneven_microbatches_match_one_process(tmp_path):
+def test_two_ranks_uneven_microbatches_match_one_process(steps):
     """``train.grad_accum=2`` over 2 ranks at global batches the world does
     not divide per microbatch: ceil-sized blocks (2 + 1 rows of a
     microbatch of 3, or 1 + an empty block of a microbatch of 1), the
@@ -309,9 +342,8 @@ def test_two_ranks_uneven_microbatches_match_one_process(tmp_path):
         == [[0, 1, 3, 4], [2, 5]]
     assert [rank_rows(2, (r, r + 1, 2), 2).tolist() for r in (0, 1)] \
         == [[0, 1], []]
-    res = spawn("uneven", tmp_path)
     for case in UNEVEN:
-        _check_step([r[case] for r in res])
+        _check_step(steps[case])
 
 
 def test_two_rank_solver_run_and_resume(tmp_path):

@@ -60,16 +60,16 @@ def test_fused_post_fft_plain_matches_pallas(augment):
     pspec, lens, mean, istd = pspec_batch(1 + augment)
     specaug = None
     if augment:
-        specaug = tuple(np.asarray(x) for x in JF.sample_specaug_params(
-            jax.random.PRNGKey(7), pspec.shape[0], 80, jnp.asarray(lens),
-            CFG))
+        specaug = tuple(np.asarray(x) for x in run_jax(
+            lambda k, n: JF.sample_specaug_params(k, pspec.shape[0], 80, n,
+                                                  CFG),
+            jax.random.PRNGKey(7), jnp.asarray(lens)))
         assert sum(int(w.sum()) for w in (specaug[1], specaug[3])) > 0
-    ref = PF.fused_post_fft(
-        jnp.asarray(pspec), jnp.asarray(lens), CFG, jnp.asarray(mean),
+    ref = run_jax(lambda p, n, m, i, *sa: PF.fused_post_fft(
+        p, n, CFG, m, i, sa or None, interpret=True),
+        jnp.asarray(pspec), jnp.asarray(lens), jnp.asarray(mean),
         jnp.asarray(istd),
-        None if specaug is None else tuple(map(jnp.asarray, specaug)),
-        interpret=True,
-    )
+        *(() if specaug is None else tuple(map(jnp.asarray, specaug))))
     got = TFF.fused_post_fft(
         t(pspec), t(lens), CFG, t(mean), t(istd),
         None if specaug is None else tuple(map(t, specaug)),
@@ -108,8 +108,9 @@ def test_packed_mel_runs_rebuild_the_bank(scale):
 def test_log_mel_features_matches_jax(backend):
     cfg = dataclasses.replace(CFG, fft_backend=backend)
     audio, lens, mean, istd = audio_batch(4, b=5, frames=56, cfg=cfg)
-    ref, ref_lens = JF.log_mel_features(
-        jnp.asarray(audio), jnp.asarray(lens), cfg, jnp.asarray(mean),
+    ref, ref_lens = run_jax(
+        lambda a, n, m, i: JF.log_mel_features(a, n, cfg, m, i),
+        jnp.asarray(audio), jnp.asarray(lens), jnp.asarray(mean),
         jnp.asarray(istd))
     got, got_lens = TF.log_mel_features(t(audio), t(lens), cfg, t(mean),
                                         t(istd))
@@ -124,7 +125,8 @@ def test_log_mel_features_matches_jax(backend):
 def test_utterance_cmvn_matches_jax():
     cfg = dataclasses.replace(CFG, cmvn="utterance")
     audio, lens, _, _ = audio_batch(5, b=3)
-    ref, _ = JF.log_mel_features(jnp.asarray(audio), jnp.asarray(lens), cfg)
+    ref, _ = run_jax(lambda a, n: JF.log_mel_features(a, n, cfg),
+                     jnp.asarray(audio), jnp.asarray(lens))
     got, _ = TF.log_mel_features(t(audio), t(lens), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -133,9 +135,10 @@ def test_featurize_int16_matches_jax():
     cfg = Config(frontend=dataclasses.replace(CFG, fft_backend="matmul"))
     audio, lens, mean, istd = audio_batch(6, b=4, frames=64)
     pcm = np.clip(np.rint(audio * 32768.0), -32768, 32767).astype(np.int16)
-    ref, ref_lens = JTS.featurize(
-        cfg, jnp.asarray(pcm), jnp.asarray(lens),
-        (jnp.asarray(mean), jnp.asarray(istd)), None, False)
+    ref, ref_lens = run_jax(
+        lambda a, n, m, i: JTS.featurize(cfg, a, n, (m, i), None, False),
+        jnp.asarray(pcm), jnp.asarray(lens), jnp.asarray(mean),
+        jnp.asarray(istd))
     got, got_lens = TTS.featurize(cfg, t(pcm), t(lens), (t(mean), t(istd)))
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(ref_lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

@@ -22,7 +22,9 @@ from semi_supervised_asr_tpu.ops import recurrent as JR
 from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
-from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
+from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
+    one_thread, run_jax,
+)
 
 B, T, I, H = 8, 12, 16, 128
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -140,8 +142,9 @@ def test_plain_primitives_match_jax():
     h = rng.standard_normal((B, 32)).astype(np.float32)
     c = rng.standard_normal((B, 32)).astype(np.float32)
     for dtype in ("float32", "bfloat16"):
-        ref = JR.lstm_single_step(to_jax(p), jnp.asarray(x), jnp.asarray(h),
-                                  jnp.asarray(c), jnp.dtype(dtype))
+        ref = run_jax(lambda *a: JR.lstm_single_step(*a, jnp.dtype(dtype)),
+                      to_jax(p), jnp.asarray(x), jnp.asarray(h),
+                      jnp.asarray(c))
         got = R.lstm_single_step(to_torch(p), torch.from_numpy(x),
                                  torch.from_numpy(h), torch.from_numpy(c),
                                  R.dtype_of(dtype))
@@ -149,7 +152,8 @@ def test_plain_primitives_match_jax():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     seq = rng.standard_normal((2, 6, 5)).astype(np.float32)
     lens = np.asarray([5, 2], np.int32)
-    ref_f, ref_l = JR.pyramid_fold(jnp.asarray(seq), jnp.asarray(lens))
+    ref_f, ref_l = run_jax(JR.pyramid_fold, jnp.asarray(seq),
+                           jnp.asarray(lens))
     got_f, got_l = R.pyramid_fold(torch.from_numpy(seq), torch.from_numpy(lens))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(ref_f))
     np.testing.assert_array_equal(got_l.numpy(), np.asarray(ref_l))

@@ -157,7 +157,7 @@ def jax_inputs(s, step: int):
     """JAX's train state at ``step`` and the step's batch arguments."""
     tree = tree_of(s["flat"])
     opt = optax.chain(stash(), JSCH.make_optimizer(s["jcfg"].train))
-    state = JT.TrainState(params=tree, opt_state=opt.init(tree),
+    state = JT.TrainState(params=tree, opt_state=run_jax(opt.init, tree),
                           ema_params=tree_of(s["teacher"]),
                           step=jnp.asarray(step, jnp.int32),
                           rng=jax.random.PRNGKey(0))
@@ -205,8 +205,10 @@ def test_semi_step_matches_jax(setup, jax_semi_step, step):
     def bands(key, batch):
         _, lens = TS.featurize(pcfg, t(batch.audio), t(batch.audio_lens),
                                ptorch)
-        return tuple(t(x) for x in JF.sample_specaug_params(
-            key, 4, 80, jnp.asarray(lens.numpy()), jcfg.frontend))
+        return tuple(t(x) for x in run_jax(
+            lambda k, n: JF.sample_specaug_params(k, 4, 80, n,
+                                                  jcfg.frontend),
+            key, jnp.asarray(lens.numpy())))
 
     model = port_model(pcfg, s["flat"])
     st = TS.init_train_state(pcfg, model, seed=0)

@@ -246,7 +246,10 @@ def test_port_imports_no_jax():
         "       'models.listener', 'models.seq2seq', 'models.speller',\n"
         "       'models.transformer_speller', 'models.ctc_model',\n"
         "       'decode.ctc', 'decode.ctc_beam', 'decode.ctc_prefix',\n"
-        "       'decode.beam', 'data.preprocess', 'utils.flac')\n"
+        "       'decode.beam', 'data.preprocess', 'utils.flac',\n"
+        "       'models.transducer', 'objectives.transducer_loss',\n"
+        "       'objectives.transducer_semi', 'decode.transducer_greedy',\n"
+        "       'decode.transducer_beam')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"

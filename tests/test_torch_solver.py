@@ -73,6 +73,11 @@ def jax_run(tmp_path_factory):
     workdir = tmp_path_factory.mktemp("jax_solver")
     solver = JaxSolver(jax_load_config(CONFIG, overrides()), workdir,
                        use_mesh=False)
+    # no tensorboard: its attention plots (an eager teacher-forced pass at
+    # each validation) are no part of what the tests compare
+    if solver.log._tb is not None:
+        solver.log._tb.close()
+        solver.log._tb = None
     init = weights.flatten_tree(jax.tree.map(np.asarray, solver.state.params))
     labeled = list(itertools.takewhile(
         lambda ekb: ekb[0] == 0, solver._labeled_stream()))

@@ -29,7 +29,9 @@ from semi_supervised_asr_tpu_torch.decode.beam import beam_decode_from_enc
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
 from semi_supervised_asr_tpu_torch.models.attention import Attention
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
-from tests.test_torch_train import one_thread  # noqa: F401 -- autouse
+from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
+    FAST_XLA, one_thread, run_jax,
+)
 
 CFG = ModelConfig(
     n_mels=80, vocab_size=65, enc_hidden=128, enc_base_layers=1,
@@ -61,7 +63,8 @@ def feats_batch(seed=1):
 def encode_both(cfg=CFG):
     params, model = build(cfg)
     feats = feats_batch()
-    ref = JM.encode(params, jnp.asarray(feats), jnp.asarray(LENS), cfg)
+    ref = run_jax(lambda p, f, n: JM.encode(p, f, n, cfg), params,
+                  jnp.asarray(feats), jnp.asarray(LENS))
     with torch.inference_mode():
         got = model.encode(torch.from_numpy(feats), torch.from_numpy(LENS))
     return params, model, ref, got
@@ -111,8 +114,8 @@ def test_bridge_refuses_mismatched_trees(encoded):
 @pytest.mark.parametrize("kind", ["location", "additive", "dot"])
 def test_attend_matches_jax(kind):
     cfg = dataclasses.replace(CFG, attn_type=kind)
-    params = jax.tree.map(np.asarray, JA.init_attention(
-        jax.random.PRNGKey(3), cfg))
+    params = jax.tree.map(np.asarray, run_jax(
+        lambda k: JA.init_attention(k, cfg), jax.random.PRNGKey(3)))
     att = Attention(cfg)
     weights.load_tree(att, params)
     rng = np.random.default_rng(4)
@@ -121,10 +124,13 @@ def test_attend_matches_jax(kind):
     query = rng.standard_normal((B, cfg.dec_hidden)).astype(np.float32)
     mask = np.arange(t)[None, :] < np.asarray([16, 9, 1, 12, 16, 3, 5, 8])[:, None]
     alpha = rng.uniform(0, 1, (B, t)).astype(np.float32) * mask
-    keys = np.asarray(JA.precompute_keys(params, jnp.asarray(enc)))
-    ref = JA.attend(params, jnp.asarray(query), jnp.asarray(alpha),
-                    jnp.asarray(keys), jnp.asarray(enc), jnp.asarray(mask),
-                    sharpening=1.5)
+    def jfn(p, q, a, e, m):
+        k = JA.precompute_keys(p, e)
+        return k, JA.attend(p, q, a, k, e, m, sharpening=1.5)
+
+    keys, ref = run_jax(jfn, params, jnp.asarray(query), jnp.asarray(alpha),
+                        jnp.asarray(enc), jnp.asarray(mask))
+    keys = np.asarray(keys)
     with torch.inference_mode():
         tkeys = att.precompute_keys(torch.from_numpy(enc))
         got = att.attend(torch.from_numpy(query), torch.from_numpy(alpha),
@@ -146,9 +152,12 @@ def test_speller_step_matches_jax(tied, encoded):
     tokens = jnp.asarray(np.arange(B) % cfg.vocab_size, jnp.int32)
     with torch.inference_mode():
         tstate = model.speller.init_state(B, torch.from_numpy(np.array(mask)))
+    args = (sp, state, tokens, keys, enc, mask)
+    step = jax.jit(lambda p, st, tok, k, e, m: JS.speller_step(
+        p, cfg, st, tok, k, e, m)).lower(*args).compile(
+        compiler_options=FAST_XLA)
     for _ in range(3):      # a few steps so the alignment feeds back
-        state, logits, alpha = JS.speller_step(sp, cfg, state, tokens, keys,
-                                               enc, mask)
+        state, logits, alpha = step(sp, state, tokens, keys, enc, mask)
         with torch.inference_mode():
             tstate, tlogits, talpha = model.speller.step(
                 tstate, torch.from_numpy(np.array(tokens)),
@@ -172,8 +181,8 @@ def _decode_inputs(encoded):
 
 def test_greedy_tokens_identical_to_jax(encoded):
     params, model, j, t = _decode_inputs(encoded)
-    ref_tok, ref_lp = JG.greedy_decode_from_enc(params["speller"], CFG, *j,
-                                                MAX_LEN)
+    ref_tok, ref_lp = run_jax(lambda p, *a: JG.greedy_decode_from_enc(
+        p, CFG, *a, MAX_LEN), params["speller"], *j)
     with torch.inference_mode():
         tok, lp = greedy_decode_from_enc(model.speller, *t, MAX_LEN)
     assert tok.dtype == torch.int32
@@ -189,8 +198,8 @@ def test_beam_tokens_identical_to_jax(coverage, encoded):
     # the reference's best hypothesis is the head of its sorted n-best
     # (a stable argsort against a first-max argmax), so one reference run
     # checks both of the port's outputs
-    ref = JB.beam_decode_from_enc(params["speller"], CFG, dcfg, *j, MAX_LEN,
-                                  return_nbest=True)
+    ref = run_jax(lambda p, *a: JB.beam_decode_from_enc(
+        p, CFG, dcfg, *a, MAX_LEN, return_nbest=True), params["speller"], *j)
     ref_nbest = (np.asarray(ref[0]), np.asarray(ref[1]))
     ref_best = (ref_nbest[0][:, 0], ref_nbest[1][:, 0])
     for nbest, want in ((False, ref_best), (True, ref_nbest)):

@@ -225,17 +225,17 @@ def test_masked_ce_and_accuracy_match_jax(smoothing):
     targets[1, 4:] = 0
     targets[3, :] = 0
     targets[2, 2] = logits[2, 2].argmax()        # a hit for the accuracy
-    ref_ce, ref_lp = JL.masked_ce(jnp.asarray(logits), jnp.asarray(targets),
-                                  smoothing)
+    ref_ce, ref_lp, ref_acc, (ref_ins, _) = run_jax(
+        lambda lg, y: (*JL.masked_ce(lg, y, smoothing),
+                       JL.token_accuracy(lg, y), JL.shift_targets(y)),
+        jnp.asarray(logits), jnp.asarray(targets))
     ce, lp = LO.masked_ce(t(logits), t(targets), smoothing)
     np.testing.assert_allclose(ce.item(), float(ref_ce), rtol=1e-6)
     np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), rtol=1e-6,
                                atol=1e-6)
     acc = LO.token_accuracy(t(logits), t(targets))
-    ref_acc = JL.token_accuracy(jnp.asarray(logits), jnp.asarray(targets))
     np.testing.assert_allclose(acc.item(), float(ref_acc), rtol=1e-6)
     ins, tg = LO.shift_targets(t(targets))
-    ref_ins, _ = JL.shift_targets(jnp.asarray(targets))
     np.testing.assert_array_equal(ins.numpy(), np.asarray(ref_ins))
     assert tg is not None
 
@@ -443,7 +443,8 @@ def test_featurize_with_jax_specaug_bands_matches_jax(step_setup):
         functools.partial(JT.featurize, jcfg, augment=True),
         jnp.asarray(audio), jnp.asarray(lens), (jmean, jistd), key)
     # the draws JAX's spec_augment makes inside featurize
-    bands = JF.sample_specaug_params(key, 4, 80, ref_lens, jcfg.frontend)
+    bands = run_jax(lambda k, n: JF.sample_specaug_params(
+        k, 4, 80, n, jcfg.frontend), key, ref_lens)
     assert int(np.asarray(bands[1]).sum() + np.asarray(bands[3]).sum()) > 0
     pcfg = dataclasses.replace(pcfg, frontend=dataclasses.replace(
         pcfg.frontend, spec_augment=True))
@@ -543,7 +544,7 @@ def check_supervised_step(pcfg, jcfg, batch, cmvn, flat, draws=None,
     metrics (``keys``: the metrics compared)."""
     tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
     opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
-    state = JT.TrainState(params=tree, opt_state=opt.init(tree),
+    state = JT.TrainState(params=tree, opt_state=run_jax(opt.init, tree),
                           ema_params=tree, step=jnp.zeros((), jnp.int32),
                           rng=jax.random.PRNGKey(0))
     new_state, ref = run_jax(
@@ -614,7 +615,7 @@ def test_remat_and_bf16_weight_stream_step_matches_jax(step_setup):
     jcfg = jcfg.replace(train=dataclasses.replace(jcfg.train, **over))
     tree = jax.tree.map(jnp.asarray, weights.unflatten_tree(flat))
     opt = optax.chain(stash(), JSCH.make_optimizer(jcfg.train))
-    state = JT.TrainState(params=tree, opt_state=opt.init(tree),
+    state = JT.TrainState(params=tree, opt_state=run_jax(opt.init, tree),
                           ema_params=tree, step=jnp.zeros((), jnp.int32),
                           rng=jax.random.PRNGKey(0))
     new_state, ref = run_jax(
