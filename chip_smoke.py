@@ -10,9 +10,11 @@ failure raises and the script exits non-zero:
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
 1. build the CUDA kernels from ``semi_supervised_asr_tpu_torch/csrc``,
    with ptxas's registers and spills of the bf16 instances of K5 and of
-   the LSTM cluster route (and its exchange-floor probe), and
+   the LSTM cluster and grid routes (and their exchange-floor probes),
    ``cudaOccupancyMaxActiveClusters`` of each K2/K3 cluster plan at B=32,
-   H=256/384/512 (timit's must all be resident at once);
+   H=256/384/512 (timit's must all be resident at once), and the grid
+   plans' co-residency at H=768 for D=1, B=64 and D=2, B=32 (every block
+   resident at once);
 2. K1 (fused post-FFT frontend) against its plain version at B=32, T=400,
    800 and 1600 (F=257, M=80, a zero-length row each), and at B=5, T=37
    (the last tile ends off 16 bytes) and B=1, T=1 under every launch plan
@@ -26,7 +28,11 @@ failure raises and the script exits non-zero:
    <= 1e-5 in float32 (the CUDA-core route), <= BF16_TOL in bfloat16 (the
    cluster route); then the cluster route at H=256, 384 and 512, B=32
    and 5, T=1 and 37, D=2 and D=1 reverse, each with a zero-length row;
-   every call's route is checked by its launch count;
+   the grid route at H=640, 768 and 1024, B=64, 5 and 1, T=1, 37 and
+   400, D=1 and D=2 with the second direction reversed, each call twice
+   and bitwise equal; every call's route is checked by its launch count;
+   a grid plan the card cannot hold must raise (cudaError 720) before
+   any launch;
 4. the serving slice at ``configs/timit.yaml`` full width (random weights
    from seed 0, synthetic WAVs in two buckets) through the port's
    ``transcribe`` entry, beam 5 and greedy, with each kernel's launch
@@ -47,7 +53,7 @@ failure raises and the script exits non-zero:
    dgates <= 1e-5 in float32, <= BF16_TOL in bfloat16; then the
    gradients of one whole BiLSTM layer (dx, dW_ih, dW_hh, db) through the
    autograd Function, kernel against plain, in float32; then K3's
-   cluster route at phase 3's shapes;
+   cluster and grid routes at phase 3's shapes;
 7. the training slice at ``configs/timit.yaml`` full width through
    the Solver (the train CLI's short form; synthetic corpus, bucket 400,
    B=32, bf16, weights from seed 0): 3 steps, the loss of each, finite
@@ -214,12 +220,15 @@ failure raises and the script exits non-zero:
     EMA buffer), ``test`` beam
     4 and the
     4-best of a dev batch; (c) ``configs/ls100_transducer_streaming.yaml``
-    offline: 2 steps (the forward-only listener's K2 and K3 on the
-    CUDA-core route, the predictor's on the cluster route), the
-    validation, ``test`` beam 4, a bf16 step kernels against plain; K2 and
-    K3 at D=1, B=64: H=768 at T=1600 and 200 (ragged rows) and H=512 at
-    T=257, against their plain versions, then timed with every step valid
-    beside cuDNN's one-direction layer.
+    offline: 2 steps (the forward-only listener's K2 and K3 on the grid
+    route, the predictor's on the cluster route), the validation, ``test``
+    beam 4, a bf16 step kernels against plain, the same step twice
+    bitwise, the step with the listener on the CUDA-core route against the
+    grid route (in turns); K2 and K3 at D=1, B=64: H=768 at T=1600 and
+    200 (ragged rows) and H=512 at T=257, against their plain versions,
+    then timed with every step valid beside cuDNN's one-direction layer,
+    with the grid route's serial floor (the barrier alone, and with the
+    exchange's read) and its plans timed in turns.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -484,15 +493,22 @@ TD_SEMI_LAUNCHES = {"fused_post_fft": 3, "lstm_scan_fwd": 19,
                     "lstm_scan_bwd": 11}
 # (c) configs/ls100_transducer_streaming.yaml offline (forward-only
 # listener of 768, VALID framing), 2 steps at the 400-frame bucket and
-# the final validation: the listener's K2 and K3 run on the CUDA-core
-# route (H=768 is above CLUSTER_MAX_HIDDEN), the predictor's on the
-# cluster route
+# the final validation: the listener's K2 and K3 run on the grid route
+# (H=768 is above CLUSTER_MAX_HIDDEN), the predictor's on the cluster
+# route
 TD_STREAM_CONFIG = ROOT / "configs" / "ls100_transducer_streaming.yaml"
 TD_STREAM_RUN = ["data.frame_buckets=[400]", "train.total_steps=2",
                  "train.ckpt_every=0", "train.eval_every=0",
                  "train.log_every=1"]
-TD_STREAM_ROUTES = {"lstm_scan_fwd_simt": 8, "lstm_scan_fwd_cluster": 1,
-                    "lstm_scan_bwd_simt": 4, "lstm_scan_bwd_cluster": 1}
+TD_STREAM_ROUTES = {"lstm_scan_fwd_grid": 8, "lstm_scan_fwd_cluster": 1,
+                    "lstm_scan_bwd_grid": 4, "lstm_scan_bwd_cluster": 1}
+# the grid plans timed against each other at the streaming listener's
+# first layer (D=1, B=64, H=768, T=1600): (hidden units a block, ring
+# chunk, stages), each planned by grid_plan with that unit count alone,
+# then given that chunk and stage count (0: the plan's own); the first is
+# the default plan
+GRID_SWEEP = {"fwd": ((16, 0, 0), (16, 384, 2), (8, 0, 0), (32, 0, 0)),
+              "bwd": ((16, 0, 0), (16, 512, 3), (32, 0, 0))}
 # K2 and K3 at the family's new one-direction shapes, B=64, bf16: (tag, T,
 # input width, H, every step valid on the path) -- the streaming listener's
 # first layer (80 mels at T=1600) and last pyramid layer (T=200), ragged
@@ -510,6 +526,9 @@ def c4_tag(t: int) -> str:
 # (timit 256; ls100, ls100_semi 384; ls960_dp 512): the cluster route's
 # checks (phases 1, 3, 6)
 CLUSTER_WIDTHS = (256, 384, 512)
+# widths above CLUSTER_MAX_HIDDEN (ls100_transducer_streaming's 768 among
+# them): the grid route's checks (phases 3, 6)
+GRID_WIDTHS = (640, 768, 1024)
 # published peaks of one H100 SXM (NVIDIA H100 datasheet)
 HBM_BYTES_S = 3.35e12
 L2_BYTES = 50e6
@@ -797,8 +816,8 @@ def kernel_label(entry: str) -> str | None:
     mangled entry name (None for the others)."""
     for pattern, param in ((r"(flash_mhsa_(?:fwd|bwd_dq|bwd_dkv)_bf16"
                             r"_kernel)ILi(\d)", "NB"),
-                           (r"(lstm_(?:fwd|bwd)_cluster_kernel|"
-                            r"exchange_floor_kernel)E", None)):
+                           (r"(lstm_(?:fwd|bwd)_(?:cluster|grid)_kernel|"
+                            r"(?:exchange|grid)_floor_kernel)E", None)):
         name = re.search(pattern, entry)
         if name:
             return (f"{name.group(1)}<{param}={name.group(2)}>" if param
@@ -808,8 +827,9 @@ def kernel_label(entry: str) -> str | None:
 
 def phase1() -> dict:
     """Build the kernels; -> {bf16 instance of K5 and of the LSTM cluster
-    route: (registers, spill stores, spill loads)} from ptxas; then how
-    many clusters of each LSTM cluster plan at B=32 the card holds."""
+    and grid routes: (registers, spill stores, spill loads)} from ptxas;
+    then how many clusters of each LSTM cluster plan at B=32 the card
+    holds, and whether the grid plans at H=768 fit it all at once."""
     from semi_supervised_asr_tpu_torch import _native
 
     t0 = time.perf_counter()
@@ -821,6 +841,7 @@ def phase1() -> dict:
     print(out.getvalue(), flush=True)
     log(f"[phase1] built {path.name} in {time.perf_counter() - t0:.1f} s")
     cluster_occupancy()
+    grid_coresidency()
     if cached:
         log("[phase1] the library was built before: no ptxas report")
         return {}
@@ -839,7 +860,7 @@ def phase1() -> dict:
             regs[kernel] = (int(used.group(1)),) + regs.get(kernel, (0,))[1:]
     for name, (n, *sp) in sorted(regs.items()):
         log(f"[phase1] {name}: {n} registers, spill stores/loads {sp} bytes")
-    require(len(regs) == 9, f"ptxas reported {sorted(regs)}")
+    require(len(regs) == 12, f"ptxas reported {sorted(regs)}")
     return regs
 
 
@@ -865,6 +886,88 @@ def cluster_occupancy() -> None:
             if h == 256:
                 require(held >= need, f"timit's {kind} clusters are not all "
                         "resident at once")
+
+
+def grid_coresidency() -> None:
+    """The grid plans of K2 and K3 at ls100_transducer_streaming's H=768
+    for D=1, B=64 and for D=2, B=32: the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs against
+    the launch's N * G * D blocks, which must all be resident at once."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    for kind in ("fwd", "bwd"):
+        for d, b in ((1, 64), (2, 32)):
+            plan = K.cluster_plan(kind, 768, b, torch.bfloat16, d)
+            require(plan.route == "grid", f"K2/K3 {kind} H=768: {plan}")
+            per_sm, sms = K.grid_occupancy(kind, 768, plan)
+            need = 768 // plan.units * plan.groups * d
+            log(f"[phase1] {kind} grid plan H=768 D={d} B={b}: u="
+                f"{plan.units} G={plan.groups} R={plan.rows} sub={plan.sub} "
+                f"chunk={plan.chunk} stages={plan.stages} smem={plan.smem} "
+                f"B; {per_sm} block(s) an SM x {sms} SMs = "
+                f"{per_sm * sms} resident, the launch has {need}")
+            require(per_sm * sms >= need, f"the {kind} grid at D={d} B={b} "
+                    "is not all resident at once")
+
+
+@contextlib.contextmanager
+def forced_plan(plan_fn):
+    """Run the scan wrappers with ``plan_fn`` (cluster_plan's signature)
+    as their launch plan."""
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    keep, K.cluster_plan = K.cluster_plan, plan_fn
+    try:
+        yield
+    finally:
+        K.cluster_plan = keep
+
+
+def grid_refusal() -> None:
+    """A grid plan the card cannot hold all at once (H=768, B=64, D=2 in
+    8 row groups of 8 rows: 1,536 blocks for K2, 768 for K3) must raise
+    before any launch: no launch counted, and the card still works."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    h, b, t, bf16 = 768, 64, 5, torch.bfloat16
+
+    def too_big(kernel, hidden, batch, compute, directions=1):
+        u = 8 if kernel == "fwd" else 16
+        return K.Plan("grid", 0, 8, u, K.GRID_THREADS,
+                      K.grid_smem(kernel, hidden, u, 8, 8, 384, 2), 8, 8,
+                      384, 2)
+
+    gx, w_hh, valid, dh_out = scan_inputs(h, 2, b, t, 5)
+    with torch.inference_mode():
+        ref = K.lstm_scan_reference(gx, w_hh, valid, bf16, (False, True),
+                                    residuals=True)
+    for kind, call in (
+            ("fwd", lambda: K.lstm_scan(gx, w_hh, valid, bf16,
+                                        (False, True))),
+            ("bwd", lambda: K.lstm_scan_bwd(w_hh, valid, ref[3], ref[2],
+                                            dh_out, bf16, (False, True)))):
+        before = dict(_native.LAUNCHES)
+        try:
+            with forced_plan(too_big), torch.inference_mode():
+                call()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        require("cudaError 720" in raised, f"{kind}: a grid the card cannot "
+                f"hold did not raise cudaErrorCooperativeLaunchTooLarge: "
+                f"{raised!r}")
+        require(_native.LAUNCHES == before, f"{kind}: a refused launch was "
+                "counted")
+        log(f"[phase3] K{2 if kind == 'fwd' else 3} grid of "
+            f"{h // too_big(kind, h, b, bf16).units * 8 * 2} blocks "
+            f"refused before launch: {raised}")
+    require(float(torch.ones(4, device=DEVICE).sum()) == 4.0,
+            "the card is unusable after a refused launch")
 
 
 def k1_inputs(b: int, t: int, seed: int, cfg):
@@ -1024,15 +1127,16 @@ def k2_inputs(t: int, i: int, seed: int, b: int = 32, h: int = 256):
     return x, w_ih, bias, w_hh, valid
 
 
-def routed(kind: str, compute, call):
+def routed(kind: str, compute, call, route: str | None = None):
     """Run ``call`` and require that it launched K2 (``kind="fwd"``) or K3
-    ("bwd") once, on the route the dtype asks for (the cluster route in
-    bf16 at these widths, the CUDA cores in f32) -> (result, route)."""
+    ("bwd") once, on ``route`` or by default the route the dtype asks for
+    at H <= 512 (the cluster route in bf16, the CUDA cores in f32) ->
+    (result, route)."""
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
 
-    route = "cluster" if compute == torch.bfloat16 else "simt"
+    route = route or ("cluster" if compute == torch.bfloat16 else "simt")
     key = f"lstm_scan_{kind}_{route}"
     before = _native.LAUNCHES[key]
     out = call()
@@ -1071,70 +1175,100 @@ def phase3() -> tuple[float, float]:
             require(max(errs) <= tol, f"K2 error {max(errs)} > {tol}")
             worst[compute] = max(worst[compute], max(errs))
     worst[torch.bfloat16] = max(worst[torch.bfloat16],
-                                cluster_checks("phase3", "fwd"))
+                                route_checks("phase3", "fwd", "cluster"),
+                                route_checks("phase3", "fwd", "grid"))
+    grid_refusal()
     return worst[torch.float32], worst[torch.bfloat16]
 
 
 def scan_inputs(h: int, d: int, b: int, t: int, seed: int):
     """Random gates_x [D, T, B, 4H] (std 0.5, about what the listener's
     projections give), w_hh [D, H, 4H] U(+-1/sqrt(H)), valid [T, B] with
-    row 0 full and row 1 empty (zero length), and dh_out [D, T, B, H]."""
+    row 0 full and row 1 (where B > 1) empty (zero length), and dh_out
+    [D, T, B, H]."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     gx = torch.randn((d, t, b, 4 * h), generator=g) * 0.5
     w_hh = (torch.rand((d, h, 4 * h), generator=g) * 2 - 1) / math.sqrt(h)
     lens = torch.randint(1, t + 1, (b,), generator=g)
-    lens[0], lens[1] = t, 0
+    lens[0] = t
+    lens[1:2] = 0
     valid = (torch.arange(t)[:, None] < lens[None, :]).float()
     dh_out = torch.randn((d, t, b, h), generator=g)
     return [x.to(DEVICE) for x in (gx, w_hh, valid, dh_out)]
 
 
-def cluster_checks(phase: str, kind: str) -> float:
+# each route's checks against the plain version (phases 3 and 6): widths,
+# directions (D=2 with the second reversed, or one direction), batches
+# and lengths, and whether each call runs twice and must be bitwise equal
+ROUTE_CHECKS = {
+    "cluster": (CLUSTER_WIDTHS, ((False, True), (True,)), (32, 5), (1, 37),
+                False),
+    "grid": (GRID_WIDTHS, ((False,), (False, True)), (64, 5, 1),
+             (1, 37, 400), True),
+}
+
+
+def route_checks(phase: str, kind: str, route: str) -> float:
     """K2 (``kind="fwd"``: h_out and the residuals) or K3 ("bwd": dgates
-    from the plain forward's residuals) on the cluster route against its
-    plain version, bf16, at every width of CLUSTER_WIDTHS: B=32 and a
-    ragged B=5 (one part-filled row tile), T=1 and T=37, a zero-length
-    row, both directions at once (D=2) and one reverse direction alone
-    (D=1) -> the largest error (each within BF16_TOL)."""
+    from the plain forward's residuals) on the cluster or grid ``route``
+    against its plain version, bf16, at each shape of ROUTE_CHECKS[route]
+    (a zero-length row where B > 1), each call's route checked by its
+    launch count; on the grid route each call runs twice, bitwise equal
+    (the exchange's ordering) -> the largest error (each within
+    BF16_TOL)."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
     bf16 = torch.bfloat16
+    widths, dirs, batches, lengths, twice = ROUTE_CHECKS[route]
     worst = 0.0
-    for h in CLUSTER_WIDTHS:
-        for rev in ((False, True), (True,)):
-            for b in (32, 5):
-                for t in (1, 37):
+    for h in widths:
+        for rev in dirs:
+            for b in batches:
+                for t in lengths:
                     gx, w_hh, valid, dh_out = scan_inputs(h, len(rev), b, t,
                                                           h + 7 * b + t)
                     with torch.inference_mode():
                         ref = K.lstm_scan_reference(gx, w_hh, valid, bf16,
                                                     rev, residuals=True)
                         if kind == "fwd":
-                            got, _ = routed(kind, bf16, lambda: K.lstm_scan(
-                                gx, w_hh, valid, bf16, rev, residuals=True))
+                            def call():
+                                return K.lstm_scan(gx, w_hh, valid, bf16, rev,
+                                                   residuals=True)
                             want = ref
                         else:
                             args = (w_hh, valid, ref[3], ref[2], dh_out, bf16,
                                     rev)
-                            got, _ = routed(kind, bf16,
-                                            lambda: [K.lstm_scan_bwd(*args)])
+
+                            def call():
+                                return [K.lstm_scan_bwd(*args)]
                             want = [K.lstm_scan_bwd_reference(*args)]
+                        got, _ = routed(kind, bf16, call, route)
+                        again = routed(kind, bf16, call, route)[0] if twice \
+                            else got
                     torch.cuda.synchronize()
                     require(all(bool(torch.isfinite(a).all()) for a in got),
-                            f"{kind} cluster route output not finite")
+                            f"{kind} {route} route output not finite")
+                    same = all(torch.equal(a, c) for a, c in zip(got, again))
+                    require(same, f"{kind} {route} route H={h} D={len(rev)} "
+                            f"B={b} T={t}: two calls differ")
                     err = max((a - w).abs().max().item()
                               for a, w in zip(got, want))
-                    plan = K.cluster_plan(kind, h, b, bf16)
-                    log(f"[{phase}] K{2 if kind == 'fwd' else 3} cluster "
+                    plan = K.cluster_plan(kind, h, b, bf16, len(rev))
+                    shape = (f"C={plan.cluster} R={plan.rows}"
+                             if route == "cluster" else
+                             f"u={plan.units} G={plan.groups} R={plan.rows} "
+                             f"sub={plan.sub} chunk={plan.chunk} stages="
+                             f"{plan.stages}, twice bitwise equal")
+                    log(f"[{phase}] K{2 if kind == 'fwd' else 3} {route} "
                         f"route H={h} D={len(rev)} reverse={rev} B={b} T={t} "
-                        f"(C={plan.cluster} R={plan.rows}): max_abs_err "
-                        f"{err:.3e} (tol {BF16_TOL:g})")
+                        f"({shape}): max_abs_err {err:.3e} (tol "
+                        f"{BF16_TOL:g})")
                     require(err <= BF16_TOL,
-                            f"{kind} cluster route error {err} > {BF16_TOL}")
+                            f"{kind} {route} route error {err} > {BF16_TOL}")
                     worst = max(worst, err)
     return worst
 
@@ -1443,7 +1577,8 @@ def phase6() -> tuple[float, float]:
             f"bwd dW_ih {errs[4]:.3e} dW_hh {errs[5]:.3e} db {errs[6]:.3e} "
             f"(tol {GRAD_TOL:g})")
         require(max(errs) <= GRAD_TOL, f"layer gradient error {max(errs)}")
-    return worst, max(worst_bf16, cluster_checks("phase6", "bwd"))
+    return worst, max(worst_bf16, route_checks("phase6", "bwd", "cluster"),
+                      route_checks("phase6", "bwd", "grid"))
 
 
 def k5_inputs(b: int, t: int, h: int, hd: int, seed: int,
@@ -2634,7 +2769,7 @@ def rows_times(times: dict, w_hh, valid, acts, cprev, dh_out, gx) -> None:
     h = h4 // 4
     for kind in ("fwd", "bwd"):
         plan = K.cluster_plan(kind, h, b, torch.bfloat16)
-        w = K.cluster_weights(w_hh, kind, plan)
+        w = K.fragment_weights(w_hh, kind, plan)
         if kind == "fwd":
             out = [torch.empty((d, t, b, h), device=DEVICE) for _ in range(3)]
             out.append(torch.empty_like(gx))
@@ -4056,7 +4191,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
             got = K.lstm_scan(*fwd, residuals=True)
             torch.cuda.synchronize()
             want = K.lstm_scan_reference(*fwd, residuals=True)
-        route_f = [k for k in ("cluster", "simt")
+        route_f = [k for k in ("cluster", "grid", "simt")
                    if _native.LAUNCHES[f"lstm_scan_fwd_{k}"]]
         err_f = max((a - b).abs().max().item() for a, b in zip(got, want))
         bwd = (w_hh, valid, got[3], got[2], dh_out, bf16, (False,))
@@ -4064,7 +4199,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
             dg = K.lstm_scan_bwd(*bwd)
             torch.cuda.synchronize()
             dg_want = K.lstm_scan_bwd_reference(*bwd)
-        route_b = [k for k in ("cluster", "simt")
+        route_b = [k for k in ("cluster", "grid", "simt")
                    if _native.LAUNCHES[f"lstm_scan_bwd_{k}"]]
         err_b = (dg - dg_want).abs().max().item()
         log(f"[phase18] K2 at {tag} (D=1, B=64, T={t}, H={h}, bf16, "
@@ -4073,7 +4208,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
             f"{err_b:.3e} (tol {BF16_TOL:g})")
         require(err_f <= BF16_TOL and err_b <= BF16_TOL,
                 f"K2/K3 at {tag} differ from plain: {err_f}, {err_b}")
-        require(route_f == route_b == (["simt"] if h > K.CLUSTER_MAX_HIDDEN
+        require(route_f == route_b == (["grid"] if h > K.CLUSTER_MAX_HIDDEN
                                        else ["cluster"]),
                 f"K2/K3 at {tag} took the routes {route_f}, {route_b}")
         errs[tag] = (err_f, err_b, route_f[0])
@@ -4098,6 +4233,10 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
                 ms = (back_to_back_ms(fn, reps=4) if key.endswith("b2b")
                       else cuda_ms(fn, reps=1, warmup=0))
                 times.setdefault(f"td_{tag}_{key}", []).append(ms)
+            if h > K.CLUSTER_MAX_HIDDEN:
+                grid_floors(times, tag, t, h)
+            if tag == "listener_t1600":
+                grid_sweep(times, tag, fwd, bwd, h)
         del fwd, bwd, gx
         # the library column: cuDNN's layer against the port's, like with
         # like (input projection included), forward and backward
@@ -4134,11 +4273,112 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def grid_floors(times: dict, tag: str, t: int, h: int) -> None:
+    """The grid route's serial floor at one of TD_LSTM_SHAPES (D=1, B=64):
+    T steps of each plan's protocol alone, CUDA events over back-to-back
+    calls -- with the step's read of the exchanged rows (``floor``) and
+    the step barrier alone (``barrier``)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    for kind in ("fwd", "bwd"):
+        plan = K.cluster_plan(kind, h, 64, torch.bfloat16, 1)
+        for key, read in (("floor", True), ("barrier", False)):
+            times.setdefault(f"td_{tag}_{key}_{kind}_b2b", []).append(
+                back_to_back_ms(lambda: K.exchange_floor(
+                    kind, plan, 1, t, 64, torch.device(DEVICE), h, read),
+                    reps=4))
+
+
+@contextlib.contextmanager
+def grid_units(kind: str, units: tuple):
+    """Plan the grid route of K2 (``kind="fwd"``) or K3 with these unit
+    counts a block alone."""
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    keep = K.GRID_UNITS[kind]
+    K.GRID_UNITS[kind] = units
+    try:
+        yield
+    finally:
+        K.GRID_UNITS[kind] = keep
+
+
+def grid_sweep(times: dict, tag: str, fwd: tuple, bwd: tuple,
+               h: int) -> None:
+    """K2 and K3 at ``tag`` under each grid plan of GRID_SWEEP, in turns
+    (each plan, then again in reverse order), CUDA events over
+    back-to-back calls."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    for kind, call in (("fwd", lambda: K.lstm_scan(*fwd)),
+                       ("bwd", lambda: K.lstm_scan_bwd(*bwd))):
+        order = GRID_SWEEP[kind]
+        for u, chunk, stages in (*order, *order[::-1]):
+            with grid_units(kind, (u,)):
+                plan = K.cluster_plan(kind, h, 64, torch.bfloat16, 1)
+            require(plan.route == "grid" and plan.units == u,
+                    f"no grid plan of {kind} with {u} units: {plan}")
+            if chunk:
+                plan = plan._replace(chunk=chunk, stages=stages,
+                                     smem=K.grid_smem(kind, h, u, plan.rows,
+                                                      plan.sub, chunk,
+                                                      stages))
+            with forced_plan(lambda *a, **k: plan), torch.inference_mode():
+                n = _native.LAUNCHES[f"lstm_scan_{kind}_grid"]
+                ms = back_to_back_ms(call, reps=2)
+                require(_native.LAUNCHES[f"lstm_scan_{kind}_grid"] == n + 4,
+                        f"the {kind} sweep left the grid route")
+            key = f"u{u}_c{plan.chunk}_s{plan.stages}"
+            times.setdefault(f"td_{tag}_{kind}_{key}_b2b", []).append(ms)
+            log(f"[phase18] grid plan {kind} at {tag}: u={u} G={plan.groups}"
+                f" R={plan.rows} sub={plan.sub} chunk={plan.chunk} stages="
+                f"{plan.stages} smem={plan.smem}: {ms:.4f} ms")
+
+
+def stream_step_routes(s) -> dict:
+    """ls100_transducer_streaming's step at the 400-frame bucket with the
+    listener's K2 and K3 on the CUDA-core route (the plan forced there, the
+    route before the grid's) and on the grid route, in turns (simt, grid,
+    grid, simt), two steps each, the second timed (host ms to a
+    synchronize) -> {route: median ms}."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    plan = K.cluster_plan
+
+    def simt(kernel, hidden, batch, compute, directions=1):
+        p = plan(kernel, hidden, batch, compute, directions)
+        return K.Plan("simt") if p.route == "grid" else p
+
+    lab = s._labeled_stream()
+    walls = {"simt": [], "grid": []}
+    for route in ("simt", "grid", "grid", "simt"):
+        with forced_plan(simt if route == "simt" else plan):
+            for i in range(2):
+                args, unlab = s.step_inputs(next(lab)[2])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.run_step(args, unlab)
+                torch.cuda.synchronize()
+                if i:
+                    walls[route].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in walls.items()}
+
+
 def phase18_stream(d: Path, card: str) -> tuple[dict, dict, dict]:
     """(c) configs/ls100_transducer_streaming.yaml offline at full width:
-    2 steps (the listener's K2 and K3 on the CUDA-core route, the
-    predictor's on the cluster route), the greedy validation, test beam 4;
-    then K2 and K3 at TD_LSTM_SHAPES against plain and cuDNN."""
+    2 steps (the listener's K2 and K3 on the grid route, the predictor's
+    on the cluster route), the greedy validation, test beam 4, a bf16 step
+    kernels against plain, the same step twice bitwise, the step with the
+    listener on the CUDA-core route against the grid route; then K2 and K3
+    at TD_LSTM_SHAPES against plain and cuDNN, the grid route's floors and
+    plans."""
     s = td_solver(TD_STREAM_CONFIG, d / "stream", TD_STREAM_RUN)
     m = s.cfg.model
     require(not m.enc_bidirectional and m.enc_hidden == 768
@@ -4150,12 +4390,24 @@ def phase18_stream(d: Path, card: str) -> tuple[dict, dict, dict]:
         f"B=64) through the Solver; cuts: {TD_DATA + TD_STREAM_RUN}")
     launches, _, walls, peaks, _ = td_run(
         s, "ls100_transducer_streaming", TD_STEP_LAUNCHES, TD_EVAL_LAUNCHES,
-        TD_STREAM_ROUTES, {"lstm_scan_fwd_simt": 4})
+        TD_STREAM_ROUTES, {"lstm_scan_fwd_grid": 4})
     out = {"td_stream_step_ms": statistics.median(walls[1:]),
            "td_stream_step_peak_gib": max(peaks)}
     out["td_stream_test_beam4_ms"] = td_test(
         s, "beam", "ls100_transducer_streaming", card)
     step_check(s, "phase18", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    same = same_step_twice(s)
+    log(f"[phase18] ls100_transducer_streaming: the same step twice (the "
+        f"listener's K2 8 and K3 4 on the grid route), loss and every "
+        f"gradient bitwise equal: {same}")
+    require(same, "two runs of one ls100_transducer_streaming step differ")
+    routes = stream_step_routes(s)
+    out["td_stream_step_simt_ms"] = routes["simt"]
+    out["td_stream_step_grid_ms"] = routes["grid"]
+    log(f"[phase18] ls100_transducer_streaming step at 400 frames, in turns: "
+        f"listener on the CUDA-core route {routes['simt']:.1f} ms, on the "
+        f"grid route {routes['grid']:.1f} ms (host ms to a synchronize, "
+        f"median of 2) ({card})")
     del s
     times, errs = {}, {}
     td_lstm_shapes(times, errs, card)
@@ -4485,15 +4737,23 @@ def main(argv=None) -> int:
         f"{p18['td_step_1600_ms']:.1f} ms at 1600 / 256 (peak "
         f"{p18['td_step_1600_peak_gib']:.2f} GiB), ls100_transducer_semi "
         f"step {p18['td_semi_step_ms']:.1f} ms, streaming step "
-        f"{p18['td_stream_step_ms']:.1f} ms")
+        f"{p18['td_stream_step_ms']:.1f} ms (in turns: listener on the "
+        f"CUDA-core route {p18['td_stream_step_simt_ms']:.1f} ms, on the "
+        f"grid route {p18['td_stream_step_grid_ms']:.1f} ms)")
     for kind in ("fwd", "bwd"):
         name = "lstm_scan_" + kind
         for tag, t, _, h, _ in TD_LSTM_SHAPES:
             key = f"td_{tag}_"
             ms, (bms, by) = p18[key + kind + "_b2b"], bound[f"{name}_{tag}"]
+            floor = ""
+            if key + "floor_" + kind + "_b2b" in p18:
+                floor = (f"; serial floor {p18[key + 'floor_' + kind + '_b2b']:.4f}"
+                         f" ms (the barrier alone "
+                         f"{p18[key + 'barrier_' + kind + '_b2b']:.4f} ms)")
             log(f"[summary] {name} at {tag} (B=64, T={t}, H={h}, D=1, bf16, "
                 f"{td_errs[tag][2]} route): {ms:.4f} ms device (back to "
-                f"back), bound {bms:.4f} ms ({by}), share {bms / ms:.3f}; "
+                f"back), {ms / t * 1e3:.2f} us a step{floor}; bound "
+                f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; "
                 f"plain {p18[key + kind + '_plain_call']:.1f} ms a call; the "
                 f"port's layer {kind} {p18[key + 'port_layer_' + kind + '_b2b']:.4f}"
                 f" ms against cuDNN's {p18[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
@@ -4504,8 +4764,12 @@ def main(argv=None) -> int:
               "(jax 0.9.0), reached from " + tpu + "flash_mhsa.py:123")
     cudnn = (f"cuDNN LSTM (torch.nn.LSTM, packed, {med['cudnn_dtype']}), "
              "the whole layer at bucket 400: ")
-    lstm_design = ("bf16: clusters of C blocks, the weight slice resident in "
-                   "shared memory, {} through distributed shared memory, "
+    lstm_design = ("bf16 at H <= 512: clusters of C blocks, the weight slice "
+                   "resident in shared memory, {0} through distributed "
+                   "shared memory, mma.sync; bf16 above H = 512: one "
+                   "co-resident grid (cooperative launch), the weight slice "
+                   "resident in shared memory, {0} through L2 by step "
+                   "parity with a step barrier on a global counter, "
                    "mma.sync; f32: CUDA cores")
     # launches: K1-K3 from the timit Solver run (phase 14: 4 steps and 2
     # validations), K5 from the conformer training run (phase 11), and by
@@ -4583,6 +4847,8 @@ def main(argv=None) -> int:
                  "plain_call_ms": p18[f"td_{tag}_{kind}_plain_call"],
                  "bound_ms": bound[f"{name}_{tag}"][0],
                  "bound_by": bound[f"{name}_{tag}"][1],
+                 "floor_ms": p18.get(f"td_{tag}_floor_{kind}_b2b"),
+                 "barrier_ms": p18.get(f"td_{tag}_barrier_{kind}_b2b"),
                  "port_layer_ms": p18[f"td_{tag}_port_layer_{kind}_b2b"],
                  "library_ms": p18[f"td_{tag}_cudnn_layer_{kind}_b2b"],
                  "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "

@@ -17,8 +17,8 @@ into an exception.
 launch sites increment it, so a caller can reset it, drive the serving
 or training path and see that each kernel actually ran.  The LSTM scans
 also count each launch under the route that ran it
-(``lstm_scan_fwd_cluster`` / ``lstm_scan_fwd_simt``, and the same for
-``lstm_scan_bwd``).
+(``lstm_scan_fwd_cluster`` / ``lstm_scan_fwd_grid`` /
+``lstm_scan_fwd_simt``, and the same for ``lstm_scan_bwd``).
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "fused_post_fft": 0, "lstm_scan_fwd": 0, "lstm_scan_bwd": 0,
     "flash_mhsa_fwd": 0, "flash_mhsa_bwd": 0,
-    "lstm_scan_fwd_cluster": 0, "lstm_scan_fwd_simt": 0,
-    "lstm_scan_bwd_cluster": 0, "lstm_scan_bwd_simt": 0,
+    "lstm_scan_fwd_cluster": 0, "lstm_scan_fwd_grid": 0,
+    "lstm_scan_fwd_simt": 0, "lstm_scan_bwd_cluster": 0,
+    "lstm_scan_bwd_grid": 0, "lstm_scan_bwd_simt": 0,
     "lstm_exchange_floor": 0,
 }
 
@@ -52,6 +53,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+# a grid plan's integers: units, groups, rows, sub, chunk, stages
+_GRID_PLAN = (_I, _I, _I, _I, _I, _I)
 # C signatures of the entry points (argument order as in csrc/*.cu)
 _SIGNATURES = {
     "fused_post_fft": [
@@ -79,8 +82,33 @@ _SIGNATURES = {
         _I, _I,                      # cluster, rows (0: CUDA cores)
         _P,                          # stream
     ],
+    "lstm_scan_fwd_grid": [
+        _P, _P, _P,                  # gates_x, w_frag, valid
+        _P, _P, _P, _P,              # h_out, hprev, cprev, acts (or NULL)
+        _P, _P,                      # exchange, counters
+        _I, _I, _I, _I, _I,          # D, T, B, H, reverse_mask
+        *_GRID_PLAN,
+        _P,                          # stream
+    ],
+    "lstm_scan_bwd_grid": [
+        _P, _P, _P, _P, _P,          # w_frag, valid, acts, cprev, dh_out
+        _P,                          # dgates
+        _P, _P,                      # exchange, counters
+        _I, _I, _I, _I, _I,          # D, T, B, H, reverse_mask
+        *_GRID_PLAN,
+        _P,                          # stream
+    ],
     "lstm_scan_fwd_occupancy": [_I, _I, _I, _IP],  # H, C, R, out
     "lstm_scan_bwd_occupancy": [_I, _I, _I, _IP],
+    # H, units, rows, sub, chunk, stages, blocks an SM, SMs
+    "lstm_scan_fwd_grid_occupancy": [_I, _I, _I, _I, _I, _I, _IP, _IP],
+    "lstm_scan_bwd_grid_occupancy": [_I, _I, _I, _I, _I, _I, _IP, _IP],
+    "lstm_grid_floor": [
+        _I, _I, _I, _I, _I, _I,      # backward, read, D, T, B, H
+        *_GRID_PLAN,
+        _P, _P,                      # exchange, counters
+        _P,                          # stream
+    ],
     "lstm_exchange_floor": [
         _I, _I, _I, _I, _I,          # backward, D, T, B, H
         _I, _I,                      # cluster, rows

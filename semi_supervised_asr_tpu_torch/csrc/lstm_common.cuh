@@ -1,7 +1,9 @@
 // Helpers shared by the LSTM scan kernels (lstm_scan_fwd.cu, lstm_scan_bwd.cu):
-// the CUDA-core route (float32, and bfloat16 where no cluster plan fits) and
-// the cluster route (bfloat16 on sm_90a: thread-block clusters, distributed
-// shared memory, mma.sync on the tensor cores).
+// the CUDA-core route (float32, and bfloat16 where no other plan fits), the
+// cluster route (bfloat16 at H <= 512 on sm_90a: thread-block clusters,
+// distributed shared memory, mma.sync on the tensor cores) and the grid
+// route (bfloat16 above H = 512: one co-resident grid, the exchange through
+// L2 and a step barrier on a counter in global memory, mma.sync).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -370,6 +372,208 @@ inline cudaError_t max_clusters(void (*kernel)(KArgs...), int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(out, (void*)kernel, &cfg);
+}
+
+// ---- the grid route ----
+//
+// N blocks share a (direction, group of R batch rows); block j owns the
+// hidden units [j*u, (j+1)*u), u = H/N, and keeps its slice of w_hh in
+// shared memory for the whole scan, in the cluster route's fragment order
+// (the same layout with N pieces).  Each step's exchanged vector (h, or
+// round(dgates)) goes through a global buffer of [2][D][G*R][K] bf16 (K = H
+// or 4H) chosen by step parity: every block writes its part, then arrives
+// on its group's counter; a block reads the step's rows only once the
+// counter shows all N arrivals.  The rows are read in sub-tiles of RS
+// rows, each streamed through a ring of S shared-memory stages of KC
+// columns by cp.async (L2 only, so no stale L1 line is read), and
+// multiplied on mma.sync as the cluster route does.  A block's 8 warps
+// split the sub-tile's work units (forward: 8 units x 8 rows; backward: 16
+// units x 8 rows) and, where there are fewer than 8, the k-steps; the
+// k-split parts are added in a fixed order (bitwise repeatable).  The
+// carries live in shared memory ([R][u] each), the step's streamed inputs
+// are copied in by cp.async before the wait.
+
+constexpr int kGridThreads = 256;     // 8 warps a block
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kGridHeader = 16;       // the weights' mbarrier
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Byte offsets of a grid block's shared memory: the weight slice ([H, 4u] or
+// [u, 4H] bf16), the ring (min(S, K/KC) stages of [RS][KC + kPad] bf16),
+// the streamed inputs of a sub-tile (f32: forward gates_x [RS][4u];
+// backward acts [RS][4u], cprev [RS][u], dh_out [RS][u]; then valid [RS]),
+// the carries ([R][u] x 2 f32) and the k-split partial sums.
+struct GridLayout {
+  size_t ring, in, carry, part, total;
+};
+__host__ __device__ inline GridLayout grid_layout(bool bwd, int H, int u,
+                                                  int R, int RS, int KC,
+                                                  int S) {
+  const int K = bwd ? 4 * H : H;
+  const int W = (bwd ? u / 16 : u / 8) * (RS / 8);   // work units a sub-tile
+  const int ksplit = W > 0 ? kGridWarps / W : 1;
+  const int nch = KC > 0 ? K / KC : 0;
+  GridLayout L;
+  L.ring = kGridHeader + (size_t)u * 4 * H * 2;
+  L.in = L.ring + (size_t)(S < nch ? S : nch) * RS * (KC + kPad) * 2;
+  L.carry = L.in + align16((size_t)RS * ((bwd ? 6 : 4) * u + 1) * 4);
+  L.part = L.carry + (size_t)R * u * 2 * 4;
+  L.total = L.part + (size_t)(ksplit - 1) * W * 32 * (bwd ? 4 : 8) * 4;
+  return L;
+}
+
+// Whether the route takes the plan: H a multiple of 16 (whole k-steps), u
+// a multiple of 8 (forward) or 16 (backward) dividing H, work units a
+// sub-tile dividing the 8 warps, RS a multiple of 8 dividing R, KC a
+// multiple of 16 dividing K, 2 or 3 stages, within the shared memory.
+inline bool grid_plan_ok(bool bwd, int H, int u, int R, int RS, int KC,
+                         int S) {
+  if (H <= 0 || H % 16 || u <= 0 || H % u || u % (bwd ? 16 : 8)) return false;
+  if (RS <= 0 || RS % 8 || R < RS || R % RS) return false;
+  const int W = (bwd ? u / 16 : u / 8) * (RS / 8);
+  const int K = bwd ? 4 * H : H;
+  if (W > kGridWarps || kGridWarps % W) return false;
+  if (KC <= 0 || KC % 16 || K % KC || S < 2 || S > 3) return false;
+  return grid_layout(bwd, H, u, R, RS, KC, S).total <= kMaxSmem;
+}
+
+// 16 bytes global -> shared by cp.async, cached in L2 only; zeros when
+// !live (nothing is read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wait for all of this thread's copies but the S - 2 newest groups
+__device__ __forceinline__ void cp_wait_ring(int S) {
+  if (S == 3) cp_wait<1>();
+  else cp_wait<0>();
+}
+
+// RS rows of the exchange (row stride K bf16), columns [col0, col0 + KC),
+// into a ring stage (row stride KC + kPad)
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int RS,
+                                           int K, int col0, int KC) {
+  const int pieces = KC / 8, SW = KC + kPad;
+  for (int i = threadIdx.x; i < RS * pieces; i += blockDim.x) {
+    const int r = i / pieces, p = i - r * pieces;
+    cp16(dst + r * SW + p * 8, src + (size_t)r * K + col0 + p * 8, true);
+  }
+}
+
+// A sub-tile's K exchanged columns through the ring: chunk c of K/KC lands
+// in stage c % S, at most S - 1 chunks in flight ahead of the one
+// multiplied; compute(c, stage) runs once every thread's copies of it
+// have landed.  One __syncthreads a chunk, which also frees the stage that
+// the next copies overwrite.
+template <typename Compute>
+__device__ __forceinline__ void ring(__nv_bfloat16* ring_s,
+                                     const __nv_bfloat16* src, int RS, int K,
+                                     int KC, int S, Compute compute) {
+  const int nch = K / KC;
+  const size_t stage = (size_t)RS * (KC + kPad);
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nch) stage_rows(ring_s + (c % S) * stage, src, RS, K, c * KC, KC);
+    cp_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_wait_ring(S);
+    __syncthreads();
+    const int next = c + S - 1;
+    if (next < nch)
+      stage_rows(ring_s + (next % S) * stage, src, RS, K, next * KC, KC);
+    cp_commit();
+    compute(c, ring_s + (c % S) * stage);
+  }
+}
+
+// The step barrier of a group: after a __syncthreads that follows the
+// block's exchange stores, thread 0 adds one to the group's counter with
+// release semantics at gpu scope (cumulative: it covers the stores the
+// block barrier ordered before it); a block waits until the counter
+// reaches target (thread 0 polls with relaxed loads, then one acquire
+// fence, then the block barrier).  A count that never arrives is a fault
+// of the protocol: after ~4e9 cycles (~2 s) the kernel traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void grid_arrive(unsigned* ctr) {
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr)
+                 : "memory");
+}
+__device__ __forceinline__ void grid_wait(const unsigned* ctr,
+                                          unsigned target) {
+  if (threadIdx.x == 0) {
+    const long long start = clock64();
+    unsigned seen;
+    do {
+      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(ctr)
+                   : "memory");
+      if (clock64() - start > (1ll << 32)) __trap();
+    } while (seen < target);
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Blocks of this shape one SM holds, and the card's SMs.
+template <typename... KArgs>
+inline cudaError_t grid_occupancy(void (*kernel)(KArgs...), size_t smem,
+                                  int* per_sm, int* sms) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        kGridThreads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// Launch `kernel` on a grid whose blocks must all be resident at once (the
+// step barrier spins): a cooperative launch, refused before it starts --
+// cudaErrorCooperativeLaunchTooLarge -- when the card cannot hold it.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_grid(void (*kernel)(KArgs...), dim3 grid,
+                               size_t smem, cudaStream_t stream,
+                               Args... args) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = grid_occupancy(kernel, smem, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if ((long long)per_sm * sms < (long long)grid.x * grid.y * grid.z)
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace lstm

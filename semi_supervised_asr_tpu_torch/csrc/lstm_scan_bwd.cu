@@ -21,8 +21,8 @@
 // sum_t,b hprev^T dgates is one large product outside the kernel (as in
 // JAX), so the kernel returns dgates only.
 //
-// Two routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
-// passed in as the plan's integers (cluster, rows):
+// Three routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
+// passed in as the plan's integers:
 //
 // The cluster route (bfloat16, H <= 512).  As for the forward scan, what
 // bounds it on this card is the serial chain of each step: gate gradients,
@@ -59,9 +59,23 @@
 // hidden behind the exchange, the wait and the product.  Sums run in a
 // fixed order (no atomics).
 //
+// The grid route (bfloat16, H > 512): the forward's grid (lstm_scan_fwd.cu)
+// with w_hh's rows [j*u, (j+1)*u) ([u, 4H], u = 16) as block j's resident
+// slice in shared memory.  Each step a block computes the dgates of its
+// units from the (dh, dc) carries, writes them rounded to bf16 into the
+// step's exchange buffer as its slab (4 gate groups of u, so the K order
+// is block by block as in the cluster route), arrives on its group's
+// counter, and once all N have arrived streams the group's rows of
+// round(dgates) ([R][4H]) through the ring and adds their product with its
+// slice to the dh carry (a warp a work unit of 16 units x 8 rows, the
+// k-steps split among warps where there are fewer than 8, the parts added
+// in a fixed order).  The exchange is four times the forward's (4H a row):
+// what a block reads a step, [R][4H] bf16 from L2, sets the step's time
+// above the barrier.
+//
 // The CUDA-core route (float32, the exactness checks, and bfloat16 where
-// no cluster fits, H > 512): one block owns (direction, tile of kRows
-// batch rows) and loops over all T with (dh, dc) in shared memory; the
+// neither fits): one block owns (direction, tile of kRows batch rows) and
+// loops over all T with (dh, dc) in shared memory; the
 // wrapper hands the weights transposed, [D,4H,H], so the product reduces
 // over rows of a contiguous matrix like the forward's: each thread owns a
 // 16-byte group of output units over one slice of the 4H inputs, the
@@ -377,10 +391,225 @@ int launch_cluster(const void* w_frag, const float* valid, const float* acts,
       static_cast<const __nv_bfloat16*>(w_frag), valid, acts, cprev, dh_out,
       dgates, T, B, H, R, reverse_mask);
 }
+
+
+// ---- the grid route (bf16, H > 512) ----
+
+// One block per (unit slice j, row group g, direction d): grid (N, G, D).
+// Warp w takes work unit w % W (16 units mt x 8 rows nt of the sub-tile)
+// and the k-steps kk with kk % ksplit == w / W (ksplit = 8 / W); lane
+// pairs: units 16*mt + lane/4 + 8*hh, rows 8*nt + 2*(lane%4) + e, as mma's
+// accumulator holds them.  Step s first adds round(dgates_{s-1}) .
+// w_hh^T, read from exchange buffer (s-1) & 1, to the dh carry (no product
+// at s = 0), then computes dgates_s and writes them, rounded, into buffer
+// s & 1 as block j's slab (its 4 gate groups of u, columns [4u*j,
+// 4u*(j+1))) before arriving: a block writes buffer s & 1 only after the
+// count of step s-1, i.e. after every block's step s-1 arrival, which each
+// made after its step s-1 product had read that buffer.
+__global__ void __launch_bounds__(lstm::kGridThreads, 1)
+lstm_bwd_grid_kernel(const __nv_bfloat16* __restrict__ w_frag,  // [D,N,u*4H]
+                     const float* __restrict__ valid,     // [T,B]
+                     const float* __restrict__ acts,      // [D,T,B,4H]
+                     const float* __restrict__ cprev,     // [D,T,B,H]
+                     const float* __restrict__ dh_out,    // [D,T,B,H]
+                     float* __restrict__ dgates,          // [D,T,B,4H]
+                     __nv_bfloat16* __restrict__ xch,     // [2,D,G*R,4H]
+                     unsigned* __restrict__ ctr,          // [D*G], zeroed
+                     int T, int B, int H, int R, int RS, int KC, int S,
+                     int reverse_mask) {
+  using namespace lstm;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  const int u = H / N, H4 = 4 * H, MT = u / 16;
+  const int W = MT * (RS / 8), ksplit = kGridWarps / W;
+  const int KSC = KC / 16, SW = KC + kPad;
+  const GridLayout L = grid_layout(true, H, u, R, RS, KC, S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  const uint4* w_s = reinterpret_cast<const uint4*>(smem_b + kGridHeader);
+  __nv_bfloat16* ring_s = reinterpret_cast<__nv_bfloat16*>(smem_b + L.ring);
+  float* a_s = reinterpret_cast<float*>(smem_b + L.in);   // [RS][4u] acts
+  float* cp_s = a_s + RS * 4 * u;                          // [RS][u] cprev
+  float* g_s = cp_s + RS * u;                              // [RS][u] dh_out
+  float* v_s = g_s + RS * u;                               // [RS] valid
+  float* dh_s = reinterpret_cast<float*>(smem_b + L.carry);  // [R][u]
+  float* dc_s = dh_s + R * u;                                // [R][u]
+  float* part_s = reinterpret_cast<float*>(smem_b + L.part);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wu = warp % W, kp = warp / W;
+  const int mt = wu % MT, nt = wu / MT;
+  const bool rev = (reverse_mask >> d) & 1;
+  const size_t seq = (size_t)T * B, xrows = (size_t)G * R;
+  const float* act = acts + (size_t)d * seq * H4;
+  const float* cpv = cprev + (size_t)d * seq * H;
+  const float* dho = dh_out + (size_t)d * seq * H;
+  float* dg = dgates + (size_t)d * seq * H4;
+  unsigned* my_ctr = ctr + d * G + g;
+  const int ul[2] = {mt * 16 + (lane >> 2), mt * 16 + (lane >> 2) + 8};
+
+  // the lane's dgates of a sub-tile at step t (pair 2*hh + e: unit hh,
+  // row e), in f32: whole 32-byte sectors, 8 units of a row a quarter warp
+  float out[4][4];
+  auto store = [&](int t, int r0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + nt * 8 + 2 * (lane & 3) + e;
+      if (row >= B) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          dg[((size_t)t * B + row) * H4 + q * H + j * u + ul[hh]] =
+              out[2 * hh + e][q];
+    }
+  };
+
+  for (int i = threadIdx.x; i < 2 * R * u; i += blockDim.x) dh_s[i] = 0.f;
+  init_barriers(bars, 1);
+  load_resident(smem_b + kGridHeader,
+                w_frag + ((size_t)d * N + j) * u * H4,
+                (uint32_t)((size_t)u * H4 * 2), &bars[0]);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? s : T - 1 - s;
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      // this step's acts (4 gate groups of u units), cprev, dh_out and
+      // valid of the sub-tile's rows, in flight while the block waits and
+      // multiplies
+      const int pr = 3 * u / 2;            // 16-byte pieces a row
+      for (int i = threadIdx.x; i < RS * pr; i += blockDim.x) {
+        const int r = i / pr, p = i - r * pr;
+        const int row = r0 + r;
+        const bool live = row < B;
+        const size_t base = (size_t)t * B + (live ? row : 0);
+        if (p < u) {                       // acts: gate p / (u/4)
+          const int q = p / (u / 4), k = p % (u / 4);
+          cp16(a_s + r * 4 * u + q * u + 4 * k,
+               act + base * H4 + q * H + j * u + 4 * k, live);
+        } else if (p < 5 * u / 4) {
+          const int k = p - u;
+          cp16(cp_s + r * u + 4 * k, cpv + base * H + j * u + 4 * k, live);
+        } else {
+          const int k = p - 5 * u / 4;
+          cp16(g_s + r * u + 4 * k, dho + base * H + j * u + 4 * k, live);
+        }
+      }
+      for (int r = threadIdx.x; r < RS; r += blockDim.x)
+        cp4(v_s + r, valid + (size_t)t * B + (r0 + r < B ? r0 + r : 0),
+            r0 + r < B);
+      cp_commit();
+
+      // dh[units, rows] += w_slice . round(dgates_{s-1})^T, four chains
+      // over alternate k-steps, added in a fixed order
+      float acc[4][4] = {};
+      if (s > 0) {
+        if (r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+        ring(ring_s,
+             xch + (((size_t)((s - 1) & 1) * D + d) * xrows + r0) * H4, RS,
+             H4, KC, S, [&](int c, const __nv_bfloat16* stage) {
+               const __nv_bfloat16* gb = stage + nt * 8 * SW;
+               const uint4* wp = w_s + ((size_t)mt * (H4 / 16) +
+                                        (size_t)c * KSC) * 32 + lane;
+               auto step = [&](int kk, float(&a)[4]) {
+                 uint32_t b0, b1;
+                 b_frag(gb, SW, kk * 16, b0, b1);
+                 mma_bf16(a, wp[kk * 32], b0, b1);
+               };
+               int kk = kp;
+#pragma unroll 2
+               for (; kk + 3 * ksplit < KSC; kk += 4 * ksplit) {
+                 step(kk, acc[0]);
+                 step(kk + ksplit, acc[1]);
+                 step(kk + 2 * ksplit, acc[2]);
+                 step(kk + 3 * ksplit, acc[3]);
+               }
+               for (; kk < KSC; kk += ksplit) step(kk, acc[0]);
+             });
+      }
+      float sum[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sum[q] = (acc[0][q] + acc[1][q]) + (acc[2][q] + acc[3][q]);
+      if (kp > 0) {
+        float* p = part_s + (((size_t)(kp - 1) * W + wu) * 32 + lane) * 4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p[q] = sum[q];
+      }
+      cp_wait<0>();
+      __syncthreads();
+
+      if (kp == 0) {
+        for (int k = 1; k < ksplit; ++k) {
+          const float* p = part_s + (((size_t)(k - 1) * W + wu) * 32 + lane) * 4;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum[q] += p[q];
+        }
+        // gate gradients of the lane's pairs (sum[2*hh + e] is unit hh,
+        // row e), the dc carry and the (1-v) part of the dh carry;
+        // round(dgates) into the exchange, dgates in registers until
+        // stored
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int rr = nt * 8 + 2 * (lane & 3) + e;
+            const int row = r0 + rr;
+            const float* ap = a_s + rr * 4 * u + ul[hh];
+            const float ig = ap[0], fg = ap[u], gg = ap[2 * u], og = ap[3 * u];
+            const float c0 = cp_s[rr * u + ul[hh]];
+            const float v = v_s[rr];
+            float* dhc = dh_s + (row - g * R) * u + ul[hh];
+            float* dcc = dc_s + (row - g * R) * u + ul[hh];
+            const float dh = s > 0 ? *dhc + sum[2 * hh + e] : *dhc;
+            const float dc = *dcc;
+            const float tc = tanhf(fg * c0 + ig * gg);
+            const float dh_new = v * (dh + g_s[rr * u + ul[hh]]);
+            const float dc_new = dh_new * og * (1.f - tc * tc) + v * dc;
+            float* dq = out[2 * hh + e];
+            dq[0] = dc_new * gg * ig * (1.f - ig);
+            dq[1] = dc_new * c0 * fg * (1.f - fg);
+            dq[2] = dc_new * ig * (1.f - gg * gg);
+            dq[3] = dh_new * tc * og * (1.f - og);
+            if (s + 1 < T)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                xch[(((size_t)(s & 1) * D + d) * xrows + row) * H4 +
+                    4 * u * j + q * u + ul[hh]] = bf16(dq[q]);
+            *dhc = (1.f - v) * dh;
+            *dcc = (1.f - v) * dc + dc_new * fg;
+          }
+        // a sub-tile's dgates go out once the next one needs the
+        // registers; the last one's after the arrival
+        if (r0 + RS < g * R + R) store(t, r0);
+      }
+      __syncthreads();   // the ring, inputs and partials are free again
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+    if (kp == 0) store(t, g * R + R - RS);
+  }
+}
+
+int launch_grid_bwd(const void* w_frag, const float* valid, const float* acts,
+                    const float* cprev, const float* dh_out, float* dgates,
+                    void* xch, unsigned* ctr, int D, int T, int B, int H,
+                    int reverse_mask, int u, int G, int R, int RS, int KC,
+                    int S, cudaStream_t stream) {
+  if (!lstm::grid_plan_ok(true, H, u, R, RS, KC, S) || G < 1 ||
+      (long long)G * R < B)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm::grid_layout(true, H, u, R, RS, KC, S).total;
+  return (int)lstm::launch_grid(
+      lstm_bwd_grid_kernel, dim3(H / u, G, D), smem, stream,
+      static_cast<const __nv_bfloat16*>(w_frag), valid, acts, cprev, dh_out,
+      dgates, static_cast<__nv_bfloat16*>(xch), ctr, T, B, H, R, RS, KC, S,
+      reverse_mask);
+}
 }  // namespace
 
 // valid [T,B] f32 0/1, acts [D,T,B,4H], cprev and dh_out [D,T,B,H],
-// dgates [D,T,B,4H], all f32.  cluster = 0: the CUDA-core route, w_t
+// dgates [D,T,B,4H], all f32 (the grid route has its own entry,
+// lstm_scan_bwd_grid).  cluster = 0: the CUDA-core route, w_t
 // [D,4H,H] = w_hh transposed (bf16 when w_is_bf16 else f32).  cluster =
 // C > 0: the cluster route with clusters of C blocks and R = rows batch
 // rows; w_t is bf16 w_hh in the wrapper's fragment order
@@ -403,6 +632,35 @@ extern "C" int lstm_scan_bwd(const void* w_t, const float* valid,
                                  T, B, H, reverse_mask, s);
   return launch<float>(w_t, valid, acts, cprev, dh_out, dgates, D, T, B, H,
                        reverse_mask, s);
+}
+
+// The grid route (bf16, H > 512): valid, acts, cprev, dh_out and dgates as
+// lstm_scan_bwd; w_frag bf16 w_hh in the fragment order of H/units pieces
+// [D, H/units, units*4H]; xch bf16 scratch [2, D, groups*rows, 4H]; ctr
+// [D*groups] u32, zeroed; the plan's integers as lstm_scan_fwd_grid's.
+extern "C" int lstm_scan_bwd_grid(const void* w_frag, const float* valid,
+                                  const float* acts, const float* cprev,
+                                  const float* dh_out, float* dgates,
+                                  void* xch, unsigned* ctr, int D, int T,
+                                  int B, int H, int reverse_mask, int units,
+                                  int groups, int rows, int sub, int chunk,
+                                  int stages, void* stream) {
+  if (D == 0 || T == 0 || B == 0) return 0;
+  return launch_grid_bwd(w_frag, valid, acts, cprev, dh_out, dgates, xch,
+                         ctr, D, T, B, H, reverse_mask, units, groups, rows,
+                         sub, chunk, stages, (cudaStream_t)stream);
+}
+
+// Blocks of the backward grid plan one SM holds, and the card's SMs.
+extern "C" int lstm_scan_bwd_grid_occupancy(int H, int units, int rows,
+                                            int sub, int chunk, int stages,
+                                            int* per_sm, int* sms) {
+  if (!lstm::grid_plan_ok(true, H, units, rows, sub, chunk, stages))
+    return (int)cudaErrorInvalidValue;
+  return (int)lstm::grid_occupancy(
+      lstm_bwd_grid_kernel,
+      lstm::grid_layout(true, H, units, rows, sub, chunk, stages).total,
+      per_sm, sms);
 }
 
 // How many clusters of the backward cluster route's plan the card holds at

@@ -18,8 +18,8 @@
 // (hprev, cprev = the carries before the step, acts = i,f,g,o) are written
 // at the same time index as h_out, for the backward scan.
 //
-// Two routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
-// passed in as the plan's integers (cluster, rows):
+// Three routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
+// passed in as the plan's integers:
 //
 // The cluster route (bfloat16, H <= 512).  What bounds the scan on this
 // card is the serial chain of each step: the step's h has to reach every
@@ -57,11 +57,30 @@
 // after the exchange, as whole 32-byte sectors (8 units of a row per warp
 // and store).
 //
+// The grid route (bfloat16, H > 512; ops/lstm_scan.py::grid_plan).  w_hh
+// fits no cluster there (4.7 MB a direction at H=768 against 16 x 227 KB)
+// but fits the card: N = H/u blocks for each (direction, group of R batch
+// rows), all resident at once (a cooperative launch, refused before it
+// starts when the card cannot hold the grid), each holding its slice of
+// w_hh ([H, 4u], u = 16 at H=768) in shared memory for the whole scan, in
+// the cluster route's fragment order.  The serial chain still bounds a
+// step, and h now reaches the other blocks through L2: each block writes
+// its u units of h_{s+1} (bf16) into a global buffer chosen by step parity
+// and arrives on its row group's counter; a block waits until the counter
+// shows all N arrivals, streams the group's rows of h_s through a ring of
+// shared-memory stages by cp.async, multiplies them on mma.sync (a warp a
+// work unit of 8 units x 8 rows; the k-steps split among warps where there
+// are fewer than 8, the parts added in a fixed order), runs the gate math
+// and writes h_{s+1}.  As many row groups as fit the card keep the rows a
+// block reads a step few (H=768, D=1, B=64: 2 groups of 32 rows, 96
+// blocks).  The next step's gates_x and valid are copied in before the
+// wait; the outputs are stored after the arrival.
+//
 // The CUDA-core route (float32, the exactness checks, and bfloat16 where
-// no cluster fits, H > 512): one block owns (direction, tile of kRows
-// batch rows) and loops over all T with h and c in shared memory, w_hh
-// re-read from L2 every step; 1024 threads each own a 16-byte column group
-// over one slice of k, the slices summed in order, then the gate math.
+// neither fits): one block owns (direction, tile of kRows batch rows) and
+// loops over all T with h and c in shared memory, w_hh re-read from L2
+// every step; 1024 threads each own a 16-byte column group over one slice
+// of k, the slices summed in order, then the gate math.
 
 #include "lstm_common.cuh"
 
@@ -408,10 +427,245 @@ exchange_floor_kernel(int T, int R, int W, int backward) {
   }
   cluster_sync();
 }
+
+
+// ---- the grid route (bf16, H > 512) ----
+
+// One block per (unit slice j, row group g, direction d): grid (N, G, D).
+// Warp w takes work unit w % W (8 units ug x 8 rows nt of the sub-tile:
+// its two A tiles (i | f) and (g | o), as in the cluster route) and the
+// k-steps kk with kk % ksplit == w / W (ksplit = 8 / W).  Lane pairs: unit
+// 8*ug + lane/4, rows 8*nt + 2*(lane%4) + e.  Step s reads h_s from
+// exchange buffer s & 1 (h_0 = 0: no product at s = 0) and writes h_{s+1}
+// into buffer (s+1) & 1 before arriving on the counter: a block writes
+// buffer (s+1) & 1 only after the count of step s, i.e. after every
+// block's step-s arrival, which each made after its step s-1 product had
+// read that buffer.
+__global__ void __launch_bounds__(lstm::kGridThreads, 1)
+lstm_fwd_grid_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
+                     const __nv_bfloat16* __restrict__ w_frag,  // [D,N,H*4u]
+                     const float* __restrict__ valid,     // [T,B]
+                     float* __restrict__ h_out,           // [D,T,B,H]
+                     float* __restrict__ hprev,           // [D,T,B,H] | NULL
+                     float* __restrict__ cprev,           // [D,T,B,H] | NULL
+                     float* __restrict__ acts,            // [D,T,B,4H] | NULL
+                     __nv_bfloat16* __restrict__ xch,     // [2,D,G*R,H]
+                     unsigned* __restrict__ ctr,          // [D*G], zeroed
+                     int T, int B, int H, int R, int RS, int KC, int S,
+                     int reverse_mask) {
+  using namespace lstm;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  const int u = H / N, H4 = 4 * H, UG = u / 8;
+  const int W = UG * (RS / 8), ksplit = kGridWarps / W;
+  const int KSC = KC / 16, SW = KC + kPad;
+  const GridLayout L = grid_layout(false, H, u, R, RS, KC, S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  const uint4* w_s = reinterpret_cast<const uint4*>(smem_b + kGridHeader);
+  __nv_bfloat16* ring_s = reinterpret_cast<__nv_bfloat16*>(smem_b + L.ring);
+  float* gx_s = reinterpret_cast<float*>(smem_b + L.in);    // [RS][4u]
+  float* v_s = gx_s + RS * 4 * u;                            // [RS]
+  float* h_s = reinterpret_cast<float*>(smem_b + L.carry);  // [R][u]
+  float* c_s = h_s + R * u;                                  // [R][u]
+  float* part_s = reinterpret_cast<float*>(smem_b + L.part);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wu = warp % W, kp = warp / W;
+  const int ug = wu % UG, nt = wu / UG;
+  const bool rev = (reverse_mask >> d) & 1;
+  const size_t seq = (size_t)T * B, xrows = (size_t)G * R;
+  const float* gx = gates_x + (size_t)d * seq * H4;
+  float* ho = h_out + (size_t)d * seq * H;
+  const bool residuals = hprev != nullptr;
+  unsigned* my_ctr = ctr + d * G + g;
+  const int ul = ug * 8 + (lane >> 2);            // the lane's unit, in block
+  const int unit = j * u + ul;
+
+  // the lane's outputs of a sub-tile at step t (pairs e: rows r0 + 8*nt +
+  // 2*(lane%4) + e): whole 32-byte sectors, 8 units of a row a warp
+  float out[2][7];
+  auto store = [&](int t, int r0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + nt * 8 + 2 * (lane & 3) + e;
+      if (row >= B) continue;
+      const float* o = out[e];
+      const size_t off = ((size_t)t * B + row) * H + unit;
+      if (residuals) {
+        hprev[(size_t)d * seq * H + off] = o[4];
+        cprev[(size_t)d * seq * H + off] = o[5];
+        float* ac = acts + ((size_t)d * seq + (size_t)t * B + row) * H4 + unit;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ac[q * H] = o[q];
+      }
+      ho[off] = o[6];
+    }
+  };
+
+  for (int i = threadIdx.x; i < 2 * R * u; i += blockDim.x) h_s[i] = 0.f;
+  init_barriers(bars, 1);
+  load_resident(smem_b + kGridHeader, w_frag + ((size_t)d * N + j) * H * 4 * u,
+                (uint32_t)((size_t)H * 4 * u * 2), &bars[0]);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? T - 1 - s : s;
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      // this step's gates_x of the sub-tile's rows (4 gate groups of u
+      // units) and valid, in flight while the block waits and multiplies
+      for (int i = threadIdx.x; i < RS * u; i += blockDim.x) {
+        const int r = i / u, p = i - r * u, q = p / (u / 4), k = p % (u / 4);
+        const int row = r0 + r;
+        const bool live = row < B;
+        cp16(gx_s + r * 4 * u + q * u + 4 * k,
+             gx + ((size_t)t * B + (live ? row : 0)) * H4 + q * H + j * u +
+                 4 * k,
+             live);
+      }
+      for (int r = threadIdx.x; r < RS; r += blockDim.x)
+        cp4(v_s + r, valid + (size_t)t * B + (r0 + r < B ? r0 + r : 0),
+            r0 + r < B);
+      cp_commit();
+
+      // gates[4u cols, rows] = w_slice^T . round(h_s)^T, two accumulator
+      // chains a tile (alternate k-steps), added in a fixed order
+      float acc[2][2][4] = {};
+      if (s > 0) {
+        if (r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+        ring(ring_s, xch + (((size_t)(s & 1) * D + d) * xrows + r0) * H, RS,
+             H, KC, S, [&](int c, const __nv_bfloat16* stage) {
+               const __nv_bfloat16* hb = stage + nt * 8 * SW;
+               const uint4* wp = w_s + ((size_t)ug * (H / 16) +
+                                        (size_t)c * KSC) * 64 + lane;
+               auto step = [&](int kk, float(&a0)[4], float(&a1)[4]) {
+                 uint32_t b0, b1;
+                 b_frag(hb, SW, kk * 16, b0, b1);
+                 mma_bf16(a0, wp[kk * 64], b0, b1);
+                 mma_bf16(a1, wp[kk * 64 + 32], b0, b1);
+               };
+               int kk = kp;
+#pragma unroll 2
+               for (; kk + ksplit < KSC; kk += 2 * ksplit) {
+                 step(kk, acc[0][0], acc[1][0]);
+                 step(kk + ksplit, acc[0][1], acc[1][1]);
+               }
+               if (kk < KSC) step(kk, acc[0][0], acc[1][0]);
+             });
+      }
+      float sum[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[m][q] = acc[m][0][q] + acc[m][1][q];
+      if (kp > 0) {
+        float* p = part_s + (((size_t)(kp - 1) * W + wu) * 32 + lane) * 8;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) p[q] = sum[q / 4][q % 4];
+      }
+      cp_wait<0>();
+      __syncthreads();
+
+      if (kp == 0) {
+        for (int k = 1; k < ksplit; ++k) {
+          const float* p = part_s + (((size_t)(k - 1) * W + wu) * 32 + lane) * 8;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) sum[q / 4][q % 4] += p[q];
+        }
+        // gate math on the lane's (unit, row) pairs, masked carry update,
+        // h_{s+1} into the exchange; the outputs (i, f, g, o, hprev,
+        // cprev, h_out) wait in registers
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rr = nt * 8 + 2 * (lane & 3) + e;
+          const float* gq = gx_s + rr * 4 * u + ul;
+          float* o = out[e];
+          o[0] = sigmoid(gq[0] + sum[0][e]);
+          o[1] = sigmoid(gq[u] + sum[0][2 + e]);
+          o[2] = tanhf(gq[2 * u] + sum[1][e]);
+          o[3] = sigmoid(gq[3 * u] + sum[1][2 + e]);
+          float* hc = h_s + (r0 - g * R + rr) * u + ul;
+          float* cc = c_s + (r0 - g * R + rr) * u + ul;
+          o[4] = *hc;
+          o[5] = *cc;
+          const float c_new = o[1] * o[5] + o[0] * o[2];
+          const float h_new = o[3] * tanhf(c_new);
+          const float v = v_s[rr];
+          const float h2 = v * h_new + (1.f - v) * o[4];
+          o[6] = v * h_new;
+          *hc = h2;
+          *cc = v * c_new + (1.f - v) * o[5];
+          if (s + 1 < T)
+            xch[(((size_t)((s + 1) & 1) * D + d) * xrows + r0 + rr) * H +
+                unit] = bf16(h2);
+        }
+        // a sub-tile's outputs go out once the next one needs the
+        // registers; the last one's after the arrival
+        if (r0 + RS < g * R + R) store(t, r0);
+      }
+      __syncthreads();   // the ring, inputs and partials are free again
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+    if (kp == 0) store(t, g * R + R - RS);
+  }
+}
+
+int launch_grid_fwd(const float* gates_x, const void* w_frag,
+                    const float* valid, float* h_out, float* hprev,
+                    float* cprev, float* acts, void* xch, unsigned* ctr,
+                    int D, int T, int B, int H, int reverse_mask, int u,
+                    int G, int R, int RS, int KC, int S,
+                    cudaStream_t stream) {
+  if (!lstm::grid_plan_ok(false, H, u, R, RS, KC, S) || G < 1 ||
+      (long long)G * R < B)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm::grid_layout(false, H, u, R, RS, KC, S).total;
+  return (int)lstm::launch_grid(
+      lstm_fwd_grid_kernel, dim3(H / u, G, D), smem, stream, gates_x,
+      static_cast<const __nv_bfloat16*>(w_frag), valid, h_out, hprev, cprev,
+      acts, static_cast<__nv_bfloat16*>(xch), ctr, T, B, H, R, RS, KC, S,
+      reverse_mask);
+}
+
+// The grid route's serial floor: T steps of its protocol alone, on the
+// grid, threads and shared memory of one of its plans -- every block
+// publishes its W bf16 values of each of its group's R rows into the next
+// buffer and arrives; then (read = 1) it waits and streams the step's rows
+// through the ring in sub-tiles of RS, as the scans do, or (read = 0) only
+// waits.  No product, no gate math, no other global memory.
+__global__ void __launch_bounds__(lstm::kGridThreads, 1)
+grid_floor_kernel(__nv_bfloat16* __restrict__ xch, unsigned* __restrict__ ctr,
+                  int T, int K, int W, int R, int RS, int KC, int S,
+                  int read) {
+  using namespace lstm;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  __nv_bfloat16* ring_s =
+      reinterpret_cast<__nv_bfloat16*>(smem_b + kGridHeader);
+  const size_t xrows = (size_t)G * R;
+  unsigned* my_ctr = ctr + d * G + g;
+  for (int s = 0; s < T; ++s) {
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      if (s > 0 && r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+      if (s > 0 && read)
+        ring(ring_s, xch + (((size_t)(s & 1) * D + d) * xrows + r0) * K, RS,
+             K, KC, S, [](int, const __nv_bfloat16*) {});
+      cp_wait<0>();
+      __syncthreads();
+      if (s + 1 < T)
+        for (int i = threadIdx.x; i < RS * W; i += blockDim.x)
+          xch[(((size_t)((s + 1) & 1) * D + d) * xrows + r0 + i / W) * K +
+              j * W + i % W] = bf16(0.f);
+      __syncthreads();
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+  }
+}
 }  // namespace
 
 // gates_x [D,T,B,4H] f32, valid [T,B] f32 0/1, h_out [D,T,B,H] f32;
 // hprev/cprev [D,T,B,H] and acts [D,T,B,4H] f32 all given or all NULL.
+// (The grid route has its own entry, lstm_scan_fwd_grid.)
 // cluster = 0: the CUDA-core route, w_hh [D,H,4H] (bf16 when w_is_bf16
 // else f32).  cluster = C > 0: the cluster route with clusters of C blocks
 // and R = rows batch rows; w_hh is bf16 in the wrapper's fragment order
@@ -465,4 +719,59 @@ extern "C" int lstm_exchange_floor(int backward, int D, int T, int B, int H,
   return (int)lstm::launch_clusters(exchange_floor_kernel, grid, threads,
                                     smem, C, (cudaStream_t)stream, T, R,
                                     backward ? 4 * u : u, backward);
+}
+
+// The grid route (bf16, H > 512): gates_x, valid, h_out and the residuals
+// as lstm_scan_fwd; w_frag bf16 w_hh in the fragment order of H/units
+// pieces [D, H/units, H*4*units]; xch bf16 scratch [2, D, groups*rows, H];
+// ctr [D*groups] u32, zeroed.  The plan's integers: units u a block,
+// groups G of rows batch rows, sub-tiles of sub rows, ring chunks of chunk
+// columns in stages stages.  A plan the route cannot take returns
+// cudaErrorInvalidValue, a grid the card cannot hold all at once
+// cudaErrorCooperativeLaunchTooLarge, both before any launch.
+extern "C" int lstm_scan_fwd_grid(const float* gates_x, const void* w_frag,
+                                  const float* valid, float* h_out,
+                                  float* hprev, float* cprev, float* acts,
+                                  void* xch, unsigned* ctr, int D, int T,
+                                  int B, int H, int reverse_mask, int units,
+                                  int groups, int rows, int sub, int chunk,
+                                  int stages, void* stream) {
+  if (D == 0 || T == 0 || B == 0) return 0;
+  return launch_grid_fwd(gates_x, w_frag, valid, h_out, hprev, cprev, acts,
+                         xch, ctr, D, T, B, H, reverse_mask, units, groups,
+                         rows, sub, chunk, stages, (cudaStream_t)stream);
+}
+
+// Blocks of the forward grid plan one SM holds, and the card's SMs: the
+// plan's N*G*D blocks must fit in their product.
+extern "C" int lstm_scan_fwd_grid_occupancy(int H, int units, int rows,
+                                            int sub, int chunk, int stages,
+                                            int* per_sm, int* sms) {
+  if (!lstm::grid_plan_ok(false, H, units, rows, sub, chunk, stages))
+    return (int)cudaErrorInvalidValue;
+  return (int)lstm::grid_occupancy(
+      lstm_fwd_grid_kernel,
+      lstm::grid_layout(false, H, units, rows, sub, chunk, stages).total,
+      per_sm, sms);
+}
+
+// The grid route's serial floor over T steps (backward = 0: K2's plan,
+// the h exchange of u values a row and block; 1: K3's, 4u values), on the
+// plan's grid and shared memory for D directions and B rows; read = 0
+// leaves out the step's read of the exchange (the barrier alone).
+extern "C" int lstm_grid_floor(int backward, int read, int D, int T, int B,
+                               int H, int units, int groups, int rows,
+                               int sub, int chunk, int stages, void* xch,
+                               unsigned* ctr, void* stream) {
+  const bool bwd = backward != 0;
+  if (!lstm::grid_plan_ok(bwd, H, units, rows, sub, chunk, stages) ||
+      groups < 1 || (long long)groups * rows < B || T < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      lstm::grid_layout(bwd, H, units, rows, sub, chunk, stages).total;
+  return (int)lstm::launch_grid(
+      grid_floor_kernel, dim3(H / units, groups, D), smem,
+      (cudaStream_t)stream, static_cast<__nv_bfloat16*>(xch), ctr, T,
+      bwd ? 4 * H : H, bwd ? 4 * units : units, rows, sub, chunk, stages,
+      read);
 }

@@ -17,15 +17,19 @@ also what ``fuse_bilstm`` asks for).
 Padded steps pass the (h, c) carry through and emit zeros, so the reverse
 direction over a right-padded batch starts at each row's last valid frame.
 
-Two routes run the kernels, chosen by shape in :func:`cluster_plan`:
+Three routes run the kernels, chosen by shape in :func:`cluster_plan`:
 bfloat16 at H <= 512 runs as thread-block clusters (each block holds its
 slice of ``w_hh`` in shared memory for the whole scan, the step's h or
 dgates go between blocks through distributed shared memory, the step's
-product runs on the tensor cores); float32, and bfloat16 where no cluster
-fits, runs on the CUDA cores.  :func:`cluster_weights` lays ``w_hh`` out
-in the cluster kernels' fragment order (a permutation, one gather a call)
-and :func:`cluster_product_reference` computes one step's product from
-that layout the way the kernels arrange it.
+product runs on the tensor cores); bfloat16 above H = 512 runs as one grid
+whose blocks are all resident at once (:func:`grid_plan`: each block holds
+its slice of ``w_hh`` in shared memory, the step's h or dgates go between
+blocks through a global buffer in L2 with a step barrier on a counter);
+float32, and bfloat16 where neither fits, runs on the CUDA cores.
+:func:`fragment_weights` lays ``w_hh`` out in the order the cluster and
+grid kernels read it (a permutation, one gather a call) and
+:func:`fragment_product_reference` computes one step's product from that
+layout the way the kernels arrange it.
 
 ``lstm_scan_reference`` / ``lstm_scan_bwd_reference`` are the same math in
 plain PyTorch.  The wrappers run them only for CPU tensors or when asked
@@ -47,23 +51,35 @@ from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
 
-# ---- the cluster route: plan and weight layout ----
+# ---- the cluster and grid routes: plans and weight layout ----
 
 MAX_SMEM = 232_448          # shared memory one block can use on sm_90
 CLUSTER_THREADS = 256       # the cluster kernels' launch bound
 CLUSTER_PAD = 8             # bf16 pad of an exchanged row in shared memory
 # Above this width w_hh fits no cluster's shared memory (4.7 MB a direction
-# in bf16 at H=768), so bfloat16 there runs on the CUDA cores.
+# in bf16 at H=768), so bfloat16 there runs on the grid route.
 CLUSTER_MAX_HIDDEN = 512
 # cluster sizes in order of preference: 8 is the portable maximum; 16
 # needs the non-portable attribute and may find room once per GPC
 CLUSTER_SIZES = (8, 16, 4, 2, 1)
+# The grid route: blocks of 8 warps, one an SM (their shared memory), all
+# resident at once on the H100 SXM's 132 SMs; hidden units a block in
+# order of preference (a multiple of 8 forward, 16 backward); the exchange
+# streamed in chunks of at most GRID_MAX_CHUNK columns
+GRID_SMS = 132
+GRID_THREADS = 256
+GRID_WARPS = GRID_THREADS // 32
+GRID_UNITS = {"fwd": (16, 8, 32), "bwd": (16, 32)}
+GRID_MAX_CHUNK = 768
 
 
 class Plan(NamedTuple):
     """How a scan launches: ``route`` "cluster" (bf16, clusters of
     ``cluster`` blocks over ``rows`` batch rows, ``units`` hidden units a
-    block, ``threads`` and ``smem`` bytes a block) or "simt" (the
+    block, ``threads`` and ``smem`` bytes a block), "grid" (bf16, H/units
+    blocks for each of ``groups`` groups of ``rows`` batch rows and each
+    direction, the rows taken ``sub`` at a time, the exchange streamed in
+    ``chunk`` columns through ``stages`` ring stages) or "simt" (the
     CUDA-core kernels; the integers 0)."""
     route: str
     cluster: int = 0
@@ -71,6 +87,10 @@ class Plan(NamedTuple):
     units: int = 0
     threads: int = 0
     smem: int = 0
+    groups: int = 0
+    sub: int = 0
+    chunk: int = 0
+    stages: int = 0
 
 
 # batch rows a cluster: one mma n-tile.  Each step exchanges R x H (K2) or
@@ -91,20 +111,80 @@ def cluster_smem(kernel: str, hidden: int, cluster: int, rows: int) -> int:
     return 32 + hidden * 4 * u * 2 + slabs
 
 
+def grid_smem(kernel: str, hidden: int, units: int, rows: int, sub: int,
+              chunk: int, stages: int) -> int:
+    """Shared memory of one grid block (bytes), as ``csrc/lstm_common.cuh``
+    counts it: the weights' mbarrier (16), the weight slice (u x 4H bf16),
+    the ring (min(stages, K/chunk) stages of [sub][chunk + pad] bf16, K = H
+    forward, 4H backward), a sub-tile's streamed inputs (f32: 4u gates_x,
+    or 4u acts + u cprev + u dh_out a row, and valid), the carries
+    ([rows][u] x 2 f32) and the k-split partial sums."""
+    bwd = kernel == "bwd"
+    k = 4 * hidden if bwd else hidden
+    work = units // (16 if bwd else 8) * (sub // 8)
+    ring = min(stages, k // chunk) * sub * (chunk + CLUSTER_PAD) * 2
+    inputs = -(-sub * ((6 if bwd else 4) * units + 1) * 4 // 16) * 16
+    parts = (GRID_WARPS // work - 1) * work * 32 * (4 if bwd else 8) * 4
+    return (16 + hidden * 4 * units * 2 + ring + inputs + rows * units * 8
+            + parts)
+
+
+def grid_plan(kernel: str, hidden: int, batch: int,
+              directions: int) -> Plan | None:
+    """The grid route's launch shape for bf16 K2 / K3 at this width, batch
+    and number of directions, or None where none fits.  The first unit
+    count of ``GRID_UNITS`` whose N = H/u blocks a direction fit the card
+    (``GRID_SMS``, one block an SM) takes as many row groups as fit: each
+    block then reads the fewest exchanged rows a step.  A sub-tile holds as
+    many 8-row tiles as give the 8 warps a work unit each (fewer at a small
+    batch: the warps then split the k-steps); the ring takes the widest
+    chunk of at most ``GRID_MAX_CHUNK`` columns (and 3 stages where there
+    are more than 2 chunks, else 2) that fits ``MAX_SMEM``."""
+    bwd = kernel == "bwd"
+    k = 4 * hidden if bwd else hidden
+    if hidden % 16:
+        return None
+    for u in GRID_UNITS[kernel]:
+        if hidden % u:
+            continue
+        fit = GRID_SMS // (hidden // u * directions)
+        if fit < 1:
+            continue
+        groups = min(fit, -(-batch // 8))
+        need = -(-batch // groups)                 # rows a group
+        tiles = min(GRID_WARPS // (u // (16 if bwd else 8)),
+                    1 << max(0, (-(-need // 8) - 1).bit_length()))
+        sub = 8 * tiles
+        rows = -(-need // sub) * sub
+        for chunk in range(min(k, GRID_MAX_CHUNK) // 16 * 16, 0, -16):
+            if k % chunk:
+                continue
+            for stages in ((3, 2) if k // chunk > 2 else (2,)):
+                smem = grid_smem(kernel, hidden, u, rows, sub, chunk,
+                                 stages)
+                if smem <= MAX_SMEM:
+                    return Plan("grid", 0, rows, u, GRID_THREADS, smem,
+                                -(-batch // rows), sub, chunk, stages)
+    return None
+
+
 def cluster_plan(kernel: str, hidden: int, batch: int,
-                 compute: torch.dtype) -> Plan:
+                 compute: torch.dtype, directions: int = 1) -> Plan:
     """The route and launch shape of K2 (``kernel="fwd"``) or K3
-    (``"bwd"``) for this width, batch and compute dtype.  float32, and
-    bfloat16 above ``CLUSTER_MAX_HIDDEN`` or where no cluster fits, go to
-    the CUDA-core route.  Otherwise tiles of ``CLUSTER_ROWS`` rows and the
-    first cluster size of ``CLUSTER_SIZES`` whose blocks own a multiple of
-    16 units (whole k-steps of one block's slab; the backward's unit
-    tiles) within ``MAX_SMEM``.  The batch only sets the number of
-    clusters."""
+    (``"bwd"``) for this width, batch, compute dtype and number of
+    directions.  float32, and bfloat16 where neither the cluster nor the
+    grid route fits, go to the CUDA-core route; bfloat16 above
+    ``CLUSTER_MAX_HIDDEN`` to :func:`grid_plan`'s.  Otherwise tiles of
+    ``CLUSTER_ROWS`` rows and the first cluster size of ``CLUSTER_SIZES``
+    whose blocks own a multiple of 16 units (whole k-steps of one block's
+    slab; the backward's unit tiles) within ``MAX_SMEM``.  The batch and
+    the directions only set the number of clusters there."""
     if kernel not in ("fwd", "bwd"):
         raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
-    if compute != torch.bfloat16 or hidden > CLUSTER_MAX_HIDDEN:
+    if compute != torch.bfloat16:
         return Plan("simt")
+    if hidden > CLUSTER_MAX_HIDDEN:
+        return grid_plan(kernel, hidden, batch, directions) or Plan("simt")
     r = CLUSTER_ROWS
     for c in CLUSTER_SIZES:
         u = hidden // c
@@ -128,16 +208,17 @@ def _fragment_position():
 
 
 @functools.lru_cache(maxsize=None)
-def _fragment_index(kernel: str, hidden: int, cluster: int,
+def _fragment_index(kernel: str, hidden: int, u: int,
                     device: torch.device) -> torch.Tensor:
     """Flat indices into one direction's w_hh [H, 4H], in the order the
-    cluster kernels hold it: block by block, then (forward) [8-unit group,
-    k-step, m-tile (i|f, g|o), lane, register, element] with A[m, k] =
-    w_hh[k, gate * H + unit], gate = 2 * m-tile + m // 8, unit = j * u +
-    8 * group + m % 8; or (backward) [16-unit tile, k-step, lane, register,
-    element] with A[m, k] = w_hh[j * u + 16 * tile + m, _slab_column(k)]:
-    the backward's k runs over the exchanged dgates slab by slab."""
-    u = hidden // cluster
+    cluster and grid kernels hold it: block by block (block j owns the
+    units [j * u, (j + 1) * u)), then (forward) [8-unit group, k-step,
+    m-tile (i|f, g|o), lane, register, element] with A[m, k] = w_hh[k,
+    gate * H + unit], gate = 2 * m-tile + m // 8, unit = j * u + 8 * group
+    + m % 8; or (backward) [16-unit tile, k-step, lane, register, element]
+    with A[m, k] = w_hh[j * u + 16 * tile + m, _slab_column(k)]: the
+    backward's k runs over the exchanged dgates slab by slab."""
+    blocks = hidden // u
     m, kk = _fragment_position()
     h4 = 4 * hidden
 
@@ -146,48 +227,48 @@ def _fragment_index(kernel: str, hidden: int, cluster: int,
         shape[i] = n
         return torch.arange(n).view(shape)
 
-    if kernel == "fwd":          # [C, u/8, H/16, 2, 32, 4, 2]
+    if kernel == "fwd":          # [H/u, u/8, H/16, 2, 32, 4, 2]
         j, grp, ks, mt = (axis(n, i, 7) for i, n in
-                          enumerate((cluster, u // 8, hidden // 16, 2)))
+                          enumerate((blocks, u // 8, hidden // 16, 2)))
         gate = 2 * mt + m // 8
         unit = j * u + 8 * grp + m % 8
         idx = (16 * ks + kk) * h4 + gate * hidden + unit
-    else:                        # [C, u/16, 4H/16, 32, 4, 2]
+    else:                        # [H/u, u/16, 4H/16, 32, 4, 2]
         j, tile, ks = (axis(n, i, 6) for i, n in
-                       enumerate((cluster, u // 16, h4 // 16)))
-        cols = _slab_column(16 * ks + kk, hidden, cluster)
+                       enumerate((blocks, u // 16, h4 // 16)))
+        cols = _slab_column(16 * ks + kk, hidden, u)
         idx = (j * u + 16 * tile + m) * h4 + cols
     return idx.reshape(-1).to(device)
 
 
-def _slab_column(k: torch.Tensor, hidden: int, cluster: int) -> torch.Tensor:
+def _slab_column(k: torch.Tensor, hidden: int, u: int) -> torch.Tensor:
     """The gate column (gate * H + unit) of position k of the backward's
     exchanged dgates: block b's slab holds its u units' four gate groups,
     gate by gate."""
-    u = hidden // cluster
     block, rem = k // (4 * u), k % (4 * u)
     return (rem // u) * hidden + block * u + rem % u
 
 
-def cluster_weights(w_hh: torch.Tensor, kernel: str,
-                    plan: Plan) -> torch.Tensor:
-    """w_hh [D, H, 4H] -> bf16 [D, H * 4H] in the cluster kernels'
-    fragment order (block j's slice is the j-th of C equal pieces): a
-    permutation of each direction's entries."""
+def fragment_weights(w_hh: torch.Tensor, kernel: str,
+                     plan: Plan) -> torch.Tensor:
+    """w_hh [D, H, 4H] -> bf16 [D, H * 4H] in the fragment order of the
+    cluster or grid kernels (block j's slice is the j-th of H / units
+    equal pieces): a permutation of each direction's entries."""
     d, hidden, h4 = w_hh.shape
-    idx = _fragment_index(kernel, hidden, plan.cluster, w_hh.device)
+    idx = _fragment_index(kernel, hidden, plan.units, w_hh.device)
     return w_hh.to(torch.bfloat16).reshape(d, hidden * h4).index_select(1, idx)
 
 
-def cluster_product_reference(w_frag: torch.Tensor, x: torch.Tensor,
-                              kernel: str, plan: Plan) -> torch.Tensor:
+def fragment_product_reference(w_frag: torch.Tensor, x: torch.Tensor,
+                               kernel: str, plan: Plan) -> torch.Tensor:
     """One step's product from the fragment-ordered weights, arranged as
-    the cluster kernels arrange it (float32 sums): forward x = h [D, N, H]
-    -> gates [D, N, 4H] = h . w_hh; backward x = dgates [D, N, 4H] -> dh
-    [D, N, H] = dgates . w_hh^T."""
+    the cluster and grid kernels arrange it (float32 sums): forward x = h
+    [D, N, H] -> gates [D, N, 4H] = h . w_hh; backward x = dgates [D, N, 4H]
+    -> dh [D, N, H] = dgates . w_hh^T."""
     d = w_frag.shape[0]
-    c, u = plan.cluster, plan.units
-    hidden = c * u
+    u = plan.units
+    hidden = x.shape[-1] if kernel == "fwd" else x.shape[-1] // 4
+    c = hidden // u
     m, kk = _fragment_position()
     pos = (16 * m + kk).reshape(-1)            # (lane, reg, el) -> m, k
     lead = (d, c, u // 8, hidden // 16, 2) if kernel == "fwd" else (
@@ -208,7 +289,7 @@ def cluster_product_reference(w_frag: torch.Tensor, x: torch.Tensor,
         return out.permute(0, 6, 3, 4, 1, 2, 5).reshape(d, n, 4 * hidden)
     a = tiles.permute(0, 1, 2, 4, 3, 5).reshape(d, c, u // 16, 16,
                                                 4 * hidden)
-    cols = _slab_column(torch.arange(4 * hidden), hidden, c)
+    cols = _slab_column(torch.arange(4 * hidden), hidden, u)
     out = torch.einsum("dctmk,dnk->dctmn", a, xf[..., cols])
     return out.permute(0, 4, 1, 2, 3).reshape(d, n, hidden)
 
@@ -224,15 +305,54 @@ def cluster_occupancy(kernel: str, plan: Plan) -> int:
     return out.value
 
 
+def grid_occupancy(kernel: str, hidden: int, plan: Plan) -> tuple[int, int]:
+    """(blocks of the grid ``plan`` one SM holds, the card's SMs)
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): a launch of N * G *
+    D blocks runs only if it is at most their product."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    code = getattr(_native.lib(), f"lstm_scan_{kernel}_grid_occupancy")(
+        hidden, plan.units, plan.rows, plan.sub, plan.chunk, plan.stages,
+        ctypes.byref(per_sm), ctypes.byref(sms))
+    _native.check(f"lstm_scan_{kernel}_grid_occupancy", code)
+    return per_sm.value, sms.value
+
+
+def _grid_ints(plan: Plan) -> tuple[int, ...]:
+    """A grid plan's integers in the C entries' order."""
+    return (plan.units, plan.groups, plan.rows, plan.sub, plan.chunk,
+            plan.stages)
+
+
+def _grid_scratch(kernel: str, plan: Plan, d: int, hidden: int,
+                  device: torch.device):
+    """The grid route's exchange buffer ([2, D, G * R, K] bf16, by step
+    parity) and its zeroed step counters ([D * G])."""
+    k = 4 * hidden if kernel == "bwd" else hidden
+    xch = torch.empty((2, d, plan.groups * plan.rows, k), dtype=torch.bfloat16,
+                      device=device)
+    ctr = torch.zeros((d * plan.groups,), dtype=torch.int32, device=device)
+    return xch, ctr
+
+
 def exchange_floor(kernel: str, plan: Plan, d: int, t: int, b: int,
-                   device: torch.device) -> None:
+                   device: torch.device, hidden: int = 0,
+                   read: bool = True) -> None:
     """Launch the serial chain's floor of ``plan``: T steps of its
     exchange and the waits for it alone, no product and no gate math, on
     the grid the scan would have for D directions and B rows (a
-    measurement of ``chip_smoke.py``, not a step of the scan)."""
-    code = _native.lib().lstm_exchange_floor(
-        int(kernel == "bwd"), d, t, b, plan.cluster * plan.units,
-        plan.cluster, plan.rows, _native.stream_ptr(device))
+    measurement of ``chip_smoke.py``, not a step of the scan).  A grid
+    plan needs ``hidden``; ``read=False`` leaves out its read of the
+    exchanged rows (the step barrier alone)."""
+    if plan.route == "grid":
+        xch, ctr = _grid_scratch(kernel, plan, d, hidden, device)
+        code = _native.lib().lstm_grid_floor(
+            int(kernel == "bwd"), int(read), d, t, b, hidden,
+            *_grid_ints(plan), xch.data_ptr(), ctr.data_ptr(),
+            _native.stream_ptr(device))
+    else:
+        code = _native.lib().lstm_exchange_floor(
+            int(kernel == "bwd"), d, t, b, plan.cluster * plan.units,
+            plan.cluster, plan.rows, _native.stream_ptr(device))
     _native.check("lstm_exchange_floor", code)
     _native.count("lstm_exchange_floor")
 
@@ -331,11 +451,11 @@ def lstm_scan(
         raise ValueError(f"valid: expected {(t, b)} on {dev}, got "
                          f"{tuple(valid.shape)} on {valid.device}")
     gx = gates_x.contiguous()
-    plan = cluster_plan("fwd", hidden, b, compute)
-    if plan.route == "cluster":
-        w = cluster_weights(w_hh, "fwd", plan)
-    else:
+    plan = cluster_plan("fwd", hidden, b, compute, d)
+    if plan.route == "simt":
         w = w_hh.to(compute).contiguous()
+    else:
+        w = fragment_weights(w_hh, "fwd", plan)
     v = valid.to(torch.float32).contiguous()
     h_out = torch.empty((d, t, b, hidden), dtype=torch.float32, device=dev)
     res = (None, None, None)
@@ -343,13 +463,20 @@ def lstm_scan(
         res = (torch.empty_like(h_out), torch.empty_like(h_out),
                torch.empty((d, t, b, h4), dtype=torch.float32, device=dev))
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
-    code = _native.lib().lstm_scan_fwd(
-        gx.data_ptr(), w.data_ptr(), v.data_ptr(), h_out.data_ptr(),
-        *(_native.ptr(x) for x in res), d, t, b, hidden, mask,
-        int(compute == torch.bfloat16), plan.cluster, plan.rows,
-        _native.stream_ptr(dev),
-    )
-    _native.check("lstm_scan_fwd", code)
+    ptrs = (gx.data_ptr(), w.data_ptr(), v.data_ptr(), h_out.data_ptr(),
+            *(_native.ptr(x) for x in res))
+    if plan.route == "grid":
+        entry = "lstm_scan_fwd_grid"
+        xch, ctr = _grid_scratch("fwd", plan, d, hidden, dev)
+        code = _native.lib().lstm_scan_fwd_grid(
+            *ptrs, xch.data_ptr(), ctr.data_ptr(), d, t, b, hidden, mask,
+            *_grid_ints(plan), _native.stream_ptr(dev))
+    else:
+        entry = "lstm_scan_fwd"
+        code = _native.lib().lstm_scan_fwd(
+            *ptrs, d, t, b, hidden, mask, int(compute == torch.bfloat16),
+            plan.cluster, plan.rows, _native.stream_ptr(dev))
+    _native.check(entry, code)
     _native.count("lstm_scan_fwd")
     _native.count("lstm_scan_fwd_" + plan.route)
     return (h_out, *res) if residuals else h_out
@@ -439,24 +566,31 @@ def lstm_scan_bwd(
     if tuple(valid.shape) != (t, b) or valid.device != dev:
         raise ValueError(f"valid: expected {(t, b)} on {dev}, got "
                          f"{tuple(valid.shape)} on {valid.device}")
-    plan = cluster_plan("bwd", hidden, b, compute)
-    if plan.route == "cluster":
-        w_t = cluster_weights(w_hh, "bwd", plan)
-    else:
+    plan = cluster_plan("bwd", hidden, b, compute, d)
+    if plan.route == "simt":
         # [D, 4H, H]: the product's reduction then runs over rows (see the
         # kernel's source note)
         w_t = w_hh.to(compute).transpose(1, 2).contiguous()
+    else:
+        w_t = fragment_weights(w_hh, "bwd", plan)
     v = valid.to(torch.float32).contiguous()
     a, cp, dho = acts.contiguous(), cprev.contiguous(), dh_out.contiguous()
     dgates = torch.empty((d, t, b, h4), dtype=torch.float32, device=dev)
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
-    code = _native.lib().lstm_scan_bwd(
-        w_t.data_ptr(), v.data_ptr(), a.data_ptr(), cp.data_ptr(),
-        dho.data_ptr(), dgates.data_ptr(), d, t, b, hidden, mask,
-        int(compute == torch.bfloat16), plan.cluster, plan.rows,
-        _native.stream_ptr(dev),
-    )
-    _native.check("lstm_scan_bwd", code)
+    ptrs = (w_t.data_ptr(), v.data_ptr(), a.data_ptr(), cp.data_ptr(),
+            dho.data_ptr(), dgates.data_ptr())
+    if plan.route == "grid":
+        entry = "lstm_scan_bwd_grid"
+        xch, ctr = _grid_scratch("bwd", plan, d, hidden, dev)
+        code = _native.lib().lstm_scan_bwd_grid(
+            *ptrs, xch.data_ptr(), ctr.data_ptr(), d, t, b, hidden, mask,
+            *_grid_ints(plan), _native.stream_ptr(dev))
+    else:
+        entry = "lstm_scan_bwd"
+        code = _native.lib().lstm_scan_bwd(
+            *ptrs, d, t, b, hidden, mask, int(compute == torch.bfloat16),
+            plan.cluster, plan.rows, _native.stream_ptr(dev))
+    _native.check(entry, code)
     _native.count("lstm_scan_bwd")
     _native.count("lstm_scan_bwd_" + plan.route)
     return dgates
