@@ -2,6 +2,8 @@
 """On-card smoke test of the PyTorch port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --k2-bits ROOT JSON   # stateless K2's bits, ROOT's
+                                                # package against JSON's
 
 Run from the root of a checkout.  It imports nothing of JAX and fails
 (non-zero exit, no result line) when CUDA is unavailable.  Phases; any
@@ -229,12 +231,35 @@ failure raises and the script exits non-zero:
     then timed with every step valid beside cuDNN's one-direction layer,
     with the grid route's serial floor (the barrier alone, and with the
     exchange's read) and its plans timed in turns.
+19. exact chunked streaming (``decode/streaming.py``): (a)
+    ``configs/ls100_conformer_streaming.yaml`` as shipped (chunk-causal
+    conformer, d_model 256 x 12 blocks, chunks of 16 with 2 left, a causal
+    2 x 32 stem, pred 512, joint 512, bf16, no remat, B=64) through the
+    Solver: 3 steps at the 448-frame bucket (K1 1, the predictor's K2 1
+    and K3 1), the greedy validation, a bf16 step kernels against plain
+    (the phase-7 bounds), the same step twice bitwise, ``test`` beam 4 on
+    the chunked encoder, a step at 1600 / 256 with its peak memory; its
+    float32 and bf16 models streamed in 640 ms pieces: greedy and beam 4
+    tokens equal to the offline decode's on the card in float32 (the bf16
+    share logged), a single stream's ms a chunk, real-time factor and K1 /
+    K2 launches a chunk, a 16-slot ``MultiStreamTranscriber`` fed
+    staggered equal to single streams (float32) and its round's ms (bf16);
+    (b) ``configs/ls100_transducer_streaming.yaml`` as shipped (forward-only
+    768 x (1 + 3), pred 512, joint 512): the listener's 320 ms chunk
+    outputs at B=1 and 16 on K2 (the grid route in bf16, within BF16_TOL of
+    the plain scan; the CUDA-core route in float32, within K2_TOL of it and
+    within 1e-5 of the offline listener, bitwise equality logged), then
+    the same streaming checks as (a) in 320 ms pieces.  Phase 3 holds K2
+    started from a carried (h, c) against its plain version on each route
+    (the CUDA cores, the cluster and the grid route), and a scan split in
+    two against the whole: outputs and final state bitwise equal.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
 was taken, and its design; launches from the timit Solver run (phase 14)
 for K1-K3, from the conformer training run for K5, and per path in
-``launches_by_path``, the C5 run as ``c5_dp``; K2 and K3 also at the C4
+``launches_by_path``, the C5 run as ``c5_dp``, phase 19's training run as
+``conformer_streaming_train``; K2 and K3 also at the C4
 shapes in ``at_c4`` and at phase 18's in ``at_transducer``); the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
@@ -535,8 +560,13 @@ L2_BYTES = 50e6
 BF16_FLOPS = 989e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the log, after the seconds since the script started
+    (where the time limit goes)."""
+    print(f"{time.perf_counter() - _T0:7.1f} {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -599,12 +629,14 @@ def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
     """Mean device milliseconds per call of ``fn`` for each kernel it
     launches (torch.profiler), by kernel name.  Each trace ends in a tail
     of spin kernels (see TRACE_TAIL), and each measurement takes two traces
-    and keeps them when they hold the same number of kernel events (their
-    mean).  After a trace of tens of thousands of kernels the profiler can
-    record nothing for several sessions, so a failed attempt waits a
-    second; after five, the fuller trace, or, if no trace held a kernel,
-    CUDA events over back-to-back calls under the name ``EVENTS_KEY``,
-    each with a log line."""
+    and keeps them when they hold the same number of kernel events, to one
+    in ten thousand (their mean: a trace of tens of thousands of kernels
+    often drops one event, and each retry of such a trace costs seconds).
+    After a trace of tens of thousands of kernels the profiler can record
+    nothing for several sessions, so a failed attempt waits a second;
+    after three, the fuller trace, or, if no trace held a kernel, CUDA
+    events over back-to-back calls under the name ``EVENTS_KEY``, each
+    with a log line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -630,10 +662,11 @@ def device_ms_by_kernel(fn, reps: int, warmup: int = 2) -> dict:
         fn()
     torch.cuda.synchronize()
     best = ({}, 0)
-    for _ in range(5):
+    for _ in range(3):
         (a, na), (b, nb) = trace(), trace()
-        if na == nb > 0:
-            return {k: (a[k] + b.get(k, 0.0)) / 2 for k in a}
+        if na > 0 and abs(na - nb) <= na // 10_000:
+            return {k: (a.get(k, 0.0) + b.get(k, 0.0)) / 2
+                    for k in set(a) | set(b)}
         best = max(best, (a, na), (b, nb), key=lambda x: x[1])
         log(f"[profiler] two traces disagree ({na} and {nb} kernel events "
             f"over {reps} calls)")
@@ -1178,6 +1211,7 @@ def phase3() -> tuple[float, float]:
                                 route_checks("phase3", "fwd", "cluster"),
                                 route_checks("phase3", "fwd", "grid"))
     grid_refusal()
+    state_checks("phase3")
     return worst[torch.float32], worst[torch.bfloat16]
 
 
@@ -1271,6 +1305,111 @@ def route_checks(phase: str, kind: str, route: str) -> float:
                             f"{kind} {route} route error {err} > {BF16_TOL}")
                     worst = max(worst, err)
     return worst
+
+
+# K2 resuming from a carried (h, c) on each route (phase 3): (route,
+# compute, H, D, B, T, split step) -- the CUDA cores in float32, the
+# cluster route at timit's width, the grid route at the streaming
+# listener's (B=64 and a single stream)
+STATE_SHAPES = (("simt", "float32", 256, 2, 5, 37, 12),
+                ("cluster", "bfloat16", 256, 2, 32, 37, 12),
+                ("grid", "bfloat16", 768, 1, 64, 40, 16),
+                ("grid", "bfloat16", 768, 1, 1, 40, 16))
+
+
+def state_checks(phase: str) -> float:
+    """K2 with a carried state on each route of STATE_SHAPES: from random
+    (h0, c0) against its plain version (h_out, the residuals and the final
+    (h, c) within K2_TOL in float32, BF16_TOL in bf16), and a scan split in
+    two (the second half from the first's final state) against the whole
+    scan: outputs and final state bitwise equal -> the largest error."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    worst = 0.0
+    for route, dtype, h, d, b, t, cut in STATE_SHAPES:
+        compute = getattr(torch, dtype)
+        gx, w_hh, valid, _ = scan_inputs(h, d, b, t, h + b + t + 1)
+        rev = (False,) * d
+        g = torch.Generator(DEVICE).manual_seed(h + b)
+        h0 = torch.randn((d, b, h), generator=g, device=DEVICE) * 0.5
+        c0 = torch.randn((d, b, h), generator=g, device=DEVICE)
+        with torch.inference_mode():
+            (got, st), _ = routed("fwd", compute, lambda: K.lstm_scan(
+                gx, w_hh, valid, compute, rev, residuals=True, h0=h0, c0=c0,
+                return_state=True), route)
+            want, wst = K.lstm_scan_reference(gx, w_hh, valid, compute, rev,
+                                              True, h0, c0, True)
+            (whole, fin), _ = routed("fwd", compute, lambda: K.lstm_scan(
+                gx, w_hh, valid, compute, rev, return_state=True), route)
+            (a, mid), _ = routed("fwd", compute, lambda: K.lstm_scan(
+                gx[:, :cut], w_hh, valid[:cut], compute, rev,
+                return_state=True), route)
+            (rest, end), _ = routed("fwd", compute, lambda: K.lstm_scan(
+                gx[:, cut:], w_hh, valid[cut:], compute, rev, h0=mid[0],
+                c0=mid[1], return_state=True), route)
+        torch.cuda.synchronize()
+        err = max((x - y).abs().max().item()
+                  for x, y in zip((*got, *st), (*want, *wst)))
+        split = (torch.equal(torch.cat([a, rest], dim=1), whole)
+                 and torch.equal(end[0], fin[0])
+                 and torch.equal(end[1], fin[1]))
+        tol = K2_TOL if compute == torch.float32 else BF16_TOL
+        log(f"[{phase}] K2 {route} route with a carried state, H={h} D={d} "
+            f"B={b} T={t} {dtype}: from random (h0, c0) max_abs_err "
+            f"{err:.3e} (h_out, residuals, final state; tol {tol:g}); split "
+            f"at step {cut} and resumed: outputs and final (h, c) bitwise "
+            f"equal to the whole scan's: {split}")
+        require(err <= tol, f"K2 {route} with h0: error {err} > {tol}")
+        require(split, f"K2 {route}: the split scan's state differs")
+        worst = max(worst, err)
+    return worst
+
+
+def k2_bits(root: Path, out: Path) -> int:
+    """K2 without a carried state, run from the package under ``root``, at
+    phase 3's route checks (every cluster and grid shape, bf16, with
+    residuals) and on the CUDA cores in float32 at two of them: writes the
+    sha256 of every output to ``out`` (JSON), or where ``out`` exists,
+    compares with those and returns 1 on any difference.  Run once from a
+    parent checkout and once from this one, it shows whether a change left
+    the stateless scan's bits alone."""
+    import hashlib
+
+    sys.path.insert(0, str(root))
+    import torch
+
+    from semi_supervised_asr_tpu_torch import strict_fp32
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    strict_fp32()
+    cases = [("simt", 256, (False, True), 32, 37, torch.float32),
+             ("simt", 768, (False,), 5, 37, torch.float32)]
+    for route in ("cluster", "grid"):
+        widths, dirs, batches, lengths, _ = ROUTE_CHECKS[route]
+        cases += [(route, h, rev, b, t, torch.bfloat16) for h in widths
+                  for rev in dirs for b in batches for t in lengths]
+    digests = {}
+    for route, h, rev, b, t, compute in cases:
+        gx, w_hh, valid, _ = scan_inputs(h, len(rev), b, t, h + 7 * b + t)
+        with torch.inference_mode():
+            got = K.lstm_scan(gx, w_hh, valid, compute, rev, residuals=True)
+        key = f"{route} H={h} D={len(rev)} B={b} T={t}"
+        digests[key] = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+                        for x in got]
+    if not out.exists():
+        out.write_text(json.dumps(digests, indent=0))
+        log(f"[k2-bits] {len(digests)} stateless K2 calls from {root}: "
+            f"digests written to {out}")
+        return 0
+    want = json.loads(out.read_text())
+    same = [k for k in digests if digests[k] == want.get(k)]
+    log(f"[k2-bits] {len(digests)} stateless K2 calls from {root} against "
+        f"{out}: h_out and residuals bitwise equal in {len(same)} of "
+        f"{len(want)}; differing: "
+        f"{sorted(set(want) - set(same)) or 'none'} ({card_line()})")
+    return 0 if len(same) == len(want) == len(digests) else 1
 
 
 def bucket_batch(rec, files, frames: int = 400):
@@ -2748,9 +2887,9 @@ def backward_ms(fwd, leaves, dy) -> tuple[float, str]:
     backward) minus the training forward, each on a fresh graph."""
     import torch
 
-    fwd_train, m1 = profiled_ms(fwd, reps=5)
+    fwd_train, m1 = profiled_ms(fwd, reps=3)
     both, m2 = profiled_ms(lambda: torch.autograd.grad(fwd(), leaves, dy),
-                           reps=5)
+                           reps=3)
     return both - fwd_train, weaker(m1, m2)
 
 
@@ -2773,8 +2912,9 @@ def rows_times(times: dict, w_hh, valid, acts, cprev, dh_out, gx) -> None:
         if kind == "fwd":
             out = [torch.empty((d, t, b, h), device=DEVICE) for _ in range(3)]
             out.append(torch.empty_like(gx))
+            # then no carried state: h0, c0, h_fin, c_fin NULL
             ptrs = (gx.data_ptr(), w.data_ptr(), valid.data_ptr(),
-                    *(x.data_ptr() for x in out))
+                    *(x.data_ptr() for x in out), None, None, None, None)
         else:
             ptrs = (w.data_ptr(), valid.data_ptr(), acts.data_ptr(),
                     cprev.data_ptr(), dh_out.data_ptr(),
@@ -4435,6 +4575,399 @@ def phase18(d: Path, card: str) -> tuple[dict, dict, dict, dict]:
     return launches, out, errs
 
 
+# phase 19: exact chunked streaming.  (a) configs/ls100_conformer_streaming
+# .yaml as shipped (chunk-causal conformer of d_model 256, 12 blocks, 4
+# heads, ff 1024, conv 15, a causal stem of 2 x 32 channels, chunks of 16
+# encoder frames with 2 left; pred 512, joint 512, embed 256, bf16, char
+# units, no remat, B=64) but for its data and the run's length: the
+# synthetic corpus of 64 utterances in one 448-frame / 128-token batch of
+# 64, 3 steps and the final greedy validation; then one step at the largest
+# bucket, 1600 / 256
+CS_CONFIG = ROOT / "configs" / "ls100_conformer_streaming.yaml"
+CS_RUN = ["data.frame_buckets=[448]", "data.token_buckets=[128]",
+          "train.total_steps=3", "train.ckpt_every=0", "train.eval_every=0",
+          "train.log_every=1"]
+# a step: K1 once, the predictor's K2 and K3 once each (the cluster route
+# at H=512); a validation batch: K1 once (the conformer runs no LSTM, and
+# the greedy walk steps the predictor with the plain cell)
+CS_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 1,
+                    "lstm_scan_bwd": 1}
+CS_EVAL_LAUNCHES = {"fused_post_fft": 1}
+# the streamed utterances: the synthetic corpus's first (0.96-2.4 s each),
+# fed in 640 ms pieces to the conformer (its chunk) and 320 ms pieces to
+# the forward-only listener (transcribe's --stream-chunk-ms default); the
+# multi-stream checks serve MULTI_STREAMS of them at once
+STREAM_UTTS = 4
+MULTI_STREAMS = 16
+
+
+def stream_model(config: Path, dtype: str):
+    """A recipe at full width in ``dtype`` with random weights from seed 0
+    (the same weights in either dtype), on the card -> (cfg, model)."""
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch import weights
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
+
+    cfg = load_config(config, [*TD_DATA, f"model.compute_dtype={dtype}"])
+    cfg = TR.finalize_config(cfg, TR.build_vocab(cfg).size)
+    model = build_model(cfg.model)
+    weights.load_flat(model, weights.init_numpy(cfg.model, 0))
+    return cfg, model.to(DEVICE).eval()
+
+
+def stream_audio(cfg, n: int) -> tuple[list, tuple]:
+    """The synthetic corpus's first ``n`` utterances (float32) and the
+    global CMVN statistics of their frames, on the card."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.data.synthetic import make_utterance
+    from semi_supervised_asr_tpu_torch.ops import frontend_oracle as oracle
+
+    vocab = TR.build_vocab(cfg)
+    wavs = [make_utterance(i, vocab, cfg.data, cfg.frontend, min_tokens=8,
+                           max_tokens=20).audio.astype(np.float32)
+            for i in range(n)]
+    lm = np.concatenate([oracle.log_mel(w.astype(np.float64), cfg.frontend)
+                         for w in wavs])
+    cmvn = tuple(torch.as_tensor(x.astype(np.float32), device=DEVICE)
+                 for x in oracle.cmvn_stats(lm))
+    return wavs, cmvn
+
+
+def offline_tokens(model, cfg, cmvn, wav, beam: int):
+    """The port's offline decode of one file on the card, padded to the
+    streaming chunk grid as a bucketed batch pads it -> (tokens, score)."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch.decode.transducer_beam import (
+        transducer_beam_from_enc,
+    )
+    from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
+        transducer_greedy_from_enc,
+    )
+    from semi_supervised_asr_tpu_torch.training.train_step import featurize
+
+    m, f, dc = cfg.model, cfg.frontend, cfg.decode
+    c = m.time_reduction * (m.enc_attn_chunk or 1)
+    n_frames = 1 + (len(wav) - f.n_fft) // f.hop_length
+    need = (-(-n_frames // c) * c - 1) * f.hop_length + f.n_fft
+    a = np.zeros((need,), np.float32)
+    a[:len(wav)] = wav
+    with torch.inference_mode():
+        feats, flens = featurize(cfg, torch.from_numpy(a)[None].to(DEVICE),
+                                 torch.tensor([len(wav)], device=DEVICE),
+                                 cmvn)
+        enc, mask = model.encode(feats, flens)
+        if beam > 1:
+            toks, score = transducer_beam_from_enc(
+                model, m, enc, mask, dc.max_decode_len, beam, dc.max_symbols)
+        else:
+            toks, score = transducer_greedy_from_enc(
+                model, m, enc, mask, dc.max_decode_len, dc.max_symbols)
+    return [int(x) for x in toks[0].tolist() if x != 0], float(score[0])
+
+
+def streamed(model, cfg, cmvn, wav, beam: int, piece_ms: int):
+    """One StreamingTranscriber fed ``wav`` in ``piece_ms`` pieces ->
+    (tokens, score, chunk steps run, host ms to a synchronize)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.decode import streaming as S
+
+    piece = cfg.frontend.sample_rate * piece_ms // 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = S.StreamingTranscriber(model, cfg, cmvn, cfg.decode.max_decode_len,
+                                max_symbols=cfg.decode.max_symbols,
+                                beam_size=beam)
+    calls = [0]
+
+    def counted(step):
+        def run(*args):
+            calls[0] += 1
+            return step(*args)
+        return run
+
+    st._chunk_step = counted(st._chunk_step)
+    st._final_step = counted(st._final_step)
+    for s in range(0, len(wav), piece):
+        st.feed(wav[s: s + piece])
+    toks, score = st.finalize()
+    torch.cuda.synchronize()
+    return toks, score, calls[0], (time.perf_counter() - t0) * 1e3
+
+
+def stream_checks(what: str, cfg32, m32, cfg16, m16, wavs, cmvn,
+                  piece_ms: int, card: str) -> dict:
+    """Streamed against offline tokens: float32 greedy and beam 4 equal
+    (required), bf16 greedy's share of equal files (logged); a single
+    stream's ms a chunk, real-time factor and K1 / K2 launches a chunk
+    (bf16, greedy); a MULTI_STREAMS-slot MultiStreamTranscriber fed
+    staggered against single streams in float32 (equal tokens required),
+    and its round's ms in bf16 -> the numbers."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.decode import streaming as S
+
+    out = {}
+    for beam in (1, 4):
+        for i, w in enumerate(wavs):
+            off = offline_tokens(m32, cfg32, cmvn, w, beam)
+            got = streamed(m32, cfg32, cmvn, w, beam, piece_ms)
+            log(f"[phase19] {what} float32 {'greedy' if beam == 1 else 'beam 4'}"
+                f" utterance {i} ({len(w) / 16000:.2f} s): streamed "
+                f"{len(got[0])} tokens == offline {len(off[0])}: "
+                f"{got[0] == off[0]}, scores {got[1]:.4f} / {off[1]:.4f}")
+            require(got[0] == off[0], f"{what}: streamed tokens differ from "
+                    f"offline (float32, beam {beam}, utterance {i})")
+    agree = sum(streamed(m16, cfg16, cmvn, w, 1, piece_ms)[0]
+                == offline_tokens(m16, cfg16, cmvn, w, 1)[0] for w in wavs)
+    out["bf16_agree"] = agree / len(wavs)
+    # a single stream's chunk cost in bf16, greedy (the serving dtype)
+    streamed(m16, cfg16, cmvn, wavs[0], 1, piece_ms)          # warm
+    _native.reset_launches()
+    toks, _, chunks, ms = streamed(m16, cfg16, cmvn, wavs[0], 1, piece_ms)
+    launches = dict(_native.LAUNCHES)
+    m = cfg16.model
+    chunk_ms = (cfg16.frontend.hop_length * 1e3 / cfg16.frontend.sample_rate
+                * m.time_reduction * (m.enc_attn_chunk or 1))
+    out.update(chunk_ms=ms / chunks, rtf=ms / chunks / chunk_ms,
+               k1_a_chunk=launches["fused_post_fft"] / chunks,
+               k2_a_chunk=launches["lstm_scan_fwd"] / chunks,
+               k2_grid_a_chunk=launches["lstm_scan_fwd_grid"] / chunks)
+    require(launches["fused_post_fft"] == chunks,
+            f"{what}: K1 did not run once a chunk: {launches}, {chunks}")
+    log(f"[phase19] {what} bf16 streaming (greedy, {piece_ms} ms pieces, "
+        f"chunks of {chunk_ms:.0f} ms): {ms / chunks:.2f} ms a chunk for one "
+        f"stream (host ms to a synchronize, {chunks} chunk steps), real-time "
+        f"factor {out['rtf']:.4f}; launches a chunk K1 "
+        f"{out['k1_a_chunk']:.2f}, K2 {out['k2_a_chunk']:.2f} (grid route "
+        f"{out['k2_grid_a_chunk']:.2f}); {launches}; float32 greedy and "
+        f"beam 4 streamed == offline on all {len(wavs)}; bf16 greedy "
+        f"streamed == offline on {agree} of {len(wavs)} ({card})")
+
+    def multi(model, cfg, files) -> tuple[list, float, int]:
+        ms_ = S.MultiStreamTranscriber(model, cfg, cmvn,
+                                       cfg.decode.max_decode_len,
+                                       MULTI_STREAMS,
+                                       max_symbols=cfg.decode.max_symbols)
+        sids = [ms_.open() for _ in files]
+        piece = cfg.frontend.sample_rate * piece_ms // 1000
+        cursors = [-(piece * i) // 4 for i in range(len(files))]  # staggered
+        res, rounds, t_rounds = {}, 0, 0.0
+        while len(res) < len(files):
+            for i, (sid, w) in enumerate(zip(sids, files)):
+                if i in res:
+                    continue
+                lo, hi = max(cursors[i], 0), cursors[i] + piece
+                if hi > 0:
+                    ms_.feed(sid, w[lo:hi])
+                cursors[i] = hi
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = ms_.pump()
+            torch.cuda.synchronize()
+            if n:
+                rounds += n
+                t_rounds += (time.perf_counter() - t0) * 1e3
+            for i, (sid, w) in enumerate(zip(sids, files)):
+                if i not in res and cursors[i] >= len(w):
+                    res[i] = ms_.finalize(sid)[0]
+        return [res[i] for i in range(len(files))], t_rounds / rounds, rounds
+
+    files = [wavs[i % len(wavs)][: len(wavs[i % len(wavs)]) - 160 * (i // 4)]
+             for i in range(MULTI_STREAMS)]
+    singles = [streamed(m32, cfg32, cmvn, w, 1, piece_ms)[0] for w in files]
+    got, _, rounds = multi(m32, cfg32, files)
+    same = sum(a == b for a, b in zip(got, singles))
+    require(same == len(files), f"{what}: {MULTI_STREAMS} streams differ "
+            f"from single streams ({same} of {len(files)} equal)")
+    multi(m16, cfg16, files)                                     # warm
+    _, round_ms, rounds16 = multi(m16, cfg16, files)
+    out.update(round_ms=round_ms, round_rtf=round_ms / chunk_ms,
+               launches={k: v for k, v in launches.items() if v})
+    log(f"[phase19] {what} MultiStreamTranscriber of {MULTI_STREAMS} slots "
+        f"fed staggered: float32 tokens == single streams on {same} of "
+        f"{len(files)} files ({rounds} rounds); bf16 round {round_ms:.2f} ms "
+        f"for up to {MULTI_STREAMS} streams (host ms to a synchronize, "
+        f"mean of {rounds16} rounds), {round_ms / MULTI_STREAMS:.3f} ms a "
+        f"stream-chunk ({card})")
+    return out
+
+
+def phase19_conformer(d: Path, card: str) -> tuple[dict, dict]:
+    """(a) ls100_conformer_streaming as shipped through the Solver: 3
+    steps (K1 1, K2 1, K3 1: the predictor's), the greedy validation, a
+    bf16 step kernels against plain, the same step twice bitwise, test
+    beam 4 on the chunked encoder; a step at 1600 / 256 with its peak
+    memory; then streaming at 640 ms chunks against offline."""
+    import torch
+
+    s = td_solver(CS_CONFIG, d / "cs", CS_RUN)
+    m = s.cfg.model
+    require(m.encoder_arch == "conformer" and m.enc_out_dim == 256
+            and m.enc_blocks == 12 and m.enc_heads == 4
+            and m.enc_ff_dim == 1024 and m.conformer_conv_width == 15
+            and m.conv_subsample == 2 and m.conv_channels == 32
+            and (m.enc_attn_chunk, m.enc_attn_left_chunks) == (16, 2)
+            and m.pred_hidden == 512 and m.joint_dim == 512
+            and m.compute_dtype == "bfloat16" and m.attn_backend == "xla"
+            and not s.cfg.train.remat_encoder,
+            f"ls100_conformer_streaming as shipped: {m}")
+    log(f"[phase19] {CS_CONFIG.name} at full width (chunk-causal conformer "
+        f"d_model {m.enc_out_dim} x {m.enc_blocks} blocks, {m.enc_heads} "
+        f"heads, ff {m.enc_ff_dim}, conv {m.conformer_conv_width}, causal "
+        f"stem {m.conv_subsample} x {m.conv_channels}, chunk "
+        f"{m.enc_attn_chunk} left {m.enc_attn_left_chunks}; pred "
+        f"{m.pred_hidden}, joint {m.joint_dim}, bf16, no remat, "
+        f"B={s.cfg.train.batch_size}) through the Solver; cuts: "
+        f"{TD_DATA + CS_RUN}")
+    launches, _, walls, peaks, _ = td_run(
+        s, "ls100_conformer_streaming", CS_STEP_LAUNCHES, CS_EVAL_LAUNCHES)
+    out = {"cs_step_ms": statistics.median(walls[1:]),
+           "cs_step_peak_gib": max(peaks)}
+    step_check(s, "phase19", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
+    same = same_step_twice(s)
+    log(f"[phase19] ls100_conformer_streaming: the same step twice, loss and "
+        f"every gradient bitwise equal: {same}")
+    require(same, "two runs of one ls100_conformer_streaming step differ")
+    out["cs_test_beam4_ms"] = td_test(s, "beam", "ls100_conformer_streaming",
+                                      card, beam=4)
+    del s
+    torch.cuda.empty_cache()
+    big = td_solver(CS_CONFIG, d / "cs1600", ["data.frame_buckets=[1600]",
+                                              "data.token_buckets=[256]"])
+    lab = big._labeled_stream()
+    walls_1600, peaks_1600 = [], []
+    for _ in range(2):
+        args, unlab = big.step_inputs(next(lab)[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        big.run_step(args, unlab)
+        torch.cuda.synchronize()
+        walls_1600.append((time.perf_counter() - t0) * 1e3)
+        peaks_1600.append(torch.cuda.max_memory_allocated() / 2**30)
+    out.update(cs_step_1600_ms=walls_1600[1],
+               cs_step_1600_peak_gib=max(peaks_1600))
+    log(f"[phase19] ls100_conformer_streaming at the 1600-frame / 256-token "
+        f"bucket (T' = 400, U + 1 = 257, B=64): step "
+        f"{out['cs_step_1600_ms']:.1f} ms wall (the second), peak memory "
+        f"{out['cs_step_1600_peak_gib']:.2f} GiB; at 448 frames "
+        f"{out['cs_step_ms']:.1f} ms, peak {out['cs_step_peak_gib']:.2f} GiB "
+        f"({card})")
+    del big
+    torch.cuda.empty_cache()
+    cfg32, m32 = stream_model(CS_CONFIG, "float32")
+    cfg16, m16 = stream_model(CS_CONFIG, "bfloat16")
+    wavs, cmvn = stream_audio(cfg32, STREAM_UTTS)
+    st = stream_checks("ls100_conformer_streaming", cfg32, m32, cfg16, m16,
+                       wavs, cmvn, 640, card)
+    launches = {"conformer_streaming_train": launches,
+                "conformer_streaming_stream": st.pop("launches")}
+    out.update({"cs_stream_" + k: v for k, v in st.items()})
+    return launches, out
+
+
+def phase19_listener(card: str) -> dict:
+    """(b) ls100_transducer_streaming as shipped: the forward-only
+    listener's chunk outputs (320 ms chunks, B=1 and B=MULTI_STREAMS) on K2
+    (the grid route) against the plain scan in bf16 and against the
+    offline listener in float32; then streaming against offline."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.models import listener as L
+    from semi_supervised_asr_tpu_torch.training.train_step import featurize
+
+    cfg32, m32 = stream_model(TD_STREAM_CONFIG, "float32")
+    cfg16, m16 = stream_model(TD_STREAM_CONFIG, "bfloat16")
+    m = cfg16.model
+    require(not m.enc_bidirectional and m.enc_hidden == 768
+            and (m.enc_base_layers, m.enc_layers) == (1, 3),
+            f"ls100_transducer_streaming as shipped: {m}")
+    wavs, cmvn = stream_audio(cfg32, STREAM_UTTS)
+    out = {}
+    chunk = 32                      # 320 ms of feature frames
+    for b in (1, MULTI_STREAMS):
+        batch = [wavs[i % len(wavs)] for i in range(b)]
+        n = max(len(w) for w in batch)
+        audio = torch.zeros((b, n), device=DEVICE)
+        for i, w in enumerate(batch):
+            audio[i, :len(w)] = torch.from_numpy(w)
+        lens = torch.tensor([len(w) for w in batch], device=DEVICE)
+        feats, flens = featurize(cfg32, audio, lens, cmvn)
+        t = feats.shape[1] // chunk * chunk
+        feats, flens = feats[:, :t], torch.clamp_max(flens, t)
+        errs = {}
+        for dtype, model in (("float32", m32), ("bfloat16", m16)):
+            res = {}
+            for backend in (None, "reference"):
+                st = L.listener_stream_init(model.cfg, b, DEVICE)
+                outs = []
+                _native.reset_launches()
+                with torch.inference_mode():
+                    for i in range(0, t, chunk):
+                        o, st = L.listener_apply_stream(
+                            model.listener, feats[:, i:i + chunk], st,
+                            torch.clamp(flens - i, 0, chunk), backend)
+                        outs.append(o)
+                    res[backend] = torch.cat(outs, dim=1)
+                    if backend is None:
+                        runs = dict(_native.LAUNCHES)
+                        off, _ = model.listener(feats, flens)
+            torch.cuda.synchronize()
+            route = "grid" if dtype == "bfloat16" else "simt"
+            n_calls = 4 * t // chunk
+            require(runs["lstm_scan_fwd_" + route] == n_calls,
+                    f"streaming listener {dtype} B={b}: launches {runs}")
+            vs_plain = (res[None] - res["reference"]).abs().max().item()
+            vs_off = (res[None] - off).abs().max().item()
+            bitwise = torch.equal(res[None], off)
+            errs[dtype] = (vs_plain, vs_off, bitwise)
+            log(f"[phase19] ls100_transducer_streaming listener, {dtype}, "
+                f"B={b}, {t} frames in {chunk}-frame chunks (K2 on the "
+                f"{route} route, {n_calls} launches): chunk outputs against "
+                f"the plain scan max_abs_err {vs_plain:.3e}; against the "
+                f"offline listener on kernels {vs_off:.3e} (bitwise equal: "
+                f"{bitwise})")
+        require(errs["bfloat16"][0] <= BF16_TOL,
+                f"streaming listener bf16 B={b} vs plain {errs['bfloat16']}")
+        require(errs["float32"][0] <= K2_TOL,
+                f"streaming listener f32 B={b} vs plain {errs['float32']}")
+        scale = 1e-5 * max(off.abs().max().item(), 1.0)
+        require(errs["float32"][1] <= scale,
+                f"streaming listener f32 B={b} vs offline {errs['float32']}")
+        out[f"listener_b{b}"] = errs
+    st = stream_checks("ls100_transducer_streaming", cfg32, m32, cfg16, m16,
+                       wavs, cmvn, 320, card)
+    out["launches"] = st.pop("launches")
+    out.update({"ts_stream_" + k: v for k, v in st.items()})
+    return out
+
+
+def phase19(d: Path, card: str) -> tuple[dict, dict]:
+    """Phase 19: exact chunked streaming, (a) ls100_conformer_streaming,
+    (b) ls100_transducer_streaming -> (launches of each path: the training
+    run and one bf16 stream of each recipe, numbers)."""
+    import torch
+
+    launches, out = phase19_conformer(d, card)
+    torch.cuda.empty_cache()
+    lis = phase19_listener(card)
+    launches["transducer_streaming_stream"] = lis.pop("launches")
+    out.update(lis)
+    log(f"[phase19] summary {json.dumps(out)}")
+    return launches, out
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -4592,6 +5125,10 @@ def main(argv=None) -> int:
                         "one train step of each path here")
     p.add_argument("--c5-rank", nargs=2, metavar=("PART", "DIR"),
                    help=argparse.SUPPRESS)   # phase 15's ranks (torchrun)
+    p.add_argument("--k2-bits", nargs=2, metavar=("ROOT", "JSON"),
+                   type=Path,
+                   help="hash stateless K2 outputs of the package under ROOT "
+                        "into JSON, or compare them with JSON's")
     args = p.parse_args(argv)
 
     import torch
@@ -4600,6 +5137,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 2
+    if args.k2_bits:
+        return k2_bits(*args.k2_bits)
     sys.path.insert(0, str(ROOT))
     if args.c5_rank:
         part, out = args.c5_rank
@@ -4680,6 +5219,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         td_launches, p18, td_errs = phase18(Path(tmp), card)
     elapsed("phase 18")
+    with tempfile.TemporaryDirectory() as tmp:
+        cs_launches, p19 = phase19(Path(tmp), card)
+    elapsed("phase 19")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -4740,6 +5282,21 @@ def main(argv=None) -> int:
         f"{p18['td_stream_step_ms']:.1f} ms (in turns: listener on the "
         f"CUDA-core route {p18['td_stream_step_simt_ms']:.1f} ms, on the "
         f"grid route {p18['td_stream_step_grid_ms']:.1f} ms)")
+    for tag, name in (("cs", "ls100_conformer_streaming"),
+                      ("ts", "ls100_transducer_streaming")):
+        log(f"[summary] {name} streaming, bf16 greedy: "
+            f"{p19[tag + '_stream_chunk_ms']:.2f} ms a chunk for one stream "
+            f"(real-time factor {p19[tag + '_stream_rtf']:.4f}), "
+            f"{p19[tag + '_stream_round_ms']:.2f} ms a {MULTI_STREAMS}-stream "
+            f"round (real-time factor {p19[tag + '_stream_round_rtf']:.4f}); "
+            f"launches a chunk K1 {p19[tag + '_stream_k1_a_chunk']:.2f}, K2 "
+            f"{p19[tag + '_stream_k2_a_chunk']:.2f}; bf16 streamed == offline "
+            f"tokens on {p19[tag + '_stream_bf16_agree']:.2f} of the files "
+            f"({card})")
+    log(f"[summary] ls100_conformer_streaming step {p19['cs_step_ms']:.1f} ms "
+        f"wall at 448 frames, {p19['cs_step_1600_ms']:.1f} ms at 1600 / 256 "
+        f"(peak {p19['cs_step_1600_peak_gib']:.2f} GiB); launches "
+        f"{cs_launches} ({card})")
     for kind in ("fwd", "bwd"):
         name = "lstm_scan_" + kind
         for tag, t, _, h, _ in TD_LSTM_SHAPES:
@@ -4782,7 +5339,7 @@ def main(argv=None) -> int:
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
              "transformer_remat": p16["transformer_launches"],
              "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
-             **td_launches}
+             **td_launches, **cs_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

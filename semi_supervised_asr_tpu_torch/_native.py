@@ -69,6 +69,7 @@ _SIGNATURES = {
     "lstm_scan_fwd": [
         _P, _P, _P,                  # gates_x, w_hh, valid
         _P, _P, _P, _P,              # h_out, hprev, cprev, acts (or NULL)
+        _P, _P, _P, _P,              # h0, c0, h_fin, c_fin (or NULL)
         _I, _I, _I, _I,              # D, T, B, H
         _I, _I,                      # reverse_mask, w_is_bf16
         _I, _I,                      # cluster, rows (0: CUDA cores)
@@ -85,6 +86,7 @@ _SIGNATURES = {
     "lstm_scan_fwd_grid": [
         _P, _P, _P,                  # gates_x, w_frag, valid
         _P, _P, _P, _P,              # h_out, hprev, cprev, acts (or NULL)
+        _P, _P, _P, _P,              # h0, c0, h_fin, c_fin (or NULL)
         _P, _P,                      # exchange, counters
         _I, _I, _I, _I, _I,          # D, T, B, H, reverse_mask
         *_GRID_PLAN,

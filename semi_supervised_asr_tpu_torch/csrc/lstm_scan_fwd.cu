@@ -16,7 +16,12 @@
 // identity for f32: a bf16 x bf16 product is exact in f32, so this is the
 // TPU kernel's bf16 matmul with f32 accumulation.  Optional residuals
 // (hprev, cprev = the carries before the step, acts = i,f,g,o) are written
-// at the same time index as h_out, for the backward scan.
+// at the same time index as h_out, for the backward scan.  Optional initial
+// carries h0, c0 ([D,B,H] f32; NULL: zeros) resume a scan where an earlier
+// one stopped, and h_fin, c_fin ([D,B,H] f32; NULL: not written) receive
+// the carries after the last step -- each row's state after its last valid
+// step, since invalid steps pass the carry through (chunked streaming).
+// With h0 NULL every route computes exactly what it computed without them.
 //
 // Three routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
 // passed in as the plan's integers:
@@ -108,6 +113,10 @@ lstm_scan_fwd_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
                      float* __restrict__ hprev,           // [D,T,B,H] | NULL
                      float* __restrict__ cprev,           // [D,T,B,H] | NULL
                      float* __restrict__ acts,            // [D,T,B,4H] | NULL
+                     const float* __restrict__ h0,        // [D,B,H] | NULL
+                     const float* __restrict__ c0,        // [D,B,H] | NULL
+                     float* __restrict__ h_fin,           // [D,B,H] | NULL
+                     float* __restrict__ c_fin,           // [D,B,H] | NULL
                      int T, int B, int H, int reverse_mask) {
   extern __shared__ float smem[];
   const int H4 = 4 * H;
@@ -129,9 +138,15 @@ lstm_scan_fwd_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
   const bool residuals = hprev != nullptr;
 
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    h_s[i] = 0.f;
-    c_s[i] = 0.f;
-    hq_s[i] = 0.f;
+    float h = 0.f, c = 0.f;
+    if (h0 != nullptr && i / H < nrows) {
+      const size_t o = ((size_t)d * B + row0) * H + i;
+      h = h0[o];
+      c = c0[o];
+    }
+    h_s[i] = h;
+    c_s[i] = c;
+    hq_s[i] = WVec<W>::round(h);
   }
   __syncthreads();
 
@@ -187,12 +202,20 @@ lstm_scan_fwd_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
     }
     __syncthreads();
   }
+  if (h_fin != nullptr)
+    for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) {
+      const size_t o = ((size_t)d * B + row0) * H + i;
+      h_fin[o] = h_s[i];
+      c_fin[o] = c_s[i];
+    }
 }
 
 template <typename W>
 int launch(const float* gates_x, const void* w_hh, const float* valid,
-           float* h_out, float* hprev, float* cprev, float* acts, int D,
-           int T, int B, int H, int reverse_mask, cudaStream_t stream) {
+           float* h_out, float* hprev, float* cprev, float* acts,
+           const float* h0, const float* c0, float* h_fin, float* c_fin,
+           int D, int T, int B, int H, int reverse_mask,
+           cudaStream_t stream) {
   // 16-byte weight loads need whole vectors per row; shared memory caps H
   const size_t smem = smem_floats<W>(H) * sizeof(float);
   if ((4 * H) % WVec<W>::kN != 0 || smem > kMaxSmem)
@@ -204,7 +227,7 @@ int launch(const float* gates_x, const void* w_hh, const float* valid,
   dim3 grid((B + kRows - 1) / kRows, D);
   lstm_scan_fwd_kernel<W><<<grid, kThreads, smem, stream>>>(
       gates_x, static_cast<const W*>(w_hh), valid, h_out, hprev, cprev,
-      acts, T, B, H, reverse_mask);
+      acts, h0, c0, h_fin, c_fin, T, B, H, reverse_mask);
   return (int)cudaGetLastError();
 }
 
@@ -243,6 +266,10 @@ lstm_fwd_cluster_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
                         float* __restrict__ hprev,           // [D,T,B,H] | NULL
                         float* __restrict__ cprev,           // [D,T,B,H] | NULL
                         float* __restrict__ acts,            // [D,T,B,4H] | NULL
+                        const float* __restrict__ h0,        // [D,B,H] | NULL
+                        const float* __restrict__ c0,        // [D,B,H] | NULL
+                        float* __restrict__ h_fin,           // [D,B,H] | NULL
+                        float* __restrict__ c_fin,           // [D,B,H] | NULL
                         int T, int B, int H, int R, int reverse_mask) {
   using namespace lstm;
   extern __shared__ __align__(16) uint8_t smem_b[];
@@ -271,8 +298,20 @@ lstm_fwd_cluster_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
   const int unit = j * u + ul;
   const int rbase = ng * 8 + 2 * (lane & 3);     // its first row, in tile
 
-  for (int i = threadIdx.x; i < C * slab / 8; i += blockDim.x)
-    reinterpret_cast<uint4*>(h_s)[i] = make_uint4(0, 0, 0, 0);   // h = 0
+  if (h0 == nullptr) {
+    for (int i = threadIdx.x; i < C * slab / 8; i += blockDim.x)
+      reinterpret_cast<uint4*>(h_s)[i] = make_uint4(0, 0, 0, 0);   // h = 0
+  } else {
+    // step 0's h: every block's slab of round(h0), zeros past B and in the
+    // pad columns
+    for (int i = threadIdx.x; i < C * slab; i += blockDim.x) {
+      const int jj = i / slab, r = (i % slab) / SW, col = i % SW;
+      const int row = row0 + r;
+      h_s[i] = bf16(col < u && row < B
+                        ? h0[((size_t)d * B + row) * H + jj * u + col]
+                        : 0.f);
+    }
+  }
   init_barriers(bars, 3);
   if (threadIdx.x == 0) {        // steps 1 and 2 (buffers 1 and 0)
     if (T > 1) expect_bytes(&bars[2], step_bytes);
@@ -282,6 +321,15 @@ lstm_fwd_cluster_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
                 (uint32_t)wbytes, &bars[0]);
 
   float h[2] = {0.f, 0.f}, c[2] = {0.f, 0.f}, gxc[2][4], vc[2];
+  if (h0 != nullptr)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = row0 + rbase + e;
+      if (row < B) {
+        h[e] = h0[((size_t)d * B + row) * H + unit];
+        c[e] = c0[((size_t)d * B + row) * H + unit];
+      }
+    }
   fetch_fwd(gx, valid, rev ? T - 1 : 0, B, H, row0, rbase, unit, gxc, vc);
   cluster_sync();     // every block's barriers are set before a remote store
 
@@ -365,13 +413,24 @@ lstm_fwd_cluster_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
       for (int q = 0; q < 4; ++q) gxc[e][q] = gxn[e][q];
     }
   }
+  if (h_fin != nullptr)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = row0 + rbase + e;
+      if (row < B) {
+        h_fin[((size_t)d * B + row) * H + unit] = h[e];
+        c_fin[((size_t)d * B + row) * H + unit] = c[e];
+      }
+    }
   cluster_sync();       // no block leaves while a peer may still store to it
 }
 
 int launch_cluster(const float* gates_x, const void* w_frag,
                    const float* valid, float* h_out, float* hprev,
-                   float* cprev, float* acts, int D, int T, int B, int H,
-                   int reverse_mask, int C, int R, cudaStream_t stream) {
+                   float* cprev, float* acts, const float* h0,
+                   const float* c0, float* h_fin, float* c_fin, int D, int T,
+                   int B, int H, int reverse_mask, int C, int R,
+                   cudaStream_t stream) {
   const int threads = lstm::fwd_cluster_threads(H, C, R);
   if (threads == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = lstm::fwd_cluster_smem(H, C, R);
@@ -379,7 +438,7 @@ int launch_cluster(const float* gates_x, const void* w_frag,
   return (int)lstm::launch_clusters(
       lstm_fwd_cluster_kernel, grid, threads, smem, C, stream, gates_x,
       static_cast<const __nv_bfloat16*>(w_frag), valid, h_out, hprev, cprev,
-      acts, T, B, H, R, reverse_mask);
+      acts, h0, c0, h_fin, c_fin, T, B, H, R, reverse_mask);
 }
 
 // The serial chain's floor: T steps of a cluster route's exchange alone
@@ -436,7 +495,9 @@ exchange_floor_kernel(int T, int R, int W, int backward) {
 // its two A tiles (i | f) and (g | o), as in the cluster route) and the
 // k-steps kk with kk % ksplit == w / W (ksplit = 8 / W).  Lane pairs: unit
 // 8*ug + lane/4, rows 8*nt + 2*(lane%4) + e.  Step s reads h_s from
-// exchange buffer s & 1 (h_0 = 0: no product at s = 0) and writes h_{s+1}
+// exchange buffer s & 1 (h_0 = 0: no product at s = 0, unless h0 is given:
+// then the wrapper has written round(h0) into buffer 0 before the launch)
+// and writes h_{s+1}
 // into buffer (s+1) & 1 before arriving on the counter: a block writes
 // buffer (s+1) & 1 only after the count of step s, i.e. after every
 // block's step-s arrival, which each made after its step s-1 product had
@@ -449,6 +510,10 @@ lstm_fwd_grid_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
                      float* __restrict__ hprev,           // [D,T,B,H] | NULL
                      float* __restrict__ cprev,           // [D,T,B,H] | NULL
                      float* __restrict__ acts,            // [D,T,B,4H] | NULL
+                     const float* __restrict__ h0,        // [D,B,H] | NULL
+                     const float* __restrict__ c0,        // [D,B,H] | NULL
+                     float* __restrict__ h_fin,           // [D,B,H] | NULL
+                     float* __restrict__ c_fin,           // [D,B,H] | NULL
                      __nv_bfloat16* __restrict__ xch,     // [2,D,G*R,H]
                      unsigned* __restrict__ ctr,          // [D*G], zeroed
                      int T, int B, int H, int R, int RS, int KC, int S,
@@ -503,7 +568,16 @@ lstm_fwd_grid_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
     }
   };
 
-  for (int i = threadIdx.x; i < 2 * R * u; i += blockDim.x) h_s[i] = 0.f;
+  if (h0 == nullptr) {
+    for (int i = threadIdx.x; i < 2 * R * u; i += blockDim.x) h_s[i] = 0.f;
+  } else {
+    for (int i = threadIdx.x; i < R * u; i += blockDim.x) {
+      const int row = g * R + i / u;
+      const size_t o = ((size_t)d * B + row) * H + j * u + i % u;
+      h_s[i] = row < B ? h0[o] : 0.f;
+      c_s[i] = row < B ? c0[o] : 0.f;
+    }
+  }
   init_barriers(bars, 1);
   load_resident(smem_b + kGridHeader, w_frag + ((size_t)d * N + j) * H * 4 * u,
                 (uint32_t)((size_t)H * 4 * u * 2), &bars[0]);
@@ -530,8 +604,8 @@ lstm_fwd_grid_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
       // gates[4u cols, rows] = w_slice^T . round(h_s)^T, two accumulator
       // chains a tile (alternate k-steps), added in a fixed order
       float acc[2][2][4] = {};
-      if (s > 0) {
-        if (r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+      if (s > 0 || h0 != nullptr) {
+        if (s > 0 && r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
         ring(ring_s, xch + (((size_t)(s & 1) * D + d) * xrows + r0) * H, RS,
              H, KC, S, [&](int c, const __nv_bfloat16* stage) {
                const __nv_bfloat16* hb = stage + nt * 8 * SW;
@@ -607,11 +681,21 @@ lstm_fwd_grid_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
     if (s + 1 < T) grid_arrive(my_ctr);
     if (kp == 0) store(t, g * R + R - RS);
   }
+  if (h_fin != nullptr)      // the carries are final since the last sync
+    for (int i = threadIdx.x; i < R * u; i += blockDim.x) {
+      const int row = g * R + i / u;
+      if (row >= B) continue;
+      const size_t o = ((size_t)d * B + row) * H + j * u + i % u;
+      h_fin[o] = h_s[i];
+      c_fin[o] = c_s[i];
+    }
 }
 
 int launch_grid_fwd(const float* gates_x, const void* w_frag,
                     const float* valid, float* h_out, float* hprev,
-                    float* cprev, float* acts, void* xch, unsigned* ctr,
+                    float* cprev, float* acts, const float* h0,
+                    const float* c0, float* h_fin, float* c_fin, void* xch,
+                    unsigned* ctr,
                     int D, int T, int B, int H, int reverse_mask, int u,
                     int G, int R, int RS, int KC, int S,
                     cudaStream_t stream) {
@@ -622,8 +706,8 @@ int launch_grid_fwd(const float* gates_x, const void* w_frag,
   return (int)lstm::launch_grid(
       lstm_fwd_grid_kernel, dim3(H / u, G, D), smem, stream, gates_x,
       static_cast<const __nv_bfloat16*>(w_frag), valid, h_out, hprev, cprev,
-      acts, static_cast<__nv_bfloat16*>(xch), ctr, T, B, H, R, RS, KC, S,
-      reverse_mask);
+      acts, h0, c0, h_fin, c_fin, static_cast<__nv_bfloat16*>(xch), ctr, T,
+      B, H, R, RS, KC, S, reverse_mask);
 }
 
 // The grid route's serial floor: T steps of its protocol alone, on the
@@ -664,7 +748,9 @@ grid_floor_kernel(__nv_bfloat16* __restrict__ xch, unsigned* __restrict__ ctr,
 }  // namespace
 
 // gates_x [D,T,B,4H] f32, valid [T,B] f32 0/1, h_out [D,T,B,H] f32;
-// hprev/cprev [D,T,B,H] and acts [D,T,B,4H] f32 all given or all NULL.
+// hprev/cprev [D,T,B,H] and acts [D,T,B,4H] f32 all given or all NULL;
+// h0/c0 [D,B,H] f32 both given (the initial carries) or both NULL (zeros);
+// h_fin/c_fin [D,B,H] f32 both given (the final carries) or both NULL.
 // (The grid route has its own entry, lstm_scan_fwd_grid.)
 // cluster = 0: the CUDA-core route, w_hh [D,H,4H] (bf16 when w_is_bf16
 // else f32).  cluster = C > 0: the cluster route with clusters of C blocks
@@ -673,21 +759,28 @@ grid_floor_kernel(__nv_bfloat16* __restrict__ xch, unsigned* __restrict__ ctr,
 // returns cudaErrorInvalidValue.  Contiguous, on the stream's device.
 extern "C" int lstm_scan_fwd(const float* gates_x, const void* w_hh,
                              const float* valid, float* h_out, float* hprev,
-                             float* cprev, float* acts, int D, int T, int B,
-                             int H, int reverse_mask, int w_is_bf16,
-                             int cluster, int rows, void* stream) {
+                             float* cprev, float* acts, const float* h0,
+                             const float* c0, float* h_fin, float* c_fin,
+                             int D, int T, int B, int H, int reverse_mask,
+                             int w_is_bf16, int cluster, int rows,
+                             void* stream) {
   if (D == 0 || T == 0 || B == 0) return 0;
+  if ((h0 == nullptr) != (c0 == nullptr) ||
+      (h_fin == nullptr) != (c_fin == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster > 0) {
     if (!w_is_bf16) return (int)cudaErrorInvalidValue;
-    return launch_cluster(gates_x, w_hh, valid, h_out, hprev, cprev, acts, D,
-                          T, B, H, reverse_mask, cluster, rows, s);
+    return launch_cluster(gates_x, w_hh, valid, h_out, hprev, cprev, acts, h0,
+                          c0, h_fin, c_fin, D, T, B, H, reverse_mask, cluster,
+                          rows, s);
   }
   if (w_is_bf16)
     return launch<__nv_bfloat16>(gates_x, w_hh, valid, h_out, hprev, cprev,
-                                 acts, D, T, B, H, reverse_mask, s);
-  return launch<float>(gates_x, w_hh, valid, h_out, hprev, cprev, acts, D,
-                       T, B, H, reverse_mask, s);
+                                 acts, h0, c0, h_fin, c_fin, D, T, B, H,
+                                 reverse_mask, s);
+  return launch<float>(gates_x, w_hh, valid, h_out, hprev, cprev, acts, h0,
+                       c0, h_fin, c_fin, D, T, B, H, reverse_mask, s);
 }
 
 // How many clusters of the forward cluster route's plan the card holds at
@@ -721,8 +814,10 @@ extern "C" int lstm_exchange_floor(int backward, int D, int T, int B, int H,
                                     backward ? 4 * u : u, backward);
 }
 
-// The grid route (bf16, H > 512): gates_x, valid, h_out and the residuals
-// as lstm_scan_fwd; w_frag bf16 w_hh in the fragment order of H/units
+// The grid route (bf16, H > 512): gates_x, valid, h_out, the residuals and
+// the carries as lstm_scan_fwd (with h0 given, buffer 0 of xch must hold
+// round(h0) in rows [0, B) and zeros in the rest, as the wrapper writes it);
+// w_frag bf16 w_hh in the fragment order of H/units
 // pieces [D, H/units, H*4*units]; xch bf16 scratch [2, D, groups*rows, H];
 // ctr [D*groups] u32, zeroed.  The plan's integers: units u a block,
 // groups G of rows batch rows, sub-tiles of sub rows, ring chunks of chunk
@@ -732,14 +827,20 @@ extern "C" int lstm_exchange_floor(int backward, int D, int T, int B, int H,
 extern "C" int lstm_scan_fwd_grid(const float* gates_x, const void* w_frag,
                                   const float* valid, float* h_out,
                                   float* hprev, float* cprev, float* acts,
-                                  void* xch, unsigned* ctr, int D, int T,
-                                  int B, int H, int reverse_mask, int units,
-                                  int groups, int rows, int sub, int chunk,
-                                  int stages, void* stream) {
+                                  const float* h0, const float* c0,
+                                  float* h_fin, float* c_fin, void* xch,
+                                  unsigned* ctr, int D, int T, int B, int H,
+                                  int reverse_mask, int units, int groups,
+                                  int rows, int sub, int chunk, int stages,
+                                  void* stream) {
   if (D == 0 || T == 0 || B == 0) return 0;
+  if ((h0 == nullptr) != (c0 == nullptr) ||
+      (h_fin == nullptr) != (c_fin == nullptr))
+    return (int)cudaErrorInvalidValue;
   return launch_grid_fwd(gates_x, w_frag, valid, h_out, hprev, cprev, acts,
-                         xch, ctr, D, T, B, H, reverse_mask, units, groups,
-                         rows, sub, chunk, stages, (cudaStream_t)stream);
+                         h0, c0, h_fin, c_fin, xch, ctr, D, T, B, H,
+                         reverse_mask, units, groups, rows, sub, chunk,
+                         stages, (cudaStream_t)stream);
 }
 
 // Blocks of the forward grid plan one SM holds, and the card's SMs: the

@@ -1,8 +1,9 @@
 """The CTC head and best-path decoding.
 
 Counterpart of ``semi_supervised_asr_tpu/decode/ctc.py``
-(``ctc_head_logits``, ``ctc_greedy_from_enc``; the streaming variants are
-not ported).  :func:`ctc_head_logits` is the one definition of the head's
+(``ctc_head_logits``, ``ctc_greedy_from_enc``, and the streaming
+``ctc_greedy_stream_init`` / ``ctc_greedy_stream`` without the reference's
+timestamps and biasing).  :func:`ctc_head_logits` is the one definition of the head's
 logits, shared by the loss, greedy decoding, the prefix beam and the
 joint CTC-attention beam.  Best path: per-frame argmax, repeats collapsed,
 blanks (PAD) dropped; the rows come out as the attention decoders' do,
@@ -47,3 +48,40 @@ def ctc_greedy_from_enc(ctc, enc: torch.Tensor, enc_mask: torch.Tensor
     cols = torch.arange(t + 1, device=path.device)[None, :]
     out = torch.where(cols == n_out[:, None], EOS, widened)
     return out[:, :t].to(torch.int32), best_lp
+
+
+def ctc_greedy_stream_init(b: int, max_u: int, device) -> tuple:
+    """The carry of :func:`ctc_greedy_stream`: (the previous path id [B],
+    tokens [B, max_u], count [B], score [B]).  The previous id starts at
+    PAD, which the collapse never keeps, so a real first token is never
+    taken for a repeat."""
+    return (torch.zeros((b,), dtype=torch.int32, device=device),
+            torch.full((b, max_u), PAD, dtype=torch.int32, device=device),
+            torch.zeros((b,), dtype=torch.int32, device=device),
+            torch.zeros((b,), dtype=torch.float32, device=device))
+
+
+def ctc_greedy_stream(ctc, enc: torch.Tensor, enc_mask: torch.Tensor,
+                      max_u: int, carry: tuple, frame_base: int = 0) -> tuple:
+    """Best-path greedy as a resumable walk over the frames -> the new
+    carry: the previous chunk's last path id decides whether this chunk's
+    first frame repeats it, so chunked decoding is the whole utterance's.
+    Emits at most ``max_u`` tokens; ``frame_base`` only places emissions in
+    time, which the port does not record."""
+    if len(carry) != 4:
+        raise ValueError("carry arity does not match — build it with "
+                         "ctc_greedy_stream_init")
+    logits = ctc_head_logits(ctc, enc)
+    path = torch.argmax(logits, dim=-1).to(torch.int32)     # [B, T']
+    lp_max = torch.log_softmax(logits, dim=-1).max(dim=-1).values
+    prev, out, count, score = carry
+    slots = torch.arange(max_u, device=enc.device)[None, :]
+    for i in range(enc.shape[1]):
+        p, valid = path[:, i], enc_mask[:, i]
+        emit = valid & (p != PAD) & (p != prev) & (count < max_u)
+        out = torch.where((slots == count[:, None]) & emit[:, None],
+                          p[:, None], out)
+        count = count + emit.to(torch.int32)
+        prev = torch.where(valid, p, prev)
+        score = score + torch.where(valid, lp_max[:, i], 0.0)
+    return prev, out, count, score

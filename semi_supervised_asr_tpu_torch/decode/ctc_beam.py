@@ -1,7 +1,9 @@
 """CTC prefix beam search (Hannun et al. 2014), batched over a [B, K] lattice.
 
 Counterpart of ``semi_supervised_asr_tpu/decode/ctc_beam.py``'s
-``ctc_beam_from_enc`` without LM fusion, biasing or the streaming carry.
+``ctc_beam_from_enc`` without LM fusion or biasing; ``carry`` /
+``return_carry`` resume and return the lattice, so that chunked streaming
+searches as the whole utterance does.
 Frame-synchronous: every row of the lattice holds a label prefix with two
 log-probabilities, ``pb`` (its paths ending in blank) and ``pnb`` (ending
 in its last label), and each frame scores, for every live prefix, one STAY
@@ -45,21 +47,28 @@ def ctc_beam_from_enc(
     max_u: int,
     beam_size: int = 4,
     return_nbest: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    carry: tuple | None = None,
+    return_carry: bool = False,
+):
     """-> (tokens [B, max_u] int32, PAD-padded, score [B]: the prefix's CTC
     log-marginal, every alignment pooled); ``return_nbest``: ([B, K,
-    max_u], [B, K]) sorted by score."""
+    max_u], [B, K]) sorted by score; ``return_carry`` adds the lattice
+    (tokens, count, last, pb, pnb: the reference's carry without its LM
+    slots) that ``carry`` resumes."""
     b, t, _ = enc.shape
     k, blank, dev = beam_size, PAD, enc.device
     logp = torch.log_softmax(ctc_head_logits(ctc, enc), dim=-1)
     v = logp.shape[-1]
-    toks = torch.full((b, k, max_u), PAD, dtype=torch.int32, device=dev)
-    count = torch.zeros((b, k), dtype=torch.int32, device=dev)
-    last = torch.full((b, k), blank, dtype=torch.int32, device=dev)
-    # only row 0 is live: the empty prefix, all its mass ending in blank
-    pb = torch.full((b, k), NEG_INF, device=dev)
-    pb[:, 0] = 0.0
-    pnb = torch.full((b, k), NEG_INF, device=dev)
+    if carry is not None:
+        toks, count, last, pb, pnb = carry
+    else:
+        toks = torch.full((b, k, max_u), PAD, dtype=torch.int32, device=dev)
+        count = torch.zeros((b, k), dtype=torch.int32, device=dev)
+        last = torch.full((b, k), blank, dtype=torch.int32, device=dev)
+        # only row 0 is live: the empty prefix, all its mass ending in blank
+        pb = torch.full((b, k), NEG_INF, device=dev)
+        pb[:, 0] = 0.0
+        pnb = torch.full((b, k), NEG_INF, device=dev)
     vocab = torch.arange(v, device=dev)
     upos = torch.arange(max_u, device=dev)
 
@@ -130,9 +139,12 @@ def ctc_beam_from_enc(
         pnb = torch.where(upd, pnb_n, pnb)
 
     scores = _logaddexp(pb, pnb)
-    if return_nbest:
+    if return_nbest and not return_carry:
         order_scores, order = _top_k(scores, k)
         return gather_k(toks, order), order_scores
     best = torch.argmax(scores, dim=1)
     rows = torch.arange(b, device=dev)
+    if return_carry:
+        return toks[rows, best], scores[rows, best], (toks, count, last, pb,
+                                                       pnb)
     return toks[rows, best], scores[rows, best]

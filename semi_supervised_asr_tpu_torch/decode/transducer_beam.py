@@ -11,8 +11,11 @@ them).  A frame ends by adding the blank's log-prob to every hypothesis
 that never froze, so that complete paths all hold T' blanks and their raw
 scores compare.  Equal prefixes reached along different alignments are not
 merged (the reference's documented simplification); K=1 is the greedy
-walk.  LM fusion (``decode.lm_weight``, ``decode.ilm_weight``), biasing
-and the streaming carry are not ported: the callers refuse them by name.
+walk.  ``carry`` / ``return_carry`` resume and return the lattice (pred,
+the predictor's state, tokens, count, scores: the reference's carry
+without its LM slots), so that chunked streaming searches as the whole
+utterance does.  LM fusion (``decode.lm_weight``, ``decode.ilm_weight``)
+and biasing are not ported: the callers refuse them by name.
 """
 
 from __future__ import annotations
@@ -44,10 +47,13 @@ def transducer_beam_from_enc(
     max_symbols: int = 4,
     blank: int = PAD,
     return_nbest: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    carry: tuple | None = None,
+    return_carry: bool = False,
+):
     """-> (the best hypothesis' tokens [B, max_u] int32, PAD-padded, and
     its score [B]); with ``return_nbest`` ([B, K, max_u], [B, K]) every
-    hypothesis, best first."""
+    hypothesis, best first; with ``return_carry`` also the lattice that
+    ``carry`` resumes (the best hypothesis may change between chunks)."""
     b, t, e = enc.shape
     k, v = beam_size, cfg.vocab_size
     dev = enc.device
@@ -63,18 +69,22 @@ def transducer_beam_from_enc(
         ix = idx.reshape(idx.shape + (1,) * (x.ndim - 2))
         return torch.gather(x, 1, ix.expand((b, k) + x.shape[2:]))
 
-    pred0, state0 = TD.predictor_step(
-        model.predictor, torch.full((b * k,), SOS, dtype=torch.int32,
-                                    device=dev),
-        TD.predictor_init_state(cfg, b * k, dev), cfg)
-    pred = unflat(pred0)                                   # [B, K, P]
-    state = tuple((unflat(h), unflat(c)) for h, c in state0)
-    toks = torch.full((b, k, max_u), blank, dtype=torch.int32, device=dev)
-    count = torch.zeros((b, k), dtype=torch.int32, device=dev)
-    # only hypothesis 0 is live at the start: K copies of the empty prefix
-    # would fill the beam with duplicates
-    scores = torch.full((b, k), NEG_INF, device=dev)
-    scores[:, 0] = 0.0
+    if carry is not None:
+        pred, state, toks, count, scores = carry
+    else:
+        pred0, state0 = TD.predictor_step(
+            model.predictor, torch.full((b * k,), SOS, dtype=torch.int32,
+                                        device=dev),
+            TD.predictor_init_state(cfg, b * k, dev), cfg)
+        pred = unflat(pred0)                               # [B, K, P]
+        state = tuple((unflat(h), unflat(c)) for h, c in state0)
+        toks = torch.full((b, k, max_u), blank, dtype=torch.int32,
+                          device=dev)
+        count = torch.zeros((b, k), dtype=torch.int32, device=dev)
+        # only hypothesis 0 is live at the start: K copies of the empty
+        # prefix would fill the beam with duplicates
+        scores = torch.full((b, k), NEG_INF, device=dev)
+        scores[:, 0] = 0.0
     slots = torch.arange(max_u, device=dev)[None, None, :]
 
     def lp_now(pred, enc_tk):
@@ -133,10 +143,13 @@ def transducer_beam_from_enc(
         lp = lp_now(pred, enc_tk)
         scores = torch.where(valid_t[:, None] & can_emit,
                              scores + lp[..., blank], scores)
-    if return_nbest:
+    if return_nbest and not return_carry:
         order_scores, order = top_k(scores, k)
         return gather_k(toks, order), order_scores
     best = torch.argmax(scores, dim=1)
     best_toks = torch.gather(
         toks, 1, best[:, None, None].expand(b, 1, max_u))[:, 0]
-    return best_toks, torch.gather(scores, 1, best[:, None])[:, 0]
+    best_score = torch.gather(scores, 1, best[:, None])[:, 0]
+    if return_carry:
+        return best_toks, best_score, (pred, state, toks, count, scores)
+    return best_toks, best_score

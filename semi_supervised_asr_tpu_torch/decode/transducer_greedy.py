@@ -7,9 +7,11 @@ emissions are taken as masked [B] updates, so that every row finishes on
 its own.  A row stops emitting at a blank, past its encoder length or when
 its output buffer is full; slots never written stay PAD (the blank), which
 scoring trims.  The score is the chosen path's log-probability, every
-frame ending in its blank.  The streaming carry, timestamps and biasing of
-the reference (``carry``, ``return_carry``, ``track_frames``, ``bias``) are
-not ported; their callers refuse them by name.
+frame ending in its blank.  ``carry`` / ``return_carry`` resume and
+return the walk's state, so that chunked streaming (``decode/streaming.py``)
+walks the same path as the whole utterance.  The reference's timestamps and
+biasing (``track_frames``, ``bias``) are not ported; their callers refuse
+them by name.
 """
 
 from __future__ import annotations
@@ -43,13 +45,24 @@ def transducer_greedy_from_enc(
     max_u: int,
     max_symbols: int = 4,
     blank: int = PAD,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    carry: tuple | None = None,
+    return_carry: bool = False,
+    frame_base: int = 0,
+):
     """-> (tokens [B, max_u] int32, PAD-padded; the path's total log-prob
-    [B])."""
+    [B]), and with ``return_carry`` the walk's state (pred, the predictor's
+    state, tokens, count, score) that a later call resumes from
+    (``carry``, :func:`transducer_greedy_init`'s layout).  ``frame_base``
+    (the encoder frames already walked) only places emissions in time,
+    which the port does not record."""
     b, t, _ = enc.shape
     dev = enc.device
-    pred, state, out, count, score = transducer_greedy_init(
-        model, cfg, b, max_u, dev, blank)
+    if carry is None:
+        carry = transducer_greedy_init(model, cfg, b, max_u, dev, blank)
+    if len(carry) != 5:
+        raise ValueError("carry arity does not match — build it with "
+                         "transducer_greedy_init")
+    pred, state, out, count, score = carry
     slots = torch.arange(max_u, device=dev)[None, :]
     for ti in range(t):
         enc_t = enc[:, ti]
@@ -76,4 +89,6 @@ def transducer_greedy_from_enc(
         lp = torch.log_softmax(TD.joint_row(model.joint, enc_t, pred, cfg),
                                dim=-1)
         score = score + torch.where(emitting, lp[:, blank], 0.0)
+    if return_carry:
+        return out, score, (pred, state, out, count, score)
     return out, score

@@ -16,6 +16,12 @@ Every layer runs on the CUDA scan kernel (``ops/lstm_scan.py``) whatever
 tensor-parallel mesh, which the port does not have.  CPU tensors take the
 scan's plain version, as every kernel wrapper does; on the card only an
 explicit ``backend="reference"`` does.
+
+Chunked streaming (``decode/streaming.py``): the forward-only listener
+resumes every layer's scan from its carried (h, c)
+(:func:`listener_apply_stream`), and the chunk-causal conformer's stem
+pads time (2, 0) (``conv_stem_apply(causal=True)``) so that it streams
+with a 2-frame carry a block (:func:`conv_stem_stream`).
 """
 
 from __future__ import annotations
@@ -72,7 +78,6 @@ def check_supported(cfg: ModelConfig) -> None:
     ported = {
         "model.family": (cfg.family, ("las", "ctc", "transducer")),
         "model.decoder_arch": (cfg.decoder_arch, ("lstm", "transformer")),
-        "model.enc_attn_chunk": (cfg.enc_attn_chunk, (0,)),
         "model.lm_fusion": (cfg.lm_fusion, ("none",)),
     }
     if cfg.family == "transducer" and cfg.lm_fusion != "none":
@@ -124,11 +129,34 @@ def _same_pad(n: int) -> tuple[int, int]:
     return tot // 2, tot - tot // 2
 
 
+def _stem_block(hp: torch.Tensor, p: Leaves,
+                compute: torch.dtype) -> torch.Tensor:
+    """One stem block on its time-padded input hp [B, T+pad, F, C_in] in the
+    compute dtype: the freq axis SAME-padded here, the stride-2 3x3 conv as
+    the windows (``unfold``) times the [9 * C_in, C] filter, float32 bias,
+    ReLU -> [B, T', F', C] float32."""
+    hp = Fn.pad(hp, (0, 0, *_same_pad(hp.shape[2])))
+    # [B, T', F', C_in, 3, 3] -> [B, T', F', 3, 3, C_in], HWI-major as the
+    # HWIO filter's rows
+    win = hp.unfold(1, 3, 2).unfold(2, 3, 2).permute(0, 1, 2, 4, 5, 3)
+    w = p.w.to(compute).reshape(-1, p.w.shape[-1])      # [9 * C_in, C]
+    y = torch.matmul(win.reshape(*win.shape[:3], -1), w).float()
+    return torch.relu(y + p.b.float())
+
+
+def _zero_pads(y: torch.Tensor, lens: torch.Tensor):
+    """Halve the valid counts and zero the frames past them -> (y, lens)."""
+    lens = torch.div(lens + 1, 2, rounding_mode="floor")
+    keep = torch.arange(y.shape[1], device=y.device)[None, :] < lens[:, None]
+    return torch.where(keep[:, :, None, None], y, 0.0), lens
+
+
 def conv_stem_apply(
     convs: nn.ModuleList,
     x: torch.Tensor,            # [B, T, F], zeros on pad frames
     lens: torch.Tensor,         # [B]
     compute: torch.dtype,
+    causal: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> ([B, ceil(T/2^N), F'*C] float32, new lens), features F-major and
     C-minor as JAX's NHWC reshape gives them.  Each block: SAME-padded
@@ -138,23 +166,52 @@ def conv_stem_apply(
     [9 * C_in, C] filter: its backward is a gather and a matmul, with no
     atomics, so that a step's bits do not depend on the run (cuDNN's
     default backward algorithms for a conv sum with atomics on the
-    card)."""
+    card).  ``causal`` (the chunk-causal conformer) pads time (2, 0) in
+    place of SAME's, so that output frame t reads inputs 2t-2 ... 2t and
+    the stem streams (:func:`conv_stem_stream`); lengths are unchanged."""
     h = x.float()[:, None, :, :].permute(0, 2, 3, 1)   # [B, T, F, 1] NHWC
     for p in convs:
-        pt, pf = _same_pad(h.shape[1]), _same_pad(h.shape[2])
-        hp = Fn.pad(h.to(compute), (0, 0, *pf, *pt))
-        # [B, T', F', C_in, 3, 3] -> [B, T', F', 3, 3, C_in], HWI-major as
-        # the HWIO filter's rows
-        win = hp.unfold(1, 3, 2).unfold(2, 3, 2).permute(0, 1, 2, 4, 5, 3)
-        w = p.w.to(compute).reshape(-1, p.w.shape[-1])  # [9 * C_in, C]
-        y = torch.matmul(win.reshape(*win.shape[:3], -1), w).float()
-        y = torch.relu(y + p.b.float())
-        lens = torch.div(lens + 1, 2, rounding_mode="floor")
-        keep = torch.arange(y.shape[1], device=y.device)[None, :] < \
-            lens[:, None]
-        h = torch.where(keep[:, :, None, None], y, 0.0)
+        pt = (2, 0) if causal else _same_pad(h.shape[1])
+        y = _stem_block(Fn.pad(h.to(compute), (0, 0, 0, 0, *pt)), p, compute)
+        h, lens = _zero_pads(y, lens)
     b, t, f, c = h.shape
     return h.reshape(b, t, f * c), lens
+
+
+def conv_stem_stream_init(cfg: ModelConfig, b: int, device) -> tuple:
+    """The causal stem's zero carries: per block its last 2 input frames
+    [B, 2, F, C_in] in the compute dtype (zeros = the offline left
+    padding)."""
+    compute = R.dtype_of(cfg.compute_dtype)
+    carries, f, c_in = [], cfg.n_mels, 1
+    for _ in range(cfg.conv_subsample):
+        carries.append(torch.zeros((b, 2, f, c_in), dtype=compute,
+                                   device=device))
+        f, c_in = (f + 1) // 2, cfg.conv_channels
+    return tuple(carries)
+
+
+def conv_stem_stream(
+    convs: nn.ModuleList,
+    x: torch.Tensor,            # [B, Tc, F], Tc a multiple of 2^N
+    compute: torch.dtype,
+    carry: tuple,
+    lens: torch.Tensor | None = None,   # [B]: the final partial chunk only
+):
+    """One chunk of the causal stem -> ([B, Tc/2^N, F'*C] float32, the new
+    carry, new lens): each block convolves (its carry ++ the chunk) with no
+    time padding, which is ``conv_stem_apply(causal=True)`` resumed, bit for
+    bit; pad frames are zeroed as offline when ``lens`` is given."""
+    h = x.float()[..., None]
+    new_carry = []
+    for p, cin in zip(convs, carry):
+        hp = torch.cat([cin.to(compute), h.to(compute)], dim=1)
+        new_carry.append(hp[:, -2:].to(cin.dtype))
+        h = _stem_block(hp, p, compute)
+        if lens is not None:
+            h, lens = _zero_pads(h, lens)
+    b, t, f, c = h.shape
+    return h.reshape(b, t, f * c), tuple(new_carry), lens
 
 
 class Listener(nn.Module):
@@ -212,3 +269,45 @@ class Listener(nn.Module):
             if masks is not None:
                 x = dropout(x, masks[li], self.cfg.enc_dropout)
         return x, lens
+
+
+def listener_stream_init(cfg: ModelConfig, b: int, device) -> tuple:
+    """Zero (h, c) [B, H] float32 carries, one pair a layer: the state
+    :func:`listener_apply_stream` resumes from."""
+    if cfg.enc_bidirectional:
+        raise ValueError("streaming needs a causal listener")
+    z = torch.zeros((b, cfg.enc_hidden), dtype=torch.float32, device=device)
+    return tuple((z, z) for _ in range(cfg.enc_base_layers + cfg.enc_layers))
+
+
+@torch.no_grad()
+def listener_apply_stream(
+    listener: Listener,
+    feats: torch.Tensor,        # [B, Tc, n_mels], Tc % time_reduction == 0
+    state: tuple,               # listener_stream_init / the previous chunk
+    frame_lens: torch.Tensor | None = None,   # the final chunk's lengths
+    backend: str | None = None,
+) -> tuple[torch.Tensor, tuple]:
+    """One streaming chunk of the forward-only listener -> (enc [B,
+    Tc/red, H], the new state).  Every layer's scan (K2 on the card)
+    resumes from its carried (h, c), and the pyramid folds stay aligned
+    because every chunk folds to whole output frames, so the chunks'
+    outputs are the whole utterance's; ``frame_lens`` masks the final
+    partial chunk as the batch path masks a padded row (invalid steps pass
+    the carry through and emit zeros)."""
+    cfg = listener.cfg
+    if cfg.enc_bidirectional:
+        raise ValueError("streaming needs a causal listener")
+    if cfg.conv_subsample != 0:
+        raise ValueError("streaming chunk path supports conv_subsample=0 "
+                         "(the conv stem spans chunk boundaries)")
+    compute = R.dtype_of(cfg.compute_dtype)
+    x, lens = feats.float(), frame_lens
+    new_state = []
+    for li, (layer, (h0, c0)) in enumerate(zip(listener.layers, state)):
+        if li >= cfg.enc_base_layers:
+            x, lens = R.pyramid_fold(x, lens)
+        x, st = lstm_kernel(layer.as_dict(), x, lens, False, compute,
+                            backend, h0=h0, c0=c0, return_state=True)
+        new_state.append(st)
+    return x, tuple(new_state)

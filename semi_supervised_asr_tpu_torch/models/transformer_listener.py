@@ -73,10 +73,12 @@ def sinusoidal_positions(t: int, d: int) -> np.ndarray:
 
 
 def attention_core(q, k, v, key_mask, compute, attn_backend: str,
-                   backend: str | None) -> torch.Tensor:
+                   backend: str | None,
+                   chunk_mask: torch.Tensor | None = None) -> torch.Tensor:
     """[B, T, H, hd] q, k, v -> context [B, T, H*hd] in the compute dtype.
     q and k may be float32 (the conformer's rotated ones): ``xla`` casts
-    them inside the score product, ``flash`` in the wrapper."""
+    them inside the score product, ``flash`` in the wrapper.  ``chunk_mask``
+    [T, T] (``xla`` only) also hides the keys a query may not see."""
     b, t, h, hd = v.shape
     if attn_backend == "flash":
         ctx = FM.mhsa(q, k, v, key_mask, sm_scale=float(1.0 / np.sqrt(hd)),
@@ -85,7 +87,10 @@ def attention_core(q, k, v, key_mask, compute, attn_backend: str,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(compute),
                           k.to(compute)).float()
     scores = scores / np.sqrt(hd)
-    scores = scores.masked_fill(~key_mask[:, None, None, :], FM.MASKED)
+    vis = key_mask[:, None, None, :]
+    if chunk_mask is not None:
+        vis = vis & chunk_mask[None, None, :, :]
+    scores = scores.masked_fill(~vis, FM.MASKED)
     alpha = torch.softmax(scores, dim=-1).to(compute)
     return torch.einsum("bhqk,bkhd->bqhd", alpha, v).reshape(b, t, h * hd)
 
@@ -144,12 +149,12 @@ class AttentionListener(nn.Module):
         return dropout(h, masks[i], self.cfg.enc_dropout)
 
     def input_projection(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                         compute: torch.dtype):
-        """The stem (if any) and the projection -> (x float32 [B, T', d],
-        lens, key mask [B, T'])."""
+                         compute: torch.dtype, causal: bool = False):
+        """The stem (if any; ``causal``: padded (2, 0) in time) and the
+        projection -> (x float32 [B, T', d], lens, key mask [B, T'])."""
         x, lens = feats.float(), feat_lens
         if self.cfg.conv_subsample > 0:
-            x, lens = conv_stem_apply(self.conv, x, lens, compute)
+            x, lens = conv_stem_apply(self.conv, x, lens, compute, causal)
         x = (x.to(compute) @ self.proj.w.to(compute)).float() \
             + self.proj.b.float()
         t = x.shape[1]

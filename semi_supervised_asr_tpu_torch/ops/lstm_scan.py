@@ -16,6 +16,10 @@ also what ``fuse_bilstm`` asks for).
 
 Padded steps pass the (h, c) carry through and emit zeros, so the reverse
 direction over a right-padded batch starts at each row's last valid frame.
+Outside autograd a scan may start from given carries (``h0``, ``c0``) and
+return its final ones (``return_state``): each row's (h, c) after its last
+valid step, which a later scan resumes from (chunked streaming, the
+reference's ``recurrent.lstm(..., h0=, c0=, return_state=True)``).
 
 Three routes run the kernels, chosen by shape in :func:`cluster_plan`:
 bfloat16 at H <= 512 runs as thread-block clusters (each block holds its
@@ -324,12 +328,18 @@ def _grid_ints(plan: Plan) -> tuple[int, ...]:
 
 
 def _grid_scratch(kernel: str, plan: Plan, d: int, hidden: int,
-                  device: torch.device):
+                  device: torch.device, h0: torch.Tensor | None = None):
     """The grid route's exchange buffer ([2, D, G * R, K] bf16, by step
-    parity) and its zeroed step counters ([D * G])."""
+    parity) and its zeroed step counters ([D * G]).  With ``h0`` [D, B, H]
+    (K2's initial carry) buffer 0 holds it rounded to bf16, zeros past B:
+    the rows step 0 reads."""
     k = 4 * hidden if kernel == "bwd" else hidden
-    xch = torch.empty((2, d, plan.groups * plan.rows, k), dtype=torch.bfloat16,
-                      device=device)
+    shape = (2, d, plan.groups * plan.rows, k)
+    if h0 is None:
+        xch = torch.empty(shape, dtype=torch.bfloat16, device=device)
+    else:
+        xch = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        xch[0, :, :h0.shape[1]] = h0
     ctr = torch.zeros((d * plan.groups,), dtype=torch.int32, device=device)
     return xch, ctr
 
@@ -364,10 +374,15 @@ def lstm_scan_reference(
     compute: torch.dtype,
     reverse: tuple[bool, ...],
     residuals: bool = False,
+    h0: torch.Tensor | None = None,     # [D, B, H] float32
+    c0: torch.Tensor | None = None,
+    return_state: bool = False,
 ):
     """Plain version of the scan -> h_out [D, T, B, H] float32, plus
     (hprev, cprev, acts) when ``residuals``, all at the time index of the
-    step that produced them (reverse directions included)."""
+    step that produced them (reverse directions included); the carries
+    start at (h0, c0) (zeros when None), and ``return_state`` adds the
+    final (h, c) [D, B, H]: ``(out, (h, c))``."""
     d, t, b, h4 = gates_x.shape
     hidden = h4 // 4
 
@@ -378,8 +393,12 @@ def lstm_scan_reference(
     v = torch.stack([flip(valid.float(), i) for i in range(d)], dim=1)
     v = v[..., None]                                     # [T, D, B, 1]
     w = w_hh.to(compute).float()                         # [D, H, 4H]
-    h = torch.zeros((d, b, hidden), dtype=torch.float32, device=gates_x.device)
-    c = torch.zeros_like(h)
+    if h0 is None:
+        h = torch.zeros((d, b, hidden), dtype=torch.float32,
+                        device=gates_x.device)
+        c = torch.zeros_like(h)
+    else:
+        h, c = h0.float(), c0.float()
     outs, hps, cps, acts = [], [], [], []
     for s in range(t):
         gates = gx[s] + torch.bmm(h.to(compute).float(), w)
@@ -400,9 +419,10 @@ def lstm_scan_reference(
         y = torch.stack(xs, dim=1)
         return torch.stack([flip(y[i], i) for i in range(d)])
 
-    if not residuals:
-        return unstack(outs)
-    return unstack(outs), unstack(hps), unstack(cps), unstack(acts)
+    out = unstack(outs)
+    if residuals:
+        out = out, unstack(hps), unstack(cps), unstack(acts)
+    return (out, (h, c)) if return_state else out
 
 
 def lstm_scan(
@@ -413,28 +433,47 @@ def lstm_scan(
     reverse: tuple[bool, ...],
     residuals: bool = False,
     backend: str | None = None,
+    h0: torch.Tensor | None = None,
+    c0: torch.Tensor | None = None,
+    return_state: bool = False,
 ):
     """[D, T, B, 4H] projected gates + [D, H, 4H] w_hh + [T, B] valid ->
     masked hidden states [D, T, B, H] (float32), in real time order for
     every direction.  ``reverse[d]`` walks direction d from T-1 down to 0.
     ``residuals`` also returns (hprev, cprev, acts) for a backward pass.
-    Differentiable in ``gates_x`` and ``w_hh`` (through K3) when
-    ``residuals`` is off.
+    ``h0``, ``c0`` ([D, B, H] float32, both or neither) are the carries the
+    scan starts from (zeros by default); ``return_state`` returns
+    ``(out, (h, c))`` with the final carries [D, B, H].  Differentiable in
+    ``gates_x`` and ``w_hh`` (through K3) when ``residuals`` is off and no
+    state goes in or out.
     """
+    stateful = h0 is not None or c0 is not None or return_state
     if torch.is_grad_enabled() and (gates_x.requires_grad
-                                    or w_hh.requires_grad):
+                                    or w_hh.requires_grad or (
+                                        h0 is not None and h0.requires_grad)):
         if residuals:
             raise ValueError("lstm_scan: residuals are for a backward pass "
                              "of its own; ask for them without autograd")
+        if stateful:
+            raise ValueError("lstm_scan: a carried state (h0, c0, "
+                             "return_state) is for calls without autograd")
         return _LSTMScan.apply(gates_x, w_hh, valid, compute, tuple(reverse),
                                backend)
     d, t, b, h4 = gates_x.shape
     if len(reverse) != d:
         raise ValueError(f"reverse has {len(reverse)} entries for D={d}")
+    hidden = h4 // 4
+    if (h0 is None) != (c0 is None):
+        raise ValueError("lstm_scan: give both h0 and c0, or neither")
+    for name, x in (("h0", h0), ("c0", c0)):
+        if x is not None and (tuple(x.shape) != (d, b, hidden)
+                              or x.device != gates_x.device):
+            raise ValueError(f"{name}: expected {(d, b, hidden)} on "
+                             f"{gates_x.device}, got {tuple(x.shape)} on "
+                             f"{x.device}")
     if not _native.use_kernel(gates_x, backend):
         return lstm_scan_reference(gates_x, w_hh, valid, compute, reverse,
-                                   residuals)
-    hidden = h4 // 4
+                                   residuals, h0, c0, return_state)
     dev = gates_x.device
     if compute not in (torch.float32, torch.bfloat16):
         raise ValueError(f"lstm_scan kernel: compute dtype {compute} "
@@ -462,12 +501,22 @@ def lstm_scan(
     if residuals:
         res = (torch.empty_like(h_out), torch.empty_like(h_out),
                torch.empty((d, t, b, h4), dtype=torch.float32, device=dev))
+    init = (None, None)
+    if h0 is not None:
+        init = (h0.float().contiguous(), c0.float().contiguous())
+    fin = (None, None)
+    if return_state:
+        fin = (torch.empty((d, b, hidden), dtype=torch.float32, device=dev),
+               torch.empty((d, b, hidden), dtype=torch.float32, device=dev))
+        if t == 0 or b == 0:         # no launch: the carries stay as given
+            fin = tuple(x.clone() if x is not None else torch.zeros_like(f)
+                        for x, f in zip(init, fin))
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
     ptrs = (gx.data_ptr(), w.data_ptr(), v.data_ptr(), h_out.data_ptr(),
-            *(_native.ptr(x) for x in res))
+            *(_native.ptr(x) for x in res + init + fin))
     if plan.route == "grid":
         entry = "lstm_scan_fwd_grid"
-        xch, ctr = _grid_scratch("fwd", plan, d, hidden, dev)
+        xch, ctr = _grid_scratch("fwd", plan, d, hidden, dev, init[0])
         code = _native.lib().lstm_scan_fwd_grid(
             *ptrs, xch.data_ptr(), ctr.data_ptr(), d, t, b, hidden, mask,
             *_grid_ints(plan), _native.stream_ptr(dev))
@@ -479,7 +528,8 @@ def lstm_scan(
     _native.check(entry, code)
     _native.count("lstm_scan_fwd")
     _native.count("lstm_scan_fwd_" + plan.route)
-    return (h_out, *res) if residuals else h_out
+    out = (h_out, *res) if residuals else h_out
+    return (out, fin) if return_state else out
 
 
 def lstm_scan_bwd_reference(
@@ -627,14 +677,25 @@ def lstm_kernel(
     reverse: bool = False,
     compute: torch.dtype = torch.float32,
     backend: str | None = None,
-) -> torch.Tensor:
+    h0: torch.Tensor | None = None,
+    c0: torch.Tensor | None = None,
+    return_state: bool = False,
+):
     """Drop-in for ``recurrent.lstm`` on the scan kernel: [B, T, I] ->
-    [B, T, H]."""
+    [B, T, H]; from the carries ``h0``, ``c0`` [B, H] when given, and with
+    ``return_state`` -> (ys, (h, c)), the carries after each row's last
+    valid step (no autograd)."""
     b, t, _ = x.shape
     gx = R.project(params, x, compute).transpose(0, 1)[None]
     valid = R.valid_mask(lengths, b, t, x.device)
     ys = lstm_scan(gx, params["w_hh"][None], valid, compute, (reverse,),
-                   backend=backend)
+                   backend=backend,
+                   h0=None if h0 is None else h0[None],
+                   c0=None if c0 is None else c0[None],
+                   return_state=return_state)
+    if return_state:
+        ys, (h, c) = ys
+        return ys[0].transpose(0, 1), (h[0], c[0])
     return ys[0].transpose(0, 1)
 
 

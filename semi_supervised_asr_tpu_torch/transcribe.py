@@ -18,6 +18,12 @@ Each file prints one JSON object ``{"audio", "text", "score"}`` (plus
 ``nbest`` with ``--nbest N``, ``no_eos`` when the length cap cut it,
 ``chunks`` for chunked files).
 
+``--streaming`` decodes each file through the exact streaming path
+(``decode/streaming.py``) instead, fed in ``--stream-chunk-ms`` pieces, greedy
+(``--beam 0`` or ``1``) or with the beam; ``--streams N`` serves N files at
+once through one ``MultiStreamTranscriber``.  Its records carry
+``"streaming": true``.
+
 ``DIR`` is a Solver's workdir (``main --train``): it decodes with the
 best, else the latest checkpoint (``decode.average_ckpts`` and
 ``decode.use_ema`` apply, as in ``main --test``).  Or ``DIR`` holds
@@ -334,6 +340,58 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
     return results
 
 
+def transcribe_streaming(rec: Recognizer, files: list[Path],
+                         beam_size: int = 1, chunk_ms: int = 320,
+                         streams: int = 1) -> list[dict]:
+    """Decode each file through the exact streaming path, fed in
+    ``chunk_ms`` pieces: one ``StreamingTranscriber`` a file, or with
+    ``streams`` > 1 waves of that many files through one
+    ``MultiStreamTranscriber`` (one chunk call advances every live stream
+    a round; each file's tokens are those of a single stream)."""
+    from semi_supervised_asr_tpu_torch.decode.streaming import (
+        MultiStreamTranscriber, StreamingTranscriber,
+    )
+
+    cfg = rec.cfg
+    sr = cfg.frontend.sample_rate
+    piece = max(int(sr * chunk_ms / 1000), 1)
+    kw = dict(max_u=cfg.decode.max_decode_len,
+              max_symbols=cfg.decode.max_symbols, beam_size=beam_size,
+              backend=rec.backend)
+    cmvn = (rec.mean, rec.inv_std)
+
+    def record(f, toks, score):
+        return {"audio": str(f),
+                "text": rec.vocab.decode_text(np.asarray(toks, np.int32)),
+                "score": score, "streaming": True}
+
+    results = []
+    if streams > 1:
+        ms = MultiStreamTranscriber(rec.model, cfg, cmvn,
+                                    n_streams=min(streams, len(files)), **kw)
+        for start in range(0, len(files), ms.n_streams):
+            wave = files[start: start + ms.n_streams]
+            audios = [np.asarray(load_audio(f), np.float32) for f in wave]
+            sids = [ms.open() for _ in wave]
+            cursors = [0] * len(wave)
+            while any(c < len(a) for c, a in zip(cursors, audios)):
+                for i, (sid, a) in enumerate(zip(sids, audios)):
+                    if cursors[i] < len(a):
+                        ms.feed(sid, a[cursors[i]: cursors[i] + piece])
+                        cursors[i] += piece
+                ms.pump()          # one chunk call a round for the wave
+            results.extend(record(f, *ms.finalize(sid))
+                           for f, sid in zip(wave, sids))
+        return results
+    for f in files:
+        audio = np.asarray(load_audio(f), np.float32)
+        st = StreamingTranscriber(rec.model, cfg, cmvn, **kw)
+        for s in range(0, len(audio), piece):
+            st.feed(audio[s: s + piece])
+        results.append(record(f, *st.finalize()))
+    return results
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="semi_supervised_asr_tpu_torch.transcribe")
     p.add_argument("--config", required=True)
@@ -349,16 +407,29 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
-    for flag in ("--timestamps", "--streaming"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--timestamps", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--streaming", action="store_true",
+                   help="decode through the exact streaming path "
+                        "(StreamingTranscriber) in --stream-chunk-ms pieces "
+                        "-- needs a causal transducer or CTC config "
+                        "(enc_bidirectional=false or enc_attn_chunk > 0, "
+                        "frontend.center=false)")
+    p.add_argument("--stream-chunk-ms", type=int, default=320,
+                   help="simulated audio feed granularity (--streaming)")
+    p.add_argument("--streams", type=int, default=1,
+                   help="with --streaming: decode this many files at once "
+                        "(one chunk call steps every live stream)")
     p.add_argument("inputs", nargs="+",
                    help="audio files (wav/npy/flac) and/or directories, "
                         "then section.key=value overrides")
     args, overrides = p.parse_known_args(argv)
 
-    for flag in ("timestamps", "streaming"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported yet")
+    if args.timestamps:
+        raise SystemExit("--timestamps is not ported yet")
+    if args.streaming and args.nbest > 1:
+        raise SystemExit("--streaming emits the single best path; drop "
+                         "--nbest")
     # an EXISTING path wins even if it contains '='
     paths = [x for x in args.inputs if Path(x).exists() or "=" not in x]
     overrides += [x for x in args.inputs
@@ -382,7 +453,15 @@ def main(argv=None) -> int:
         rec = Recognizer.from_dir(cfg, args.load_dir, device)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    results = transcribe(rec, files, mode, nbest=args.nbest)
+    if args.streaming:
+        try:
+            results = transcribe_streaming(
+                rec, files, cfg.decode.beam_size if mode == "beam" else 1,
+                args.stream_chunk_ms, args.streams)
+        except ValueError as e:      # the reference's streaming refusals
+            raise SystemExit(str(e)) from None
+    else:
+        results = transcribe(rec, files, mode, nbest=args.nbest)
     out_f = open(args.out, "w") if args.out else None
     try:
         for r in results:

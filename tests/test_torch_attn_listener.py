@@ -239,8 +239,8 @@ def test_blstm_listener_with_conv_stem_matches_jax():
 
 
 @pytest.mark.parametrize("kw, error, message", [
-    (dict(encoder_arch="conformer", enc_attn_chunk=4), NotImplementedError,
-     "model.enc_attn_chunk"),
+    (dict(encoder_arch="conformer", enc_attn_chunk=4, attn_backend="flash"),
+     ValueError, "attn_backend=xla"),
     (dict(encoder_arch="transformer", enc_attn_chunk=4), ValueError,
      "conformer-only"),
     (dict(encoder_arch="conformer", attn_backend="pallas"), ValueError,

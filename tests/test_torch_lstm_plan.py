@@ -235,7 +235,11 @@ def test_grid_wrappers_pass_the_plan_and_scratch(monkeypatch):
         assert xch.shape == (2, d, plan.groups * plan.rows, k)
         assert xch.dtype == torch.bfloat16 and ctr.dtype == torch.int32
         assert ctr.shape == (d * plan.groups,) and not ctr.any()
-        at = 7 if kernel == "fwd" else 6
+        # K2's carried state (h0, c0, h_fin, c_fin) sits between its
+        # residuals and the scratch: NULL when the scan carries none
+        at = 11 if kernel == "fwd" else 6
+        if kernel == "fwd":
+            assert args[7:11] == (None,) * 4
         assert args[at:at + 2] == (xch.data_ptr(), ctr.data_ptr())
         assert args[1 if kernel == "fwd" else 0] == laid[i].data_ptr()
         counted_once(kernel, "grid")

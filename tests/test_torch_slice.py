@@ -249,7 +249,7 @@ def test_port_imports_no_jax():
         "       'decode.beam', 'data.preprocess', 'utils.flac',\n"
         "       'models.transducer', 'objectives.transducer_loss',\n"
         "       'objectives.transducer_semi', 'decode.transducer_greedy',\n"
-        "       'decode.transducer_beam')\n"
+        "       'decode.transducer_beam', 'decode.streaming')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"

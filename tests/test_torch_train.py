@@ -745,7 +745,7 @@ def test_train_cli_refuses_unported_options(tmp_path, override, message):
 
 
 @pytest.mark.parametrize("override, message", [
-    ("model.enc_attn_chunk=8", "model.enc_attn_chunk"),
+    ("train.optimizer=adamw", "train.optimizer"),
     ("data.use_feature_store=true", "data.use_feature_store"),
     ("parallel.model_parallel=2", "parallel.model_parallel"),
 ])

@@ -575,8 +575,9 @@ def test_semi_step_matches_jax(semi_setup, step):
 # --------------------------------------------------------------------- #
 
 def test_build_model_takes_the_shipped_transducer_configs():
-    """The three transducer recipes build at their shipped widths (not
-    run); ``ls100_conformer_streaming`` stays refused by its key."""
+    """The four transducer recipes build at their shipped widths (not
+    run); ``ls100_conformer_streaming``'s listener is the chunk-causal
+    conformer of 12 blocks of d_model 256 behind a 2-block stem."""
     for name in ("ls100_transducer", "ls100_transducer_semi",
                  "ls100_transducer_streaming"):
         cfg = TR.finalize_config(load_config(f"configs/{name}.yaml"), 31)
@@ -589,9 +590,14 @@ def test_build_model_takes_the_shipped_transducer_configs():
         first = model.listener.layers[0]
         assert hasattr(first, "w_hh") == streaming, name
         assert model.joint.w_enc.shape[0] == 768
-    cfg = load_config("configs/ls100_conformer_streaming.yaml")
-    with pytest.raises(NotImplementedError, match="model.enc_attn_chunk"):
-        build_model(TR.finalize_config(cfg, 31).model)
+    cfg = TR.finalize_config(
+        load_config("configs/ls100_conformer_streaming.yaml"), 31)
+    model = build_model(cfg.model)
+    assert isinstance(model, TD.Transducer)
+    assert (cfg.model.enc_attn_chunk, cfg.model.enc_attn_left_chunks) == \
+        (16, 2)
+    assert len(model.listener.blocks) == 12 and len(model.listener.conv) == 2
+    assert model.joint.w_enc.shape == (256, 512)
 
 
 # tiny versions of the two recipes for the CLIs
