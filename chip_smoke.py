@@ -163,7 +163,7 @@ failure raises and the script exits non-zero:
     (b) two ranks sharing the card over gloo, 16 rows each of a global
     32: a float32 step against one process on the 32 rows (loss 1e-5
     relative, every reduced gradient leaf within GRAD_TOL, the ranks'
-    gradients bitwise equal), 3 bf16 steps after which the replicas'
+    gradients bitwise equal), 2 bf16 steps after which the replicas'
     parameters are bitwise equal, and the rank-sharded validation's error
     counts equal to one process's; (c) one step each, kernels only: remat
     on against off (the phase-7 bf16 bounds; K2 8 launches against 4) and
@@ -253,14 +253,43 @@ failure raises and the script exits non-zero:
     started from a carried (h, c) against its plain version on each route
     (the CUDA cores, the cluster and the grid route), and a scan split in
     two against the whole: outputs and final state bitwise equal.
+20. MWER, the CTC family's pseudo-labels and token timestamps: (a) the
+    MWER step (``objective.lambda_mwer`` 0.3, ``mwer_beam`` 4, no warmup)
+    of ``configs/ls100.yaml`` (LAS), ``ls100_ctc`` and ``ls100_transducer``
+    as shipped (bf16, B=64, one batch at 400 / 128; ls100 after one CE
+    step):
+    its ms against the same step without the term (in turns), peak
+    memory, launches (the supervised pass's; the transducer's predictor
+    once more over the B*K n-best: K1 1, K2 10, K3 6), the step twice
+    bitwise; kernels against plain in float32 (the encoder output within
+    K2_TOL, the share of rows whose 4-best are equal, the step on the
+    kernels' n-best within 1e-5 / GRAD_TOL) and in bf16 (the encoder
+    output within BF16_TOL, the 4-best share logged); the transducer's
+    MWER step at 1600 / 256 with ``model.joint_chunk_frames=8`` for its
+    peak; K2 and K3 at the MWER predictor's shape (D=1, B=256, H=512,
+    T=129) against plain, timed beside cuDNN's layer; (b) ``main --train
+    --resume`` of (a)'s ls100 checkpoint with MWER for 3 steps, ``mwer``
+    and ``mwer_risk`` read back from metrics.jsonl; (c) ``ls100_ctc`` with
+    ``objective.lambda_pseudo``: a Solver step (K1 3, K2 12, K3 6) and the
+    bf16 semi step kernels against plain (the teacher's encoder output
+    within BF16_TOL); (d) ``transcribe --timestamps`` on ``ls100_ctc``,
+    timit with its joint-CTC head and ``ls100_transducer`` (greedy) in
+    float32 at full width, kernels against plain (texts, starts and ends
+    equal), ``align.py`` on a manifest with one entry too long for its
+    audio (exit 0, that one failed), and both streaming recipes streamed
+    with ``track_frames`` (emission frames equal to the offline greedy
+    walk's).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
 was taken, and its design; launches from the timit Solver run (phase 14)
 for K1-K3, from the conformer training run for K5, and per path in
 ``launches_by_path``, the C5 run as ``c5_dp``, phase 19's training run as
-``conformer_streaming_train``; K2 and K3 also at the C4
-shapes in ``at_c4`` and at phase 18's in ``at_transducer``); the
+``conformer_streaming_train``, phase 20's as ``mwer_*``,
+``ctc_pseudo``, ``timestamps_*``, ``align`` and ``stream_timestamps_*``;
+K2 and K3 also at the C4 shapes in ``at_c4``, at phase 18's in
+``at_transducer`` and at the MWER predictor's in ``at_mwer_predictor``);
+the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
 of each path (the C4 step included) there.
@@ -1508,18 +1537,18 @@ def phase5(results, fcfg, card: str) -> dict:
         gx = gx.permute(2, 1, 0, 3).contiguous()
         args = (gx, w_hh, valid, torch.bfloat16, (False, True))
         kernel_times(times, "lstm_scan_fwd", lambda: K.lstm_scan(*args),
-                     lambda: K.lstm_scan_reference(*args), reps=3)
+                     lambda: K.lstm_scan_reference(*args), reps=2)
     ker, ref = results["bfloat16"]["rec"]
     audio, lens = results["bfloat16"]["batch"]
     for rec in (ref, ker, ker, ref):
         key = "serve_beam5" + ("_plain" if rec is ref else "")
         times.setdefault(key, []).extend(
-            host_ms(lambda: rec.decode(audio, lens, "beam"), reps=3))
+            host_ms(lambda: rec.decode(audio, lens, "beam"), reps=2))
         key = "encode" + ("_plain" if rec is ref else "")
         a = torch.as_tensor(audio, device=DEVICE)
         n = torch.as_tensor(lens, device=DEVICE)
         times.setdefault(key, []).extend(
-            host_ms(lambda: rec.encode(a, n), reps=3))
+            host_ms(lambda: rec.encode(a, n), reps=2))
     return report("phase5", times, card)
 
 
@@ -2087,7 +2116,7 @@ def phase12(s, files: list[Path], card: str) -> dict:
         key = "conformer_train_step" + ("_plain" if backend else "")
         times.setdefault(key, []).extend(host_ms(
             lambda: TS.supervised_step(s.cfg, state, *tensors, s.cmvn_dev,
-                                       backend=backend), reps=2))
+                                       backend=backend), reps=1))
     med = report("phase12", times, card, "bucket 1600, B=32, bf16")
     work = {
         "conformer_beam5_b32_t1600": (lambda: ker.decode(audio, lens, "beam"),
@@ -2110,8 +2139,9 @@ def semi_solver(d: Path, dtype: str, extra=()):
 def semi_step_check(s, loss_tol: float = 1e-5,
                     grad_tol: float = GRAD_TOL, phase: str = "phase13"
                     ) -> None:
-    """One semi-supervised step (C4, or the transducer's: the family of the
-    Solver's model) from the Solver's weights (student and EMA teacher),
+    """One semi-supervised step (C4, the transducer's or the CTC family's:
+    the family of the Solver's model) from the Solver's weights (student
+    and EMA teacher),
     the first batch of its streams and fixed SpecAugment bands, gate open
     and every row kept (SEMI_CHECK), in its compute dtype, kernels against
     plain:
@@ -2128,18 +2158,16 @@ def semi_step_check(s, loss_tol: float = 1e-5,
     import torch
 
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch.objectives import losses as LO
-    from semi_supervised_asr_tpu_torch.objectives import (
-        transducer_semi as TSEMI,
-    )
     from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     cfg = dataclasses.replace(s.cfg, objective=dataclasses.replace(
         s.cfg.objective, **SEMI_CHECK))
     dtype = cfg.model.compute_dtype
-    fam = TSEMI if cfg.model.family == "transducer" else LO
-    keys = ("ce" if fam is LO else "nll_per_label", fam.TEXT_KEY, "pseudo")
+    fam = TS.family_terms(cfg)
+    # the CTC family has no text term
+    keys = ("ce" if cfg.model.family == "las" else "nll_per_label",
+            *(k for k in (fam.TEXT_KEY,) if k), "pseudo")
     fcfg = cfg.frontend
     _, _, batch = next(s._labeled_stream())
     tensors, unlab = s.step_inputs(batch, *s._unlabeled_streams())
@@ -2783,18 +2811,11 @@ def step_check(s, phase: str, loss_tol: float = 1e-5,
     batch and fixed SpecAugment bands, in its compute dtype: kernels
     against plain, loss within ``loss_tol`` relative and every gradient
     leaf within ``grad_tol`` of the model's largest entry."""
-    import torch
-
     from semi_supervised_asr_tpu_torch import _native
-    from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     batch, tensors = first_batch(s)
-    fcfg = s.cfg.frontend
-    flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
-                            batch.bucket[0])
-    bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
-                                    flens.shape[0], fcfg.n_mels, flens, fcfg)
+    bands = fixed_bands(s, batch, tensors)
     out = {}
     _native.reset_launches()
     for backend in (None, "reference"):
@@ -2966,7 +2987,7 @@ def phase8(s, card: str) -> dict:
     w_hh, valid, acts, cprev, dh_out = k3_inputs(400, 80, 3, bf16)
     args = (w_hh, valid, acts, cprev, dh_out, bf16, (False, True))
     kernel_times(times, "lstm_scan_bwd", lambda: K.lstm_scan_bwd(*args),
-                 lambda: K.lstm_scan_bwd_reference(*args), reps=3)
+                 lambda: K.lstm_scan_bwd_reference(*args), reps=2)
     with torch.inference_mode():
         gx = (R.mm(x, w_ih, bf16) + bias).view(32, 400, 2, -1)
         gx = gx.permute(2, 1, 0, 3).contiguous()
@@ -2990,7 +3011,7 @@ def phase8(s, card: str) -> dict:
         key = "train_step" + ("_plain" if backend else "")
         times.setdefault(key, []).extend(host_ms(
             lambda: TS.supervised_step(s.cfg, state, *tensors, s.cmvn_dev,
-                                       backend=backend), reps=2))
+                                       backend=backend), reps=1))
     med = report("phase8", times, card)
     med["cudnn_dtype"] = str(dtype).split(".")[-1]
     for kind, lib in (("fwd", "cudnn_lstm_fwd"), ("bwd", "cudnn_lstm_bwd")):
@@ -3083,8 +3104,9 @@ def c5_rank_a(out: Path) -> None:
 def c5_rank_b(out: Path) -> None:
     """Part (b), one of two ranks sharing the card over gloo: one float32
     step on the rank's 16 rows of a global batch of 32 (rank 0 also runs
-    one process's step on the 32 rows), then 3 bf16 steps of the recipe
-    and the rank-sharded validation (rank 0 also validates alone)."""
+    one process's step on the 32 rows), then 2 bf16 steps of the recipe
+    (no checkpoint) and the rank-sharded validation (rank 0 also validates
+    alone)."""
     import hashlib
 
     import torch
@@ -3130,7 +3152,8 @@ def c5_rank_b(out: Path) -> None:
     torch.cuda.empty_cache()
     MESH.barrier()
 
-    run = Solver(c5_config(C5_RUN), out / "run", device)
+    run = Solver(c5_config([*C5_RUN, "train.total_steps=2",
+                            "train.ckpt_every=0"]), out / "run", device)
     run.train()
     res["history"] = [{k: v for k, v in h.items()
                        if k not in ("frames_per_sec", "steps_per_sec")}
@@ -3336,7 +3359,8 @@ def phase15(d: Path, card: str) -> tuple[dict, dict]:
             f"two-rank gradient {r0['worst_leaf']} differs")
     require(r0["grad_sha"] == r1["grad_sha"], "the ranks' gradients differ")
     require(r0["gen_equal"], "a rank's generator moved unlike one process's")
-    log(f"[phase15] (b) 3 bf16 steps on two ranks: losses "
+    log(f"[phase15] (b) {len(r0['history'])} bf16 steps on two ranks: "
+        f"losses "
         f"{[h['loss'] for h in r0['history']]}; parameter checksums "
         f"{r0['param_sha'][:16]} / {r1['param_sha'][:16]}; sharded "
         f"validation: {r0['n_records']} + {r1['n_records']} records, "
@@ -3654,15 +3678,10 @@ def same_step_twice(s) -> bool:
     backwards have no atomic sums)."""
     import torch
 
-    from semi_supervised_asr_tpu_torch.ops import frontend as F
     from semi_supervised_asr_tpu_torch.training import train_step as TS
 
     batch, tensors = first_batch(s)
-    fcfg = s.cfg.frontend
-    flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
-                            batch.bucket[0])
-    bands = F.sample_specaug_params(torch.Generator().manual_seed(5),
-                                    flens.shape[0], fcfg.n_mels, flens, fcfg)
+    bands = fixed_bands(s, batch, tensors)
     outs = []
     for _ in range(2):
         state = TS.init_train_state(s.cfg, copy.deepcopy(s.state.model), 0)
@@ -4297,8 +4316,11 @@ def phase18_semi(d: Path, card: str) -> tuple[dict, dict]:
     return launches, out
 
 
-def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
-    """K2 and K3 at TD_LSTM_SHAPES (D=1, B=64, bf16): each against its
+def td_lstm_shapes(times: dict, errs: dict, card: str,
+                   shapes: tuple = TD_LSTM_SHAPES, b: int = 64,
+                   phase: str = "phase18") -> None:
+    """K2 and K3 at ``shapes`` (D=1, B=``b``, bf16; TD_LSTM_SHAPES at
+    B=64 by default): each against its
     plain version (bf16 bound) with the path's masking (the listener's
     ragged rows with a zero-length one), and the route each launch took;
     then, with every step valid, so that the work is the T x B steps that
@@ -4315,8 +4337,8 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
     bf16 = torch.bfloat16
-    for tag, t, i, h, full in TD_LSTM_SHAPES:
-        x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=64, h=h)
+    for tag, t, i, h, full in shapes:
+        x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=b, h=h)
         w_ih, bias, w_hh = w_ih[:, :4 * h], bias[:4 * h], w_hh[:1]
         if full:
             valid = torch.ones_like(valid)
@@ -4324,7 +4346,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
             gx = (R.mm(x, w_ih, bf16) + bias).transpose(0, 1)[None]
             gx = gx.contiguous()
         g = torch.Generator().manual_seed(19)
-        dh_out = torch.randn((1, t, 64, h), generator=g).to(DEVICE)
+        dh_out = torch.randn((1, t, b, h), generator=g).to(DEVICE)
         fwd = (gx, w_hh, valid, bf16, (False,))
         _native.reset_launches()
         with torch.inference_mode():
@@ -4342,7 +4364,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str) -> None:
         route_b = [k for k in ("cluster", "grid", "simt")
                    if _native.LAUNCHES[f"lstm_scan_bwd_{k}"]]
         err_b = (dg - dg_want).abs().max().item()
-        log(f"[phase18] K2 at {tag} (D=1, B=64, T={t}, H={h}, bf16, "
+        log(f"[{phase}] K2 at {tag} (D=1, B={b}, T={t}, H={h}, bf16, "
             f"{route_f} route): h, hprev, cprev, acts max_abs_err "
             f"{err_f:.3e}; K3 ({route_b} route): dgates max_abs_err "
             f"{err_b:.3e} (tol {BF16_TOL:g})")
@@ -4597,7 +4619,7 @@ CS_EVAL_LAUNCHES = {"fused_post_fft": 1}
 # fed in 640 ms pieces to the conformer (its chunk) and 320 ms pieces to
 # the forward-only listener (transcribe's --stream-chunk-ms default); the
 # multi-stream checks serve MULTI_STREAMS of them at once
-STREAM_UTTS = 4
+STREAM_UTTS = 3
 MULTI_STREAMS = 16
 
 
@@ -4968,6 +4990,465 @@ def phase19(d: Path, card: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# phase 20: MWER sequence training on the three families, the CTC family's
+# pseudo-labels and token timestamps.  (a) each family's recipe as shipped
+# at full width (bf16, B=64) with objective.lambda_mwer 0.3, mwer_beam 4
+# and no warmup, on one batch in the 400-frame / 128-token bucket:
+# configs/ls100.yaml (LAS, the MWER fine-tuning recipe), ls100_ctc and
+# ls100_transducer; cuts: synthetic data (64 utterances), and for ls100 one
+# CE step first (the checkpoint that (b) resumes with MWER)
+MWER_TERM = {"lambda_mwer": 0.3, "mwer_beam": 4, "mwer_warmup_steps": 0}
+MWER = [f"objective.{k}={v}" for k, v in MWER_TERM.items()]
+MWER_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64",
+             "data.frame_buckets=[400]", "data.token_buckets=[128]"]
+# a step's launches with the MWER term: the supervised pass's, and for the
+# transducer the predictor's K2 and K3 once more over the B*K n-best (the
+# LAS beam and rescoring step the speller's plain cell; the CTC family's
+# prefix beam and marginals run no kernel)
+MWER_RECIPES = {
+    "ls100": (ROOT / "configs" / "ls100.yaml",
+              {"fused_post_fft": 1, "lstm_scan_fwd": 4, "lstm_scan_bwd": 4}),
+    "ls100_ctc": (CTC_CONFIG, CTC_STEP_LAUNCHES),
+    "ls100_transducer": (TD_CONFIG, {"fused_post_fft": 1,
+                                     "lstm_scan_fwd": 10,
+                                     "lstm_scan_bwd": 6}),
+}
+# the transducer's MWER step again at 1600 / 256 (T' = 200, U + 1 = 257),
+# the B*K joint grids in chunks of 8 frames, for its peak memory
+MWER_TD_1600 = ["data.frame_buckets=[1600]", "data.token_buckets=[256]",
+                "model.joint_chunk_frames=8"]
+# K2 and K3 at the MWER predictor's shape: one direction over the B*K =
+# 256 n-best rows at H=512, T = U + 1 = 129, every step valid
+MWER_BATCH = 256
+MWER_LSTM_SHAPE = ("mwer_predictor_t129", 129, 256, 512, True)
+# (c) ls100_ctc with the pseudo-label term (gate open, every row kept):
+# K1 3 (the labeled, clean and augmented views), K2 12 (the labeled
+# pass's 3 and 3 recomputed, the teacher's 3, the student's 3), K3 6
+CTC_SEMI = ["data.dataset=synthetic", "data.num_synthetic_utts=64",
+            "data.frame_buckets=[400]", "objective.lambda_pseudo=0.5",
+            "objective.pseudo_warmup_steps=0",
+            "objective.pseudo_confidence=0"]
+CTC_SEMI_LAUNCHES = {"fused_post_fft": 3, "lstm_scan_fwd": 12,
+                     "lstm_scan_bwd": 6}
+# (d) transcribe --timestamps: each recipe at full width in float32,
+# random weights from seed 0, 4 synthetic files, the recipe's own decode
+# (timit with its joint-CTC head; the transducer greedy, --beam 1)
+STAMP_RECIPES = {"ls100_ctc": (CTC_CONFIG, [], "beam"),
+                 "timit": (CONFIG, ["objective.lambda_ctc=0.3"], "beam"),
+                 "ls100_transducer": (TD_CONFIG, [], "greedy")}
+
+
+def with_mwer(cfg):
+    """``cfg`` with the MWER term of MWER_TERM."""
+    return cfg.replace(objective=dataclasses.replace(cfg.objective,
+                                                     **MWER_TERM))
+
+
+def fixed_bands(s, batch, tensors):
+    """SpecAugment bands for the Solver ``s``'s batch from seed 5."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+
+    fcfg = s.cfg.frontend
+    flens = torch.clamp_max(F.frame_lengths(tensors[1], fcfg),
+                            batch.bucket[0])
+    return F.sample_specaug_params(torch.Generator().manual_seed(5),
+                                   flens.shape[0], fcfg.n_mels, flens, fcfg)
+
+
+def mwer_vs_plain(s, cfg_mw, tensors, bands, name: str) -> dict:
+    """The MWER step from the Solver's weights, kernels against plain: in
+    float32 and bf16 the encoder output on the kernels' features (K2_TOL /
+    BF16_TOL) and the share of rows whose K hypotheses are equal (logged;
+    float32 >= 0.95); in float32 the step on the kernels' n-best (loss
+    1e-5 relative, every gradient leaf within GRAD_TOL)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    out = {}
+    sd = TS.module_state(s.state.model)
+    tokens = TS.mask_unreal(tensors[2], tensors[3])
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_mw.replace(model=dataclasses.replace(
+            cfg_mw.model, compute_dtype=dtype))
+        model = s.state.model
+        if dtype != cfg_mw.model.compute_dtype:
+            model = build_model(cfg.model).to(DEVICE)
+            TS.load_module_state(model, sd)
+        fam = TS.family_terms(cfg)
+        with torch.inference_mode():
+            feats, flens = TS.featurize(cfg, tensors[0], tensors[1],
+                                        s.cmvn_dev, True, None,
+                                        TS.Draws(specaug=bands))
+            enc = {b: model.encode(feats, flens, b)[:2]
+                   for b in (None, "reference")}
+            nbest = {b: fam.step_mwer_nbest(model, cfg, *enc[b],
+                                            tokens.shape[1])
+                     for b in (None, "reference")}
+        enc_err = (enc[None][0] - enc["reference"][0]).abs().max().item()
+        same = (nbest[None][0] == nbest["reference"][0]).flatten(1).all(1)
+        same = same.float().mean().item()
+        tol = K2_TOL if dtype == "float32" else BF16_TOL
+        log(f"[phase20] {name} {dtype}: encoder output, kernels vs plain, "
+            f"max_abs_err {enc_err:.3e} (tol {tol:g}); the MWER beam's "
+            f"{cfg.objective.mwer_beam}-best identical in {same:.3f} of the "
+            f"rows")
+        require(enc_err <= tol, f"{name} {dtype} encoder output differs")
+        out[f"{dtype}_nbest_same"] = same
+        if dtype != "float32":
+            continue
+        # a near-tie of two scores can reorder one row's n-best
+        require(same >= 0.95, f"{name} float32 n-best differ")
+        res = {}
+        for backend in (None, "reference"):
+            state = TS.init_train_state(cfg, copy.deepcopy(model), 0)
+            res[backend] = TS.loss_and_grads(
+                cfg, state, *tensors, s.cmvn_dev,
+                [TS.StepDraws(TS.Draws(specaug=bands),
+                              mwer_nbest=nbest[None])], backend)
+        (lk, ak, gk), (lr, ar, gr) = res[None], res["reference"]
+        rel = abs(lk.item() - lr.item()) / abs(lr.item())
+        names = [n for n, _ in model.named_parameters()]
+        errs = dict(zip(names, grad_errs(gk, gr)))
+        worst = max(errs, key=errs.get)
+        log(f"[phase20] {name} float32 MWER step on the kernels' n-best, "
+            f"kernels vs plain: loss {lk.item():.6f} vs {lr.item():.6f} (rel "
+            f"{rel:.2e}, tol 1e-5); mwer {float(ak['mwer']):.6f} vs "
+            f"{float(ar['mwer']):.6f}, mwer_risk {float(ak['mwer_risk']):.4f}"
+            f"; worst gradient leaf {worst} {errs[worst]:.3e} of the model's "
+            f"max |g| (tol {GRAD_TOL:g})")
+        require(float(ak["mwer_risk"]) > 0, f"{name}: the MWER term is empty")
+        require(rel <= 1e-5, f"{name} float32 MWER loss differs: {rel}")
+        require(errs[worst] <= GRAD_TOL, f"{name} MWER gradient {worst}")
+        out.update(float32_loss_rel=rel, float32_grad_err=errs[worst])
+        del res, gk, gr
+    return out
+
+
+def mwer_family(name: str, d: Path, card: str) -> tuple[dict, dict]:
+    """(a) one recipe: for ls100 a CE step through the Solver (the
+    checkpoint (b) resumes), then the step without and with MWER from the
+    Solver's weights, in turns (CE, MWER, CE, MWER: the seconds timed), the
+    MWER step's launches and peak memory, its two runs bitwise equal
+    (metrics and updated parameters), and :func:`mwer_vs_plain` -> (the
+    MWER step's launches, numbers)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+
+    config, want = MWER_RECIPES[name]
+    s = short_solver(load_config(config, MWER_DATA), d, steps=1)
+    m = s.cfg.model
+    require(m.compute_dtype == "bfloat16" and s.cfg.train.batch_size == 64
+            and m.enc_hidden == 384, f"{name} as shipped: {m}")
+    if name == "ls100":
+        s.train()
+    ce, mw = s.cfg, with_mwer(s.cfg)
+    batch, tensors = first_batch(s)
+    bands = fixed_bands(s, batch, tensors)
+    draws = [TS.StepDraws(TS.Draws(specaug=bands))]
+    walls, runs, peak, launches = {"ce": [], "mwer": []}, [], 0.0, {}
+    for kind in ("ce", "mwer", "ce", "mwer"):
+        cfg = mw if kind == "mwer" else ce
+        state = TS.init_train_state(cfg, copy.deepcopy(s.state.model), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        metrics = TS.supervised_step(cfg, state, *tensors, s.cmvn_dev, draws)
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+        if kind == "mwer":
+            launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            runs.append((metrics, [p.detach().clone()
+                                   for p in state.model.parameters()]))
+        del state
+    (ma, pa), (mb, pb) = runs
+    same = all(bool(torch.equal(ma[k], mb[k]))
+               for k in ("loss", "mwer", "mwer_risk", "grad_norm")) and all(
+        torch.equal(a, b) for a, b in zip(pa, pb))
+    del runs, pa, pb
+    out = {"step_ms": walls["mwer"][1], "ce_step_ms": walls["ce"][1],
+           "peak_gib": peak}
+    log(f"[phase20] {name} at full width (enc {m.enc_hidden}, bf16, B=64, "
+        f"bucket 400 / 128, K={mw.objective.mwer_beam}): the step with MWER "
+        f"{walls['mwer'][0]:.1f} / {walls['mwer'][1]:.1f} ms, without "
+        f"{walls['ce'][0]:.1f} / {walls['ce'][1]:.1f} ms (in turns, first / "
+        f"second), overhead {out['step_ms'] - out['ce_step_ms']:.1f} ms; "
+        f"peak memory {peak:.2f} GiB; loss {float(ma['loss']):.4f}, mwer "
+        f"{float(ma['mwer']):.4f}, mwer_risk {float(ma['mwer_risk']):.4f}; "
+        f"kernel launches {launches}; run twice bitwise equal: {same} "
+        f"({card})")
+    require(all(math.isfinite(float(ma[k])) for k in ("loss", "mwer"))
+            and float(ma["mwer_risk"]) > 0, f"{name} MWER step {ma}")
+    require_launches(f"{name} MWER step", launches, want)
+    require(same, f"two runs of one {name} MWER step differ")
+    out.update(mwer_vs_plain(s, mw, tensors, bands, name))
+    return launches, out
+
+
+def mwer_td_1600(d: Path, card: str) -> dict:
+    """The transducer's MWER step at 1600 / 256 with the B*K joint grids in
+    chunks of 8 frames: wall time and peak memory."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.config import load_config
+
+    s = short_solver(load_config(TD_CONFIG, [*MWER_DATA, *MWER_TD_1600,
+                                             *MWER]), d, steps=1)
+    args, unlab = s.step_inputs(next(s._labeled_stream())[2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = s.run_step(args, unlab)
+    torch.cuda.synchronize()
+    out = {"td_1600_step_ms": (time.perf_counter() - t0) * 1e3,
+           "td_1600_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[phase20] ls100_transducer MWER step at 1600 / 256 (T' = 200, "
+        f"U + 1 = 257, B*K = 256 lattices, model.joint_chunk_frames=8): "
+        f"{out['td_1600_step_ms']:.1f} ms wall (the first), peak memory "
+        f"{out['td_1600_peak_gib']:.2f} GiB; mwer {float(m['mwer']):.4f} "
+        f"({card})")
+    require(math.isfinite(float(m["loss"])), "the 1600 MWER step")
+    return out
+
+
+def mwer_resume(d: Path, card: str) -> dict:
+    """(b) ``main --train --resume`` of the ls100 CE checkpoint (step 1)
+    with MWER for 3 steps: ``mwer`` and ``mwer_risk`` read back from
+    metrics.jsonl -> the run's launches."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch import main as M
+
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rc = M.main(["--config", str(MWER_RECIPES["ls100"][0]), "--train",
+                 "--resume", "--workdir", str(d), "--device", DEVICE, "--",
+                 *MWER_DATA, "train.seed=0", "train.total_steps=4",
+                 "train.eval_every=0", "train.ckpt_every=4",
+                 "train.log_every=1", *MWER])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    recs = [r for r in by_prefix(read_records(d), "train") if "mwer" in r]
+    log(f"[phase20] main --train --resume at ls100 width with MWER: rc {rc}"
+        f", {wall:.1f} s; records "
+        + "; ".join(f"step {r['step']} loss {r['loss']:.4f} mwer "
+                    f"{r['mwer']:.4f} mwer_risk {r['mwer_risk']:.4f}"
+                    for r in recs)
+        + f"; kernel launches {launches} ({card})")
+    require(rc == 0 and [r["step"] for r in recs] == [2, 3, 4],
+            f"main --train --resume with MWER: {recs}")
+    require(all(math.isfinite(r["mwer"]) and r["mwer_risk"] > 0
+                for r in recs), "MWER metrics")
+    require(all(launches.get(k, 0) >= 3 for k in LSTM_PATH),
+            f"the resumed MWER run's launches {launches}")
+    return launches
+
+
+def ctc_pseudo(d: Path, card: str) -> dict:
+    """(c) ls100_ctc with the pseudo-label term: one Solver step with its
+    launches, then ``semi_step_check`` in bf16 (the teacher's encoder
+    output on the clean view within BF16_TOL, its best paths' agreement,
+    the step kernels vs plain on the same pseudo-labels) -> launches."""
+    from semi_supervised_asr_tpu_torch.config import load_config
+
+    s = short_solver(load_config(CTC_CONFIG, CTC_SEMI), d, steps=1)
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    s.train()
+    log(f"[phase20] ls100_ctc with objective.lambda_pseudo, a step: "
+        f"{s.history[0]}; {walls[0]:.1f} ms wall (the first); kernel "
+        f"launches {steps[0]} ({card})")
+    require(s.history[0]["pseudo"] > 0 and s.history[0]["pseudo_gate"] == 1,
+            f"ls100_ctc pseudo step {s.history[0]}")
+    require_launches("ls100_ctc pseudo step", steps[0], CTC_SEMI_LAUNCHES)
+    semi_step_check(s, BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL, "phase20")
+    return steps[0]
+
+
+def offline_frames(model, cfg, cmvn, wav) -> tuple[list, list]:
+    """The offline greedy walk of one file (padded to the streaming chunk
+    grid, as ``offline_tokens``) with its emission frames -> (tokens,
+    frames)."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
+        transducer_greedy_from_enc,
+    )
+    from semi_supervised_asr_tpu_torch.training.train_step import featurize
+
+    m, f, dc = cfg.model, cfg.frontend, cfg.decode
+    c = m.time_reduction * (m.enc_attn_chunk or 1)
+    n_frames = 1 + (len(wav) - f.n_fft) // f.hop_length
+    a = np.zeros(((-(-n_frames // c) * c - 1) * f.hop_length + f.n_fft,),
+                 np.float32)
+    a[:len(wav)] = wav
+    with torch.inference_mode():
+        feats, flens = featurize(cfg, torch.from_numpy(a)[None].to(DEVICE),
+                                 torch.tensor([len(wav)], device=DEVICE),
+                                 cmvn)
+        toks, _, frames = transducer_greedy_from_enc(
+            model, m, *model.encode(feats, flens), dc.max_decode_len,
+            dc.max_symbols, track_frames=True)
+    n = int((toks[0] != 0).sum())
+    return toks[0, :n].tolist(), frames[0, :n].tolist()
+
+
+def timestamps(d: Path, card: str) -> dict:
+    """(d) ``transcribe --timestamps`` of STAMP_RECIPES in float32 on the
+    kernels and on ``backend="reference"`` (records equal: texts, tokens,
+    starts and ends), ``align.py`` on the CTC recipe's files and one entry
+    too long for its audio (exit 0, that one ``"failed"``), then both
+    streaming recipes streamed with ``track_frames``: emission frames equal
+    to the offline greedy walk's -> launches by path."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native, synthetic
+    from semi_supervised_asr_tpu_torch import align as A
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data.synthetic import make_utterance
+    from semi_supervised_asr_tpu_torch.decode import streaming as S
+
+    paths = {}
+    for name, (config, over, mode) in STAMP_RECIPES.items():
+        dd = d / f"stamps_{name}"
+        dd.mkdir()
+        over = ["data.dataset=synthetic", "model.compute_dtype=float32",
+                *over]
+        cfg = load_config(config, over)
+        vocab = TR.build_vocab(cfg)
+        fin = TR.finalize_config(cfg, vocab.size)
+        utt = dict(min_tokens=5, max_tokens=12, token_dur_s=0.3)
+        files = synthetic.write_wavs(dd, fin, vocab, 4, **utt)
+        synthetic.write_model_dir(dd, fin, files, seed=0)
+        recs, ms = {}, {}
+        for backend in (None, "reference"):
+            rec = TR.Recognizer.from_dir(cfg, dd, DEVICE, backend)
+            torch.cuda.synchronize()
+            _native.reset_launches()
+            t0 = time.perf_counter()
+            recs[backend] = TR.transcribe(rec, files, mode, timestamps=True)
+            torch.cuda.synchronize()
+            ms[backend] = (time.perf_counter() - t0) * 1e3
+            if backend is None:
+                paths[f"timestamps_{name}"] = {
+                    k: v for k, v in _native.LAUNCHES.items() if v}
+        got, want = recs[None], recs["reference"]
+        n_tok = sum(len(r["tokens"]) for r in got)
+        log(f"[phase20] transcribe --timestamps {name} ({mode}, float32, "
+            f"one batch of {len(files)} files): {ms[None]:.1f} ms on the "
+            f"kernels, {ms['reference']:.1f} ms plain; {n_tok} tokens timed;"
+            f" texts and times equal kernels vs plain: "
+            f"{[(r['text'], r['tokens']) for r in got] == [(r['text'], r['tokens']) for r in want]}"
+            f"; kernel launches {paths[f'timestamps_{name}']}; first record "
+            f"{json.dumps(got[0])[:300]} ({card})")
+        require([(r["text"], r["tokens"]) for r in got]
+                == [(r["text"], r["tokens"]) for r in want],
+                f"{name} timestamps differ kernels vs plain")
+        require(n_tok > 0, f"{name}: no token timed")
+        require(all(paths[f"timestamps_{name}"].get(k, 0) > 0
+                    for k in LSTM_PATH[:2]), f"{name} timestamps launches")
+        if name != "ls100_ctc":
+            continue
+        # align.py: the files' own transcripts and one 200 characters
+        # long on the first file's 1-3 s (no CTC path fits)
+        texts = [make_utterance(i, vocab, fin.data, fin.frontend, **utt).text
+                 for i in range(len(files))]
+        entries = [{"uid": f"u{i}", "audio": str(f), "text": t}
+                   for i, (f, t) in enumerate(zip(files, texts))]
+        entries.append({"uid": "long", "audio": str(files[0]),
+                        "text": ("abc " * 50)[:200]})
+        manifest, out = dd / "manifest.jsonl", dd / "aligned.jsonl"
+        manifest.write_text("".join(json.dumps(e) + "\n" for e in entries))
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        rc = A.main(["--config", str(config), "--load-dir", str(dd),
+                     "--manifest", str(manifest), "--out", str(out),
+                     "--device", DEVICE, *over])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        paths["align"] = {k: v for k, v in _native.LAUNCHES.items() if v}
+        aligned = [json.loads(x) for x in out.read_text().splitlines()]
+        failed = [r["uid"] for r in aligned if "failed" in r]
+        log(f"[phase20] align.py on {len(entries)} entries: rc {rc}, "
+            f"{wall:.1f} ms; failed {failed}; logp_per_frame "
+            f"{[r.get('logp_per_frame') for r in aligned]}; kernel launches "
+            f"{paths['align']} ({card})")
+        require(rc == 0 and failed == ["long"]
+                and all(r["tokens"] for r in aligned[:-1]),
+                f"align.py: rc {rc}, failed {failed}")
+        require(all(paths["align"].get(k, 0) > 0 for k in LSTM_PATH[:2]),
+                "align.py launches")
+    for name, config, piece_ms in (
+            ("ls100_transducer_streaming", TD_STREAM_CONFIG, 320),
+            ("ls100_conformer_streaming", CS_CONFIG, 640)):
+        cfg, model = stream_model(config, "float32")
+        wavs, cmvn = stream_audio(cfg, 2)
+        piece = cfg.frontend.sample_rate * piece_ms // 1000
+        _native.reset_launches()
+        for wav in wavs:
+            st = S.StreamingTranscriber(
+                model, cfg, cmvn, cfg.decode.max_decode_len,
+                max_symbols=cfg.decode.max_symbols, track_frames=True)
+            for i in range(0, len(wav), piece):
+                st.feed(wav[i: i + piece])
+            toks, _ = st.finalize()
+            frames = st.emission_frames()
+            off_toks, off_frames = offline_frames(model, cfg, cmvn, wav)
+            log(f"[phase20] {name} --streaming --timestamps (float32, "
+                f"{piece_ms} ms pieces): {len(toks)} tokens, frames "
+                f"{frames[:12]}...; equal to the offline greedy walk's: "
+                f"tokens {toks == off_toks}, frames {frames == off_frames}")
+            require(toks == off_toks and frames == off_frames and frames,
+                    f"{name} streamed emission frames differ")
+        paths[f"stream_timestamps_{name}"] = {
+            k: v for k, v in _native.LAUNCHES.items() if v}
+        require(paths[f"stream_timestamps_{name}"].get("fused_post_fft", 0)
+                > 0, f"{name} streaming launches")
+        del model
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase20(d: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 20: (a) the MWER step of ls100, ls100_ctc and
+    ls100_transducer, the transducer's at 1600 / 256, K2 / K3 at the MWER
+    predictor's shape; (b) ``main --train --resume`` with MWER; (c)
+    ls100_ctc's pseudo-label step; (d) timestamps and ``align.py`` ->
+    (launches by path, numbers, K2 / K3 errors at the predictor's
+    shape)."""
+    import torch
+
+    launches, out, times, errs = {}, {}, {}, {}
+    for name in MWER_RECIPES:
+        launches[f"mwer_{name}"], res = mwer_family(name, d / name, card)
+        out.update({f"{name}_{k}": v for k, v in res.items()})
+        torch.cuda.empty_cache()
+    out.update(mwer_td_1600(d / "td1600", card))
+    torch.cuda.empty_cache()
+    td_lstm_shapes(times, errs, card, (MWER_LSTM_SHAPE,), MWER_BATCH,
+                   "phase20")
+    out.update({k: statistics.median(v) for k, v in times.items()})
+    launches["mwer_resume"] = mwer_resume(d / "ls100", card)
+    torch.cuda.empty_cache()
+    launches["ctc_pseudo"] = ctc_pseudo(d / "ctc_pseudo", card)
+    torch.cuda.empty_cache()
+    launches.update(timestamps(d, card))
+    log(f"[phase20] summary {json.dumps(out)}")
+    return launches, out, errs
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -5020,9 +5501,10 @@ def bounds() -> dict:
     over HBM bandwidth and its bf16 products over the tensor-core peak, and
     which of the two.  K1-K3 at phases 5 and 8's (bucket 400, B=32, H=256,
     D=2, bf16 weights), K1 also at B=32, T=1600, K2 and K3 also at phase
-    13's (ls100_semi: B=64, H=384, T=400 and 1600) and phase 18's
+    13's (ls100_semi: B=64, H=384, T=400 and 1600), phase 18's
     (TD_LSTM_SHAPES: D=1, B=64, H=768 at T=1600 and 200, H=512 at T=257,
-    timed with every step valid, as counted here); K5 at phase 12's
+    timed with every step valid, as counted here) and phase 20's (the MWER
+    predictor: D=1, B=256, H=512, T=129); K5 at phase 12's
     (B=32, T'=400, 8 heads of 64, bf16), counting the products these
     lengths need: every query row against the valid keys of its batch row
     (all T keys for an empty row, whose weights are uniform)."""
@@ -5045,9 +5527,11 @@ def bounds() -> dict:
         k2, k3 = lstm_work(tt, 64, 384)
         work[f"lstm_scan_fwd{c4_tag(tt)}"] = k2
         work[f"lstm_scan_bwd{c4_tag(tt)}"] = k3
-    for tag, tt, _, h, _ in TD_LSTM_SHAPES:
-        k2, k3 = lstm_work(tt, 64, h, d=1)
-        work[f"lstm_scan_fwd_{tag}"], work[f"lstm_scan_bwd_{tag}"] = k2, k3
+    for bb, shapes in ((64, TD_LSTM_SHAPES), (MWER_BATCH, (MWER_LSTM_SHAPE,))):
+        for tag, tt, _, h, _ in shapes:
+            k2, k3 = lstm_work(tt, bb, h, d=1)
+            work[f"lstm_scan_fwd_{tag}"] = k2
+            work[f"lstm_scan_bwd_{tag}"] = k3
     lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
     work["flash_mhsa_fwd"], work["flash_mhsa_bwd"] = k5_work(K5_TIMING, lens)
     out = {}
@@ -5222,6 +5706,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cs_launches, p19 = phase19(Path(tmp), card)
     elapsed("phase 19")
+    with tempfile.TemporaryDirectory() as tmp:
+        p20_launches, p20, p20_errs = phase20(Path(tmp), card)
+    elapsed("phase 20")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -5293,6 +5780,21 @@ def main(argv=None) -> int:
             f"{p19[tag + '_stream_k2_a_chunk']:.2f}; bf16 streamed == offline "
             f"tokens on {p19[tag + '_stream_bf16_agree']:.2f} of the files "
             f"({card})")
+    for name in MWER_RECIPES:
+        log(f"[summary] {name} MWER step (K=4, bf16, B=64, bucket 400 / "
+            f"128): {p20[name + '_step_ms']:.1f} ms wall against "
+            f"{p20[name + '_ce_step_ms']:.1f} ms without the term; peak "
+            f"{p20[name + '_peak_gib']:.2f} GiB; launches "
+            f"{p20_launches['mwer_' + name]}; float32 n-best equal kernels "
+            f"vs plain on {p20[name + '_float32_nbest_same']:.3f} of the "
+            f"rows, bf16 on {p20[name + '_bfloat16_nbest_same']:.3f} "
+            f"({card})")
+    log(f"[summary] ls100_transducer MWER step at 1600 / 256 with "
+        f"joint_chunk_frames=8: {p20['td_1600_step_ms']:.1f} ms, peak "
+        f"{p20['td_1600_peak_gib']:.2f} GiB; CTC pseudo-label step launches "
+        f"{p20_launches['ctc_pseudo']}; timestamps launches "
+        + json.dumps({k: v for k, v in p20_launches.items()
+                      if "stamp" in k or k == "align"}) + f" ({card})")
     log(f"[summary] ls100_conformer_streaming step {p19['cs_step_ms']:.1f} ms "
         f"wall at 448 frames, {p19['cs_step_1600_ms']:.1f} ms at 1600 / 256 "
         f"(peak {p19['cs_step_1600_peak_gib']:.2f} GiB); launches "
@@ -5315,6 +5817,18 @@ def main(argv=None) -> int:
                 f"port's layer {kind} {p18[key + 'port_layer_' + kind + '_b2b']:.4f}"
                 f" ms against cuDNN's {p18[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
                 f" ms ({card})")
+    tag, t, _, h, _ = MWER_LSTM_SHAPE
+    for kind in ("fwd", "bwd"):
+        key, name = f"td_{tag}_", "lstm_scan_" + kind
+        ms, (bms, by) = p20[key + kind + "_b2b"], bound[f"{name}_{tag}"]
+        log(f"[summary] {name} at {tag} (B={MWER_BATCH}, T={t}, H={h}, D=1, "
+            f"bf16, {p20_errs[tag][2]} route): {ms:.4f} ms device (back to "
+            f"back), {ms / t * 1e3:.2f} us a step; bound {bms:.4f} ms ({by}), "
+            f"share {bms / ms:.3f}; plain "
+            f"{p20[key + kind + '_plain_call']:.1f} ms a call; the port's "
+            f"layer {kind} {p20[key + 'port_layer_' + kind + '_b2b']:.4f} ms "
+            f"against cuDNN's {p20[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
+            f" ms ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -5339,7 +5853,7 @@ def main(argv=None) -> int:
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
              "transformer_remat": p16["transformer_launches"],
              "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
-             **td_launches, **cs_launches}
+             **td_launches, **cs_launches, **p20_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,
@@ -5412,6 +5926,21 @@ def main(argv=None) -> int:
                                "packed, bf16), the whole layer " + kind
                                + " against the port's layer"}
                 for tag, t, _, h, _ in TD_LSTM_SHAPES]
+            tag, t, _, h, _ = MWER_LSTM_SHAPE
+            out["at_mwer_predictor"] = {
+                "shape": f"{tag}: B={MWER_BATCH} T={t} H={h} D=1 bf16",
+                "route": p20_errs[tag][2],
+                "max_abs_err": p20_errs[tag][0 if kind == "fwd" else 1],
+                "ms": p20[f"td_{tag}_{kind}_b2b"],
+                "method": METHODS["b2b"][1],
+                "plain_call_ms": p20[f"td_{tag}_{kind}_plain_call"],
+                "bound_ms": bound[f"{name}_{tag}"][0],
+                "bound_by": bound[f"{name}_{tag}"][1],
+                "port_layer_ms": p20[f"td_{tag}_port_layer_{kind}_b2b"],
+                "library_ms": p20[f"td_{tag}_cudnn_layer_{kind}_b2b"],
+                "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "
+                              "packed, bf16), the whole layer " + kind
+                              + " against the port's layer"}
         return out
 
     print(json.dumps({"kernels": [entry(*row) for row in rows]}), flush=True)

@@ -28,8 +28,14 @@ transducer family (``model.family: transducer``: the lattice NLL as one
 autograd Function with explicit alpha and beta passes, the predictor on
 the LSTM scan kernels, greedy and beam decoding, the internal-LM text and
 pseudo-label terms), with the forward-only listener
-(``model.enc_bidirectional: false``).  ``data/preprocess.py``
-writes the corpus manifests, the vocab and the BPE model.
+(``model.enc_bidirectional: false``).  Every family trains with MWER
+sequence training (``objective.lambda_mwer``: the n-best beam, its
+rescoring and on-device edit-distance risks) and the CTC family with its
+pseudo-label term; ``transcribe --timestamps`` times tokens by CTC forced
+alignment or the greedy walks' emission frames (offline and streaming),
+and ``align.py`` forced-aligns a manifest's transcripts.
+``data/preprocess.py`` writes the corpus manifests, the vocab and the BPE
+model.
 
 The port imports nothing of the JAX package: it keeps its own copies of
 the host-side modules (config, vocab, bucketing, the synthetic corpus,

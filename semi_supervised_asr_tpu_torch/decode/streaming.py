@@ -24,9 +24,12 @@ one:
 The reference's refusals hold (LAS, a bidirectional or conv-stem BLSTM
 listener, ``frontend.center``, a CMVN other than ``global``, an unbounded
 conformer left context, a chunk size other than the conformer's), raised
-as ``ValueError`` with its messages.  Its LM fusion, timestamps
-(``track_frames``) and biasing are not ported; the CLI refuses them by
-name.  The reference's two jit functions are plain calls here.
+as ``ValueError`` with its messages.  Streaming timestamps
+(``track_frames``, greedy only): the greedy walks record each token's
+emission frame in their carries, ``frame_base`` keeping the frames the
+utterance's across chunks (``StreamingTranscriber.emission_frames``).
+Its LM fusion and biasing are not ported; the CLI refuses them by name.
+The reference's two jit functions are plain calls here.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ def build_stream_fns(
     max_stream_frames: int = 60_000,
     batch: int = 1,
     backend: str | None = None,
+    track_frames: bool = False,
 ) -> dict:
     """The computational core of streaming, shared by
     :class:`StreamingTranscriber` and :class:`MultiStreamTranscriber` ->
@@ -94,9 +98,13 @@ def build_stream_fns(
     ``chunk_samples``, ``conformer``).  ``batch`` sizes the carries for that
     many independent streams; every carry leaf keeps its stream axis first,
     and rows never interact.  ``cmvn`` = (mean, inv_std) on the model's
-    device."""
+    device.  ``track_frames`` (greedy only) gives the greedy carries their
+    emission-frame slot."""
     m, f = cfg.model, cfg.frontend
     device = next(model.parameters()).device
+    _check(not (track_frames and beam_size > 1),
+           "track_frames (streaming timestamps) is greedy-only — the beam "
+           "carries keep no per-token frame slot")
     _check(m.family in ("transducer", "ctc"),
            "streaming decode needs a frame-synchronous family (transducer "
            "or ctc) — LAS attention reads the full utterance")
@@ -146,7 +154,8 @@ def build_stream_fns(
             return ctc_beam_from_enc(model.ctc, enc, mask, max_u, beam_size,
                                      carry=dec_carry, return_carry=True)[2]
     elif m.family == "ctc":
-        dec_carry0 = ctc_greedy_stream_init(batch, max_u, device)
+        dec_carry0 = ctc_greedy_stream_init(batch, max_u, device,
+                                            track_frames)
 
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return ctc_greedy_stream(model.ctc, enc, mask, max_u, dec_carry,
@@ -159,12 +168,14 @@ def build_stream_fns(
     else:
         with torch.inference_mode():
             dec_carry0 = transducer_greedy_init(model, m, batch, max_u,
-                                                device)
+                                                device,
+                                                track_frames=track_frames)
 
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return transducer_greedy_from_enc(
                 model, m, enc, mask, max_u, max_symbols, carry=dec_carry,
-                return_carry=True, frame_base=frame_base)[2]
+                return_carry=True, track_frames=track_frames,
+                frame_base=frame_base)[2]
 
     def features(a, n_samples):
         return featurize(cfg, a, n_samples, cmvn, backend=backend)
@@ -212,10 +223,9 @@ def _best_hyp(dec_carry, row: int, *, ctc: bool,
         k = int(torch.argmax(scores[row]))
         out = toks[row, k][: int(count[row, k])]
         return [int(x) for x in out.tolist()], float(scores[row, k])
-    if ctc:
-        _, out, count, score = dec_carry
-    else:
-        _, _, out, count, score = dec_carry
+    # the greedy carries: (prev, out, count, score[, frames]) and (pred,
+    # state, out, count, score[, frames])
+    out, count, score = dec_carry[1:4] if ctc else dec_carry[2:5]
     return ([int(x) for x in out[row][: int(count[row])].tolist()],
             float(score[row]))
 
@@ -241,11 +251,13 @@ class StreamingTranscriber:
     def __init__(self, model, cfg: Config, cmvn: tuple, max_u: int,
                  chunk_frames: int | None = None, max_symbols: int = 4,
                  beam_size: int = 1, max_stream_frames: int = 60_000,
-                 backend: str | None = None):
+                 backend: str | None = None, track_frames: bool = False):
         self.device = next(model.parameters()).device
         fns = build_stream_fns(
             model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
-            max_symbols, beam_size, max_stream_frames, backend=backend)
+            max_symbols, beam_size, max_stream_frames, backend=backend,
+            track_frames=track_frames)
+        self._track = track_frames
         self._conformer = fns["conformer"]
         self.chunk_frames = fns["chunk_frames"]
         self.cfg = cfg
@@ -278,6 +290,19 @@ class StreamingTranscriber:
         return _best_hyp(self._dec_carry, 0,
                          ctc=self.cfg.model.family == "ctc",
                          beam_size=self.beam_size)
+
+    def emission_frames(self) -> list[int]:
+        """The utterance's encoder frame at which each emitted token first
+        appeared (as many as the tokens): streaming timestamps, seconds =
+        frame * hop_length * time_reduction / sample_rate.  Needs
+        ``track_frames=True`` (greedy only)."""
+        if not self._track:
+            raise ValueError("construct with track_frames=True")
+        # the frames sit at a fixed place of either greedy carry
+        ctc = self.cfg.model.family == "ctc"
+        count = self._dec_carry[2 if ctc else 3]
+        frames = self._dec_carry[4 if ctc else 5]
+        return [int(x) for x in frames[0][: int(count[0])].tolist()]
 
     @property
     def tokens(self) -> list[int]:

@@ -9,9 +9,10 @@ its output buffer is full; slots never written stay PAD (the blank), which
 scoring trims.  The score is the chosen path's log-probability, every
 frame ending in its blank.  ``carry`` / ``return_carry`` resume and
 return the walk's state, so that chunked streaming (``decode/streaming.py``)
-walks the same path as the whole utterance.  The reference's timestamps and
-biasing (``track_frames``, ``bias``) are not ported; their callers refuse
-them by name.
+walks the same path as the whole utterance.  ``track_frames`` also
+records each token's emission frame (the family's timestamps, offline and
+across streamed chunks).  The reference's biasing (``bias``) is not
+ported; its callers refuse it by name.
 """
 
 from __future__ import annotations
@@ -24,17 +25,24 @@ from semi_supervised_asr_tpu_torch.models import transducer as TD
 
 
 def transducer_greedy_init(model, cfg: ModelConfig, b: int, max_u: int,
-                           device, blank: int = PAD) -> tuple:
+                           device, blank: int = PAD,
+                           track_frames: bool = False) -> tuple:
     """A fresh walk's state: (pred [B, P] after SOS, the predictor's state,
-    tokens [B, max_u] all ``blank``, count [B], score [B])."""
+    tokens [B, max_u] all ``blank``, count [B], score [B]), and with
+    ``track_frames`` each token's emission frame [B, max_u] (-1 until
+    written)."""
     pred0, state0 = TD.predictor_step(
         model.predictor, torch.full((b,), SOS, dtype=torch.int32,
                                     device=device),
         TD.predictor_init_state(cfg, b, device), cfg)
-    return (pred0, state0,
+    base = (pred0, state0,
             torch.full((b, max_u), blank, dtype=torch.int32, device=device),
             torch.zeros((b,), dtype=torch.int32, device=device),
             torch.zeros((b,), dtype=torch.float32, device=device))
+    if track_frames:
+        base = base + (torch.full((b, max_u), -1, dtype=torch.int32,
+                                  device=device),)
+    return base
 
 
 def transducer_greedy_from_enc(
@@ -47,22 +55,33 @@ def transducer_greedy_from_enc(
     blank: int = PAD,
     carry: tuple | None = None,
     return_carry: bool = False,
+    track_frames: bool = False,
     frame_base: int = 0,
 ):
     """-> (tokens [B, max_u] int32, PAD-padded; the path's total log-prob
     [B]), and with ``return_carry`` the walk's state (pred, the predictor's
     state, tokens, count, score) that a later call resumes from
-    (``carry``, :func:`transducer_greedy_init`'s layout).  ``frame_base``
-    (the encoder frames already walked) only places emissions in time,
-    which the port does not record."""
+    (``carry``, :func:`transducer_greedy_init`'s layout).
+    ``track_frames`` also returns each token's emission frame ([B, max_u]
+    int32, -1 past the count) in the third place, or with
+    ``return_carry`` records them in the carry's sixth slot instead;
+    ``frame_base`` (the encoder frames already walked) keeps them the
+    utterance's across chunks.  Tokens and scores are bitwise those of
+    the walk without frames."""
     b, t, _ = enc.shape
     dev = enc.device
     if carry is None:
-        carry = transducer_greedy_init(model, cfg, b, max_u, dev, blank)
-    if len(carry) != 5:
-        raise ValueError("carry arity does not match — build it with "
-                         "transducer_greedy_init")
-    pred, state, out, count, score = carry
+        carry = transducer_greedy_init(model, cfg, b, max_u, dev, blank,
+                                       track_frames)
+    if track_frames and len(carry) != 6:
+        raise ValueError("track_frames streaming needs the 6-tuple carry "
+                         "from transducer_greedy_init(track_frames=True)")
+    if not track_frames and len(carry) != 5:
+        raise ValueError("carry arity does not match (track_frames, bias) — "
+                         "build it with transducer_greedy_init("
+                         "track_frames=..., bias=...)")
+    pred, state, out, count, score = carry[:5]
+    frames = carry[5] if track_frames else None
     slots = torch.arange(max_u, device=dev)[None, :]
     for ti in range(t):
         enc_t = enc[:, ti]
@@ -77,6 +96,8 @@ def transducer_greedy_from_enc(
                 emitting, torch.gather(lp, 1, chosen[:, None])[:, 0], 0.0)
             slot = (slots == count[:, None]) & emit[:, None]
             out = torch.where(slot, tok[:, None], out)
+            if track_frames:
+                frames = torch.where(slot, int(frame_base) + ti, frames)
             new_pred, new_state = TD.predictor_step(model.predictor, tok,
                                                     state, cfg)
             e2 = emit[:, None]
@@ -90,5 +111,8 @@ def transducer_greedy_from_enc(
                                dim=-1)
         score = score + torch.where(emitting, lp[:, blank], 0.0)
     if return_carry:
-        return out, score, (pred, state, out, count, score)
+        return out, score, (pred, state, out, count, score) + (
+            (frames,) if track_frames else ())
+    if track_frames:
+        return out, score, frames
     return out, score

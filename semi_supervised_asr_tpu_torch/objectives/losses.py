@@ -7,9 +7,10 @@ family: ``shift_targets``, ``token_mask``, ``masked_ce``,
 term, ``objective.lambda_ctc``), ``text_ae_loss`` (unlabeled text through
 the shared speller), ``pseudo_label_loss`` (the teacher's greedy hypotheses
 on the clean view of unlabeled audio as the student's targets on the
-augmented view), and the CTC NLL: ``ctc_per_utt_nll``, ``ctc_loss`` and the
-CTC family's ``ctc_family_loss``.  MWER is not ported yet;
-``objective.lambda_mwer`` other than zero is refused by the train step.
+augmented view), the CTC NLL: ``ctc_per_utt_nll``, ``ctc_loss`` and the
+CTC family's ``ctc_family_loss``, and MWER (``objective.lambda_mwer``):
+``expected_risk`` and the LAS family's ``mwer_loss_from_enc`` (the CTC and
+transducer families' are ``ctc_mwer.py`` and ``transducer_mwer.py``).
 
 The CTC NLL is optax's ``ctc_loss`` (0.2.6) step for step: blank at PAD,
 EOS mapped to PAD, ``log_epsilon`` -1e5 for log 0 (so a row whose frames
@@ -34,6 +35,9 @@ from semi_supervised_asr_tpu_torch.decode.greedy import (
 )
 from semi_supervised_asr_tpu_torch.models.speller import (
     text_autoencoder_logits,
+)
+from semi_supervised_asr_tpu_torch.ops.edit_distance import (
+    batched_edit_distance,
 )
 
 
@@ -185,9 +189,10 @@ def ctc_family_loss(
     denom: torch.Tensor | None = None,
     remat: bool = False,
     masks: tuple | None = None,
-) -> tuple[torch.Tensor, dict]:
+) -> tuple:
     """The CTC family's supervised term: the label-normalized NLL of the
-    real rows -> (loss, {"nll_per_label"}); ``model`` is a ``CTCModel``,
+    real rows -> (loss, {"nll_per_label"}, enc, enc_mask: the pass's
+    encoder output, which MWER reads); ``model`` is a ``CTCModel``,
     ``denom`` replaces the batch's label count, ``remat`` and ``masks``
     (the listener's) as in ``Seq2Seq.forward_teacher``."""
     enc_masks = masks[0] if masks is not None else None
@@ -197,7 +202,7 @@ def ctc_family_loss(
     if denom is None:
         denom = torch.clamp_min((n_labels * w).sum(), 1.0)
     loss = (nll * w).sum() / denom
-    return loss, {"nll_per_label": loss.detach()}
+    return loss, {"nll_per_label": loss.detach()}, enc, enc_mask
 
 
 def supervised_loss(
@@ -215,9 +220,10 @@ def supervised_loss(
     masks: tuple | None = None,
     lambda_ctc: float = 0.0,
     ctc_denom: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, dict]:
+) -> tuple:
     """Supervised CE on labeled (audio, text) pairs -> (loss, {"ce",
-    "acc"}, and "ctc" with the joint CTC-attention term); ``model`` is a
+    "acc"}, and "ctc" with the joint CTC-attention term; enc, enc_mask: the
+    pass's encoder output, which MWER reads); ``model`` is a
     ``Seq2Seq``.  ``denom`` replaces the batch's token count in the CE and
     the accuracy, ``remat`` recomputes the listener in the backward,
     ``rows`` places the batch in a global one, ``masks`` are the pass's
@@ -240,7 +246,7 @@ def supervised_loss(
         ctc = ctc_loss(model.ctc, enc, enc_mask, targets, ctc_denom)
         loss = loss + lambda_ctc * ctc
         aux["ctc"] = ctc.detach()
-    return loss, aux
+    return loss, aux, enc, enc_mask
 
 
 def text_ae_loss(speller, label_smoothing: float,
@@ -332,35 +338,143 @@ def pseudo_label_loss(
     return (nll * keep_f).sum() / denom
 
 
-# The train step's view of the family's terms (the LAS family's, and the
-# CTC family's supervised term), shared with ``transducer_semi.py``:
-# ``training/train_step.py`` picks the module once.  ``den`` holds the
-# step's clamped counts: supervised, text, pseudo, CTC labels.
+def expected_risk(
+    seq_logp: torch.Tensor,     # [B, K] total log-prob of each n-best hyp
+    risks: torch.Tensor,        # [B, K] per-hypothesis risk
+    row_weight: torch.Tensor,   # [B] 1.0 for live rows, 0.0 for the others
+    denom: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MWER's expected risk (Prabhavalkar et al. 2018, arXiv:1712.01818)
+    -> (loss, mean risk): ``E_p[risk - mean risk]`` under the n-best's
+    renormalized posteriors p, the uniform mean subtracted (so equal risks
+    give exactly 0); the gradient flows through ``seq_logp`` only.  Both
+    are sums over the weighted rows divided by ``denom`` (default their
+    weight, at least 1; a data-parallel rank's global count)."""
+    p = torch.softmax(seq_logp.float(), dim=-1)
+    risks = risks.detach().float()
+    baseline = risks.mean(dim=-1, keepdim=True)
+    per_row = (p * (risks - baseline)).sum(dim=-1)
+    if denom is None:
+        denom = torch.clamp_min(row_weight.sum(), 1.0)
+    loss = (per_row * row_weight).sum() / denom
+    mean_risk = ((p * risks).sum(dim=-1) * row_weight).sum() / denom
+    return loss, mean_risk
+
+
+def mwer_content(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tokens with the EOS made PAD (the EOS is no error unit) -> (those,
+    their content lengths)."""
+    content = torch.where(tokens == EOS, PAD, tokens)
+    return content, (content != PAD).sum(dim=-1)
+
+
+def mwer_count(tokens: torch.Tensor) -> torch.Tensor:
+    """MWER's count before the clamp: the rows whose reference holds a
+    token other than EOS and PAD (``mask_unreal`` empties the filler
+    rows)."""
+    return (mwer_content(tokens)[1] > 0).float().sum()
+
+
+def nbest_risks(hyps: torch.Tensor, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edit distance of each hypothesis [B, K, U] (its tokens before
+    the PAD padding) to its row's reference ``tokens`` [B, U] with the EOS
+    stripped -> (risks [B, K] int32, the rows' weights [B]: 1 where the
+    reference is not empty)."""
+    ref, ref_lens = mwer_content(tokens)
+    risks = batched_edit_distance(hyps, (hyps != PAD).sum(dim=-1),
+                                  ref[:, None, :], ref_lens[:, None])
+    return risks, (ref_lens > 0).float()
+
+
+@torch.no_grad()
+def mwer_nbest(model, obj, enc: torch.Tensor, enc_mask: torch.Tensor,
+               max_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The n-best the LAS family's MWER term rescores: the attention beam
+    of ``obj.mwer_beam`` with length penalty 1 -> (tokens [B, K, max_len],
+    scores [B, K]), best first."""
+    from semi_supervised_asr_tpu_torch.config import DecodeConfig
+    from semi_supervised_asr_tpu_torch.decode.beam import (
+        beam_decode_from_enc,
+    )
+
+    speller = model.speller
+    return beam_decode_from_enc(
+        speller, DecodeConfig(beam_size=obj.mwer_beam, length_penalty=1.0),
+        enc, enc_mask, speller.precompute_decode_cache(enc), max_len,
+        return_nbest=True)
+
+
+def mwer_loss_from_enc(
+    model,
+    obj,
+    enc: torch.Tensor,          # [B, T', enc_out] (the supervised pass's)
+    enc_mask: torch.Tensor,     # [B, T'] bool
+    tokens: torch.Tensor,       # [B, U] gold (EOS-terminated, PAD-padded)
+    denom: torch.Tensor | None = None,
+    nbest: tuple | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Minimum-WER sequence training of the LAS family -> (expected-risk
+    loss, mean n-best risk).  :func:`mwer_nbest` proposes the n-best on
+    ``enc`` (``max_len`` U) under no gradient; one teacher-forced pass of
+    the speller over the B*K rows (teacher forcing 1, no dropout) rescores
+    them; the risks are edit distances to the gold tokens with EOS and PAD
+    stripped.  ``model`` is a ``Seq2Seq``; ``denom`` as in
+    :func:`expected_risk`; ``nbest`` gives the beam's (tokens [B, K, U],
+    scores [B, K]) instead of running it."""
+    b, u = tokens.shape
+    k = obj.mwer_beam
+    if nbest is None:
+        nbest = mwer_nbest(model, obj, enc.detach(), enc_mask, u)
+    hyps = nbest[0].to(tokens.dtype)
+    tokens_in, targets = shift_targets(hyps.reshape(b * k, u))
+    logits, _ = model.speller.forward_teacher(
+        enc.repeat_interleave(k, dim=0), enc_mask.repeat_interleave(k, dim=0),
+        tokens_in, 1.0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gold_lp = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    seq_logp = (gold_lp * token_mask(targets)).sum(dim=1).reshape(b, k)
+    # the EOS is no error unit
+    risks, row_weight = nbest_risks(mwer_content(hyps)[0], tokens)
+    return expected_risk(seq_logp, risks, row_weight, denom)
+
+
+# The train step's view of the LAS family's terms, shared with
+# ``ctc_semi.py`` and ``transducer_semi.py``: ``training/train_step.py``
+# picks the family's module once.  ``den`` holds the step's clamped
+# counts: supervised, text, pseudo, CTC labels, MWER rows.
 TEXT_KEY = "text_ae"
 
 
 def step_counts(cfg, tokens: torch.Tensor, real: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The labeled batch's counts -> (target tokens; CTC labels, 0 without
-    a CTC term); ``tokens`` has its unreal rows masked."""
-    aux = (ctc_label_count(tokens)
-           if cfg.model.family == "ctc" or cfg.objective.lambda_ctc > 0.0
+    the joint CTC term); ``tokens`` has its unreal rows masked."""
+    aux = (ctc_label_count(tokens) if cfg.objective.lambda_ctc > 0.0
            else torch.zeros((), device=tokens.device))
     return token_mask(tokens).sum(), aux
 
 
 def step_supervised(model, cfg, feats, feat_lens, tokens, real, tf_rate,
-                    gen, backend, den, remat, rows, masks
-                    ) -> tuple[torch.Tensor, dict]:
-    """The supervised term of a step: :func:`supervised_loss`, or the CTC
-    family's :func:`ctc_family_loss`."""
-    if cfg.model.family == "ctc":
-        return ctc_family_loss(model, feats, feat_lens, tokens, real,
-                               backend, den[3], remat, masks)
+                    gen, backend, den, remat, rows, masks) -> tuple:
+    """The supervised term of a step: :func:`supervised_loss` -> (loss,
+    aux, enc, enc_mask)."""
     obj = cfg.objective
     return supervised_loss(model, obj.label_smoothing, feats, feat_lens,
                            tokens, tf_rate, gen, backend, den[0], remat,
                            rows, masks, obj.lambda_ctc, den[3])
+
+
+def step_mwer(model, cfg, enc, enc_mask, tokens, denom, backend=None,
+              nbest=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MWER term of a step: :func:`mwer_loss_from_enc`."""
+    return mwer_loss_from_enc(model, cfg.objective, enc, enc_mask, tokens,
+                              denom, nbest)
+
+
+def step_mwer_nbest(model, cfg, enc, enc_mask, max_len: int) -> tuple:
+    """The n-best :func:`step_mwer` rescores: :func:`mwer_nbest`."""
+    return mwer_nbest(model, cfg.objective, enc, enc_mask, max_len)
 
 
 def text_count(text: torch.Tensor) -> torch.Tensor:

@@ -71,12 +71,13 @@ def supervised_loss(model, feats: torch.Tensor, feat_lens: torch.Tensor,
                     denom: torch.Tensor | None = None,
                     label_denom: torch.Tensor | None = None,
                     remat: bool = False, masks: tuple | None = None
-                    ) -> tuple[torch.Tensor, dict]:
+                    ) -> tuple:
     """The supervised term: the lattice NLL of the EOS-terminated
     ``tokens``, its mean over the real rows (``denom`` replaces their
     count) -> (loss, {"nll_per_label"}: the NLL per label + 1 of the real
-    rows, ``label_denom`` replacing that count); ``remat`` and ``masks``
-    (the listener's) as in ``seq2seq.run_listener``."""
+    rows, ``label_denom`` replacing that count; enc, enc_mask: the pass's
+    encoder output, which MWER reads); ``remat`` and ``masks`` (the
+    listener's) as in ``seq2seq.run_listener``."""
     cfg = model.cfg
     enc_masks = masks[0] if masks is not None else None
     enc, enc_mask = model.encode(feats, feat_lens, backend, remat, enc_masks)
@@ -86,7 +87,8 @@ def supervised_loss(model, feats: torch.Tensor, feat_lens: torch.Tensor,
     w = real.float()
     if label_denom is None:
         label_denom = torch.clamp_min(((label_lens + 1) * w).sum(), 1.0)
-    return loss, {"nll_per_label": (nll.detach() * w).sum() / label_denom}
+    aux = {"nll_per_label": (nll.detach() * w).sum() / label_denom}
+    return loss, aux, enc, enc_mask
 
 
 @torch.no_grad()
@@ -204,9 +206,10 @@ def text_count(text: torch.Tensor) -> torch.Tensor:
 
 
 # The train step's view of the family's terms, shared with
-# ``losses.py`` (the LAS family's): ``training/train_step.py`` picks the
-# module once.  ``den`` holds the step's clamped counts: real rows, text
-# labels, kept pseudo labels + 1 a row, labels + 1 of the real rows.
+# ``losses.py`` (the LAS family's) and ``ctc_semi.py``:
+# ``training/train_step.py`` picks the family's module once.  ``den`` holds
+# the step's clamped counts: real rows, text labels, kept pseudo labels + 1
+# a row, labels + 1 of the real rows, MWER rows.
 TEXT_KEY = "text_ilm"
 
 
@@ -218,12 +221,31 @@ def step_counts(cfg, tokens: torch.Tensor, real: torch.Tensor
 
 
 def step_supervised(model, cfg, feats, feat_lens, tokens, real, tf_rate,
-                    gen, backend, den, remat, rows, masks
-                    ) -> tuple[torch.Tensor, dict]:
-    """The supervised term of a step: :func:`supervised_loss`
-    (``tf_rate``, ``gen`` and ``rows`` serve the LAS family only)."""
+                    gen, backend, den, remat, rows, masks) -> tuple:
+    """The supervised term of a step: :func:`supervised_loss` -> (loss,
+    aux, enc, enc_mask) (``tf_rate``, ``gen`` and ``rows`` serve the LAS
+    family only)."""
     return supervised_loss(model, feats, feat_lens, tokens, real, backend,
                            den[0], den[3], remat, masks)
+
+
+def step_mwer(model, cfg, enc, enc_mask, tokens, denom, backend=None,
+              nbest=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MWER term of a step: ``transducer_mwer.mwer_loss_from_enc``,
+    ``decode.max_symbols`` emissions a frame."""
+    from semi_supervised_asr_tpu_torch.objectives import transducer_mwer
+
+    return transducer_mwer.mwer_loss_from_enc(
+        model, cfg.objective, enc, enc_mask, tokens, cfg.decode.max_symbols,
+        denom, nbest, backend)
+
+
+def step_mwer_nbest(model, cfg, enc, enc_mask, max_len: int) -> tuple:
+    """The n-best :func:`step_mwer` rescores."""
+    from semi_supervised_asr_tpu_torch.objectives import transducer_mwer
+
+    return transducer_mwer.mwer_nbest(model, cfg.objective, enc, enc_mask,
+                                      max_len, cfg.decode.max_symbols)
 
 
 def step_text(model, cfg, text: torch.Tensor, denom: torch.Tensor,

@@ -7,17 +7,21 @@ additive noise, SpecAugment bands and time warp) and ``supervised_step``:
 features under no-grad, teacher-forced CE with label smoothing (plus
 ``objective.lambda_ctc`` times the joint CTC head's loss on the same
 encoder pass), the CTC family's label-normalized NLL, or the transducer's
-lattice NLL (its mean over the real rows), and, when the objective weighs
-them and the step is given the unlabeled batches, the text term on
-unlabeled text (the LAS text autoencoder; the transducer's internal-LM
-CE) and the pseudo-label term on unlabeled audio (the teacher's greedy
-decode of the clean view, the student's CE or lattice NLL on the augmented
-view, gated by ``objective.pseudo_warmup_steps``); then backward (through
-K3 for the listener and the predictor), global-norm clip, Adam, the EMA
-update and the step counter.  The metrics keep the JAX keys (``loss``,
-``ce``, ``acc``, ``ctc``, ``nll_per_label``, ``grad_norm``, ``tf_rate``,
-``frames``, and ``text_ae`` or ``text_ilm``, ``pseudo``, ``pseudo_gate``
-where the step runs those terms).
+lattice NLL (its mean over the real rows); ``objective.lambda_mwer`` times
+the family's MWER term on the same encoder pass (the n-best beam, its
+rescoring and edit-distance risks; exactly 0, and no beam run, before
+``objective.mwer_warmup_steps``); and, when the objective weighs them and
+the step is given the unlabeled batches, the text term on unlabeled text
+(the LAS text autoencoder; the transducer's internal-LM CE) and the
+pseudo-label term on unlabeled audio (the teacher's greedy or best-path
+decode of the clean view, the student's CE, lattice NLL or CTC NLL on the
+augmented view, gated by ``objective.pseudo_warmup_steps``); then backward
+(through K3 for the listener and the predictor), global-norm clip, Adam,
+the EMA update and the step counter.  The metrics keep the JAX keys
+(``loss``, ``ce``, ``acc``, ``ctc``, ``nll_per_label``, ``grad_norm``,
+``tf_rate``, ``frames``, and ``mwer``, ``mwer_risk``, ``text_ae`` or
+``text_ilm``, ``pseudo``, ``pseudo_gate`` where the step runs those
+terms).
 
 The training passes drop out (``model.enc_dropout`` after the listener's
 sites, ``model.dec_dropout`` before the speller's output projection): the
@@ -46,11 +50,10 @@ noise mixes rows gathered from every rank, every term is divided by the
 global microbatch's count (summed over the ranks before the forward), and
 the gradients and metrics are summed over the ranks, so that N ranks
 compute what one process computes on the concatenated batch.  What the
-step does not run yet -- MWER, the CTC family's pseudo-label term,
-another optimizer, frozen or transplanted weights, checkify -- is refused
-by :func:`check_train_supported` with a message naming the key, as are
-the reference's own refusals for the CTC family and the transformer
-speller.
+step does not run yet -- another optimizer, frozen or transplanted
+weights, checkify -- is refused by :func:`check_train_supported` with a
+message naming the key, as are the reference's own refusals for the CTC
+family and the transformer speller.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from torch import nn
 
 from semi_supervised_asr_tpu_torch.config import Config
 from semi_supervised_asr_tpu_torch.data.vocab import PAD
+from semi_supervised_asr_tpu_torch.objectives import ctc_semi as CSEMI
 from semi_supervised_asr_tpu_torch.objectives import losses as LO
 from semi_supervised_asr_tpu_torch.objectives import transducer_semi as TSEMI
 from semi_supervised_asr_tpu_torch.ops import frontend as F
@@ -81,16 +85,12 @@ def check_train_supported(cfg: Config) -> None:
     m, o, t = cfg.model, cfg.objective, cfg.train
     unsupported = {
         "model.param_dtype": (m.param_dtype, "float32"),
-        "objective.lambda_mwer": (o.lambda_mwer, 0.0),
         "train.optimizer": (t.optimizer, "adam"),
         "train.freeze": (tuple(t.freeze), ()),
         "train.init_encoder_from": (t.init_encoder_from, ""),
         "train.checkify_errors": (t.checkify_errors, ""),
         "data.use_feature_store": (cfg.data.use_feature_store, False),
     }
-    if m.family == "ctc":
-        # objectives/ctc_semi.py is not ported yet
-        unsupported["objective.lambda_pseudo"] = (o.lambda_pseudo, 0.0)
     for key, (got, want) in unsupported.items():
         if got != want:
             raise NotImplementedError(
@@ -143,13 +143,16 @@ class Draws:
 @dataclass
 class StepDraws:
     """Given draws of one (micro)batch of a step: its labeled view, the
-    augmented view of its unlabeled audio, and the teacher's hypotheses in
+    augmented view of its unlabeled audio, the teacher's hypotheses in
     place of its decode (``LO.teacher_labels``' pair; the transducer's
-    ``TSEMI.teacher_labels`` triple)."""
+    ``TSEMI.teacher_labels`` and the CTC family's ``CSEMI.teacher_labels``
+    triples), and the MWER beam's (n-best [B, K, U], scores [B, K]) in
+    place of its search."""
 
     labeled: Draws = field(default_factory=Draws)
     unlabeled: Draws = field(default_factory=Draws)
-    pseudo_labels: tuple[torch.Tensor, torch.Tensor] | None = None
+    pseudo_labels: tuple | None = None
+    mwer_nbest: tuple | None = None
 
 
 def featurize(
@@ -493,14 +496,15 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     """The loss of one microbatch ``mb`` (the fields of
     :func:`loss_and_grads`) with its graph -> (loss, {"ce", "acc"} and
     {"ctc"}, {"text_ae"}, {"pseudo", "pseudo_gate"} where the step runs
-    them; the CTC family's {"nll_per_label"}; the transducer's
-    {"nll_per_label"} and {"text_ilm"}, {"pseudo", "pseudo_gate"}),
-    normalized by the microbatch's own (global) counts; ``blocks``: each
-    stream's block (:func:`loss_and_grads`)."""
+    them; the CTC family's {"nll_per_label"} and {"pseudo",
+    "pseudo_gate"}; the transducer's {"nll_per_label"} and {"text_ilm"},
+    {"pseudo", "pseudo_gate"}; every family's {"mwer", "mwer_risk"} under
+    ``objective.lambda_mwer``), normalized by the microbatch's own
+    (global) counts; ``blocks``: each stream's block
+    (:func:`loss_and_grads`)."""
     obj = cfg.objective
     blocks = blocks or [None, None, None]
-    # the family's terms, one module with one interface
-    fam = TSEMI if cfg.model.family == "transducer" else LO
+    fam = family_terms(cfg)
     tokens = mask_unreal(mb["tokens"], mb["real"])
     b, u = tokens.shape
     rows = _block_rows(blocks[0])
@@ -515,10 +519,13 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
         text = mask_unreal(mb["unlab_text"], mb["unlab_text_real"])
     pseudo = obj.lambda_pseudo > 0.0 and "unlab_audio" in mb
     # the terms' counts: the supervised term's, text targets, kept pseudo
-    # labels, the labels of the CTC term or of the transducer's lattice
+    # labels, the labels of the joint CTC term or of the transducer's
+    # lattice, MWER's rows
     zero = torch.zeros((), dtype=torch.float64, device=tokens.device)
     sup, aux_count = fam.step_counts(cfg, tokens, mb["real"])
-    counts = [sup.double(), zero, zero, aux_count.double()]
+    counts = [sup.double(), zero, zero, aux_count.double(), zero]
+    if obj.lambda_mwer > 0.0:
+        counts[4] = LO.mwer_count(tokens).double()
     if text is not None:
         counts[1] = fam.text_count(text).double()
     if pseudo:
@@ -544,9 +551,20 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
     if masks is None:
         masks = state.model.dropout_masks(state.dgen, b, feats.shape[1], u,
                                           feats.device, rows)
-    loss, aux = student(fam.step_supervised, cfg, feats, flens, tokens,
-                        mb["real"], tf_rate, state.gen, backend, den,
-                        cfg.train.remat_encoder, rows, masks)
+    loss, aux, enc, enc_mask = student(
+        fam.step_supervised, cfg, feats, flens, tokens, mb["real"], tf_rate,
+        state.gen, backend, den, cfg.train.remat_encoder, rows, masks)
+    if obj.lambda_mwer > 0.0:
+        # on the supervised pass's encoder output; before the warmup ends
+        # the term is exactly 0 and its beam does not run (the reference's
+        # lax.cond)
+        if state.step >= obj.mwer_warmup_steps:
+            mwer, risk = student(fam.step_mwer, cfg, enc, enc_mask, tokens,
+                                 den[4], backend, draws.mwer_nbest)
+        else:
+            mwer = risk = torch.zeros((), device=tokens.device)
+        loss = loss + obj.lambda_mwer * mwer
+        aux.update(mwer=mwer.detach(), mwer_risk=risk.detach())
     if text is not None:
         term = student(fam.step_text, cfg, text, den[1], backend)
         loss = loss + obj.lambda_text_ae * term
@@ -570,6 +588,15 @@ def _micro_loss(cfg: Config, state: TrainState, mb: dict, cmvn,
         loss = loss + obj.lambda_pseudo * gate * pl
         aux.update(pseudo=pl.detach(), pseudo_gate=gate)
     return loss, aux
+
+
+def family_terms(cfg: Config):
+    """The module of the family's terms, one interface for the three
+    (``TEXT_KEY``, ``step_counts``, ``step_supervised``, ``step_mwer``,
+    ``step_mwer_nbest``, ``text_count``, ``step_text``, ``step_teacher_labels``,
+    ``kept_count``, ``step_pseudo``): ``objectives/losses.py`` (LAS),
+    ``objectives/ctc_semi.py`` or ``objectives/transducer_semi.py``."""
+    return {"ctc": CSEMI, "transducer": TSEMI}.get(cfg.model.family, LO)
 
 
 @torch.no_grad()

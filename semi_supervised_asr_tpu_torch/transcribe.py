@@ -16,13 +16,20 @@ model with the joint CTC head, or the CTC family; the transducer refuses
 it).
 Each file prints one JSON object ``{"audio", "text", "score"}`` (plus
 ``nbest`` with ``--nbest N``, ``no_eos`` when the length cap cut it,
-``chunks`` for chunked files).
+``chunks`` for chunked files).  ``--timestamps`` adds ``"tokens": [{"t",
+"start_s", "end_s"}]``: the CTC family and a LAS model with the joint-CTC
+head time the decoded hypothesis by Viterbi forced alignment on the CTC
+head's posteriors (``ops/ctc_align.py``, any decode mode), the transducer
+by its greedy walk's emission frames (``--beam 1``; start == end); a
+chunked file's times are offset by its chunks.
 
 ``--streaming`` decodes each file through the exact streaming path
 (``decode/streaming.py``) instead, fed in ``--stream-chunk-ms`` pieces, greedy
 (``--beam 0`` or ``1``) or with the beam; ``--streams N`` serves N files at
 once through one ``MultiStreamTranscriber``.  Its records carry
-``"streaming": true``.
+``"streaming": true``; with ``--timestamps`` (greedy, one stream) the
+tokens' times come from the walk's own emission frames, tracked across
+chunks.
 
 ``DIR`` is a Solver's workdir (``main --train``): it decodes with the
 best, else the latest checkpoint (``decode.average_ckpts`` and
@@ -47,13 +54,15 @@ from semi_supervised_asr_tpu_torch.config import Config, load_config
 from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
 from semi_supervised_asr_tpu_torch.data.corpus import load_audio
 from semi_supervised_asr_tpu_torch.data.registry import build_vocab
-from semi_supervised_asr_tpu_torch.data.vocab import EOS
+from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD
 from semi_supervised_asr_tpu_torch.ops.frontend_oracle import pad_for_batch
 from semi_supervised_asr_tpu_torch import strict_fp32, weights
 from semi_supervised_asr_tpu_torch.decode.beam import (
     beam_decode_from_enc, check_supported,
 )
-from semi_supervised_asr_tpu_torch.decode.ctc import ctc_greedy_from_enc
+from semi_supervised_asr_tpu_torch.decode.ctc import (
+    ctc_greedy_from_enc, ctc_head_logits,
+)
 from semi_supervised_asr_tpu_torch.decode.ctc_beam import ctc_beam_from_enc
 from semi_supervised_asr_tpu_torch.decode.greedy import greedy_decode_from_enc
 from semi_supervised_asr_tpu_torch.decode.transducer_beam import (
@@ -63,7 +72,9 @@ from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
     transducer_greedy_from_enc,
 )
 from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
+from semi_supervised_asr_tpu_torch.ops.ctc_align import ctc_viterbi_align
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
+from semi_supervised_asr_tpu_torch.utils.metrics import hyp_lengths
 
 AUDIO_EXTS = (".wav", ".npy", ".flac")
 
@@ -235,6 +246,55 @@ class Recognizer:
                                        ctc=self.joint_ctc)
         return out[0].cpu().numpy(), out[1].cpu().numpy()
 
+    def align_head(self):
+        """The CTC head forced alignment reads: the CTC family's, or a LAS
+        model's joint-CTC head; the reference's refusals otherwise
+        (ValueError)."""
+        if self.transducer:
+            raise ValueError(
+                "forced alignment needs CTC frame posteriors; the transducer "
+                "gets timestamps from its greedy decode (emission frames) — "
+                "use _times_fn")
+        if not hasattr(self.model, "ctc"):
+            raise ValueError(
+                "forced alignment needs a CTC head — the ctc family has one; "
+                "LAS needs objective.lambda_ctc > 0 (or model.ctc_head: "
+                "true) at train time")
+        return self.model.ctc
+
+    @torch.inference_mode()
+    def align(self, audio: np.ndarray, lens: np.ndarray, tokens: np.ndarray,
+              token_lens: np.ndarray):
+        """CTC Viterbi forced alignment of ``tokens`` [B, U] (``token_lens``
+        valid, no EOS) on the CTC head's frame posteriors of the padded
+        audio -> (starts, ends [B, U] inclusive encoder frames, -1 past a
+        row's tokens; the path's log-prob [B], -inf where the tokens do not
+        fit the frames) as numpy."""
+        ctc = self.align_head()
+        a = torch.as_tensor(audio, device=self.device)
+        n = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
+        enc, enc_mask = self.encode(a, n)[:2]
+        logp = torch.log_softmax(ctc_head_logits(ctc, enc), dim=-1)
+        out = ctc_viterbi_align(
+            logp, enc_mask.sum(dim=1),
+            torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(token_lens, device=self.device))
+        return tuple(x.cpu().numpy() for x in out)
+
+    @torch.inference_mode()
+    def times(self, audio: np.ndarray, lens: np.ndarray):
+        """The transducer's greedy walk with each token's emission frame ->
+        (tokens [B, max_u], the path's log-prob [B], frames [B, max_u], -1
+        past a row's tokens) as numpy."""
+        a = torch.as_tensor(audio, device=self.device)
+        n = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
+        enc, enc_mask = self.encode(a, n)
+        out = transducer_greedy_from_enc(
+            self.model, self.cfg.model, enc, enc_mask,
+            max_decode_steps(self.cfg, enc.shape[1]),
+            self.cfg.decode.max_symbols, track_frames=True)
+        return tuple(x.cpu().numpy() for x in out)
+
 
 def pad_batch(pieces: list[np.ndarray], s_len: int,
               cfg: Config) -> tuple[np.ndarray, np.ndarray]:
@@ -252,16 +312,35 @@ def pad_batch(pieces: list[np.ndarray], s_len: int,
 
 
 def transcribe(rec: Recognizer, files: list[Path], mode: str,
-               nbest: int = 1) -> list[dict]:
-    """Bucket + batch the files, decode -> [{audio, text, score, ...}]."""
+               nbest: int = 1, timestamps: bool = False) -> list[dict]:
+    """Bucket + batch the files, decode -> [{audio, text, score, ...}];
+    ``timestamps`` adds each record's ``tokens`` (module docstring)."""
     if mode not in ("beam", "greedy", "ctc"):
         raise SystemExit(f"unknown decode mode {mode!r}")
     if nbest > 1 and mode != "beam":
         raise SystemExit(f"--nbest needs beam decoding (got mode={mode!r}); "
                          "drop --beam 0/1 or --nbest")
     use_nbest = nbest > 1
+    if timestamps and use_nbest:
+        raise SystemExit("--timestamps times the single best hypothesis; "
+                         "drop --nbest")
     spec, cfg = rec.spec, rec.cfg
+    td_times = timestamps and rec.transducer
+    if td_times and mode != "greedy":
+        raise SystemExit("transducer --timestamps reads emission frames from "
+                         "the greedy scan — add --beam 1")
+    if timestamps and not td_times:
+        try:
+            rec.align_head()
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    # an encoder frame's seconds (the hop times the total reduction); the
+    # times of a long file's chunk ci are offset by ci chunks' audio
+    sec_per_frame = (cfg.frontend.hop_length * cfg.model.time_reduction
+                     / cfg.frontend.sample_rate)
     max_bucket = spec.frame_buckets[-1]
+    chunk_off_s = (spec.samples_for_frames(max_bucket)
+                   / cfg.frontend.sample_rate)
     by_bucket: dict[int, list[tuple[tuple[Path, int], np.ndarray]]] = {}
     n_chunks: dict[str, int] = {}
     for f in files:
@@ -291,7 +370,17 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
         for start in range(0, len(items), batch_size):
             chunk = items[start: start + batch_size]
             audio, lens = pad_batch([a for _, a in chunk], s_len, cfg)
-            hyps, scores = rec.decode(audio, lens, mode, nbest=use_nbest)
+            starts = ends = plp = None
+            if td_times:
+                hyps, scores, starts = rec.times(audio, lens)
+                ends, plp = starts, np.zeros(len(hyps))
+            else:
+                hyps, scores = rec.decode(audio, lens, mode, nbest=use_nbest)
+            if timestamps and not td_times:
+                tl = hyp_lengths(hyps)
+                toks = np.where(np.arange(hyps.shape[1])[None, :]
+                                < tl[:, None], hyps, PAD).astype(np.int32)
+                starts, ends, plp = rec.align(audio, lens, toks, tl)
             for r in range(len(chunk)):
                 path, ci = chunk[r][0]
                 if use_nbest:
@@ -313,6 +402,10 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
                     if not bool((best == EOS).any()):
                         cap_hits += 1
                         res["no_eos"] = True
+                if timestamps:
+                    res["tokens"] = token_times(
+                        rec.vocab, hyps[r], starts[r], ends[r], plp[r],
+                        sec_per_frame, ci * chunk_off_s, f"{path} chunk {ci}")
                 chunk_results[(str(path), ci)] = res
 
     results = []
@@ -322,12 +415,14 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
         if len(parts) == 1:
             results.append({"audio": key, **parts[0]})
         else:
-            results.append({
-                "audio": key,
-                "text": " ".join(p["text"] for p in parts if p["text"]),
-                "score": float(sum(p["score"] for p in parts)),
-                "chunks": len(parts),
-            })
+            res = {"audio": key,
+                   "text": " ".join(p["text"] for p in parts if p["text"]),
+                   "score": float(sum(p["score"] for p in parts)),
+                   "chunks": len(parts)}
+            if timestamps:
+                # each chunk's times already carry its offset
+                res["tokens"] = [t for p in parts for t in p["tokens"]]
+            results.append(res)
     if n_hyps and cap_hits / n_hyps > 0.01:
         print(
             f"WARNING: LENGTH-CAP SATURATION — {cap_hits}/{n_hyps} "
@@ -340,18 +435,48 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
     return results
 
 
+def token_times(vocab, hyp: np.ndarray, starts: np.ndarray,
+                ends: np.ndarray, path_logp: float, sec_per_frame: float,
+                offset_s: float, where: str) -> list[dict]:
+    """One hypothesis' ``tokens`` records ``{"t", "start_s", "end_s"}``:
+    its tokens before the first EOS / PAD, each spanning its encoder frames
+    [start, end + 1) in seconds after ``offset_s``, rounded to the
+    millisecond; none, with a warning naming ``where``, when the path's
+    log-prob is not finite (the hypothesis does not CTC-align)."""
+    if not np.isfinite(path_logp):
+        print(f"WARNING: {where}: hypothesis does not CTC-align; no "
+              "timestamps", file=sys.stderr)
+        return []
+    n_tok = int(hyp_lengths(hyp[None])[0])
+    syms = vocab.decode([int(x) for x in hyp[:n_tok]], strip_specials=False)
+    return [{"t": syms[j],
+             "start_s": round(float(starts[j]) * sec_per_frame + offset_s, 3),
+             "end_s": round((float(ends[j]) + 1) * sec_per_frame + offset_s,
+                            3)}
+            for j in range(n_tok) if starts[j] >= 0]
+
+
 def transcribe_streaming(rec: Recognizer, files: list[Path],
                          beam_size: int = 1, chunk_ms: int = 320,
-                         streams: int = 1) -> list[dict]:
+                         streams: int = 1,
+                         timestamps: bool = False) -> list[dict]:
     """Decode each file through the exact streaming path, fed in
     ``chunk_ms`` pieces: one ``StreamingTranscriber`` a file, or with
     ``streams`` > 1 waves of that many files through one
     ``MultiStreamTranscriber`` (one chunk call advances every live stream
-    a round; each file's tokens are those of a single stream)."""
+    a round; each file's tokens are those of a single stream).
+    ``timestamps`` (greedy, one stream): each record's ``tokens`` from the
+    walk's emission frames, a point emission at frame f spanning
+    [f, f + 1) frames."""
     from semi_supervised_asr_tpu_torch.decode.streaming import (
         MultiStreamTranscriber, StreamingTranscriber,
     )
 
+    if timestamps and beam_size > 1:
+        raise SystemExit("--streaming --timestamps is greedy-only (beam "
+                         "carries keep no frame slot); add --beam 1")
+    if timestamps and streams > 1:
+        raise SystemExit("--timestamps is single-stream; drop --streams")
     cfg = rec.cfg
     sr = cfg.frontend.sample_rate
     piece = max(int(sr * chunk_ms / 1000), 1)
@@ -383,12 +508,24 @@ def transcribe_streaming(rec: Recognizer, files: list[Path],
             results.extend(record(f, *ms.finalize(sid))
                            for f, sid in zip(wave, sids))
         return results
+    sec_per_frame = cfg.frontend.hop_length * cfg.model.time_reduction / sr
     for f in files:
         audio = np.asarray(load_audio(f), np.float32)
-        st = StreamingTranscriber(rec.model, cfg, cmvn, **kw)
+        st = StreamingTranscriber(rec.model, cfg, cmvn,
+                                  track_frames=timestamps, **kw)
         for s in range(0, len(audio), piece):
             st.feed(audio[s: s + piece])
-        results.append(record(f, *st.finalize()))
+        toks, score = st.finalize()
+        res = record(f, toks, score)
+        if timestamps:
+            frames = st.emission_frames()
+            syms = rec.vocab.decode(toks, strip_specials=False)
+            res["tokens"] = [
+                {"t": syms[j],
+                 "start_s": round(frames[j] * sec_per_frame, 3),
+                 "end_s": round((frames[j] + 1) * sec_per_frame, 3)}
+                for j in range(len(toks)) if frames[j] >= 0]
+        results.append(res)
     return results
 
 
@@ -408,7 +545,11 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
     p.add_argument("--timestamps", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="per-token times: the CTC family and LAS with the "
+                        "joint-CTC head by Viterbi forced alignment on the "
+                        "CTC head, the transducer by its greedy emission "
+                        "frames (--beam 1); with --streaming (greedy only) "
+                        "from the chunked walk's own emission frames"),
     p.add_argument("--streaming", action="store_true",
                    help="decode through the exact streaming path "
                         "(StreamingTranscriber) in --stream-chunk-ms pieces "
@@ -425,8 +566,6 @@ def main(argv=None) -> int:
                         "then section.key=value overrides")
     args, overrides = p.parse_known_args(argv)
 
-    if args.timestamps:
-        raise SystemExit("--timestamps is not ported yet")
     if args.streaming and args.nbest > 1:
         raise SystemExit("--streaming emits the single best path; drop "
                          "--nbest")
@@ -457,11 +596,12 @@ def main(argv=None) -> int:
         try:
             results = transcribe_streaming(
                 rec, files, cfg.decode.beam_size if mode == "beam" else 1,
-                args.stream_chunk_ms, args.streams)
+                args.stream_chunk_ms, args.streams, args.timestamps)
         except ValueError as e:      # the reference's streaming refusals
             raise SystemExit(str(e)) from None
     else:
-        results = transcribe(rec, files, mode, nbest=args.nbest)
+        results = transcribe(rec, files, mode, nbest=args.nbest,
+                             timestamps=args.timestamps)
     out_f = open(args.out, "w") if args.out else None
     try:
         for r in results:

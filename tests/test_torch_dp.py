@@ -23,8 +23,9 @@ no process group in the way.
   white and babble noise and ``train.grad_accum=2`` (each rank holding its
   rows of each microbatch; babble mixing rows of both ranks): as above,
   and both generators left where one process's are.
-* The same at global B=6 and B=2 with ``train.grad_accum=2`` (the
-  reference's lcm granule, not a multiple of world x accumulation): each
+* The same at global B=6 and B=2 with ``train.grad_accum=2`` and the MWER
+  term (the reference's lcm granule, not a multiple of world x
+  accumulation; MWER's row count joins the counts' one all-reduce): each
   rank holds a ceil-sized block of every microbatch, 2 rows and 1 of a
   microbatch of 3, or 1 and none of a microbatch of 1 (the empty rank runs
   an unreal stand-in row, makes the draws and joins the reductions);
@@ -75,8 +76,10 @@ AUGMENT = ["model.enc_dropout=0.2", "model.dec_dropout=0.2",
            "frontend.noise_aug_prob=1.0",
            "frontend.noise_sources=[white,babble]", "train.grad_accum=2",
            "train.batch_size=8"]
-# the global batches of the uneven cases (train.grad_accum=2, 2 ranks)
+# the global batches of the uneven cases (train.grad_accum=2, 2 ranks),
+# with the MWER term over the global microbatch's rows
 UNEVEN = {"uneven": 6, "empty": 2}
+MWER = ["objective.lambda_mwer=0.3", "objective.mwer_beam=2"]
 # the step cases, run in turn by one pair of ranks
 STEP_CASES = ("supervised", "semi", "transducer_semi", "augment", *UNEVEN)
 # configs/synthetic_smoke.yaml at a small width, 48 utterances in its
@@ -120,7 +123,7 @@ def _step_case(case: str) -> dict:
     extra = {"semi": SEMI, "augment": AUGMENT,
              "transducer_semi": SEMI + TRANSDUCER}.get(case, [])
     if case in UNEVEN:
-        extra = AUGMENT + [f"train.batch_size={UNEVEN[case]}"]
+        extra = AUGMENT + MWER + [f"train.batch_size={UNEVEN[case]}"]
     cfg = load_config(REPO / config, STEP + extra)
     bundle = build_datasets(cfg)
     cfg = finalize_config(cfg, bundle.vocab.size)
@@ -335,7 +338,9 @@ def test_two_ranks_uneven_microbatches_match_one_process(steps):
     """``train.grad_accum=2`` over 2 ranks at global batches the world does
     not divide per microbatch: ceil-sized blocks (2 + 1 rows of a
     microbatch of 3, or 1 + an empty block of a microbatch of 1), the
-    draws made at the microbatch's shape."""
+    draws made at the microbatch's shape; the MWER term's denominator (the
+    microbatch's rows with a reference) summed over the ranks with the
+    other counts."""
     from semi_supervised_asr_tpu_torch.data.pipeline import rank_rows
 
     assert [rank_rows(6, (r, r + 1, 2), 2).tolist() for r in (0, 1)] \
@@ -344,6 +349,7 @@ def test_two_ranks_uneven_microbatches_match_one_process(steps):
         == [[0, 1], []]
     for case in UNEVEN:
         _check_step(steps[case])
+        assert steps[case][0]["dp"]["aux"]["mwer_risk"] > 0
 
 
 def test_two_rank_solver_run_and_resume(tmp_path):

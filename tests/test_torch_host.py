@@ -202,6 +202,20 @@ def test_audio_loading_and_collect_files_match_jax(tmp_path):
     np.testing.assert_array_equal(got.audio, want.audio)
 
 
+def test_read_manifest_matches_jax(tmp_path):
+    """``align.py``'s copy of the reference's ``selftrain.read_manifest``:
+    JSON lines, blank lines skipped."""
+    from semi_supervised_asr_tpu.selftrain import read_manifest as jax_read
+    from semi_supervised_asr_tpu_torch.align import read_manifest
+
+    m = tmp_path / "m.jsonl"
+    m.write_text('{"uid": "a", "audio": "a.wav", "text": "x y"}\n\n'
+                 '  {"uid": "b", "audio": "/b.flac", "text": ""}  \n')
+    assert read_manifest(m) == jax_read(m) == [
+        {"uid": "a", "audio": "a.wav", "text": "x y"},
+        {"uid": "b", "audio": "/b.flac", "text": ""}]
+
+
 def semi_configs(tmp_path=None):
     """configs/ls100_semi.yaml on the synthetic corpus, or, given a
     directory, on manifests there -- for the port and for JAX."""

@@ -249,7 +249,9 @@ def test_port_imports_no_jax():
         "       'decode.beam', 'data.preprocess', 'utils.flac',\n"
         "       'models.transducer', 'objectives.transducer_loss',\n"
         "       'objectives.transducer_semi', 'decode.transducer_greedy',\n"
-        "       'decode.transducer_beam', 'decode.streaming')\n"
+        "       'decode.transducer_beam', 'decode.streaming', 'align',\n"
+        "       'ops.ctc_align', 'ops.edit_distance', 'objectives.ctc_semi',\n"
+        "       'objectives.ctc_mwer', 'objectives.transducer_mwer')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
@@ -263,7 +265,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("extra, message", [
     (["--beam", "0"], "needs a CTC head"),
-    (["--timestamps"], "timestamps"),
+    # a LAS model without the joint-CTC head: the reference's refusal
+    pytest.param(["--timestamps"], "forced alignment needs a CTC head",
+                 id="extra1-timestamps"),
     (["--streaming"], "streaming"),
     (["--beam", "1", "--nbest", "2"], "nbest"),
     (["decode.lm_weight=0.3"], "LM fusion"),

@@ -14,13 +14,15 @@ float32.
 * the streaming listener chunk by chunk equals the offline listener to the
   reference's ulp-scale bound and JAX's ``listener_apply_stream`` to 1e-5;
 * the decoders' carries (transducer greedy and beam, CTC best path and
-  prefix beam): two chunks equal the whole walk in the port, bitwise, and
-  JAX's carried decode (equal tokens, scores to rtol 1e-4, the tolerance of
+  prefix beam, and the greedy walks with ``track_frames``): two chunks
+  equal the whole walk in the port, bitwise, and JAX's carried decode
+  (equal tokens and emission frames, scores to rtol 1e-4, the tolerance of
   tests/test_streaming_decode.py);
 * ``StreamingTranscriber`` fed in odd pieces: the tokens of the port's
   offline decode and of JAX's ``StreamingTranscriber``, scores to rtol
   1e-4, for both recipes' listeners, greedy and beam; for the CTC family
-  (best path and prefix beam) the offline decode's;
+  (best path and prefix beam) the offline decode's; greedy streams'
+  ``emission_frames`` equal the offline walk's and JAX's;
 * ``MultiStreamTranscriber`` (staggered feeds, a slot reused) equals single
   streams, and a round leaves inactive rows bitwise untouched;
 * ``transcribe --streaming`` (``--streams 1`` and ``2``) gives the offline
@@ -68,7 +70,7 @@ from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
 from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
-    one_thread, run_jax,
+    FAST_XLA, one_thread, run_jax,
 )
 
 MAX_U = 24
@@ -202,11 +204,16 @@ def test_streaming_listener_matches_offline_and_jax(models):
 
 
 @pytest.mark.parametrize("decoder", ["transducer_greedy", "transducer_beam",
-                                     "ctc_greedy", "ctc_beam"])
+                                     "ctc_greedy", "ctc_beam",
+                                     "transducer_greedy_frames",
+                                     "ctc_greedy_frames"])
 def test_decoder_carries_match_whole_walk_and_jax(models, decoder):
     """Two chunks of 6 frames through the carry: the port's whole walk
-    bitwise, JAX's carried decode (tokens, scores to 1e-4)."""
+    bitwise, JAX's carried decode (tokens, scores to 1e-4); the greedy
+    walks also with ``track_frames`` (each chunk's ``frame_base`` its first
+    frame): the emission frames equal the whole walk's and JAX's."""
     kind = "ctc" if decoder.startswith("ctc") else "blstm"
+    frames = decoder.endswith("_frames")
     cfg, jcfg, model, tree = models[kind]
     m = cfg.model
     rng = np.random.default_rng(7)
@@ -215,55 +222,66 @@ def test_decoder_carries_match_whole_walk_and_jax(models, decoder):
     et, mt = torch.from_numpy(enc), torch.from_numpy(mask)
     halves = ((slice(0, 6)), slice(6, 12))
     with torch.inference_mode():
-        if decoder == "transducer_greedy":
-            def port(e, k, c):
+        if decoder.startswith("transducer_greedy"):
+            def port(e, k, c, base):
                 return transducer_greedy_from_enc(
-                    model, m, e, k, MAX_U, 2, carry=c, return_carry=True)[2]
+                    model, m, e, k, MAX_U, 2, carry=c, return_carry=True,
+                    track_frames=frames, frame_base=base)[2]
             carry0 = None
-            jcarry0 = JTG.transducer_greedy_init(tree, jcfg.model, 2, MAX_U)
+            jcarry0 = JTG.transducer_greedy_init(tree, jcfg.model, 2, MAX_U,
+                                                 track_frames=frames)
 
-            def jdec(p, e, k, c):
+            def jdec(p, e, k, c, base):
                 return JTG.transducer_greedy_from_enc(
                     p, jcfg.model, e, k, MAX_U, 2, carry=c,
-                    return_carry=True)[2]
+                    return_carry=True, track_frames=frames,
+                    frame_base=base)[2]
         elif decoder == "transducer_beam":
-            def port(e, k, c):
+            def port(e, k, c, base):
                 return transducer_beam_from_enc(
                     model, m, e, k, MAX_U, 3, 2, carry=c,
                     return_carry=True)[2]
             carry0 = jcarry0 = None
 
-            def jdec(p, e, k, c):
+            def jdec(p, e, k, c, base):
                 return JTB.transducer_beam_from_enc(
                     p, jcfg.model, e, k, MAX_U, beam_size=3, max_symbols=2,
                     carry=c, return_carry=True)[2]
-        elif decoder == "ctc_greedy":
-            def port(e, k, c):
-                return CTC.ctc_greedy_stream(model.ctc, e, k, MAX_U, c)
-            carry0 = CTC.ctc_greedy_stream_init(2, MAX_U, "cpu")
-            jcarry0 = JCTC.ctc_greedy_stream_init(2, MAX_U)
+        elif decoder.startswith("ctc_greedy"):
+            def port(e, k, c, base):
+                return CTC.ctc_greedy_stream(model.ctc, e, k, MAX_U, c, base)
+            carry0 = CTC.ctc_greedy_stream_init(2, MAX_U, "cpu", frames)
+            jcarry0 = JCTC.ctc_greedy_stream_init(2, MAX_U,
+                                                  track_frames=frames)
 
-            def jdec(p, e, k, c):
-                return JCTC.ctc_greedy_stream(p["ctc"], e, k, MAX_U, c)
+            def jdec(p, e, k, c, base):
+                return JCTC.ctc_greedy_stream(p["ctc"], e, k, MAX_U, c,
+                                              frame_base=base)
         else:
-            def port(e, k, c):
+            def port(e, k, c, base):
                 return ctc_beam_from_enc(model.ctc, e, k, MAX_U, 3, carry=c,
                                          return_carry=True)[2]
             carry0 = jcarry0 = None
 
-            def jdec(p, e, k, c):
+            def jdec(p, e, k, c, base):
                 return JCB.ctc_beam_from_enc(
                     p["ctc"], e, k, MAX_U, beam_size=3, carry=c,
                     return_carry=True)[2]
-        whole = port(et, mt, carry0)
+        whole = port(et, mt, carry0, 0)
         got = carry0
         for h in halves:
-            got = port(et[:, h], mt[:, h], got)
+            got = port(et[:, h], mt[:, h], got, h.start)
     assert all(torch.equal(a, b) for a, b in zip(S.tree_leaves(got),
                                                  S.tree_leaves(whole)))
-    jgot = jcarry0
+    # JAX's carried decode, compiled once for each carry structure (the
+    # beams build theirs on the first chunk)
+    jgot, compiled = jcarry0, {}
     for h in halves:
-        jgot = jax.jit(jdec)(tree, enc[:, h], mask[:, h], jgot)
+        args = (tree, enc[:, h], mask[:, h], jgot, h.start)
+        if (jgot is None) not in compiled:
+            compiled[jgot is None] = jax.jit(jdec).lower(*args).compile(
+                compiler_options=FAST_XLA)
+        jgot = compiled[jgot is None](*args)
     beam = decoder.endswith("beam")
     for row in range(2):
         toks, score = S._best_hyp(got, row, ctc=kind == "ctc",
@@ -273,11 +291,17 @@ def test_decoder_carries_match_whole_walk_and_jax(models, decoder):
                                      lm_weight=0.0, bias=None)
         assert toks == jtoks and len(toks) > 0, (row, toks, jtoks)
         np.testing.assert_allclose(score, jscore, **SCORE)
+    if frames:
+        # the carries' frame slots: -1 past each row's count
+        np.testing.assert_array_equal(got[-1].numpy(), np.asarray(jgot[-1]))
+        n = int(got[-3][0])            # the count, in both carries
+        assert (got[-1][0, :n] >= 6).any() and (got[-1][0, n:] == -1).all()
 
 
 def offline_decode(model, cfg, wav, beam_size):
     """The port's offline decode of ``wav`` padded to the streaming
-    chunk grid, as any bucketed batch pads it."""
+    chunk grid, as any bucketed batch pads it -> (tokens, score, the
+    greedy walk's emission frames or None for the beams)."""
     m, f = cfg.model, cfg.frontend
     c = m.enc_attn_chunk * m.time_reduction if m.enc_attn_chunk \
         else m.time_reduction
@@ -290,47 +314,65 @@ def offline_decode(model, cfg, wav, beam_size):
                                  torch.tensor([len(wav)]),
                                  tuple(torch.from_numpy(x) for x in CMVN))
         enc, mask = model.encode(feats, flens)
+        frames = None
         if m.family == "ctc":
             if beam_size > 1:
                 toks, score = ctc_beam_from_enc(model.ctc, enc, mask, MAX_U,
                                                 beam_size)
             else:
                 toks, score = CTC.ctc_greedy_from_enc(model.ctc, enc, mask)
+                # the best path's first frame of each token: the walk's
+                walk = CTC.ctc_greedy_stream(
+                    model.ctc, enc, mask, MAX_U,
+                    CTC.ctc_greedy_stream_init(1, MAX_U, "cpu", True))
+                frames = walk[4][0][: int(walk[2][0])].tolist()
         elif beam_size > 1:
             toks, score = transducer_beam_from_enc(model, m, enc, mask, MAX_U,
                                                    beam_size, 4)
         else:
-            toks, score = transducer_greedy_from_enc(model, m, enc, mask,
-                                                     MAX_U, 4)
+            toks, score, frames = transducer_greedy_from_enc(
+                model, m, enc, mask, MAX_U, 4, track_frames=True)
+            frames = [int(f) for f in frames[0] if f >= 0]
     # PAD (0) pads every row; the best path's rows end in EOS (2), which
     # the comparison drops from both sides (as tests/test_streaming_*.py)
-    return [int(x) for x in toks[0] if x not in (0, 2)], float(score[0])
+    return ([int(x) for x in toks[0] if x not in (0, 2)], float(score[0]),
+            frames)
 
 
 @pytest.mark.parametrize("kind, beam", [("blstm", 1), ("blstm", 2),
                                         ("conformer", 1), ("conformer", 2),
                                         ("ctc", 1), ("ctc", 2)])
 def test_streaming_transcriber_matches_offline_and_jax(models, kind, beam):
+    """Greedy streams track their emission frames (``track_frames``):
+    the offline walk's, and JAX's streamed ones."""
     cfg, jcfg, model, tree = models[kind]
     # utterance 0 of the synthetic corpus (0.72 s, 6 labels)
     wav = make_utterance(0, build_vocab(Config()), DataConfig(),
                          cfg.frontend, min_tokens=4, max_tokens=6).audio
     wav = wav.astype(np.float32)
-    st = S.StreamingTranscriber(model, cfg, CMVN, MAX_U, beam_size=beam)
+    track = beam == 1
+    st = S.StreamingTranscriber(model, cfg, CMVN, MAX_U, beam_size=beam,
+                                track_frames=track)
     for s in range(0, len(wav), 1777):
         st.feed(wav[s: s + 1777])
     toks, score = st.finalize()
     assert len(toks) > 2 and len(set(toks)) > 1, toks
-    off_toks, off_score = offline_decode(model, cfg, wav, beam)
+    off_toks, off_score, off_frames = offline_decode(model, cfg, wav, beam)
     assert [x for x in toks if x != 2] == off_toks[:MAX_U]
     np.testing.assert_allclose(score, off_score, **SCORE)
+    if track:
+        frames = st.emission_frames()
+        assert frames == off_frames[:len(toks)] and frames[-1] > 0
     if kind == "ctc":        # its carries are held against JAX's above
         return
-    jst = JS.StreamingTranscriber(tree, jcfg, CMVN, MAX_U, beam_size=beam)
+    jst = JS.StreamingTranscriber(tree, jcfg, CMVN, MAX_U, beam_size=beam,
+                                  track_frames=track)
     jst.feed(wav)
     jtoks, jscore = jst.finalize()
     assert toks == jtoks
     np.testing.assert_allclose(score, jscore, **SCORE)
+    if track:
+        assert st.emission_frames() == jst.emission_frames()
 
 
 @pytest.mark.parametrize("beam", [1, 2])
@@ -423,10 +465,13 @@ def test_transcribe_streaming_matches_the_offline_cli(tmp_path, capsys):
     ("blstm", "cmvn"),
     ("conformer", dict(enc_attn_left_chunks=-1)),
     ("conformer", "chunk"),
+    ("blstm", "track"),
 ])
 def test_streaming_refusals_are_the_references(kind, over):
     cfg, jcfg = configs(kind, **(over if isinstance(over, dict) else {}))
     chunk = None
+    # streaming timestamps with the beam
+    kw = dict(beam_size=2, track_frames=True) if over == "track" else {}
     if over in ("center", "cmvn"):
         value = {"center": True, "cmvn": "utterance"}[over]
         cfg = cfg.replace(frontend=dataclasses.replace(
@@ -436,9 +481,9 @@ def test_streaming_refusals_are_the_references(kind, over):
     if over == "chunk":
         chunk = 2 * cfg.model.enc_attn_chunk * cfg.model.time_reduction
     with pytest.raises(AssertionError) as ref:
-        JS.build_stream_fns({}, jcfg, CMVN, MAX_U, chunk)
+        JS.build_stream_fns({}, jcfg, CMVN, MAX_U, chunk, **kw)
     model = torch.nn.Module()
     model.listener = torch.nn.Linear(1, 1)
     with pytest.raises(ValueError) as port:
-        S.build_stream_fns(model, cfg, CMVN, MAX_U, chunk)
+        S.build_stream_fns(model, cfg, CMVN, MAX_U, chunk, **kw)
     assert str(port.value) == str(ref.value)

@@ -736,7 +736,7 @@ def test_train_cli_semi_on_cpu(tmp_path):
     ("model.param_dtype=bfloat16", "model.param_dtype"),
     ("train.freeze=[listener]", "train.freeze"),
     ("train.checkify_errors=nan", "train.checkify_errors"),
-    ("objective.lambda_mwer=0.2", "objective.lambda_mwer"),
+    ("train.init_encoder_from=enc", "train.init_encoder_from"),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, override, message):
     with pytest.raises(SystemExit, match=message):

@@ -656,7 +656,7 @@ def test_main_train_test_and_transcribe(name, tmp_path, capsys):
     ("objective.lambda_ctc=0.3", ValueError, "disable objective.lambda_ctc"),
     ("model.lm_fusion=cold", ValueError, "has no LM fusion yet"),
     ("decode.ilm_weight=0.2", SystemExit, "decode.ilm_weight"),
-    ("objective.lambda_mwer=0.2", SystemExit, "objective.lambda_mwer"),
+    ("decode.lm_weight=0.3", SystemExit, "shallow LM fusion"),
 ])
 def test_main_refuses_what_the_family_does_not_run(tmp_path, override,
                                                     error, message):
