@@ -278,7 +278,25 @@ failure raises and the script exits non-zero:
     equal), ``align.py`` on a manifest with one entry too long for its
     audio (exit 0, that one failed), and both streaming recipes streamed
     with ``track_frames`` (emission frames equal to the offline greedy
-    walk's).
+    walk's);
+21. the external LM and LM fusion: (a) the LM trainer at
+    ``configs/ls100_semi.yaml``'s ``lm`` block (LSTM, embed 256, hidden
+    1024, 1 layer, B=64, the 256-token bucket, float32) through
+    ``lm_trainer.train_lm`` for 3 steps (K2 1 and K3 1 a step, on the
+    CUDA-core route), its float32 step kernels against plain (loss 1e-5
+    relative, gradients GRAD_TOL), K2 / K3 at that shape (D=1, B=64,
+    H=1024, T=256) against plain and timed beside cuDNN's float32 layer and
+    the bound, and a step of the transformer LM (d_model 256, 1 block of 4
+    heads, ff 512); (b) shallow fusion of that LM at float32 into one padded
+    batch of ``ls100_semi`` (beam 5), ``ls100_ctc`` (prefix beam 8) and
+    ``ls100_transducer`` (beam 4, ``ilm_weight`` 0.2) through
+    ``Recognizer`` (the LM loaded by ``decode.lm_ckpt``), tokens kernels
+    against plain identical, host ms with and without the LM in turns;
+    ``ls100_transducer_streaming``'s beam with the LM (``ilm_weight``
+    0.3) streamed against offline (tokens and scores equal); (c) cold and deep fusion on ``configs/ls100.yaml``
+    in float32 with the LM grafted at startup through the Solver (2 steps,
+    the frozen LM bitwise unchanged after them, a step kernels against
+    plain).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -286,9 +304,11 @@ was taken, and its design; launches from the timit Solver run (phase 14)
 for K1-K3, from the conformer training run for K5, and per path in
 ``launches_by_path``, the C5 run as ``c5_dp``, phase 19's training run as
 ``conformer_streaming_train``, phase 20's as ``mwer_*``,
-``ctc_pseudo``, ``timestamps_*``, ``align`` and ``stream_timestamps_*``;
+``ctc_pseudo``, ``timestamps_*``, ``align`` and ``stream_timestamps_*``,
+phase 21's as ``lm_trainer``, ``fusion_*`` and ``{cold,deep}_fusion``;
 K2 and K3 also at the C4 shapes in ``at_c4``, at phase 18's in
-``at_transducer`` and at the MWER predictor's in ``at_mwer_predictor``);
+``at_transducer``, at the MWER predictor's in ``at_mwer_predictor`` and at
+the LM's in ``at_lm``);
 the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
@@ -587,6 +607,7 @@ GRID_WIDTHS = (640, 768, 1024)
 HBM_BYTES_S = 3.35e12
 L2_BYTES = 50e6
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12            # float32 on the CUDA cores (no tensor cores)
 
 
 _T0 = time.perf_counter()
@@ -2845,10 +2866,11 @@ def step_check(s, phase: str, loss_tol: float = 1e-5,
     require(errs[worst] <= grad_tol, f"gradient {worst} differs")
 
 
-def cudnn_lstm(x, w_ih, bias, w_hh, valid):
+def cudnn_lstm(x, w_ih, bias, w_hh, valid, dtypes=None):
     """torch.nn.LSTM (cuDNN) holding the layer's weights (w_hh [D, H, 4H]:
-    one direction or both), bf16 when the cell takes it, and its packed
-    input -> (module, packed, dtype)."""
+    one direction or both), in the first of ``dtypes`` (bf16, then
+    float32, by default) the cell takes, and its packed input -> (module,
+    packed, dtype)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
@@ -2864,7 +2886,7 @@ def cudnn_lstm(x, w_ih, bias, w_hh, valid):
             getattr(lstm, "bias_hh_l0" + sfx).zero_()
     # packing needs a frame in every row: the zero-length row gets one
     lens = valid.sum(0).clamp_min(1).cpu()
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         mod = copy.deepcopy(lstm).to(DEVICE, dtype)
         mod.flatten_parameters()        # one weight buffer, as cuDNN wants
         packed = pack_padded_sequence(x.to(dtype).requires_grad_(True), lens,
@@ -4318,10 +4340,11 @@ def phase18_semi(d: Path, card: str) -> tuple[dict, dict]:
 
 def td_lstm_shapes(times: dict, errs: dict, card: str,
                    shapes: tuple = TD_LSTM_SHAPES, b: int = 64,
-                   phase: str = "phase18") -> None:
-    """K2 and K3 at ``shapes`` (D=1, B=``b``, bf16; TD_LSTM_SHAPES at
-    B=64 by default): each against its
-    plain version (bf16 bound) with the path's masking (the listener's
+                   phase: str = "phase18", compute=None) -> None:
+    """K2 and K3 at ``shapes`` (D=1, B=``b``, bf16 unless ``compute`` is
+    float32; TD_LSTM_SHAPES at B=64 by default): each against its
+    plain version (bf16 bound; float32: K2_TOL / K3_TOL on the CUDA-core
+    route) with the path's masking (the listener's
     ragged rows with a zero-length one), and the route each launch took;
     then, with every step valid, so that the work is the T x B steps that
     ``bounds`` counts: the device time of each by CUDA events over
@@ -4336,7 +4359,9 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
-    bf16 = torch.bfloat16
+    bf16 = compute or torch.bfloat16
+    f32 = bf16 == torch.float32
+    tol_f, tol_b = (K2_TOL, K3_TOL) if f32 else (BF16_TOL, BF16_TOL)
     for tag, t, i, h, full in shapes:
         x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=b, h=h)
         w_ih, bias, w_hh = w_ih[:, :4 * h], bias[:4 * h], w_hh[:1]
@@ -4364,14 +4389,15 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
         route_b = [k for k in ("cluster", "grid", "simt")
                    if _native.LAUNCHES[f"lstm_scan_bwd_{k}"]]
         err_b = (dg - dg_want).abs().max().item()
-        log(f"[{phase}] K2 at {tag} (D=1, B={b}, T={t}, H={h}, bf16, "
-            f"{route_f} route): h, hprev, cprev, acts max_abs_err "
-            f"{err_f:.3e}; K3 ({route_b} route): dgates max_abs_err "
-            f"{err_b:.3e} (tol {BF16_TOL:g})")
-        require(err_f <= BF16_TOL and err_b <= BF16_TOL,
+        log(f"[{phase}] K2 at {tag} (D=1, B={b}, T={t}, H={h}, "
+            f"{str(bf16)[6:]}, {route_f} route): h, hprev, cprev, acts "
+            f"max_abs_err {err_f:.3e} (tol {tol_f:g}); K3 ({route_b} "
+            f"route): dgates max_abs_err {err_b:.3e} (tol {tol_b:g})")
+        require(err_f <= tol_f and err_b <= tol_b,
                 f"K2/K3 at {tag} differ from plain: {err_f}, {err_b}")
-        require(route_f == route_b == (["grid"] if h > K.CLUSTER_MAX_HIDDEN
-                                       else ["cluster"]),
+        want_route = ("simt" if f32 else
+                      "grid" if h > K.CLUSTER_MAX_HIDDEN else "cluster")
+        require(route_f == route_b == [want_route],
                 f"K2/K3 at {tag} took the routes {route_f}, {route_b}")
         errs[tag] = (err_f, err_b, route_f[0])
         del got, want, dg, dg_want
@@ -4395,14 +4421,14 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
                 ms = (back_to_back_ms(fn, reps=4) if key.endswith("b2b")
                       else cuda_ms(fn, reps=1, warmup=0))
                 times.setdefault(f"td_{tag}_{key}", []).append(ms)
-            if h > K.CLUSTER_MAX_HIDDEN:
+            if h > K.CLUSTER_MAX_HIDDEN and not f32:
                 grid_floors(times, tag, t, h)
             if tag == "listener_t1600":
                 grid_sweep(times, tag, fwd, bwd, h)
         del fwd, bwd, gx
         # the library column: cuDNN's layer against the port's, like with
         # like (input projection included), forward and backward
-        mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid)
+        mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid, (bf16,))
         require(dtype == bf16, f"cuDNN's layer at {tag} ran in {dtype}")
         leaves = [a.detach().clone().requires_grad_(True)
                   for a in (x, w_ih, w_hh[0], bias)]
@@ -4659,9 +4685,10 @@ def stream_audio(cfg, n: int) -> tuple[list, tuple]:
     return wavs, cmvn
 
 
-def offline_tokens(model, cfg, cmvn, wav, beam: int):
+def offline_tokens(model, cfg, cmvn, wav, beam: int, **fuse):
     """The port's offline decode of one file on the card, padded to the
-    streaming chunk grid as a bucketed batch pads it -> (tokens, score)."""
+    streaming chunk grid as a bucketed batch pads it -> (tokens, score);
+    ``fuse`` (lm, lm_weight, ilm_weight) goes to the beam."""
     import numpy as np
     import torch
 
@@ -4686,16 +4713,18 @@ def offline_tokens(model, cfg, cmvn, wav, beam: int):
         enc, mask = model.encode(feats, flens)
         if beam > 1:
             toks, score = transducer_beam_from_enc(
-                model, m, enc, mask, dc.max_decode_len, beam, dc.max_symbols)
+                model, m, enc, mask, dc.max_decode_len, beam, dc.max_symbols,
+                **fuse)
         else:
             toks, score = transducer_greedy_from_enc(
                 model, m, enc, mask, dc.max_decode_len, dc.max_symbols)
     return [int(x) for x in toks[0].tolist() if x != 0], float(score[0])
 
 
-def streamed(model, cfg, cmvn, wav, beam: int, piece_ms: int):
-    """One StreamingTranscriber fed ``wav`` in ``piece_ms`` pieces ->
-    (tokens, score, chunk steps run, host ms to a synchronize)."""
+def streamed(model, cfg, cmvn, wav, beam: int, piece_ms: int, **fuse):
+    """One StreamingTranscriber fed ``wav`` in ``piece_ms`` pieces (the
+    beam fused by ``fuse``: lm, lm_weight, ilm_weight) -> (tokens, score,
+    chunk steps run, host ms to a synchronize)."""
     import torch
 
     from semi_supervised_asr_tpu_torch.decode import streaming as S
@@ -4705,7 +4734,7 @@ def streamed(model, cfg, cmvn, wav, beam: int, piece_ms: int):
     t0 = time.perf_counter()
     st = S.StreamingTranscriber(model, cfg, cmvn, cfg.decode.max_decode_len,
                                 max_symbols=cfg.decode.max_symbols,
-                                beam_size=beam)
+                                beam_size=beam, **fuse)
     calls = [0]
 
     def counted(step):
@@ -5449,6 +5478,325 @@ def phase20(d: Path, card: str) -> tuple[dict, dict, dict]:
     return launches, out, errs
 
 
+# phase 21: the external LM and LM fusion.  (a) configs/ls100_semi.yaml's
+# lm block as shipped (LSTM, embed 256, hidden 1024, 1 layer, lm.batch_size
+# 64, float32, Adam at 1e-3) over the config's unlabeled-text stream, at
+# the largest token bucket (256); cuts: synthetic text (64 utterances) and
+# 3 steps.  The transformer LM at the same block (d_model 256, 1 block of
+# 4 heads, ff 512, max_len 256)
+LM_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
+LM_RUN = ["lm.total_steps=3", "lm.log_every=1"]
+LM_TRANSFORMER = ["lm.arch=transformer", "lm.heads=4", "lm.ff_dim=512",
+                  "lm.max_len=256"]
+# a step: K2 and K3 once (one layer, every step valid), float32
+LM_STEP_LAUNCHES = {"lstm_scan_fwd": 1, "lstm_scan_bwd": 1}
+# K2 / K3 at the LM's shape: (tag, T, input width, H, every step valid)
+LM_LSTM_SHAPE = ("lm_t256", 256, 256, 1024, True)
+LM_BATCH = 64
+# (b) shallow fusion of (a)'s LM in float32 (tokens kernels vs plain must
+# be identical), each recipe at full width as shipped but for its data (the
+# synthetic corpus, one padded batch of 64 in the 400-frame bucket) and the
+# compute dtype: ls100_semi's attention beam 5, ls100_ctc's prefix beam 8
+# (its config suggests lm_weight 0.3), ls100_transducer's beam at 4 with
+# the internal-LM correction
+FUSION_WEIGHTS = ["decode.lm_weight=0.3"]
+# (a)'s LM read by the recipes that do not ship ls100_semi's lm block
+LM_BLOCK = {"embed_dim": 256, "hidden": 1024, "layers": 1}
+FUSION_RECIPES = {
+    "las": (SEMI_CONFIG, []),
+    "ctc": (CTC_CONFIG, []),
+    "td": (TD_CONFIG, ["decode.beam_size=4", "decode.ilm_weight=0.2"]),
+}
+FUSION_FILES = 8
+# (c) deep and cold fusion in configs/ls100.yaml's LSTM speller (dec 768),
+# the frozen LM (a)'s, grafted at startup (model.lm_fusion_* its widths);
+# cuts: float32, the synthetic corpus of 64 in the 400-frame bucket, 2
+# steps
+LS100_CONFIG = ROOT / "configs" / "ls100.yaml"
+FUSION_GRAFT = ["model.lm_fusion_embed=256", "model.lm_fusion_hidden=1024",
+                "model.lm_fusion_layers=1", "model.compute_dtype=float32",
+                "data.dataset=synthetic", "data.num_synthetic_utts=64",
+                "data.frame_buckets=[400]"]
+
+
+def lm_trainer_phase(d: Path, card: str) -> tuple[dict, dict, Path]:
+    """Phase 21 (a) -> (the run's launches, numbers, the LM's workdir)."""
+    import torch
+
+    import numpy as np
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data import pipeline as pipe
+    from semi_supervised_asr_tpu_torch.data.registry import (
+        build_datasets, build_vocab,
+    )
+    from semi_supervised_asr_tpu_torch.models import lm as LM
+    from semi_supervised_asr_tpu_torch.training import lm_trainer as LT
+
+    out = {}
+    cfg = load_config(SEMI_CONFIG, [*LM_DATA, *LM_RUN])
+    require((cfg.lm.arch, cfg.lm.embed_dim, cfg.lm.hidden, cfg.lm.layers,
+             cfg.lm.batch_size, max(cfg.data.token_buckets))
+            == ("lstm", 256, 1024, 1, 64, 256), f"lm block {cfg.lm}")
+    steps, walls = [], []
+    step = LT.train_step
+
+    def counted(*args, **kw):
+        torch.cuda.synchronize()
+        before = dict(_native.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = step(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(launch_delta(before, _native.LAUNCHES))
+        return loss
+
+    lm_dir = d / "lm"
+    _native.reset_launches()
+    LT.train_step = counted
+    try:
+        res = LT.train_lm(cfg, lm_dir, DEVICE)
+    finally:
+        LT.train_step = step
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    for i, (st, w) in enumerate(zip(steps, walls)):
+        log(f"[phase21] lm_trainer step {i + 1}: {w:.1f} ms wall; kernel "
+            f"launches {st}")
+        require_launches(f"LM step {i + 1}", st, LM_STEP_LAUNCHES,
+                         {"lstm_scan_fwd_simt": 1, "lstm_scan_bwd_simt": 1})
+    log(f"[phase21] lm_trainer (B=64, T=256, H=1024, float32, 3 steps): "
+        f"{res}; run launches {launches} ({card})")
+    require(len(steps) == 3 and math.isfinite(res["lm_loss"]),
+            f"lm_trainer {res}")
+    out["lm_step_ms"] = statistics.median(walls[1:])
+
+    # one step's loss and gradients from the trained LM on the stream's
+    # first batch, kernels against plain, float32
+    vocab = build_vocab(cfg).size
+    lm = LT.load_lm(lm_dir, cfg, vocab, device=DEVICE)
+    text, real = next(pipe.text_batches(
+        build_datasets(cfg).unlabeled_text, max(cfg.data.token_buckets),
+        cfg.lm.batch_size, cfg.train.seed))
+    tokens = torch.as_tensor(np.where(real[:, None], text, 0), device=DEVICE)
+    got = {}
+    for backend in (None, "reference"):
+        loss = LM.lm_loss(lm, tokens, backend)
+        got[backend] = (loss.detach(), torch.autograd.grad(
+            loss, list(lm.parameters())))
+    (lk, gk), (lr, gr) = got[None], got["reference"]
+    rel = abs(lk.item() - lr.item()) / abs(lr.item())
+    names = [n for n, _ in lm.named_parameters()]
+    errs = dict(zip(names, grad_errs(gk, gr)))
+    worst = max(errs, key=errs.get)
+    log(f"[phase21] LM float32 step, kernels vs plain: loss "
+        f"{lk.item():.6f} vs {lr.item():.6f} (rel {rel:.2e}, tol 1e-5); "
+        f"worst gradient leaf {worst} {errs[worst]:.3e} of the LM's max |g| "
+        f"(tol {GRAD_TOL:g})")
+    require(rel <= 1e-5 and errs[worst] <= GRAD_TOL,
+            f"LM step kernels vs plain: loss rel {rel}, {worst} "
+            f"{errs[worst]}")
+    out["lm_step_loss_rel"], out["lm_step_grad_err"] = rel, errs[worst]
+
+    # the transformer LM's step at the same block (plain products)
+    tcfg = load_config(SEMI_CONFIG, [*LM_DATA, *LM_TRANSFORMER])
+    tl = LT.init_lm_params(tcfg, vocab, 0, DEVICE)
+    opt = LT.adam(tcfg, tl)
+    _native.reset_launches()
+    t_walls = host_ms(lambda: LT.train_step(tl, opt, tokens), 3)
+    t_loss = LM.lm_loss(tl, tokens).item()
+    require(math.isfinite(t_loss) and not any(_native.LAUNCHES.values()),
+            f"transformer LM step: loss {t_loss}, {_native.LAUNCHES}")
+    out["lm_transformer_step_ms"] = statistics.median(t_walls[1:])
+    log(f"[phase21] transformer LM step (d_model 256, 1 block, B=64, "
+        f"T=256, float32): {t_walls} ms wall, loss {t_loss:.4f}; no "
+        f"kernel launch (plain products, as the reference) ({card})")
+    return launches, out, lm_dir
+
+
+def fusion_recognizers(config: Path, extra: list, d: Path, lm_dir: Path):
+    """A recipe's Recognizer on kernels with the LM of ``lm_dir`` loaded by
+    ``decode.lm_ckpt`` (``Recognizer.from_dir``), the same on the plain
+    versions, and the same model without the LM -> (kernels, plain,
+    no LM, a padded batch of the recipe's batch size at bucket 400)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import synthetic
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+
+    cfg = TR.load_config(config, [
+        *LM_DATA, "model.compute_dtype=float32", *FUSION_WEIGHTS,
+        f"decode.lm_ckpt={lm_dir}", *extra,
+        *(f"lm.{k}={v}" for k, v in LM_BLOCK.items())])
+    vocab = TR.build_vocab(cfg)
+    cfg = TR.finalize_config(cfg, vocab.size)
+    d.mkdir(parents=True)
+    files = synthetic.write_wavs(d, cfg, vocab, FUSION_FILES, min_tokens=8,
+                                 max_tokens=20)
+    synthetic.write_model_dir(d, cfg, files, seed=0)
+    ker = TR.Recognizer.from_dir(cfg, d, DEVICE)
+    ref = TR.Recognizer.from_dir(cfg, d, DEVICE, backend="reference")
+    bare = TR.Recognizer(ker.cfg, ker.model, (ker.mean.cpu(),
+                         ker.inv_std.cpu()), ker.vocab, torch.device(DEVICE))
+    pieces = [TR.load_audio(files[r % len(files)])
+              for r in range(cfg.train.batch_size - 4)]
+    return ker, ref, bare, TR.pad_batch(
+        pieces, ker.spec.samples_for_frames(400), cfg)
+
+
+def fusion_phase(d: Path, lm_dir: Path, card: str) -> tuple[dict, dict]:
+    """Phase 21 (b) -> (launches by recipe, numbers)."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.training import lm_trainer as LT
+
+    launches, out = {}, {}
+    for name, (config, extra) in FUSION_RECIPES.items():
+        ker, ref, bare, (audio, lens) = fusion_recognizers(
+            config, extra, d / name, lm_dir)
+        require(ker.lm is not None and ref.lm is not None and bare.lm is None,
+                f"{name}: the LM was not loaded")
+        _native.reset_launches()
+        tk, sk = ker.decode(audio, lens, "beam")
+        torch.cuda.synchronize()
+        launches[f"fusion_{name}"] = {k: v for k, v in
+                                      _native.LAUNCHES.items() if v}
+        tr, sr = ref.decode(audio, lens, "beam")
+        same = float(np.mean(np.all(tk == tr, axis=1)))
+        score_err = float(np.max(np.abs(sk - sr) / np.maximum(np.abs(sr),
+                                                              1.0)))
+        tb, _ = bare.decode(audio, lens, "beam")
+        moved = float(np.mean(np.any(tk != tb, axis=1)))
+        walls = {"lm": [], "bare": []}
+        for rec, key in ((ker, "lm"), (bare, "bare"), (ker, "lm"),
+                         (bare, "bare")):
+            walls[key] += host_ms(lambda: rec.decode(audio, lens, "beam"), 1)
+        for key, w in walls.items():
+            out[f"fusion_{name}_{key}_ms"] = statistics.median(w)
+        log(f"[phase21] {name} beam {ker.cfg.decode.beam_size} with the LM "
+            f"(lm_weight {ker.cfg.decode.lm_weight}, ilm_weight "
+            f"{ker.cfg.decode.ilm_weight}; B={len(lens)}, bucket 400, "
+            f"float32): kernel launches {launches[f'fusion_{name}']}; rows "
+            f"with identical tokens kernels vs plain {same:.3f}, scores "
+            f"within {score_err:.2e} relative; rows the LM changed "
+            f"{moved:.3f}; host ms with the LM {walls['lm']}, without "
+            f"{walls['bare']} (in turns) ({card})")
+        require(same == 1.0, f"{name}: fused tokens differ from plain")
+        require(score_err <= 1e-4, f"{name}: fused scores differ {score_err}")
+        require(launches[f"fusion_{name}"].get("fused_post_fft", 0) == 1
+                and launches[f"fusion_{name}"].get("lstm_scan_fwd", 0) > 0,
+                f"{name}: {launches[f'fusion_{name}']}")
+        del ker, ref, bare
+        torch.cuda.empty_cache()
+
+    # a streaming recipe's beam with the LM: streamed == offline.  The ILM
+    # correction at the LM's weight: at 0.2 (as (b)'s transducer) the
+    # fused beam emits nothing on these files with the random weights,
+    # which would leave the LM's terms out of the check
+    cfg, model = stream_model(TD_STREAM_CONFIG, "float32")
+    cfg = cfg.replace(decode=dataclasses.replace(
+        cfg.decode, lm_weight=0.3, ilm_weight=0.3, lm_ckpt=str(lm_dir)),
+        lm=dataclasses.replace(cfg.lm, **LM_BLOCK))
+    lm = LT.decode_lm(cfg, cfg.model.vocab_size, DEVICE, log)
+    fuse = dict(lm=lm, lm_weight=0.3, ilm_weight=0.3)
+    wavs, cmvn = stream_audio(cfg, 2)
+    _native.reset_launches()
+    for i, wav in enumerate(wavs):
+        off, off_score = offline_tokens(model, cfg, cmvn, wav, 4, **fuse)
+        toks, score, calls, ms = streamed(model, cfg, cmvn, wav, 4, 320,
+                                          **fuse)
+        log(f"[phase21] ls100_transducer_streaming beam 4 with the LM, file "
+            f"{i} ({len(wav)} samples, float32): streamed {len(toks)} tokens"
+            f" in {calls} chunk calls, {ms:.1f} ms; equal to offline "
+            f"{toks == off}; scores {score:.4f} vs {off_score:.4f} ({card})")
+        require(toks == off and abs(score - off_score)
+                <= 1e-4 * max(abs(off_score), 1.0),
+                f"fused stream {i} differs from offline: {toks} vs {off}, "
+                f"{score} vs {off_score}")
+    launches["fusion_stream"] = {k: v for k, v in _native.LAUNCHES.items()
+                                 if v}
+    return launches, out
+
+
+def fusion_graft_phase(d: Path, lm_dir: Path, card: str) -> tuple[dict, dict]:
+    """Phase 21 (c) -> (launches by kind, numbers)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training import lm_trainer as LT
+
+    launches, out = {}, {}
+    for kind in ("cold", "deep"):
+        cfg = load_config(LS100_CONFIG, [
+            *FUSION_GRAFT, f"model.lm_fusion={kind}",
+            f"model.lm_fusion_ckpt={lm_dir}"])
+        s = short_solver(cfg, d / kind, steps=2)
+        m = s.cfg.model
+        lm = LT.load_lm(lm_dir, s.cfg, s.vocab.size, dims=(
+            m.lm_fusion_embed, m.lm_fusion_hidden, m.lm_fusion_layers),
+            device=DEVICE)
+        frozen = [p.detach().clone() for p in
+                  s.state.model.speller.fusion_lm.parameters()]
+        require(all(torch.equal(a, b) for a, b in zip(frozen, lm.parameters())),
+                f"{kind}: the trained LM was not grafted")
+        require(all(torch.equal(a, b) for a, b in zip(
+            frozen, s.state.ema.speller.fusion_lm.parameters())),
+            f"{kind}: the EMA buffer does not hold the graft")
+        steps, evals, walls = [], [], []
+        counting(s, steps, evals, walls)
+        _native.reset_launches()
+        s.train()
+        torch.cuda.synchronize()
+        launches[f"{kind}_fusion"] = {k: v for k, v in
+                                      _native.LAUNCHES.items() if v}
+        for i, (r, st, w) in enumerate(zip(s.history, steps, walls)):
+            log(f"[phase21] ls100 {kind} fusion step {i + 1} (float32, "
+                f"B=64, bucket 400): loss {r['loss']:.4f}; {w:.1f} ms wall; "
+                f"kernel launches {st} ({card})")
+            require(math.isfinite(r["loss"]), f"{kind} step loss")
+            require(st.get("fused_post_fft", 0) == 1
+                    and st.get("lstm_scan_fwd", 0) == 4
+                    and st.get("lstm_scan_bwd", 0) == 4,
+                    f"{kind} step launches {st}")
+        out[f"{kind}_fusion_step_ms"] = statistics.median(walls)
+        same = all(torch.equal(a, b) for a, b in zip(
+            frozen, s.state.model.speller.fusion_lm.parameters()))
+        log(f"[phase21] {kind} fusion: the frozen LM bitwise unchanged "
+            f"after {len(walls)} steps: {same}")
+        require(same, f"{kind}: the frozen LM moved")
+        step_check(s, "phase21")
+        del s
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase21(d: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 21: (a) the LM trainer, K2 / K3 at its shape; (b) shallow
+    fusion in the four beams; (c) cold and deep fusion -> (launches by
+    path, numbers, K2 / K3 errors at the LM's shape)."""
+    import torch
+
+    launches, out = {}, {}
+    launches["lm_trainer"], res, lm_dir = lm_trainer_phase(d, card)
+    out.update(res)
+    times, errs = {}, {}
+    td_lstm_shapes(times, errs, card, (LM_LSTM_SHAPE,), LM_BATCH, "phase21",
+                   torch.float32)
+    out.update({k: statistics.median(v) for k, v in times.items()})
+    torch.cuda.empty_cache()
+    fl, res = fusion_phase(d, lm_dir, card)
+    launches.update(fl)
+    out.update(res)
+    gl, res = fusion_graft_phase(d, lm_dir, card)
+    launches.update(gl)
+    out.update(res)
+    log(f"[phase21] summary {json.dumps(out)}")
+    return launches, out, errs
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -5474,20 +5822,23 @@ def k5_bounds(shape: tuple, lens) -> dict:
             zip(("flash_mhsa_fwd", "flash_mhsa_bwd"), k5_work(shape, lens))}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple:
+    """The larger of bytes over HBM bandwidth and operations over
+    ``peak`` (bf16 tensor cores by default) -> (ms, what bounds it)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def lstm_work(t: int, b: int, h: int, d: int = 2) -> tuple:
-    """(bytes, flops) of K2 and of K3 at [D, T, B, 4H] with bf16 weights:
-    K2 reads gates_x, w_hh and valid and writes h; K3 reads w_hh, valid,
-    acts, cprev and dh_out and writes dgates; each step's product is
-    2 x 4H x H a row."""
+def lstm_work(t: int, b: int, h: int, d: int = 2, wbytes: int = 2) -> tuple:
+    """(bytes, flops) of K2 and of K3 at [D, T, B, 4H] with weights of
+    ``wbytes`` a value (bf16 by default): K2 reads gates_x, w_hh and valid
+    and writes h; K3 reads w_hh, valid, acts, cprev and dh_out and writes
+    dgates; each step's product is 2 x 4H x H a row."""
     f4 = 4
     seq = d * t * b
-    w = d * h * 4 * h * 2
+    w = d * h * 4 * h * wbytes
     flops = 2 * seq * 4 * h * h
     k2 = (seq * 4 * h * f4 + w + t * b * f4 + seq * h * f4, flops)
     k3 = (w + t * b * f4 + seq * 4 * h * f4 + 2 * seq * h * f4
@@ -5504,7 +5855,9 @@ def bounds() -> dict:
     13's (ls100_semi: B=64, H=384, T=400 and 1600), phase 18's
     (TD_LSTM_SHAPES: D=1, B=64, H=768 at T=1600 and 200, H=512 at T=257,
     timed with every step valid, as counted here) and phase 20's (the MWER
-    predictor: D=1, B=256, H=512, T=129); K5 at phase 12's
+    predictor: D=1, B=256, H=512, T=129) and phase 21's (the LM: D=1,
+    B=64, H=1024, T=256, float32 weights and products, against the CUDA
+    cores' float32 peak); K5 at phase 12's
     (B=32, T'=400, 8 heads of 64, bf16), counting the products these
     lengths need: every query row against the valid keys of its batch row
     (all T keys for an empty row, whose weights are uniform)."""
@@ -5534,12 +5887,16 @@ def bounds() -> dict:
             work[f"lstm_scan_bwd_{tag}"] = k3
     lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
     work["flash_mhsa_fwd"], work["flash_mhsa_bwd"] = k5_work(K5_TIMING, lens)
+    tag, tt, _, h, _ = LM_LSTM_SHAPE
+    f32_work = dict(zip((f"lstm_scan_fwd_{tag}", f"lstm_scan_bwd_{tag}"),
+                        lstm_work(tt, LM_BATCH, h, d=1, wbytes=4)))
     out = {}
-    for name, (nbytes, flops) in work.items():
-        out[name] = bound_ms(nbytes, flops)
+    for name, (nbytes, flops) in {**work, **f32_work}.items():
+        peak = F32_FLOPS if name in f32_work else BF16_FLOPS
+        out[name] = bound_ms(nbytes, flops, peak)
         log(f"[bound] {name}: {nbytes / 1e6:.1f} MB -> "
             f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP "
-            f"-> {flops / BF16_FLOPS * 1e3:.4f} ms")
+            f"-> {flops / peak * 1e3:.4f} ms")
     return out
 
 
@@ -5709,6 +6066,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         p20_launches, p20, p20_errs = phase20(Path(tmp), card)
     elapsed("phase 20")
+    with tempfile.TemporaryDirectory() as tmp:
+        p21_launches, p21, p21_errs = phase21(Path(tmp), card)
+    elapsed("phase 21")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -5829,6 +6189,25 @@ def main(argv=None) -> int:
             f"layer {kind} {p20[key + 'port_layer_' + kind + '_b2b']:.4f} ms "
             f"against cuDNN's {p20[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
             f" ms ({card})")
+    tag, t, _, h, _ = LM_LSTM_SHAPE
+    for kind in ("fwd", "bwd"):
+        key, name = f"td_{tag}_", "lstm_scan_" + kind
+        ms, (bms, by) = p21[key + kind + "_b2b"], bound[f"{name}_{tag}"]
+        log(f"[summary] {name} at {tag} (the LM: B={LM_BATCH}, T={t}, H={h}, "
+            f"D=1, float32, {p21_errs[tag][2]} route): {ms:.4f} ms device "
+            f"(back to back), {ms / t * 1e3:.2f} us a step; bound "
+            f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; plain "
+            f"{p21[key + kind + '_plain_call']:.1f} ms a call; the port's "
+            f"layer {kind} {p21[key + 'port_layer_' + kind + '_b2b']:.4f} ms "
+            f"against cuDNN's float32 "
+            f"{p21[key + 'cudnn_layer_' + kind + '_b2b']:.4f} ms ({card})")
+    fusion = {k: v for k, v in p21.items() if k.startswith("fusion_")}
+    log(f"[summary] phase 21: LM step {p21['lm_step_ms']:.1f} ms wall "
+        f"(transformer LM {p21['lm_transformer_step_ms']:.1f} ms); fused "
+        f"beams host ms (with the LM / without) {json.dumps(fusion)}; cold "
+        f"fusion step {p21['cold_fusion_step_ms']:.1f} ms, deep "
+        f"{p21['deep_fusion_step_ms']:.1f} ms (ls100, float32); launches "
+        f"{json.dumps(p21_launches)} ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -5853,7 +6232,7 @@ def main(argv=None) -> int:
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
              "transformer_remat": p16["transformer_launches"],
              "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
-             **td_launches, **cs_launches, **p20_launches}
+             **td_launches, **cs_launches, **p20_launches, **p21_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,
@@ -5940,6 +6319,21 @@ def main(argv=None) -> int:
                 "library_ms": p20[f"td_{tag}_cudnn_layer_{kind}_b2b"],
                 "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "
                               "packed, bf16), the whole layer " + kind
+                              + " against the port's layer"}
+            tag, t, _, h, _ = LM_LSTM_SHAPE
+            out["at_lm"] = {
+                "shape": f"{tag}: B={LM_BATCH} T={t} H={h} D=1 float32",
+                "route": p21_errs[tag][2],
+                "max_abs_err": p21_errs[tag][0 if kind == "fwd" else 1],
+                "ms": p21[f"td_{tag}_{kind}_b2b"],
+                "method": METHODS["b2b"][1],
+                "plain_call_ms": p21[f"td_{tag}_{kind}_plain_call"],
+                "bound_ms": bound[f"{name}_{tag}"][0],
+                "bound_by": bound[f"{name}_{tag}"][1],
+                "port_layer_ms": p21[f"td_{tag}_port_layer_{kind}_b2b"],
+                "library_ms": p21[f"td_{tag}_cudnn_layer_{kind}_b2b"],
+                "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "
+                              "packed, float32), the whole layer " + kind
                               + " against the port's layer"}
         return out
 

@@ -1,7 +1,7 @@
 """Batched attention beam search over a [B, K] lattice.
 
-Counterpart of ``semi_supervised_asr_tpu/decode/beam.py`` without LM
-fusion or biasing (those raise).  Encoder outputs and the speller's decode
+Counterpart of ``semi_supervised_asr_tpu/decode/beam.py`` without
+contextual biasing (it raises).  Encoder outputs and the speller's decode
 cache (the LSTM speller's key projections, the transformer speller's
 cross K/V: a tensor or a dict of tensors, lattice row on axis 0) are tiled
 to the K lattice rows once; each step scores all K*V continuations with
@@ -18,6 +18,13 @@ with ``decode.ctc_one_pass`` every step mixes ``w`` times the change of
 each candidate's CTC prefix score (``decode/ctc_prefix.py``) into its
 score, the forward variables riding the lattice like any state leaf.
 
+Shallow LM fusion (``lm``, an external LM of ``models/lm.py``): every step
+adds ``decode.lm_weight`` times the LM's log-probabilities to the
+continuation scores (Toshniwal et al. 2018), before the one-pass CTC mix;
+the LM's state leaves (lattice row on axis 1) reorder with the beam, as
+the speller's own ``lm_h`` / ``lm_c`` do under deep or cold fusion.  The
+length normalization of the final pick is not scaled.
+
 Ties are broken as ``lax.top_k`` does (lower flat index first) through a
 stable descending sort; dead beams sit at exactly -1e30, so ties occur.
 """
@@ -32,6 +39,7 @@ from semi_supervised_asr_tpu_torch.config import DecodeConfig
 from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD, SOS
 from semi_supervised_asr_tpu_torch.decode import ctc_prefix as CP
 from semi_supervised_asr_tpu_torch.decode.ctc import ctc_head_logits
+from semi_supervised_asr_tpu_torch.models import lm as LM
 from semi_supervised_asr_tpu_torch.objectives.losses import (
     ctc_labels, ctc_nll,
 )
@@ -42,12 +50,6 @@ NEG_INF = -1e30
 def check_supported(dcfg: DecodeConfig) -> None:
     """Refuse decode options outside the ported slices with a clear
     message."""
-    if dcfg.lm_weight != 0.0 or dcfg.lm_ckpt:
-        raise NotImplementedError("shallow LM fusion is not ported yet")
-    if dcfg.ilm_weight != 0.0:
-        raise NotImplementedError(
-            "decode.ilm_weight (the transducer beam's internal-LM "
-            "subtraction under LM fusion) is not ported yet")
     if dcfg.bias_phrases:
         raise NotImplementedError("contextual biasing is not ported yet")
 
@@ -79,11 +81,13 @@ def beam_decode_from_enc(
     max_len: int,
     return_nbest: bool = False,
     ctc=None,
+    lm=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (best tokens [B, max_len] int32 (EOS then PADs), best score [B]);
     with ``return_nbest``: (all K lattices [B, K, max_len] sorted by
     normalized score, best first, and their scores [B, K]).  ``ctc`` (the
-    model's CTC head) with ``dcfg.ctc_weight`` > 0 decodes jointly."""
+    model's CTC head) with ``dcfg.ctc_weight`` > 0 decodes jointly; ``lm``
+    fuses shallowly at ``dcfg.lm_weight``."""
     check_supported(dcfg)
     b, t = enc_mask.shape
     k = dcfg.beam_size
@@ -104,6 +108,8 @@ def beam_decode_from_enc(
         empty = torch.ones((b * k,), dtype=torch.bool, device=dev)
 
     state = speller.init_state(b * k, mask_k, max_len)
+    lm_state = None if lm is None else LM.lm_step(lm, None, None,
+                                                  init_batch=b * k)[0]
     # only beam 0 is live at step 0 (identical rows would duplicate)
     scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0
@@ -126,6 +132,10 @@ def beam_decode_from_enc(
             state, tok, keys_k, enc_k, mask_k
         )
         logp = torch.log_softmax(logits.float(), dim=-1)
+        if lm is not None:
+            lm_state, lm_logits = LM.lm_step(lm, lm_state, tok)
+            logp = logp + dcfg.lm_weight * torch.log_softmax(
+                lm_logits.float(), dim=-1)
         if one_pass:
             # every candidate mixes the change of its CTC prefix score; the
             # EOS column takes the finish score, PAD (frozen rows) 0
@@ -152,6 +162,8 @@ def beam_decode_from_enc(
                 1 if name in speller.ROW_AXIS1 else 0, rows)
             for name, leaf in state_new.items()
         }
+        if lm is not None:
+            lm_state = LM.reorder_rows(lm_state, rows)
         done_g = torch.gather(done, 1, beam_idx)
         lens_g = torch.gather(lens, 1, beam_idx)
         hyps = hyps.view(b * k, max_len).index_select(0, rows).view(

@@ -1,9 +1,9 @@
 """CTC prefix beam search (Hannun et al. 2014), batched over a [B, K] lattice.
 
 Counterpart of ``semi_supervised_asr_tpu/decode/ctc_beam.py``'s
-``ctc_beam_from_enc`` without LM fusion or biasing; ``carry`` /
-``return_carry`` resume and return the lattice, so that chunked streaming
-searches as the whole utterance does.
+``ctc_beam_from_enc`` without biasing; ``carry`` / ``return_carry`` resume
+and return the lattice, so that chunked streaming searches as the whole
+utterance does.
 Frame-synchronous: every row of the lattice holds a label prefix with two
 log-probabilities, ``pb`` (its paths ending in blank) and ``pnb`` (ending
 in its last label), and each frame scores, for every live prefix, one STAY
@@ -14,6 +14,13 @@ pool (Hannun's dict update restricted to the beam's prefixes).  The top K
 of the stays and extends survive; ties go to the lower index, as
 ``lax.top_k`` breaks them.
 
+Shallow LM fusion (``lm``, ``lm_weight`` > 0): a prefix ranks by ``log
+P_ctc(prefix) + lm_weight * log P_lm(prefix)``.  The LM scores labels, not
+alignments, so its score, state and next-label log-probabilities advance
+only where a prefix is extended (blanks and repeats carry them); its state
+leaves (lattice row on axis 1) reorder with the beam.  No EOS or length
+term: every candidate of a frame has consumed the same audio.
+
 The rows come out PAD-padded with no EOS (the labels never hold PAD, and
 EOS is a legal label class), so metrics read them to their first PAD.
 """
@@ -22,8 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from semi_supervised_asr_tpu_torch.data.vocab import PAD
+from semi_supervised_asr_tpu_torch.data.vocab import PAD, SOS
 from semi_supervised_asr_tpu_torch.decode.ctc import ctc_head_logits
+from semi_supervised_asr_tpu_torch.models import lm as LM
 
 NEG_INF = -1e30
 
@@ -49,18 +57,30 @@ def ctc_beam_from_enc(
     return_nbest: bool = False,
     carry: tuple | None = None,
     return_carry: bool = False,
+    lm=None,
+    lm_weight: float = 0.0,
 ):
     """-> (tokens [B, max_u] int32, PAD-padded, score [B]: the prefix's CTC
-    log-marginal, every alignment pooled); ``return_nbest``: ([B, K,
-    max_u], [B, K]) sorted by score; ``return_carry`` adds the lattice
-    (tokens, count, last, pb, pnb: the reference's carry without its LM
-    slots) that ``carry`` resumes."""
+    log-marginal, every alignment pooled, plus ``lm_weight`` times its LM
+    log-probability when ``lm`` fuses); ``return_nbest``: ([B, K, max_u],
+    [B, K]) sorted by score; ``return_carry`` adds the lattice that
+    ``carry`` resumes: (tokens, count, last, pb, pnb), and with the LM
+    (lm_score, lm_state, lm_lp), as the reference's carry."""
     b, t, _ = enc.shape
     k, blank, dev = beam_size, PAD, enc.device
     logp = torch.log_softmax(ctc_head_logits(ctc, enc), dim=-1)
     v = logp.shape[-1]
+    use_lm = lm is not None and lm_weight > 0.0
+    if use_lm:
+        LM.check_depth(lm, max_u, "CTC beam")
+
+    def unflat(x):
+        return x.reshape((b, k) + x.shape[1:])
+
     if carry is not None:
-        toks, count, last, pb, pnb = carry
+        toks, count, last, pb, pnb = carry[:5]
+        if use_lm:
+            lm_score, lm_state, lm_lp = carry[5:]
     else:
         toks = torch.full((b, k, max_u), PAD, dtype=torch.int32, device=dev)
         count = torch.zeros((b, k), dtype=torch.int32, device=dev)
@@ -69,8 +89,15 @@ def ctc_beam_from_enc(
         pb = torch.full((b, k), NEG_INF, device=dev)
         pb[:, 0] = 0.0
         pnb = torch.full((b, k), NEG_INF, device=dev)
+        if use_lm:
+            lm_score = torch.zeros((b, k), device=dev)
+            lm_state, lm_logits = LM.lm_step(
+                lm, LM.lm_step(lm, None, None, init_batch=b * k)[0],
+                torch.full((b * k,), SOS, dtype=torch.int32, device=dev))
+            lm_lp = unflat(torch.log_softmax(lm_logits.float(), dim=-1))
     vocab = torch.arange(v, device=dev)
     upos = torch.arange(max_u, device=dev)
+    row_base = (torch.arange(b, device=dev) * k)[:, None]        # [B, 1]
 
     def gather_k(x, idx):
         ix = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).long()
@@ -104,11 +131,16 @@ def ctc_beam_from_enc(
         remove = (parent[..., None]
                   & onehot_last[:, :, None, :]).any(dim=1)      # [B, K, V]
         # ranking totals
-        stay_total = torch.where(live, _logaddexp(pb_stay, pnb_stay),
-                                 NEG_INF)
+        stay_total = _logaddexp(pb_stay, pnb_stay)
+        ext_total = ext
+        if use_lm:
+            stay_total = stay_total + lm_weight * lm_score
+            ext_total = (ext_total + lm_weight * lm_score[..., None]
+                         + lm_weight * lm_lp)
+        stay_total = torch.where(live, stay_total, NEG_INF)
         ext_total = torch.where(
-            live[..., None] & ~remove & (count[..., None] < max_u), ext,
-            NEG_INF)
+            live[..., None] & ~remove & (count[..., None] < max_u),
+            ext_total, NEG_INF)
         ext_total[..., blank] = NEG_INF
         pool = torch.cat([stay_total, ext_total.reshape(b, k * v)], dim=1)
         _, top_idx = _top_k(pool, k)
@@ -130,6 +162,22 @@ def ctc_beam_from_enc(
         last_n = torch.where(is_ext, tok, last_g)
         pb_n = torch.where(is_ext, NEG_INF, pb_g)
         pnb_n = torch.where(is_ext, ext_mass_g, pnb_g)
+        if use_lm:
+            # the LM advances on extensions only: the parents' state takes
+            # the chosen label, kept where the row was extended
+            lm_lp_g = gather_k(lm_lp, src)
+            lm_score_g = torch.gather(lm_score, 1, src)
+            lm_tok = torch.gather(lm_lp_g, 2, tok.long()[..., None])[..., 0]
+            lm_score_n = torch.where(is_ext, lm_score_g + lm_tok, lm_score_g)
+            lm_state_g = LM.reorder_rows(lm_state,
+                                         (row_base + src).reshape(-1))
+            new_lm_state, new_logits = LM.lm_step(lm, lm_state_g,
+                                                  tok.reshape(-1))
+            lm_lp_n = torch.where(
+                is_ext[..., None],
+                unflat(torch.log_softmax(new_logits.float(), dim=-1)),
+                lm_lp_g)
+            lm_state_n = LM.where_rows(is_ext, new_lm_state, lm_state_g)
         # padded frames leave every row as it was
         upd = valid_t[:, None]
         toks = torch.where(upd[..., None], toks_n, toks)
@@ -137,14 +185,21 @@ def ctc_beam_from_enc(
         last = torch.where(upd, last_n, last)
         pb = torch.where(upd, pb_n, pb)
         pnb = torch.where(upd, pnb_n, pnb)
+        if use_lm:
+            lm_score = torch.where(upd, lm_score_n, lm_score)
+            lm_lp = torch.where(upd[..., None], lm_lp_n, lm_lp)
+            lm_state = LM.where_rows(upd.expand(b, k), lm_state_n, lm_state)
 
     scores = _logaddexp(pb, pnb)
+    lattice = (toks, count, last, pb, pnb)
+    if use_lm:
+        scores = scores + lm_weight * lm_score
+        lattice += (lm_score, lm_state, lm_lp)
     if return_nbest and not return_carry:
         order_scores, order = _top_k(scores, k)
         return gather_k(toks, order), order_scores
     best = torch.argmax(scores, dim=1)
     rows = torch.arange(b, device=dev)
     if return_carry:
-        return toks[rows, best], scores[rows, best], (toks, count, last, pb,
-                                                       pnb)
+        return toks[rows, best], scores[rows, best], lattice
     return toks[rows, best], scores[rows, best]

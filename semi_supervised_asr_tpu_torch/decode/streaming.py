@@ -19,7 +19,11 @@ one:
   ``enc_attn_chunk`` encoder frames;
 * decode: the transducer's greedy walk and beam, and the CTC family's best
   path and prefix beam, carry their state across chunks (``carry`` /
-  ``return_carry``), so the chunks' walks are the whole utterance's.
+  ``return_carry``), so the chunks' walks are the whole utterance's; with
+  shallow LM fusion (``lm``, ``lm_weight``; the transducer's
+  ``ilm_weight``) the beams' carries hold the LM's score, state and
+  next-label log-probabilities too, so a fused stream is the fused offline
+  decode.  The greedy walks do not fuse, as in the reference.
 
 The reference's refusals hold (LAS, a bidirectional or conv-stem BLSTM
 listener, ``frontend.center``, a CMVN other than ``global``, an unbounded
@@ -28,8 +32,8 @@ as ``ValueError`` with its messages.  Streaming timestamps
 (``track_frames``, greedy only): the greedy walks record each token's
 emission frame in their carries, ``frame_base`` keeping the frames the
 utterance's across chunks (``StreamingTranscriber.emission_frames``).
-Its LM fusion and biasing are not ported; the CLI refuses them by name.
-The reference's two jit functions are plain calls here.
+Biasing is not ported; the CLI refuses it by name.  The reference's two jit
+functions are plain calls here.
 """
 
 from __future__ import annotations
@@ -86,6 +90,9 @@ def build_stream_fns(
     batch: int = 1,
     backend: str | None = None,
     track_frames: bool = False,
+    lm=None,
+    lm_weight: float = 0.0,
+    ilm_weight: float = 0.0,
 ) -> dict:
     """The computational core of streaming, shared by
     :class:`StreamingTranscriber` and :class:`MultiStreamTranscriber` ->
@@ -96,10 +103,12 @@ def build_stream_fns(
     dec_carry, audio, n_samples [S], frame_base)`` -> dec_carry,
     ``decode_chunk`` and the chunk geometry (``chunk_frames``,
     ``chunk_samples``, ``conformer``).  ``batch`` sizes the carries for that
-    many independent streams; every carry leaf keeps its stream axis first,
-    and rows never interact.  ``cmvn`` = (mean, inv_std) on the model's
+    many independent streams; every carry leaf keeps its stream axis first
+    (a fused beam's LM state its K rows a stream on axis 1), and rows
+    never interact.  ``cmvn`` = (mean, inv_std) on the model's
     device.  ``track_frames`` (greedy only) gives the greedy carries their
-    emission-frame slot."""
+    emission-frame slot; ``lm`` / ``lm_weight`` / ``ilm_weight`` fuse the
+    beams as offline."""
     m, f = cfg.model, cfg.frontend
     device = next(model.parameters()).device
     _check(not (track_frames and beam_size > 1),
@@ -108,6 +117,8 @@ def build_stream_fns(
     _check(m.family in ("transducer", "ctc"),
            "streaming decode needs a frame-synchronous family (transducer "
            "or ctc) — LAS attention reads the full utterance")
+    _check(m.family == "transducer" or ilm_weight == 0.0,
+           "ilm_weight is transducer-only (HAT internal-LM correction)")
     conformer = m.encoder_arch == "conformer"
     if not conformer:
         _check(not m.enc_bidirectional,
@@ -152,7 +163,8 @@ def build_stream_fns(
     if m.family == "ctc" and beam_size > 1:
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return ctc_beam_from_enc(model.ctc, enc, mask, max_u, beam_size,
-                                     carry=dec_carry, return_carry=True)[2]
+                                     carry=dec_carry, return_carry=True,
+                                     lm=lm, lm_weight=lm_weight)[2]
     elif m.family == "ctc":
         dec_carry0 = ctc_greedy_stream_init(batch, max_u, device,
                                             track_frames)
@@ -164,7 +176,8 @@ def build_stream_fns(
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return transducer_beam_from_enc(
                 model, m, enc, mask, max_u, beam_size, max_symbols,
-                carry=dec_carry, return_carry=True)[2]
+                carry=dec_carry, return_carry=True, lm=lm,
+                lm_weight=lm_weight, ilm_weight=ilm_weight)[2]
     else:
         with torch.inference_mode():
             dec_carry0 = transducer_greedy_init(model, m, batch, max_u,
@@ -208,18 +221,21 @@ def build_stream_fns(
             "chunk_samples": chunk_samples, "conformer": conformer}
 
 
-def _best_hyp(dec_carry, row: int, *, ctc: bool,
-              beam_size: int) -> tuple[list[int], float]:
+def _best_hyp(dec_carry, row: int, *, ctc: bool, beam_size: int,
+              lm_weight: float = 0.0) -> tuple[list[int], float]:
     """The best hypothesis of stream ``row`` in a decode carry -> (tokens,
-    score): the one selection rule of both transcribers."""
+    score): the one selection rule of both transcribers (a fused CTC
+    beam's prefixes rank with ``lm_weight`` times their LM score)."""
     if beam_size > 1:
         if dec_carry is None:
             return [], 0.0
         if ctc:
-            toks, count, _, pb, pnb = dec_carry
+            toks, count, _, pb, pnb = dec_carry[:5]
             scores = torch.logaddexp(pb, pnb)
+            if len(dec_carry) > 5:
+                scores = scores + lm_weight * dec_carry[5]
         else:
-            _, _, toks, count, scores = dec_carry
+            _, _, toks, count, scores = dec_carry[:5]
         k = int(torch.argmax(scores[row]))
         out = toks[row, k][: int(count[row, k])]
         return [int(x) for x in out.tolist()], float(scores[row, k])
@@ -251,12 +267,15 @@ class StreamingTranscriber:
     def __init__(self, model, cfg: Config, cmvn: tuple, max_u: int,
                  chunk_frames: int | None = None, max_symbols: int = 4,
                  beam_size: int = 1, max_stream_frames: int = 60_000,
-                 backend: str | None = None, track_frames: bool = False):
+                 backend: str | None = None, track_frames: bool = False,
+                 lm=None, lm_weight: float = 0.0, ilm_weight: float = 0.0):
         self.device = next(model.parameters()).device
         fns = build_stream_fns(
             model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
             max_symbols, beam_size, max_stream_frames, backend=backend,
-            track_frames=track_frames)
+            track_frames=track_frames, lm=lm, lm_weight=lm_weight,
+            ilm_weight=ilm_weight)
+        self._lm_weight = lm_weight
         self._track = track_frames
         self._conformer = fns["conformer"]
         self.chunk_frames = fns["chunk_frames"]
@@ -289,7 +308,7 @@ class StreamingTranscriber:
     def _best(self) -> tuple[list[int], float]:
         return _best_hyp(self._dec_carry, 0,
                          ctc=self.cfg.model.family == "ctc",
-                         beam_size=self.beam_size)
+                         beam_size=self.beam_size, lm_weight=self._lm_weight)
 
     def emission_frames(self) -> list[int]:
         """The utterance's encoder frame at which each emitted token first
@@ -348,7 +367,11 @@ class MultiStreamTranscriber:
     bit, so rows never interact -- and ``finalize(sid)`` runs the slot's
     remainder through the masked final chunk, frees the slot and returns
     ``(tokens, score)``: the tokens of a :class:`StreamingTranscriber` fed
-    the same audio.  Every carry leaf has its stream axis first.
+    the same audio.  Each carry leaf has its stream axis first, except a
+    fused beam's LM state, whose leaves hold K rows a stream on axis 1
+    ([L, S*K, ...]); each leaf's stream axis and rows a stream are read
+    off a carry built for S + 1 streams (the one axis whose size
+    differs).
 
     >>> ms = MultiStreamTranscriber(model, cfg, cmvn, max_u, 8)
     >>> a, b = ms.open(), ms.open()
@@ -361,45 +384,69 @@ class MultiStreamTranscriber:
                  n_streams: int, chunk_frames: int | None = None,
                  max_symbols: int = 4, beam_size: int = 1,
                  max_stream_frames: int = 60_000,
-                 backend: str | None = None):
+                 backend: str | None = None, lm=None,
+                 lm_weight: float = 0.0, ilm_weight: float = 0.0):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         S = self.n_streams = n_streams
         self.device = next(model.parameters()).device
         self.beam_size = beam_size
         self.cfg = cfg
-        fns = build_stream_fns(
-            model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
-            max_symbols, beam_size, max_stream_frames, batch=S,
-            backend=backend)
+        self._lm_weight = lm_weight
+
+        def init(batch):
+            fns = build_stream_fns(
+                model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
+                max_symbols, beam_size, max_stream_frames, batch=batch,
+                backend=backend, lm=lm, lm_weight=lm_weight,
+                ilm_weight=ilm_weight)
+            dec0 = fns["dec_carry0"]
+            if dec0 is None:
+                # the beams build their carry on their first chunk; a
+                # zero-frame decode builds it for every slot, so merges
+                # always have both
+                with torch.inference_mode():
+                    dec0 = fns["decode_chunk"](
+                        torch.zeros((batch, 0, cfg.model.enc_out_dim),
+                                    device=self.device),
+                        torch.zeros((batch, 0), dtype=torch.bool,
+                                    device=self.device), None, 0)
+            return fns, (fns["enc_state0"], dec0)
+
+        fns, self._init = init(S)
         self.chunk_frames = fns["chunk_frames"]
         self._chunk_samples = fns["chunk_samples"]
         self._hop, self._n_fft = cfg.frontend.hop_length, cfg.frontend.n_fft
         self._fns = fns
-        dec0 = fns["dec_carry0"]
-        if dec0 is None:
-            # the beams build their carry on their first chunk; a zero-frame
-            # decode builds it for every slot, so merges always have both
-            with torch.inference_mode():
-                dec0 = fns["decode_chunk"](
-                    torch.zeros((S, 0, cfg.model.enc_out_dim),
-                                device=self.device),
-                    torch.zeros((S, 0), dtype=torch.bool,
-                                device=self.device), None, 0)
-        self._init = (fns["enc_state0"], dec0)
-        for leaf in tree_leaves(self._init):
-            if leaf.shape[:1] != (S,):
-                raise ValueError(f"carry leaf {tuple(leaf.shape)} has no "
-                                 f"leading stream axis of {S}")
+
+        def stream_axis(a, p):
+            diffs = [i for i, (x, y) in enumerate(zip(a.shape, p.shape))
+                     if x != y]
+            if len(diffs) != 1 or a.shape[diffs[0]] % S:
+                raise ValueError(f"carry leaf {tuple(a.shape)} has no one "
+                                 f"stream axis (probe {tuple(p.shape)})")
+            return diffs[0], a.shape[diffs[0]] // S
+
+        # (axis, rows a stream) of every carry leaf, in tree_leaves order
+        self._axes = [stream_axis(a, p) for a, p in zip(
+            tree_leaves(self._init), tree_leaves(init(S + 1)[1]))]
         self._state = self._init
         self._buf: list = [None] * S      # None = the slot is free
         self._dirty = [False] * S         # the row differs from the init
 
-    @staticmethod
-    def _merge(active: torch.Tensor, new, old):
-        """``new``'s rows where ``active``, ``old``'s elsewhere."""
-        return tree_map(lambda n, o: torch.where(
-            active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o), new, old)
+    def _merge(self, active: torch.Tensor, new, old):
+        """``new``'s rows where ``active`` [S], ``old``'s elsewhere, along
+        each leaf's stream axis (``old`` a whole carry or its decode
+        part)."""
+        axes = iter(self._axes[len(self._axes) - len(tree_leaves(old)):])
+
+        def pick(n, o):
+            ax, m = next(axes)
+            mask = active.repeat_interleave(m)
+            return torch.where(mask.reshape((1,) * ax + (-1,) + (1,) * (
+                n.dim() - ax - 1)), n, o)
+
+        return tree_map(pick, new, old)
 
     def _active(self, rows: list[int]) -> torch.Tensor:
         act = torch.zeros((self.n_streams,), dtype=torch.bool)
@@ -459,7 +506,8 @@ class MultiStreamTranscriber:
         self._check(sid)
         return _best_hyp(self._state[1], sid,
                          ctc=self.cfg.model.family == "ctc",
-                         beam_size=self.beam_size)[0]
+                         beam_size=self.beam_size,
+                         lm_weight=self._lm_weight)[0]
 
     def finalize(self, sid: int) -> tuple[list[int], float]:
         """Run ``sid``'s remainder through the masked final chunk and free
@@ -484,7 +532,7 @@ class MultiStreamTranscriber:
             self._dirty[sid] = True
         out = _best_hyp(self._state[1], sid,
                         ctc=self.cfg.model.family == "ctc",
-                        beam_size=self.beam_size)
+                        beam_size=self.beam_size, lm_weight=self._lm_weight)
         self._buf[sid] = None
         return out
 
@@ -492,11 +540,14 @@ class MultiStreamTranscriber:
 def stream_decode(model, cfg: Config, cmvn: tuple, audio: np.ndarray,
                   max_u: int, chunk_frames: int | None = None,
                   piece_samples: int | None = None, max_symbols: int = 4,
-                  beam_size: int = 1,
-                  backend: str | None = None) -> tuple[list[int], float]:
+                  beam_size: int = 1, backend: str | None = None, lm=None,
+                  lm_weight: float = 0.0,
+                  ilm_weight: float = 0.0) -> tuple[list[int], float]:
     """Decode ``audio`` by streaming it in ``piece_samples`` pieces."""
     st = StreamingTranscriber(model, cfg, cmvn, max_u, chunk_frames,
-                              max_symbols, beam_size, backend=backend)
+                              max_symbols, beam_size, backend=backend,
+                              lm=lm, lm_weight=lm_weight,
+                              ilm_weight=ilm_weight)
     n = piece_samples or len(audio)
     for s in range(0, len(audio), n):
         st.feed(audio[s: s + n])

@@ -12,10 +12,20 @@ that never froze, so that complete paths all hold T' blanks and their raw
 scores compare.  Equal prefixes reached along different alignments are not
 merged (the reference's documented simplification); K=1 is the greedy
 walk.  ``carry`` / ``return_carry`` resume and return the lattice (pred,
-the predictor's state, tokens, count, scores: the reference's carry
-without its LM slots), so that chunked streaming searches as the whole
-utterance does.  LM fusion (``decode.lm_weight``, ``decode.ilm_weight``)
-and biasing are not ported: the callers refuse them by name.
+the predictor's state, tokens, count, scores, and under LM fusion the
+LM's state and next-label log-probabilities: the reference's carry), so
+that chunked streaming searches as the whole utterance does.
+
+Shallow LM fusion (``lm``, ``lm_weight`` > 0): a label emission also
+scores ``lm_weight * log P_lm(label | prefix)``; a blank carries no LM term
+(the LM models labels, not the alignment).  Each hypothesis' LM state and
+next-label log-probabilities reorder with the beam and advance only where
+it emits (the transformer LM's cache tracks each row's own depth).
+``ilm_weight`` > 0 subtracts ``ilm_weight`` times the model's internal LM
+(the predictor through the joint with the acoustics zeroed,
+``objectives/transducer_semi.py::ilm_logits``, blank excluded) from every
+label emission: the HAT / density-ratio correction.  Biasing is not
+ported: the callers refuse it by name.
 """
 
 from __future__ import annotations
@@ -24,7 +34,11 @@ import torch
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.data.vocab import PAD, SOS
+from semi_supervised_asr_tpu_torch.models import lm as LM
 from semi_supervised_asr_tpu_torch.models import transducer as TD
+from semi_supervised_asr_tpu_torch.objectives.transducer_semi import (
+    ilm_logits,
+)
 
 NEG_INF = -1e30
 
@@ -49,14 +63,22 @@ def transducer_beam_from_enc(
     return_nbest: bool = False,
     carry: tuple | None = None,
     return_carry: bool = False,
+    lm=None,
+    lm_weight: float = 0.0,
+    ilm_weight: float = 0.0,
 ):
     """-> (the best hypothesis' tokens [B, max_u] int32, PAD-padded, and
     its score [B]); with ``return_nbest`` ([B, K, max_u], [B, K]) every
     hypothesis, best first; with ``return_carry`` also the lattice that
-    ``carry`` resumes (the best hypothesis may change between chunks)."""
+    ``carry`` resumes (the best hypothesis may change between chunks):
+    (pred, the predictor's state, tokens, count, scores), and with the LM
+    (lm_state, lm_lp), as the reference's carry."""
     b, t, e = enc.shape
     k, v = beam_size, cfg.vocab_size
     dev = enc.device
+    use_lm = lm is not None and lm_weight > 0.0
+    if use_lm:
+        LM.check_depth(lm, max_u, "transducer beam")
 
     def flat(x):                       # [B, K, ...] -> [B*K, ...]
         return x.reshape((b * k,) + x.shape[2:])
@@ -70,7 +92,9 @@ def transducer_beam_from_enc(
         return torch.gather(x, 1, ix.expand((b, k) + x.shape[2:]))
 
     if carry is not None:
-        pred, state, toks, count, scores = carry
+        pred, state, toks, count, scores = carry[:5]
+        if use_lm:
+            lm_state, lm_lp = carry[5:]
     else:
         pred0, state0 = TD.predictor_step(
             model.predictor, torch.full((b * k,), SOS, dtype=torch.int32,
@@ -85,7 +109,13 @@ def transducer_beam_from_enc(
         # prefix would fill the beam with duplicates
         scores = torch.full((b, k), NEG_INF, device=dev)
         scores[:, 0] = 0.0
+        if use_lm:
+            lm_state, lm_logits = LM.lm_step(
+                lm, LM.lm_step(lm, None, None, init_batch=b * k)[0],
+                torch.full((b * k,), SOS, dtype=torch.int32, device=dev))
+            lm_lp = unflat(torch.log_softmax(lm_logits.float(), dim=-1))
     slots = torch.arange(max_u, device=dev)[None, None, :]
+    row_base = (torch.arange(b, device=dev) * k)[:, None]        # [B, 1]
 
     def lp_now(pred, enc_tk):
         logits = TD.joint_row(model.joint, flat(enc_tk), flat(pred), cfg)
@@ -99,6 +129,13 @@ def transducer_beam_from_enc(
             lp = lp_now(pred, enc_tk)
             freeze = torch.where(can_emit, scores + lp[..., blank], scores)
             emit_cand = scores[..., None] + lp                 # [B, K, V]
+            if use_lm:
+                emit_cand = emit_cand + lm_weight * lm_lp
+            if ilm_weight > 0.0:
+                il = ilm_logits(model.joint, flat(pred)[:, None, :])[:, 0]
+                il[..., blank] = -1e30
+                emit_cand = emit_cand - ilm_weight * unflat(
+                    torch.log_softmax(il, dim=-1))
             emit_cand = torch.where(
                 can_emit[..., None] & (count[..., None] < max_u),
                 emit_cand, NEG_INF)
@@ -128,6 +165,17 @@ def transducer_beam_from_enc(
             toks_n = torch.where((slots == count_g[..., None]) & emit3,
                                  tok[..., None], toks_g)
             count_n = count_g + is_emit.to(torch.int32)
+            if use_lm:
+                lm_state_g = LM.reorder_rows(lm_state,
+                                             (row_base + src).reshape(-1))
+                new_lm_state, new_logits = LM.lm_step(lm, lm_state_g,
+                                                      flat(tok))
+                lm_lp_n = torch.where(
+                    emit3,
+                    unflat(torch.log_softmax(new_logits.float(), dim=-1)),
+                    gather_k(lm_lp, src))
+                lm_state_n = LM.where_rows(is_emit, new_lm_state,
+                                           lm_state_g)
             upd = valid_t[:, None]
             upd3 = upd[..., None]
             scores = torch.where(upd, top_scores, scores)
@@ -139,6 +187,10 @@ def transducer_beam_from_enc(
             toks = torch.where(upd3, toks_n, toks)
             state = tuple((torch.where(upd3, hn, h), torch.where(upd3, cn, c))
                           for (hn, cn), (h, c) in zip(state_n, state))
+            if use_lm:
+                lm_lp = torch.where(upd3, lm_lp_n, lm_lp)
+                lm_state = LM.where_rows(upd.expand(b, k), lm_state_n,
+                                         lm_state)
         # frame exit: the blank on every hypothesis that never froze
         lp = lp_now(pred, enc_tk)
         scores = torch.where(valid_t[:, None] & can_emit,
@@ -151,5 +203,8 @@ def transducer_beam_from_enc(
         toks, 1, best[:, None, None].expand(b, 1, max_u))[:, 0]
     best_score = torch.gather(scores, 1, best[:, None])[:, 0]
     if return_carry:
-        return best_toks, best_score, (pred, state, toks, count, scores)
+        lattice = (pred, state, toks, count, scores)
+        if use_lm:
+            lattice += (lm_state, lm_lp)
+        return best_toks, best_score, lattice
     return best_toks, best_score

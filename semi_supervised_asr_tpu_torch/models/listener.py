@@ -78,7 +78,7 @@ def check_supported(cfg: ModelConfig) -> None:
     ported = {
         "model.family": (cfg.family, ("las", "ctc", "transducer")),
         "model.decoder_arch": (cfg.decoder_arch, ("lstm", "transformer")),
-        "model.lm_fusion": (cfg.lm_fusion, ("none",)),
+        "model.lm_fusion": (cfg.lm_fusion, ("none", "deep", "cold")),
     }
     if cfg.family == "transducer" and cfg.lm_fusion != "none":
         # the reference's own refusal (its train step's)

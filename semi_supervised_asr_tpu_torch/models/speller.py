@@ -12,6 +12,19 @@ index per leaf.  In training,
 ``model.dec_dropout`` drops the [h_top, context] concat before the output
 projection at every teacher-forced step, with keep masks the caller draws
 (``ops/dropout.py``); decoding never drops.
+
+Deep and cold LM fusion (``model.lm_fusion``): a frozen LSTM LM
+(``fusion_lm``, ``model.lm_fusion_{embed,hidden,layers}``; the Solver
+grafts a trained one with :func:`attach_fusion_lm`) steps in lockstep with
+the speller on the same previous tokens, its (h, c) riding the decoder
+state as ``lm_h`` / ``lm_c`` [L, B*, H].  Deep fusion (Gulcehre et al.
+2015) concatenates ``sigmoid(s_lm . w_g + b_g) * s_lm`` (the LM's top
+hidden state under a scalar gate) to the output projection's input; cold
+fusion (Sriram et al. 2017) concatenates ``g * relu(logits_lm . w_l +
+b_l)``, ``g = sigmoid([h_top, context, that] . w_g + b_g)`` a gate a unit.
+The LM runs outside autograd (the reference's ``stop_gradient``): its
+leaves get exactly-zero gradients, so the optimizer leaves them as they
+are.
 """
 
 from __future__ import annotations
@@ -20,11 +33,12 @@ import torch
 from torch import nn
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
+from semi_supervised_asr_tpu_torch.models import lm as LM
 from semi_supervised_asr_tpu_torch.models.attention import (
     Attention, initial_alpha,
 )
 from semi_supervised_asr_tpu_torch.models.listener import (
-    LSTMWeights, check_supported,
+    Leaves, LSTMWeights, check_supported,
 )
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
 from semi_supervised_asr_tpu_torch.ops.dropout import dropout
@@ -32,7 +46,7 @@ from semi_supervised_asr_tpu_torch.ops.dropout import dropout
 
 class Speller(nn.Module):
     # the state leaves whose lattice row is axis 1 (layer-stacked)
-    ROW_AXIS1: tuple[str, ...] = ("h", "c")
+    ROW_AXIS1: tuple[str, ...] = ("h", "c", "lm_h", "lm_c")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -48,11 +62,26 @@ class Speller(nn.Module):
         self.cells = nn.ModuleList(cells)
         self.attention = Attention(cfg)
         self.b_out = nn.Parameter(torch.zeros(cfg.vocab_size))
-        out_in = cfg.dec_hidden + cfg.enc_out_dim
+        base = cfg.dec_hidden + cfg.enc_out_dim
+        # LM fusion widens the output projection's input by its feature
+        out_in = base + {"deep": cfg.lm_fusion_hidden,
+                         "cold": cfg.lm_fusion_dim}.get(cfg.lm_fusion, 0)
         if cfg.tie_embedding:
             self.w_tie = nn.Parameter(torch.zeros(out_in, cfg.embed_dim))
         else:
             self.w_out = nn.Parameter(torch.zeros(out_in, cfg.vocab_size))
+        self.fusion_lm = None
+        if cfg.lm_fusion == "deep":
+            self.fusion = Leaves(w_g=(cfg.lm_fusion_hidden, 1), b_g=(1,))
+        elif cfg.lm_fusion == "cold":
+            dim = cfg.lm_fusion_dim
+            self.fusion = Leaves(w_l=(cfg.vocab_size, dim), b_l=(dim,),
+                                 w_g=(base + dim, dim), b_g=(dim,))
+        if cfg.lm_fusion != "none":
+            # a stand-in until the Solver grafts a trained LM
+            self.fusion_lm = LM.LSTMLM(cfg.vocab_size, cfg.lm_fusion_embed,
+                                       cfg.lm_fusion_hidden,
+                                       cfg.lm_fusion_layers)
 
     def precompute_decode_cache(self, enc: torch.Tensor) -> torch.Tensor:
         """Attention key projections [B, T, A], computed once per batch."""
@@ -66,13 +95,19 @@ class Speller(nn.Module):
         cfg, dev = self.cfg, mask.device
         zeros = torch.zeros((cfg.dec_layers, batch, cfg.dec_hidden),
                             dtype=torch.float32, device=dev)
-        return {
+        state = {
             "h": zeros,
             "c": zeros.clone(),
             "context": torch.zeros((batch, cfg.enc_out_dim),
                                    dtype=torch.float32, device=dev),
             "alpha": initial_alpha(mask),
         }
+        if self.fusion_lm is not None:
+            lm_zeros = torch.zeros((cfg.lm_fusion_layers, batch,
+                                    cfg.lm_fusion_hidden),
+                                   dtype=torch.float32, device=dev)
+            state.update(lm_h=lm_zeros, lm_c=lm_zeros.clone())
+        return state
 
     def step(
         self,
@@ -104,6 +139,9 @@ class Speller(nn.Module):
         out_in = torch.cat([h_top, context], dim=-1)
         if drop_mask is not None:
             out_in = dropout(out_in, drop_mask, cfg.dec_dropout)
+        lm_leaves = {}
+        if self.fusion_lm is not None:
+            out_in, lm_leaves = self._fuse(state, tokens, out_in)
         if cfg.tie_embedding:
             proj = R.mm(out_in, self.w_tie, compute)
             logits = R.mm(proj, self.embedding.t(), compute)
@@ -111,8 +149,29 @@ class Speller(nn.Module):
             logits = R.mm(out_in, self.w_out, compute)
         logits = logits + self.b_out.float()
         new_state = {"h": torch.stack(hs), "c": torch.stack(cs),
-                     "context": context, "alpha": alpha}
+                     "context": context, "alpha": alpha, **lm_leaves}
         return new_state, logits, alpha
+
+    def _fuse(self, state: dict, tokens: torch.Tensor,
+              out_in: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The frozen LM's step on the same tokens and the fused feature ->
+        (out_in with the feature concatenated, the LM's state leaves)."""
+        with torch.no_grad():
+            lm_state, lm_logits = LM.lm_step(
+                self.fusion_lm, {"h": state["lm_h"], "c": state["lm_c"]},
+                tokens)
+        fus = self.fusion
+        if self.cfg.lm_fusion == "deep":
+            s_lm = lm_state["h"][-1]
+            g = torch.sigmoid(s_lm @ fus.w_g.float() + fus.b_g)
+            extra = g * s_lm
+        else:
+            h_lm = torch.relu(lm_logits @ fus.w_l.float() + fus.b_l)
+            g = torch.sigmoid(torch.cat([out_in, h_lm], dim=-1)
+                              @ fus.w_g.float() + fus.b_g)
+            extra = g * h_lm
+        return (torch.cat([out_in, extra], dim=-1),
+                {"lm_h": lm_state["h"], "lm_c": lm_state["c"]})
 
     def forward_teacher(
         self,
@@ -170,6 +229,30 @@ class Speller(nn.Module):
     def dropout_shape(self, b: int, u: int) -> tuple[int, int, int]:
         """The shape of :meth:`forward_teacher`'s ``drop_masks``."""
         return (b, u, self.cfg.dec_hidden + self.cfg.enc_out_dim)
+
+
+@torch.no_grad()
+def attach_fusion_lm(speller: Speller, lm: LM.LSTMLM) -> None:
+    """Graft a trained LSTM LM into the speller's frozen ``fusion_lm`` in
+    place; its names and shapes must match (``model.lm_fusion_*`` must be
+    the trained LM's architecture)."""
+    if speller.fusion_lm is None:
+        raise ValueError("model.lm_fusion is off: no fusion LM to attach")
+    old = dict(speller.fusion_lm.named_parameters())
+    new = dict(lm.named_parameters())
+    if set(old) != set(new):
+        raise ValueError(
+            f"fusion LM mismatch: the speller's LM has {sorted(old)}, the "
+            f"trained LM {sorted(new)} — model.lm_fusion_* must match the "
+            "trained LM's architecture")
+    for name, p in old.items():
+        if p.shape != new[name].shape:
+            raise ValueError(
+                f"fusion LM mismatch at {name}: {tuple(p.shape)} vs "
+                f"{tuple(new[name].shape)} — model.lm_fusion_* must match "
+                "the trained LM's architecture")
+    for name, p in old.items():
+        p.copy_(new[name])
 
 
 def text_autoencoder_logits(speller: nn.Module,

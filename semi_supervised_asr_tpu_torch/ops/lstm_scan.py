@@ -392,7 +392,9 @@ def lstm_scan_reference(
     gx = torch.stack([flip(gates_x[i].float(), i) for i in range(d)], dim=1)
     v = torch.stack([flip(valid.float(), i) for i in range(d)], dim=1)
     v = v[..., None]                                     # [T, D, B, 1]
+    keep = 1.0 - v                                       # padded steps
     w = w_hh.to(compute).float()                         # [D, H, 4H]
+    rounded = compute != torch.float32
     if h0 is None:
         h = torch.zeros((d, b, hidden), dtype=torch.float32,
                         device=gates_x.device)
@@ -401,7 +403,8 @@ def lstm_scan_reference(
         h, c = h0.float(), c0.float()
     outs, hps, cps, acts = [], [], [], []
     for s in range(t):
-        gates = gx[s] + torch.bmm(h.to(compute).float(), w)
+        hx = h.to(compute).float() if rounded else h
+        gates = gx[s] + torch.bmm(hx, w)
         i_, f_, g_, o_ = gates.chunk(4, dim=-1)
         i_, f_, o_ = torch.sigmoid(i_), torch.sigmoid(f_), torch.sigmoid(o_)
         g_ = torch.tanh(g_)
@@ -411,9 +414,10 @@ def lstm_scan_reference(
             hps.append(h)
             cps.append(c)
             acts.append(torch.cat([i_, f_, g_, o_], dim=-1))
-        outs.append(v[s] * h_new)
-        h = v[s] * h_new + (1.0 - v[s]) * h
-        c = v[s] * c_new + (1.0 - v[s]) * c
+        h_out = v[s] * h_new
+        outs.append(h_out)
+        h = h_out + keep[s] * h
+        c = v[s] * c_new + keep[s] * c
 
     def unstack(xs):         # [T][D, B, X] -> [D, T, B, X] in real time
         y = torch.stack(xs, dim=1)
@@ -555,7 +559,9 @@ def lstm_scan_bwd_reference(
     dho = torch.stack([walk(dh_out[i].float(), i) for i in range(d)], dim=1)
     v = torch.stack([walk(valid.float(), i) for i in range(d)], dim=1)
     v = v[..., None]                                     # [T, D, B, 1]
+    keep = 1.0 - v                                       # padded steps
     wt = w_hh.to(compute).float().transpose(1, 2)        # [D, 4H, H]
+    rounded = compute != torch.float32
     dh = torch.zeros((d, b, hidden), dtype=torch.float32, device=acts.device)
     dc = torch.zeros_like(dh)
     out = [None] * t
@@ -569,8 +575,9 @@ def lstm_scan_bwd_reference(
                             dc_new * i_ * (1.0 - g_ * g_),
                             dh_new * tanh_c * o_ * (1.0 - o_)], dim=-1)
         out[s] = dgates
-        dh = (1.0 - v[s]) * dh + torch.bmm(dgates.to(compute).float(), wt)
-        dc = (1.0 - v[s]) * dc + dc_new * f_
+        dgx = dgates.to(compute).float() if rounded else dgates
+        dh = keep[s] * dh + torch.bmm(dgx, wt)
+        dc = keep[s] * dc + dc_new * f_
     y = torch.stack(out, dim=1)                          # [D, T, B, 4H]
     return torch.stack([walk(y[i], i) for i in range(d)])
 

@@ -41,6 +41,14 @@ over the ranks of a torchrun (``parallel/``).
   (``training/checkpointing.py``).
 * ``decode.use_ema`` validates and decodes with the EMA buffer,
   ``decode.average_ckpts`` with the mean of the last checkpoints.
+* LM fusion: ``decode.lm_weight`` > 0 with ``decode.lm_ckpt`` (an
+  ``lm_trainer`` workdir) loads the external LM at startup and every beam
+  of ``test`` fuses it (the transducer's with ``decode.ilm_weight``); an
+  empty ``lm_ckpt`` logs a warning and decodes without it.
+  ``model.lm_fusion`` deep or cold grafts the frozen LM of
+  ``model.lm_fusion_ckpt`` into the speller before the first step (the
+  EMA buffer copies the grafted weights); an empty ``lm_fusion_ckpt`` logs
+  a warning and fuses the random stand-in, as the reference does.
 * ``data.batch_frames`` sizes each labeled bucket's batch to a constant
   frame count (``_train_batch_size``); ``train.grad_accum`` = A makes
   every rank hold its ceil-sized share of each of a batch's A
@@ -48,8 +56,8 @@ over the ranks of a torchrun (``parallel/``).
   step what one process steps on the concatenated batch.
 
 Not ported (each refused with its key, here or where the step, the model
-or the decoders are built): the feature store, grain threads,
-LM fusion, streaming decoding, ``train.debug_nans``, tensor parallelism
+or the decoders are built): the feature store, grain threads, contextual
+biasing, ``train.debug_nans``, tensor parallelism
 (``parallel.model_parallel``) and exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
 shape) and has no effect.
@@ -78,10 +86,14 @@ from semi_supervised_asr_tpu_torch.data.bucketing import (
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
 from semi_supervised_asr_tpu_torch.decode.beam import check_supported
 from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
+from semi_supervised_asr_tpu_torch.models.speller import attach_fusion_lm
 from semi_supervised_asr_tpu_torch.parallel import dp as DP
 from semi_supervised_asr_tpu_torch.parallel import mesh as MESH
 from semi_supervised_asr_tpu_torch.training import train_step as TS
 from semi_supervised_asr_tpu_torch.training.checkpointing import Checkpointer
+from semi_supervised_asr_tpu_torch.training.lm_trainer import (
+    LMNotFound, decode_lm, load_lm,
+)
 from semi_supervised_asr_tpu_torch.transcribe import (
     Recognizer, finalize_config,
 )
@@ -186,8 +198,11 @@ class Solver:
         model = build_model(cfg.model)
         weights.load_flat(model, weights.init_numpy(cfg.model,
                                                     cfg.train.seed))
+        self._graft_fusion_lm(model)
         self.state = TS.init_train_state(cfg, model.to(self.device),
                                          cfg.train.seed)
+        # the external LM of shallow fusion (decode.lm_weight), or None
+        self.lm = decode_lm(cfg, self.vocab.size, self.device, self.log.info)
         self.ckpt = Checkpointer(self.workdir / cfg.train.ckpt_dir,
                                  max_to_keep=cfg.train.keep_ckpts,
                                  best_metric="dev_error",
@@ -195,6 +210,32 @@ class Solver:
         self.data_pos = {"epoch": 0, "batch": 0}
         self.history: list[dict] = []     # the "train" records logged
         self._copy_stream = None          # the card's input copies (_put)
+
+    def _graft_fusion_lm(self, model) -> None:
+        """Deep / cold fusion: the trained LM of ``model.lm_fusion_ckpt``
+        into the speller's frozen ``fusion_lm`` (before the train state,
+        so the EMA buffer starts from the grafted weights)."""
+        m = self.cfg.model
+        if m.lm_fusion == "none":
+            return
+        if not m.lm_fusion_ckpt:
+            self.log.info(
+                f"WARNING: model.lm_fusion={m.lm_fusion!r} but "
+                "model.lm_fusion_ckpt is empty — fusing a RANDOM untrained "
+                "LM (train one with training/lm_trainer.py and point "
+                "lm_fusion_ckpt at its workdir)")
+            return
+        try:
+            lm = load_lm(m.lm_fusion_ckpt, self.cfg, self.vocab.size,
+                         dims=(m.lm_fusion_embed, m.lm_fusion_hidden,
+                               m.lm_fusion_layers))
+        except LMNotFound as e:
+            raise LMNotFound(f"model.lm_fusion={m.lm_fusion}: "
+                             f"model.lm_fusion_ckpt={m.lm_fusion_ckpt}: {e}"
+                             ) from None
+        attach_fusion_lm(model.speller, lm)
+        self.log.info(f"{m.lm_fusion} fusion: frozen LM grafted from "
+                      f"{m.lm_fusion_ckpt}")
 
     def load_params(self, flat: dict[str, np.ndarray]) -> None:
         """Start from given weights (flat JAX-layout names, e.g. a JAX
@@ -604,7 +645,7 @@ class Solver:
                           "decodes frame-synchronous greedy")
             mode = "greedy"
         rec = Recognizer(self.cfg, model, self.cmvn, self.vocab, self.device,
-                         warn=self.log.info)
+                         warn=self.log.info, lm=self.lm)
         er, wer = MET.ErrorRate(), MET.ErrorRate()
         records = []
         # length-cap telemetry: an EOS-terminated (LAS) hypothesis that

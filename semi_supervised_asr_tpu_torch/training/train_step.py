@@ -114,6 +114,10 @@ def check_train_supported(cfg: Config) -> None:
                 "model.family=ctc has no decoder to train on unlabeled text "
                 "— use lambda_pseudo for unlabeled audio, and unlabeled text "
                 "via an external LM (lm_trainer + decode.lm_weight fusion)")
+        if m.lm_fusion != "none":
+            raise ValueError(
+                "deep/cold LM fusion is LAS-only; the CTC family fuses "
+                "SHALLOW at decode time (decode.lm_weight)")
     if m.family == "las" and m.decoder_arch == "transformer":
         if o.tf_rate_start != 1.0 or o.tf_rate_end != 1.0:
             raise ValueError(

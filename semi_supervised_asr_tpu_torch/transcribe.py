@@ -31,6 +31,10 @@ once through one ``MultiStreamTranscriber``.  Its records carry
 tokens' times come from the walk's own emission frames, tracked across
 chunks.
 
+Shallow LM fusion follows ``decode.lm_weight`` / ``decode.lm_ckpt`` (an
+``lm_trainer`` workdir), offline and under ``--streaming``, on every beam
+(the transducer's with ``decode.ilm_weight``), as ``main --test`` does.
+
 ``DIR`` is a Solver's workdir (``main --train``): it decodes with the
 best, else the latest checkpoint (``decode.average_ckpts`` and
 ``decode.use_ema`` apply, as in ``main --test``).  Or ``DIR`` holds
@@ -73,6 +77,9 @@ from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
 )
 from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.ops.ctc_align import ctc_viterbi_align
+from semi_supervised_asr_tpu_torch.training.lm_trainer import (
+    LMNotFound, decode_lm,
+)
 from semi_supervised_asr_tpu_torch.training.train_step import featurize
 from semi_supervised_asr_tpu_torch.utils.metrics import hyp_lengths
 
@@ -119,13 +126,15 @@ class Recognizer:
     """A model (``Seq2Seq``, ``CTCModel`` or ``Transducer``), its CMVN
     statistics and vocab on one device: decodes padded audio batches.
     ``warn`` reports a ``decode.ctc_weight`` that cannot apply (stderr by
-    default)."""
+    default).  ``lm`` (an external LM, ``training/lm_trainer.py::
+    decode_lm``) fuses every beam shallowly at ``decode.lm_weight``."""
 
     def __init__(self, cfg: Config, model, cmvn: tuple, vocab,
                  device: torch.device, backend: str | None = None,
-                 warn=_stderr):
+                 warn=_stderr, lm=None):
         self.cfg, self.vocab, self.device = cfg, vocab, device
         self.model = model.to(device).eval()
+        self.lm = None if lm is None else lm.to(device).eval()
         self.mean = torch.as_tensor(np.asarray(cmvn[0]), dtype=torch.float32,
                                     device=device)
         self.inv_std = torch.as_tensor(np.asarray(cmvn[1]),
@@ -165,7 +174,7 @@ class Recognizer:
             solver = Solver(cfg, load_dir, device)
             return cls(solver.cfg, solver.eval_params(require_ckpt=True),
                        solver.cmvn, solver.vocab, torch.device(device),
-                       backend)
+                       backend, lm=solver.lm)
         if not (load_dir / "params.npz").exists():
             raise SystemExit(
                 f"{load_dir}: found neither {cfg.train.ckpt_dir}/ (a "
@@ -176,7 +185,8 @@ class Recognizer:
         weights.load_npz(model, load_dir / "params.npz")
         with np.load(load_dir / "cmvn.npz") as z:
             cmvn = (z["mean"], z["inv_std"])
-        return cls(cfg, model, cmvn, vocab, torch.device(device), backend)
+        return cls(cfg, model, cmvn, vocab, torch.device(device), backend,
+                   lm=decode_lm(cfg, vocab.size, device, _stderr))
 
     @torch.inference_mode()
     def encode(self, audio: torch.Tensor, lens: torch.Tensor):
@@ -213,7 +223,9 @@ class Recognizer:
             if mode == "beam":
                 out = transducer_beam_from_enc(
                     self.model, cfg.model, enc, enc_mask, max_u,
-                    dcfg.beam_size, dcfg.max_symbols, return_nbest=nbest)
+                    dcfg.beam_size, dcfg.max_symbols, return_nbest=nbest,
+                    lm=self.lm, lm_weight=dcfg.lm_weight,
+                    ilm_weight=dcfg.ilm_weight)
             else:
                 out = transducer_greedy_from_enc(
                     self.model, cfg.model, enc, enc_mask, max_u,
@@ -225,7 +237,8 @@ class Recognizer:
                 out = ctc_beam_from_enc(
                     self.model.ctc, enc, enc_mask,
                     max_decode_steps(cfg, enc.shape[1]),
-                    cfg.decode.beam_size, return_nbest=nbest)
+                    cfg.decode.beam_size, return_nbest=nbest, lm=self.lm,
+                    lm_weight=cfg.decode.lm_weight)
             else:
                 out = ctc_greedy_from_enc(self.model.ctc, enc, enc_mask)
             return out[0].cpu().numpy(), out[1].cpu().numpy()
@@ -243,7 +256,7 @@ class Recognizer:
         else:
             out = beam_decode_from_enc(speller, cfg.decode, enc, enc_mask,
                                        keys, max_u, return_nbest=nbest,
-                                       ctc=self.joint_ctc)
+                                       ctc=self.joint_ctc, lm=self.lm)
         return out[0].cpu().numpy(), out[1].cpu().numpy()
 
     def align_head(self):
@@ -482,7 +495,9 @@ def transcribe_streaming(rec: Recognizer, files: list[Path],
     piece = max(int(sr * chunk_ms / 1000), 1)
     kw = dict(max_u=cfg.decode.max_decode_len,
               max_symbols=cfg.decode.max_symbols, beam_size=beam_size,
-              backend=rec.backend)
+              backend=rec.backend, lm=rec.lm,
+              lm_weight=cfg.decode.lm_weight,
+              ilm_weight=cfg.decode.ilm_weight)
     cmvn = (rec.mean, rec.inv_std)
 
     def record(f, toks, score):
@@ -590,7 +605,7 @@ def main(argv=None) -> int:
     try:
         check_supported(cfg.decode)
         rec = Recognizer.from_dir(cfg, args.load_dir, device)
-    except NotImplementedError as e:
+    except (NotImplementedError, LMNotFound) as e:
         raise SystemExit(str(e)) from None
     if args.streaming:
         try:

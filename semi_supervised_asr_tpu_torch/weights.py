@@ -12,7 +12,9 @@ list indices, its paths are exactly the names of the port's parameters
 * :func:`save_npz` / :func:`load_npz` store the same flat names in
   ``params.npz``, the port's weight file;
 * :func:`init_numpy` draws a random tree with the model's shapes from a
-  seed, with no JAX, for runs that have no checkpoint.
+  seed, with no JAX, for runs that have no checkpoint; :func:`init_module`
+  does the same for any module of the package (an external LM:
+  ``training/lm_trainer.py``).
 
 A missing, extra or wrongly shaped leaf raises.
 """
@@ -102,9 +104,10 @@ def load_npz(model: nn.Module, path: str | Path) -> None:
 
 
 # listener biases (LayerNorm b, projections, attention, feed-forward, the
-# conformer's conv module, the conv stem) and the speller's own: zeros
+# conformer's conv module, the conv stem), the speller's own and its LM
+# fusion's gate and DNN: zeros
 ZERO_LEAVES = ("b", "bq", "bk", "bv", "bo", "b1", "b2", "b_pw1", "b_dw",
-               "b_pw2", "bias", "b_out")
+               "b_pw2", "bias", "b_out", "b_g", "b_l")
 
 
 def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
@@ -124,7 +127,7 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
         return rng.standard_normal(shape) / math.sqrt(shape[-1])
     if leaf == "embed":                         # the transducer's predictor
         return rng.standard_normal(shape) * 0.02
-    if leaf == "pos":                           # transformer speller [L, d]
+    if leaf == "pos":               # transformer speller / LM [L, d]
         return rng.standard_normal(shape) * 0.02
     if leaf == "conv":                          # [W, 1, C]
         return rng.standard_normal(shape) / math.sqrt(shape[0])
@@ -139,6 +142,21 @@ def _fan_init(rng: np.random.Generator, name: str, shape: tuple[int, ...],
     return rng.uniform(-bound, bound, shape)
 
 
+def init_module(module: nn.Module, seed: int) -> dict[str, np.ndarray]:
+    """Random float32 weights with the names and shapes of ``module``'s
+    parameters, drawn from ``seed`` in their order, each leaf's
+    distribution decided by its path (:func:`init_numpy`)."""
+    rng = np.random.default_rng(seed)
+    params = dict(module.named_parameters())
+    out = {}
+    for name, p in params.items():
+        group = name.rsplit(".", 1)[0]
+        out[name] = _fan_init(rng, name, tuple(p.shape),
+                              lstm=f"{group}.w_hh" in params
+                              ).astype(np.float32)
+    return out
+
+
 def init_numpy(cfg: ModelConfig, seed: int) -> dict[str, np.ndarray]:
     """Random float32 weights with the names and shapes of
     ``build_model(cfg)``, drawn from ``seed`` (the JAX init's shapes and
@@ -150,12 +168,4 @@ def init_numpy(cfg: ModelConfig, seed: int) -> dict[str, np.ndarray]:
     too)."""
     from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 
-    rng = np.random.default_rng(seed)
-    params = dict(build_model(cfg).named_parameters())
-    out = {}
-    for name, p in params.items():
-        group = name.rsplit(".", 1)[0]
-        out[name] = _fan_init(rng, name, tuple(p.shape),
-                              lstm=f"{group}.w_hh" in params
-                              ).astype(np.float32)
-    return out
+    return init_module(build_model(cfg), seed)

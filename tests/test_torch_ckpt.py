@@ -105,9 +105,19 @@ def test_exact_resume_is_bitwise(semi, augment, tmp_path):
         for h, f in zip(resumed.history, full.history[5:])]
 
 
+@pytest.fixture(scope="module")
+def base_state(tmp_path_factory):
+    """One Solver's initial train state, built once for the file."""
+    return Solver(small_cfg(), tmp_path_factory.mktemp("s"), "cpu").state
+
+
 @pytest.fixture
-def state(tmp_path):
-    return Solver(small_cfg(), tmp_path / "s", "cpu").state
+def state(base_state):
+    """A fresh copy of the initial train state for each test (the model,
+    the EMA buffer, Adam over the copy's parameters, the generators)."""
+    import copy
+
+    return copy.deepcopy(base_state)
 
 
 def test_stale_tmp_is_quarantined_and_step_recovers(state, tmp_path):

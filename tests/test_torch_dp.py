@@ -2,8 +2,9 @@
 
 Two ranks of this file run each case (``python tests/test_torch_dp.py CASE
 OUT``, torchrun's environment set by hand, one torch thread each) at a few
-layers and narrow widths: the step cases all on one pair of ranks, spawned
-once for the module (their start-up paid once), the Solver run on its own.
+layers and narrow widths: the step cases and then the Solver run, all on
+one pair of ranks, spawned once for the module (their start-up paid
+once).
 Rank 0 also runs one process's step on the concatenated global batch, with
 no process group in the way.
 
@@ -217,13 +218,14 @@ def _worker(case: str, out: str) -> None:
     try:
         if case == "solver":
             _solver_case(Path(out))
+        elif case == "all":
+            # the step cases, then the Solver run, on one pair of ranks
+            torch.save({c: _step_case(c) for c in STEP_CASES},
+                       Path(out) / f"rank{MESH.rank()}.pt")
+            (Path(out) / "solver").mkdir(exist_ok=True)
+            _solver_case(Path(out) / "solver")
         else:
-            import torch
-
-            # the step cases share one pair of ranks
-            res = ({c: _step_case(c) for c in STEP_CASES}
-                   if case == "steps" else _step_case(case))
-            torch.save(res, Path(out) / f"rank{MESH.rank()}.pt")
+            torch.save(_step_case(case), Path(out) / f"rank{MESH.rank()}.pt")
     finally:
         MESH.destroy()
 
@@ -238,10 +240,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(case: str, out: Path, world: int = 2) -> list[dict]:
-    """Run ``case`` on ``world`` gloo ranks -> each rank's saved results."""
-    import torch
-
+def spawn(case: str, out: Path, world: int = 2) -> None:
+    """Run ``case`` on ``world`` gloo ranks (each saves its results under
+    ``out``)."""
     port = _free_port()
     procs = []
     for r in range(world):
@@ -262,15 +263,28 @@ def spawn(case: str, out: Path, world: int = 2) -> list[dict]:
         errs.append(err)
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory) -> Path:
+    """Every step case, then the Solver run, on one pair of ranks -> the
+    directory of their results."""
+    out = tmp_path_factory.mktemp("ranks")
+    spawn("all", out)
+    return out
+
+
+def _load(out: Path, world: int = 2) -> list[dict]:
+    import torch
+
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 
 
 @pytest.fixture(scope="module")
-def steps(tmp_path_factory):
-    """Every step case on one pair of ranks -> {case: [rank 0's results,
-    rank 1's]}."""
-    r0, r1 = spawn("steps", tmp_path_factory.mktemp("steps"))
+def steps(ranks):
+    """{case: [rank 0's results, rank 1's]} of every step case."""
+    r0, r1 = _load(ranks)
     return {c: [r0[c], r1[c]] for c in STEP_CASES}
 
 
@@ -352,10 +366,11 @@ def test_two_ranks_uneven_microbatches_match_one_process(steps):
         assert steps[case][0]["dp"]["aux"]["mwer_risk"] > 0
 
 
-def test_two_rank_solver_run_and_resume(tmp_path):
+def test_two_rank_solver_run_and_resume(ranks):
     import torch
 
-    r0, r1 = spawn("solver", tmp_path)
+    tmp_path = ranks / "solver"
+    r0, r1 = _load(tmp_path)
     first = _first_difference(r0["state"], r1["state"])
     assert first is None, f"replicas differ at {first}"
     assert r0["state"]["step"] == 4

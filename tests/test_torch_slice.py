@@ -251,7 +251,8 @@ def test_port_imports_no_jax():
         "       'objectives.transducer_semi', 'decode.transducer_greedy',\n"
         "       'decode.transducer_beam', 'decode.streaming', 'align',\n"
         "       'ops.ctc_align', 'ops.edit_distance', 'objectives.ctc_semi',\n"
-        "       'objectives.ctc_mwer', 'objectives.transducer_mwer')\n"
+        "       'objectives.ctc_mwer', 'objectives.transducer_mwer',\n"
+        "       'models.lm', 'training.lm_trainer')\n"
         "assert all(P.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
@@ -270,15 +271,20 @@ def test_port_imports_no_jax():
                  id="extra1-timestamps"),
     (["--streaming"], "streaming"),
     (["--beam", "1", "--nbest", "2"], "nbest"),
-    (["decode.lm_weight=0.3"], "LM fusion"),
+    # LM fusion is ported: what stays refused is an LM that is not there
+    pytest.param(["decode.lm_weight=0.3", "decode.lm_ckpt={d}/no_lm"],
+                 "shallow LM fusion: .* no trained LM", id="extra4-LM fusion"),
     (["decode.bias_phrases=hot.txt"], "contextual biasing"),
-    (["model.lm_fusion=deep"], "lm_fusion"),
+    # deep and cold fusion are ported: an unknown kind stays refused
+    pytest.param(["model.lm_fusion=bogus"], "model.lm_fusion='bogus'",
+                 id="extra6-lm_fusion"),
 ])
 def test_cli_refuses_unported_options(workdir, extra, message):
     d, _, _, files, _ = workdir
     with pytest.raises(SystemExit, match=message):
         TR.main(["--config", CONFIG, "--load-dir", str(d), "--device",
-                 "cpu", str(files[0]), *SMALL, *extra])
+                 "cpu", str(files[0]), *SMALL,
+                 *(x.format(d=d) for x in extra)])
 
 
 def test_cli_needs_cuda_unless_told_cpu(workdir, monkeypatch):

@@ -655,12 +655,23 @@ def test_main_train_test_and_transcribe(name, tmp_path, capsys):
 @pytest.mark.parametrize("override, error, message", [
     ("objective.lambda_ctc=0.3", ValueError, "disable objective.lambda_ctc"),
     ("model.lm_fusion=cold", ValueError, "has no LM fusion yet"),
-    ("decode.ilm_weight=0.2", SystemExit, "decode.ilm_weight"),
-    ("decode.lm_weight=0.3", SystemExit, "shallow LM fusion"),
+    # shallow fusion and the ILM correction are ported: what stays refused
+    # is an LM the port cannot read, a JAX (orbax) one or none at all
+    pytest.param("decode.ilm_weight=0.2 decode.lm_weight=0.3 "
+                 "decode.lm_ckpt={tmp}/jax_lm", SystemExit,
+                 "orbax -> params.npz converter",
+                 id="decode.ilm_weight=0.2-SystemExit-decode.ilm_weight"),
+    pytest.param("decode.lm_weight=0.3 decode.lm_ckpt={tmp}/no_lm",
+                 SystemExit, "shallow LM fusion: .* no trained LM",
+                 id="decode.lm_weight=0.3-SystemExit-shallow LM fusion"),
 ])
 def test_main_refuses_what_the_family_does_not_run(tmp_path, override,
                                                     error, message):
+    # what the JAX trainer leaves: an orbax directory, no params.npz
+    orbax = tmp_path / "jax_lm" / "lm_params"
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(error, match=message):
         M.main(["--config", "configs/ls100_transducer.yaml", "--train",
-                "--workdir", str(tmp_path), "--device", "cpu", *CLI,
-                override])
+                "--workdir", str(tmp_path / "run"), "--device", "cpu", *CLI,
+                *override.format(tmp=tmp_path).split()])
