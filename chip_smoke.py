@@ -12,10 +12,12 @@ failure raises and the script exits non-zero:
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
 1. build the CUDA kernels from ``semi_supervised_asr_tpu_torch/csrc``,
    with ptxas's registers and spills of the bf16 instances of K5 and of
-   the LSTM cluster and grid routes (and their exchange-floor probes),
-   ``cudaOccupancyMaxActiveClusters`` of each K2/K3 cluster plan at B=32,
-   H=256/384/512 (timit's must all be resident at once), and the grid
-   plans' co-residency at H=768 for D=1, B=64 and D=2, B=32 (every block
+   the LSTM cluster, grid and float32 grid routes (and their
+   exchange-floor probes), ``cudaOccupancyMaxActiveClusters`` of each
+   K2/K3 cluster plan at B=32, H=256/384/512 (timit's must all be
+   resident at once), and the grid plans' co-residency at H=768 for D=1,
+   B=64 and D=2, B=32 and the float32 grid plans' at the LM's D=1, B=64,
+   H=1024 and the fusion listener's D=2, B=64, H=384 (every block
    resident at once);
 2. K1 (fused post-FFT frontend) against its plain version at B=32, T=400,
    800 and 1600 (F=257, M=80, a zero-length row each), and at B=5, T=37
@@ -27,14 +29,17 @@ failure raises and the script exits non-zero:
 3. K2 (LSTM forward scan) against its plain version at the listener's
    shapes (T=800 / input 80 and T=100 / input 1024, B=32, H=256, both
    directions, variable lengths with a zero-length row, residuals):
-   <= 1e-5 in float32 (the CUDA-core route), <= BF16_TOL in bfloat16 (the
-   cluster route); then the cluster route at H=256, 384 and 512, B=32
-   and 5, T=1 and 37, D=2 and D=1 reverse, each with a zero-length row;
-   the grid route at H=640, 768 and 1024, B=64, 5 and 1, T=1, 37 and
-   400, D=1 and D=2 with the second direction reversed, each call twice
-   and bitwise equal; every call's route is checked by its launch count;
-   a grid plan the card cannot hold must raise (cudaError 720) before
-   any launch;
+   <= 1e-5 in float32 (the float32 grid route, and the CUDA-core route
+   forced), <= BF16_TOL in bfloat16 (the cluster route); then the cluster
+   route at H=256, 384 and 512, B=32 and 5, T=1 and 37, D=2 and D=1
+   reverse, each with a zero-length row; the grid route at H=640, 768 and
+   1024, B=64, 5 and 1, T=1, 37 and 400, D=1 and D=2 with the second
+   direction reversed; the float32 grid at the LM's H=1024 (D=1) and the
+   fusion listener's H=384 (D=2, the second reversed), B=64, 5 and 1,
+   T=1, 37 and 256, within K2_TOL; on both grids each call twice and
+   bitwise equal; every call's route is checked by its launch count; a
+   grid plan the card cannot hold must raise (cudaError 720) before any
+   launch;
 4. the serving slice at ``configs/timit.yaml`` full width (random weights
    from seed 0, synthetic WAVs in two buckets) through the port's
    ``transcribe`` entry, beam 5 and greedy, with each kernel's launch
@@ -247,12 +252,13 @@ failure raises and the script exits non-zero:
     (b) ``configs/ls100_transducer_streaming.yaml`` as shipped (forward-only
     768 x (1 + 3), pred 512, joint 512): the listener's 320 ms chunk
     outputs at B=1 and 16 on K2 (the grid route in bf16, within BF16_TOL of
-    the plain scan; the CUDA-core route in float32, within K2_TOL of it and
+    the plain scan; the float32 grid in float32, within K2_TOL of it and
     within 1e-5 of the offline listener, bitwise equality logged), then
     the same streaming checks as (a) in 320 ms pieces.  Phase 3 holds K2
     started from a carried (h, c) against its plain version on each route
-    (the CUDA cores, the cluster and the grid route), and a scan split in
-    two against the whole: outputs and final state bitwise equal.
+    (the CUDA cores, the cluster, the grid and the float32 grid route), and
+    a scan split in two against the whole: outputs and final state bitwise
+    equal.
 20. MWER, the CTC family's pseudo-labels and token timestamps: (a) the
     MWER step (``objective.lambda_mwer`` 0.3, ``mwer_beam`` 4, no warmup)
     of ``configs/ls100.yaml`` (LAS), ``ls100_ctc`` and ``ls100_transducer``
@@ -283,11 +289,15 @@ failure raises and the script exits non-zero:
     ``configs/ls100_semi.yaml``'s ``lm`` block (LSTM, embed 256, hidden
     1024, 1 layer, B=64, the 256-token bucket, float32) through
     ``lm_trainer.train_lm`` for 3 steps (K2 1 and K3 1 a step, on the
-    CUDA-core route), its float32 step kernels against plain (loss 1e-5
+    float32 grid route), its float32 step kernels against plain (loss 1e-5
     relative, gradients GRAD_TOL), K2 / K3 at that shape (D=1, B=64,
-    H=1024, T=256) against plain and timed beside cuDNN's float32 layer and
-    the bound, and a step of the transformer LM (d_model 256, 1 block of 4
-    heads, ff 512); (b) shallow fusion of that LM at float32 into one padded
+    H=1024, T=256) and at the fusion listener's first layer (D=2, B=64,
+    H=384, T=400) against plain, then timed on the float32 grid and forced
+    onto the CUDA cores in turns, with the grid's serial floor, beside
+    cuDNN's float32 layer and the bound, the same two routes in turns at
+    H=128, 192 and 256 (D=2, B=32, T=400: the float32 grid's threshold),
+    and a step of the transformer LM (d_model 256, 1 block of 4 heads, ff
+    512); (b) shallow fusion of that LM at float32 into one padded
     batch of ``ls100_semi`` (beam 5), ``ls100_ctc`` (prefix beam 8) and
     ``ls100_transducer`` (beam 4, ``ilm_weight`` 0.2) through
     ``Recognizer`` (the LM loaded by ``decode.lm_ckpt``), tokens kernels
@@ -295,8 +305,10 @@ failure raises and the script exits non-zero:
     ``ls100_transducer_streaming``'s beam with the LM (``ilm_weight``
     0.3) streamed against offline (tokens and scores equal); (c) cold and deep fusion on ``configs/ls100.yaml``
     in float32 with the LM grafted at startup through the Solver (2 steps,
-    the frozen LM bitwise unchanged after them, a step kernels against
-    plain).
+    K2 4 and K3 4 a step on the float32 grid, the frozen LM bitwise
+    unchanged after them, a step kernels against plain, the step with the
+    listener forced onto the CUDA cores against the float32 grid in
+    turns).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -308,7 +320,10 @@ for K1-K3, from the conformer training run for K5, and per path in
 phase 21's as ``lm_trainer``, ``fusion_*`` and ``{cold,deep}_fusion``;
 K2 and K3 also at the C4 shapes in ``at_c4``, at phase 18's in
 ``at_transducer``, at the MWER predictor's in ``at_mwer_predictor`` and at
-the LM's in ``at_lm``);
+the LM's in ``at_lm``; the float32 grid's kernels of K2 and K3, each its
+own ``__global__`` function, as the rows ``lstm_scan_{fwd,bwd}_grid_f32``:
+their times at the LM's shape with launches from the LM trainer's run,
+and at the fusion listener's in ``at_fusion_listener``);
 the
 last line is ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also
 writes ``torch.profiler`` tables of one beam-5 batch and of one train step
@@ -899,8 +914,9 @@ def kernel_label(entry: str) -> str | None:
     mangled entry name (None for the others)."""
     for pattern, param in ((r"(flash_mhsa_(?:fwd|bwd_dq|bwd_dkv)_bf16"
                             r"_kernel)ILi(\d)", "NB"),
-                           (r"(lstm_(?:fwd|bwd)_(?:cluster|grid)_kernel|"
-                            r"(?:exchange|grid)_floor_kernel)E", None)):
+                           (r"(lstm_(?:fwd|bwd)_(?:cluster|grid|grid_f32)"
+                            r"_kernel|(?:exchange|grid|grid_f32)_floor_kernel)"
+                            r"E", None)):
         name = re.search(pattern, entry)
         if name:
             return (f"{name.group(1)}<{param}={name.group(2)}>" if param
@@ -909,10 +925,12 @@ def kernel_label(entry: str) -> str | None:
 
 
 def phase1() -> dict:
-    """Build the kernels; -> {bf16 instance of K5 and of the LSTM cluster
-    and grid routes: (registers, spill stores, spill loads)} from ptxas;
-    then how many clusters of each LSTM cluster plan at B=32 the card
-    holds, and whether the grid plans at H=768 fit it all at once."""
+    """Build the kernels; -> {bf16 instance of K5 and the kernels of the
+    LSTM cluster, grid and float32 grid routes: (registers, spill stores,
+    spill loads)} from ptxas; then how many clusters of each LSTM cluster
+    plan at B=32 the card holds, and whether the grid plans at H=768 and
+    the float32 grid plans at the LM's and the fusion listener's shapes fit
+    it all at once."""
     from semi_supervised_asr_tpu_torch import _native
 
     t0 = time.perf_counter()
@@ -943,7 +961,7 @@ def phase1() -> dict:
             regs[kernel] = (int(used.group(1)),) + regs.get(kernel, (0,))[1:]
     for name, (n, *sp) in sorted(regs.items()):
         log(f"[phase1] {name}: {n} registers, spill stores/loads {sp} bytes")
-    require(len(regs) == 12, f"ptxas reported {sorted(regs)}")
+    require(len(regs) == 15, f"ptxas reported {sorted(regs)}")
     return regs
 
 
@@ -973,26 +991,45 @@ def cluster_occupancy() -> None:
 
 def grid_coresidency() -> None:
     """The grid plans of K2 and K3 at ls100_transducer_streaming's H=768
-    for D=1, B=64 and for D=2, B=32: the blocks an SM holds
+    for D=1, B=64 and for D=2, B=32 (bf16), and the float32 grid plans at
+    F32_LSTM_SHAPES (the LM, the fusion listener): the blocks an SM holds
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs against
     the launch's N * G * D blocks, which must all be resident at once."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
+    shapes = [(768, d, b, torch.bfloat16) for d, b in ((1, 64), (2, 32))]
+    shapes += [(h, d, LM_BATCH, torch.float32)
+               for _, _, _, h, d, _ in F32_LSTM_SHAPES]
     for kind in ("fwd", "bwd"):
-        for d, b in ((1, 64), (2, 32)):
-            plan = K.cluster_plan(kind, 768, b, torch.bfloat16, d)
-            require(plan.route == "grid", f"K2/K3 {kind} H=768: {plan}")
-            per_sm, sms = K.grid_occupancy(kind, 768, plan)
-            need = 768 // plan.units * plan.groups * d
-            log(f"[phase1] {kind} grid plan H=768 D={d} B={b}: u="
+        for h, d, b, compute in shapes:
+            plan = K.cluster_plan(kind, h, b, compute, d)
+            want = "grid" if compute == torch.bfloat16 else "grid_f32"
+            require(plan.route == want, f"K2/K3 {kind} H={h}: {plan}")
+            per_sm, sms = K.grid_occupancy(kind, h, plan)
+            need = h // plan.units * plan.groups * d
+            log(f"[phase1] {kind} {plan.route} plan H={h} D={d} B={b}: u="
                 f"{plan.units} G={plan.groups} R={plan.rows} sub={plan.sub} "
                 f"chunk={plan.chunk} stages={plan.stages} smem={plan.smem} "
                 f"B; {per_sm} block(s) an SM x {sms} SMs = "
                 f"{per_sm * sms} resident, the launch has {need}")
             require(per_sm * sms >= need, f"the {kind} grid at D={d} B={b} "
                     "is not all resident at once")
+
+
+def simt_plan(*args, **kwargs):
+    """cluster_plan's signature: the CUDA-core route at every shape."""
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    return K.Plan("simt")
+
+
+# the listener-shape checks of phases 3 and 6: float32 on its planned route
+# (the float32 grid at H=256) and forced onto the CUDA cores, bf16 on the
+# cluster route
+LISTENER_ROUTES = (("float32", "grid_f32"), ("float32", "simt"),
+                   ("bfloat16", "cluster"))
 
 
 @contextlib.contextmanager
@@ -1210,16 +1247,11 @@ def k2_inputs(t: int, i: int, seed: int, b: int = 32, h: int = 256):
     return x, w_ih, bias, w_hh, valid
 
 
-def routed(kind: str, compute, call, route: str | None = None):
+def routed(kind: str, compute, call, route: str):
     """Run ``call`` and require that it launched K2 (``kind="fwd"``) or K3
-    ("bwd") once, on ``route`` or by default the route the dtype asks for
-    at H <= 512 (the cluster route in bf16, the CUDA cores in f32) ->
-    (result, route)."""
-    import torch
-
+    ("bwd") once, on ``route`` -> (result, route)."""
     from semi_supervised_asr_tpu_torch import _native
 
-    route = route or ("cluster" if compute == torch.bfloat16 else "simt")
     key = f"lstm_scan_{kind}_{route}"
     before = _native.LAUNCHES[key]
     out = call()
@@ -1238,12 +1270,16 @@ def phase3() -> tuple[float, float]:
     for name, t, i in (("layer0", 800, 80), ("pyramid", 100, 1024)):
         x, w_ih, bias, w_hh, valid = k2_inputs(t, i, t)
         b, h = x.shape[0], w_hh.shape[1]
-        for compute in (torch.float32, torch.bfloat16):
-            with torch.inference_mode():
+        for dtype, route in LISTENER_ROUTES:
+            compute = getattr(torch, dtype)
+            force = forced_plan(simt_plan) if route == "simt" else \
+                contextlib.nullcontext()
+            with force, torch.inference_mode():
                 gx = (R.mm(x, w_ih, compute) + bias).view(b, t, 2, 4 * h)
                 gx = gx.permute(2, 1, 0, 3).contiguous()
-                got, route = routed("fwd", compute, lambda: K.lstm_scan(
-                    gx, w_hh, valid, compute, (False, True), residuals=True))
+                got, _ = routed("fwd", compute, lambda: K.lstm_scan(
+                    gx, w_hh, valid, compute, (False, True), residuals=True),
+                    route)
                 want = K.lstm_scan_reference(gx, w_hh, valid, compute,
                                              (False, True), residuals=True)
             torch.cuda.synchronize()
@@ -1260,8 +1296,10 @@ def phase3() -> tuple[float, float]:
     worst[torch.bfloat16] = max(worst[torch.bfloat16],
                                 route_checks("phase3", "fwd", "cluster"),
                                 route_checks("phase3", "fwd", "grid"))
+    worst[torch.float32] = max(worst[torch.float32],
+                               route_checks("phase3", "fwd", "grid_f32"))
     grid_refusal()
-    state_checks("phase3")
+    worst[torch.float32] = max(worst[torch.float32], state_checks("phase3"))
     return worst[torch.float32], worst[torch.bfloat16]
 
 
@@ -1283,88 +1321,96 @@ def scan_inputs(h: int, d: int, b: int, t: int, seed: int):
     return [x.to(DEVICE) for x in (gx, w_hh, valid, dh_out)]
 
 
-# each route's checks against the plain version (phases 3 and 6): widths,
-# directions (D=2 with the second reversed, or one direction), batches
-# and lengths, and whether each call runs twice and must be bitwise equal
+# each route's checks against the plain version (phases 3 and 6): its
+# compute dtype, the (width, directions) pairs (D=2 with the second
+# reversed, or one direction), batches and lengths, and whether each call
+# runs twice and must be bitwise equal.  The float32 grid: the LM's width
+# (D=1, H=1024) and the cold / deep fusion listener's (D=2, H=384)
 ROUTE_CHECKS = {
-    "cluster": (CLUSTER_WIDTHS, ((False, True), (True,)), (32, 5), (1, 37),
-                False),
-    "grid": (GRID_WIDTHS, ((False,), (False, True)), (64, 5, 1),
-             (1, 37, 400), True),
+    "cluster": ("bfloat16", tuple((h, rev) for h in CLUSTER_WIDTHS
+                                  for rev in ((False, True), (True,))),
+                (32, 5), (1, 37), False),
+    "grid": ("bfloat16", tuple((h, rev) for h in GRID_WIDTHS
+                               for rev in ((False,), (False, True))),
+             (64, 5, 1), (1, 37, 400), True),
+    "grid_f32": ("float32", ((1024, (False,)), (384, (False, True))),
+                 (64, 5, 1), (1, 37, 256), True),
 }
+
+
+# the largest error of each (kernel, route) of route_checks, for the
+# kernel table
+ROUTE_ERRS: dict = {}
 
 
 def route_checks(phase: str, kind: str, route: str) -> float:
     """K2 (``kind="fwd"``: h_out and the residuals) or K3 ("bwd": dgates
-    from the plain forward's residuals) on the cluster or grid ``route``
-    against its plain version, bf16, at each shape of ROUTE_CHECKS[route]
-    (a zero-length row where B > 1), each call's route checked by its
-    launch count; on the grid route each call runs twice, bitwise equal
-    (the exchange's ordering) -> the largest error (each within
-    BF16_TOL)."""
+    from the plain forward's residuals) on the cluster, grid or float32
+    grid ``route`` against its plain version, in the route's dtype, at each
+    shape of ROUTE_CHECKS[route] (a zero-length row where B > 1), each
+    call's route checked by its launch count; on the grid routes each call
+    runs twice, bitwise equal (the exchange's ordering) -> the largest
+    error (each within BF16_TOL in bf16, K2_TOL / K3_TOL in float32)."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
-    bf16 = torch.bfloat16
-    widths, dirs, batches, lengths, twice = ROUTE_CHECKS[route]
+    dtype, shapes, batches, lengths, twice = ROUTE_CHECKS[route]
+    compute = getattr(torch, dtype)
+    tol = BF16_TOL if dtype == "bfloat16" else (
+        K2_TOL if kind == "fwd" else K3_TOL)
     worst = 0.0
-    for h in widths:
-        for rev in dirs:
-            for b in batches:
-                for t in lengths:
-                    gx, w_hh, valid, dh_out = scan_inputs(h, len(rev), b, t,
-                                                          h + 7 * b + t)
-                    with torch.inference_mode():
-                        ref = K.lstm_scan_reference(gx, w_hh, valid, bf16,
-                                                    rev, residuals=True)
-                        if kind == "fwd":
-                            def call():
-                                return K.lstm_scan(gx, w_hh, valid, bf16, rev,
-                                                   residuals=True)
-                            want = ref
-                        else:
-                            args = (w_hh, valid, ref[3], ref[2], dh_out, bf16,
-                                    rev)
+    for (h, rev), b, t in itertools.product(shapes, batches, lengths):
+        gx, w_hh, valid, dh_out = scan_inputs(h, len(rev), b, t,
+                                              h + 7 * b + t)
+        with torch.inference_mode():
+            ref = K.lstm_scan_reference(gx, w_hh, valid, compute, rev,
+                                        residuals=True)
+            if kind == "fwd":
+                def call():
+                    return K.lstm_scan(gx, w_hh, valid, compute, rev,
+                                       residuals=True)
+                want = ref
+            else:
+                args = (w_hh, valid, ref[3], ref[2], dh_out, compute, rev)
 
-                            def call():
-                                return [K.lstm_scan_bwd(*args)]
-                            want = [K.lstm_scan_bwd_reference(*args)]
-                        got, _ = routed(kind, bf16, call, route)
-                        again = routed(kind, bf16, call, route)[0] if twice \
-                            else got
-                    torch.cuda.synchronize()
-                    require(all(bool(torch.isfinite(a).all()) for a in got),
-                            f"{kind} {route} route output not finite")
-                    same = all(torch.equal(a, c) for a, c in zip(got, again))
-                    require(same, f"{kind} {route} route H={h} D={len(rev)} "
-                            f"B={b} T={t}: two calls differ")
-                    err = max((a - w).abs().max().item()
-                              for a, w in zip(got, want))
-                    plan = K.cluster_plan(kind, h, b, bf16, len(rev))
-                    shape = (f"C={plan.cluster} R={plan.rows}"
-                             if route == "cluster" else
-                             f"u={plan.units} G={plan.groups} R={plan.rows} "
-                             f"sub={plan.sub} chunk={plan.chunk} stages="
-                             f"{plan.stages}, twice bitwise equal")
-                    log(f"[{phase}] K{2 if kind == 'fwd' else 3} {route} "
-                        f"route H={h} D={len(rev)} reverse={rev} B={b} T={t} "
-                        f"({shape}): max_abs_err {err:.3e} (tol "
-                        f"{BF16_TOL:g})")
-                    require(err <= BF16_TOL,
-                            f"{kind} {route} route error {err} > {BF16_TOL}")
-                    worst = max(worst, err)
+                def call():
+                    return [K.lstm_scan_bwd(*args)]
+                want = [K.lstm_scan_bwd_reference(*args)]
+            got, _ = routed(kind, compute, call, route)
+            again = routed(kind, compute, call, route)[0] if twice else got
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(a).all()) for a in got),
+                f"{kind} {route} route output not finite")
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        require(same, f"{kind} {route} route H={h} D={len(rev)} B={b} "
+                f"T={t}: two calls differ")
+        err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        plan = K.cluster_plan(kind, h, b, compute, len(rev))
+        shape = (f"C={plan.cluster} R={plan.rows}" if route == "cluster"
+                 else f"u={plan.units} G={plan.groups} R={plan.rows} "
+                 f"sub={plan.sub} chunk={plan.chunk} stages={plan.stages}, "
+                 "twice bitwise equal")
+        log(f"[{phase}] K{2 if kind == 'fwd' else 3} {route} route H={h} "
+            f"D={len(rev)} reverse={rev} B={b} T={t} {dtype} ({shape}): "
+            f"max_abs_err {err:.3e} (tol {tol:g})")
+        require(err <= tol, f"{kind} {route} route error {err} > {tol}")
+        worst = max(worst, err)
+    ROUTE_ERRS[kind, route] = worst
     return worst
 
 
 # K2 resuming from a carried (h, c) on each route (phase 3): (route,
-# compute, H, D, B, T, split step) -- the CUDA cores in float32, the
-# cluster route at timit's width, the grid route at the streaming
-# listener's (B=64 and a single stream)
+# compute, H, D, B, T, split step) -- the CUDA cores in float32 (forced),
+# the cluster route at timit's width, the grid route at the streaming
+# listener's (B=64 and a single stream), the float32 grid at the LM's
+# width and the fusion listener's
 STATE_SHAPES = (("simt", "float32", 256, 2, 5, 37, 12),
                 ("cluster", "bfloat16", 256, 2, 32, 37, 12),
                 ("grid", "bfloat16", 768, 1, 64, 40, 16),
-                ("grid", "bfloat16", 768, 1, 1, 40, 16))
+                ("grid", "bfloat16", 768, 1, 1, 40, 16),
+                ("grid_f32", "float32", 1024, 1, 64, 40, 16),
+                ("grid_f32", "float32", 384, 2, 5, 37, 12))
 
 
 def state_checks(phase: str) -> float:
@@ -1385,7 +1431,9 @@ def state_checks(phase: str) -> float:
         g = torch.Generator(DEVICE).manual_seed(h + b)
         h0 = torch.randn((d, b, h), generator=g, device=DEVICE) * 0.5
         c0 = torch.randn((d, b, h), generator=g, device=DEVICE)
-        with torch.inference_mode():
+        force = forced_plan(simt_plan) if route == "simt" else \
+            contextlib.nullcontext()
+        with force, torch.inference_mode():
             (got, st), _ = routed("fwd", compute, lambda: K.lstm_scan(
                 gx, w_hh, valid, compute, rev, residuals=True, h0=h0, c0=c0,
                 return_state=True), route)
@@ -1419,12 +1467,14 @@ def state_checks(phase: str) -> float:
 
 def k2_bits(root: Path, out: Path) -> int:
     """K2 without a carried state, run from the package under ``root``, at
-    phase 3's route checks (every cluster and grid shape, bf16, with
-    residuals) and on the CUDA cores in float32 at two of them: writes the
-    sha256 of every output to ``out`` (JSON), or where ``out`` exists,
-    compares with those and returns 1 on any difference.  Run once from a
-    parent checkout and once from this one, it shows whether a change left
-    the stateless scan's bits alone."""
+    phase 3's route checks (every cluster, grid and float32 grid shape,
+    with residuals) and in float32 at two shapes of the listener and the
+    streaming listener, each on the route ``root``'s plan gives it: writes
+    the sha256 of every output to ``out`` (JSON), or where ``out`` exists,
+    compares with those and returns 1 where a bf16 case differs (a float32
+    case moves with its route when a change moves it to another: those
+    are listed).  Run once from a parent checkout and once from this one,
+    it shows whether a change left the stateless scan's bits alone."""
     import hashlib
 
     sys.path.insert(0, str(root))
@@ -1434,18 +1484,18 @@ def k2_bits(root: Path, out: Path) -> int:
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
     strict_fp32()
-    cases = [("simt", 256, (False, True), 32, 37, torch.float32),
-             ("simt", 768, (False,), 5, 37, torch.float32)]
-    for route in ("cluster", "grid"):
-        widths, dirs, batches, lengths, _ = ROUTE_CHECKS[route]
-        cases += [(route, h, rev, b, t, torch.bfloat16) for h in widths
-                  for rev in dirs for b in batches for t in lengths]
+    cases = [("float32", 256, (False, True), 32, 37),
+             ("float32", 768, (False,), 5, 37)]
+    for dtype, shapes, batches, lengths, _ in ROUTE_CHECKS.values():
+        cases += [(dtype, h, rev, b, t) for (h, rev), b, t in
+                  itertools.product(shapes, batches, lengths)]
     digests = {}
-    for route, h, rev, b, t, compute in cases:
+    for dtype, h, rev, b, t in cases:
         gx, w_hh, valid, _ = scan_inputs(h, len(rev), b, t, h + 7 * b + t)
         with torch.inference_mode():
-            got = K.lstm_scan(gx, w_hh, valid, compute, rev, residuals=True)
-        key = f"{route} H={h} D={len(rev)} B={b} T={t}"
+            got = K.lstm_scan(gx, w_hh, valid, getattr(torch, dtype), rev,
+                              residuals=True)
+        key = f"{dtype} H={h} D={len(rev)} B={b} T={t}"
         digests[key] = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
                         for x in got]
     if not out.exists():
@@ -1455,11 +1505,14 @@ def k2_bits(root: Path, out: Path) -> int:
         return 0
     want = json.loads(out.read_text())
     same = [k for k in digests if digests[k] == want.get(k)]
+    moved = sorted((set(want) | set(digests)) - set(same))
+    bf16 = [k for k in moved if k.startswith("bfloat16")]
     log(f"[k2-bits] {len(digests)} stateless K2 calls from {root} against "
         f"{out}: h_out and residuals bitwise equal in {len(same)} of "
-        f"{len(want)}; differing: "
-        f"{sorted(set(want) - set(same)) or 'none'} ({card_line()})")
-    return 0 if len(same) == len(want) == len(digests) else 1
+        f"{len(want)}; bf16 cases differing: {bf16 or 'none'}; float32 "
+        f"cases differing: {[k for k in moved if k not in bf16] or 'none'}"
+        f" ({card_line()})")
+    return 1 if bf16 else 0
 
 
 def bucket_batch(rec, files, frames: int = 400):
@@ -1735,11 +1788,14 @@ def phase6() -> tuple[float, float]:
     worst, worst_bf16 = 0.0, 0.0
     rev = (False, True)
     for name, t, i in (("layer0", 800, 80), ("pyramid", 100, 1024)):
-        for compute in (torch.float32, torch.bfloat16):
+        for dtype, route in LISTENER_ROUTES:
+            compute = getattr(torch, dtype)
             w_hh, valid, acts, cprev, dh_out = k3_inputs(t, i, t, compute)
             args = (w_hh, valid, acts, cprev, dh_out, compute, rev)
-            got, route = routed("bwd", compute,
-                                lambda: K.lstm_scan_bwd(*args))
+            with (forced_plan(simt_plan) if route == "simt"
+                  else contextlib.nullcontext()):
+                got, _ = routed("bwd", compute,
+                                lambda: K.lstm_scan_bwd(*args), route)
             want = K.lstm_scan_bwd_reference(*args)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), "K3 output not finite")
@@ -1766,6 +1822,7 @@ def phase6() -> tuple[float, float]:
             f"bwd dW_ih {errs[4]:.3e} dW_hh {errs[5]:.3e} db {errs[6]:.3e} "
             f"(tol {GRAD_TOL:g})")
         require(max(errs) <= GRAD_TOL, f"layer gradient error {max(errs)}")
+    worst = max(worst, route_checks("phase6", "bwd", "grid_f32"))
     return worst, max(worst_bf16, route_checks("phase6", "bwd", "cluster"),
                       route_checks("phase6", "bwd", "grid"))
 
@@ -2820,7 +2877,7 @@ def phase7(d: Path):
 
     # one step's loss and gradients, kernels against plain: in bf16 (the
     # cluster route through the autograd Function), then in float32 (the
-    # CUDA-core route)
+    # float32 grid route)
     step_check(s, "phase7", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)
     step_check(timit_solver(d / "f32", "float32"), "phase7")
     return s, launches, recs
@@ -2899,25 +2956,32 @@ def cudnn_lstm(x, w_ih, bias, w_hh, valid, dtypes=None):
     raise AssertionError("cuDNN LSTM ran in no dtype")
 
 
-def port_layer(x, w_ih, bias, w_hh, valid):
-    """One BiLSTM layer of the port in bf16 (the input projection as one
-    product, then K2; K3, the dW_hh product and the projection's autograd
-    backward under autograd), its inputs and weights as leaves -> (forward
-    function, leaves)."""
+def port_layer(x, w_ih, bias, w_hh, valid, compute=None):
+    """One LSTM layer of the port (BiLSTM where w_hh holds two directions)
+    in ``compute`` (bf16 by default): the input projection as one product,
+    then K2; K3, the dW_hh product and the projection's autograd backward
+    under autograd; its inputs and weights as leaves -> (forward function,
+    leaves)."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
 
+    compute = compute or torch.bfloat16
     h4 = w_hh.shape[2]
+    lens = valid.sum(0).to(torch.int32)
+    if w_hh.shape[0] == 1:
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (x, w_ih[:, :h4], w_hh[0], bias[:h4])]
+        xg, wi, wh, bb = leaves
+        return (lambda: K.lstm_kernel({"w_ih": wi, "w_hh": wh, "b": bb}, xg,
+                                      lens, False, compute), leaves)
     leaves = [x, w_ih[:, :h4], w_hh[0], bias[:h4], w_ih[:, h4:], w_hh[1],
               bias[h4:]]
     leaves = [a.detach().clone().requires_grad_(True) for a in leaves]
     xg, wif, whf, bf, wib, whb, bb = leaves
     params = {"fwd": {"w_ih": wif, "w_hh": whf, "b": bf},
               "bwd": {"w_ih": wib, "w_hh": whb, "b": bb}}
-    lens = valid.sum(0).to(torch.int32)
-    return (lambda: K.bilstm_kernel(params, xg, lens, torch.bfloat16),
-            leaves)
+    return lambda: K.bilstm_kernel(params, xg, lens, compute), leaves
 
 
 def weaker(*methods: str) -> str:
@@ -4340,11 +4404,10 @@ def phase18_semi(d: Path, card: str) -> tuple[dict, dict]:
 
 def td_lstm_shapes(times: dict, errs: dict, card: str,
                    shapes: tuple = TD_LSTM_SHAPES, b: int = 64,
-                   phase: str = "phase18", compute=None) -> None:
-    """K2 and K3 at ``shapes`` (D=1, B=``b``, bf16 unless ``compute`` is
-    float32; TD_LSTM_SHAPES at B=64 by default): each against its
-    plain version (bf16 bound; float32: K2_TOL / K3_TOL on the CUDA-core
-    route) with the path's masking (the listener's
+                   phase: str = "phase18") -> None:
+    """K2 and K3 at ``shapes`` (D=1, B=``b``, bf16; TD_LSTM_SHAPES at B=64
+    by default): each against its plain version (bf16 bound) with the
+    path's masking (the listener's
     ragged rows with a zero-length one), and the route each launch took;
     then, with every step valid, so that the work is the T x B steps that
     ``bounds`` counts: the device time of each by CUDA events over
@@ -4359,9 +4422,8 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
     from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
-    bf16 = compute or torch.bfloat16
-    f32 = bf16 == torch.float32
-    tol_f, tol_b = (K2_TOL, K3_TOL) if f32 else (BF16_TOL, BF16_TOL)
+    bf16 = torch.bfloat16
+    tol_f = tol_b = BF16_TOL
     for tag, t, i, h, full in shapes:
         x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=b, h=h)
         w_ih, bias, w_hh = w_ih[:, :4 * h], bias[:4 * h], w_hh[:1]
@@ -4395,8 +4457,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
             f"route): dgates max_abs_err {err_b:.3e} (tol {tol_b:g})")
         require(err_f <= tol_f and err_b <= tol_b,
                 f"K2/K3 at {tag} differ from plain: {err_f}, {err_b}")
-        want_route = ("simt" if f32 else
-                      "grid" if h > K.CLUSTER_MAX_HIDDEN else "cluster")
+        want_route = "grid" if h > K.CLUSTER_MAX_HIDDEN else "cluster"
         require(route_f == route_b == [want_route],
                 f"K2/K3 at {tag} took the routes {route_f}, {route_b}")
         errs[tag] = (err_f, err_b, route_f[0])
@@ -4421,7 +4482,7 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
                 ms = (back_to_back_ms(fn, reps=4) if key.endswith("b2b")
                       else cuda_ms(fn, reps=1, warmup=0))
                 times.setdefault(f"td_{tag}_{key}", []).append(ms)
-            if h > K.CLUSTER_MAX_HIDDEN and not f32:
+            if h > K.CLUSTER_MAX_HIDDEN:
                 grid_floors(times, tag, t, h)
             if tag == "listener_t1600":
                 grid_sweep(times, tag, fwd, bwd, h)
@@ -4459,6 +4520,216 @@ def td_lstm_shapes(times: dict, errs: dict, card: str,
                 both - ft_ms)
         del mod, packed, leaves, x
         torch.cuda.empty_cache()
+
+
+def f32_scan_times(times: dict, errs: dict, shape: tuple, b: int,
+                   card: str, phase: str = "phase21") -> None:
+    """K2 and K3 in float32 at ``shape`` (tag, T, input width, H, D, every
+    step valid) and B=``b``: each against its plain version (K2_TOL /
+    K3_TOL) with the path's masking (ragged rows with a zero-length one
+    unless every step is valid) on its planned route, the float32 grid
+    (checked by the launch counts); then, with every step valid: the
+    device time of each on the float32 grid and forced onto the CUDA
+    cores, in turns (grid, CUDA cores, CUDA cores, grid; CUDA events over
+    back-to-back calls), the grid's serial floor (the exchange and the
+    barrier alone) and the barrier alone, the plain version's call time,
+    and cuDNN's float32 layer forward and backward (training forward +
+    backward minus training forward) beside the port's (projection + K2;
+    K3 + the dW_hh product + the projection's backward), one direction or
+    both as D says."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+    from semi_supervised_asr_tpu_torch.ops import recurrent as R
+
+    f32 = torch.float32
+    tag, t, i, h, d, full = shape
+    rev = (False, True)[:d]
+    x, w_ih, bias, w_hh, valid = k2_inputs(t, i, 18, b=b, h=h)
+    if d == 1:
+        w_ih, bias, w_hh = w_ih[:, :4 * h], bias[:4 * h], w_hh[:1]
+    g = torch.Generator().manual_seed(19)
+    dh_out = torch.randn((d, t, b, h), generator=g).to(DEVICE)
+    plans = [K.cluster_plan(k, h, b, f32, d) for k in ("fwd", "bwd")]
+    require(all(p.route == "grid_f32" for p in plans),
+            f"float32 at {tag} is not planned on the float32 grid: {plans}")
+    if full:
+        valid = torch.ones_like(valid)
+    with torch.inference_mode():
+        gx = (R.mm(x, w_ih, f32) + bias).view(b, t, d, 4 * h)
+        gx = gx.permute(2, 1, 0, 3).contiguous()
+        fwd = (gx, w_hh, valid, f32, rev)
+        got, _ = routed("fwd", f32, lambda: K.lstm_scan(
+            *fwd, residuals=True), "grid_f32")
+        bwd = (w_hh, valid, got[3], got[2], dh_out, f32, rev)
+        dg, _ = routed("bwd", f32, lambda: K.lstm_scan_bwd(*bwd),
+                       "grid_f32")
+        torch.cuda.synchronize()
+        want = K.lstm_scan_reference(*fwd, residuals=True)
+        dg_want = K.lstm_scan_bwd_reference(*bwd)
+    err_f = max((a - c).abs().max().item() for a, c in zip(got, want))
+    err_b = (dg - dg_want).abs().max().item()
+    log(f"[{phase}] K2 at {tag} (D={d}, B={b}, T={t}, H={h}, float32, "
+        f"grid_f32 route: u={plans[0].units} G={plans[0].groups} "
+        f"chunk={plans[0].chunk} stages={plans[0].stages}): h, hprev, "
+        f"cprev, acts max_abs_err {err_f:.3e} (tol {K2_TOL:g}); K3 "
+        f"(chunk={plans[1].chunk} stages={plans[1].stages}): dgates "
+        f"max_abs_err {err_b:.3e} (tol {K3_TOL:g})")
+    require(err_f <= K2_TOL and err_b <= K3_TOL,
+            f"K2/K3 at {tag} differ from plain: {err_f}, {err_b}")
+    errs[tag] = (err_f, err_b, "grid_f32")
+    del got, want, dg, dg_want
+    # the timings run every step of every row
+    key = f"td_{tag}_"
+    valid = torch.ones_like(valid)
+    fwd = (gx, w_hh, valid, f32, rev)
+    with torch.inference_mode():
+        got = K.lstm_scan(*fwd, residuals=True)
+        bwd = (w_hh, valid, got[3], got[2], dh_out, f32, rev)
+        del got
+        for route in ("grid_f32", "simt", "simt", "grid_f32"):
+            sfx = "" if route == "grid_f32" else "simt_"
+            with (forced_plan(simt_plan) if route == "simt"
+                  else contextlib.nullcontext()):
+                for kind, fn in (("fwd", lambda: K.lstm_scan(*fwd)),
+                                 ("bwd", lambda: K.lstm_scan_bwd(*bwd))):
+                    times.setdefault(f"{key}{kind}_{sfx}b2b", []).append(
+                        back_to_back_ms(fn, reps=4))
+        for fn, name in ((lambda: K.lstm_scan_reference(*fwd), "fwd"),
+                         (lambda: K.lstm_scan_bwd_reference(*bwd), "bwd")):
+            times.setdefault(f"{key}{name}_plain_call", []).append(
+                cuda_ms(fn, reps=1, warmup=0))
+    for kind, plan in zip(("fwd", "bwd"), plans):
+        for name, read in (("floor", True), ("barrier", False)):
+            times.setdefault(f"{key}{name}_{kind}_b2b", []).append(
+                back_to_back_ms(lambda: K.exchange_floor(
+                    kind, plan, d, t, b, torch.device(DEVICE), h, read),
+                    reps=4))
+    del fwd, bwd, gx
+    # the library column: cuDNN's float32 layer against the port's, like
+    # with like (input projection included), forward and backward
+    mod, packed, dtype = cudnn_lstm(x, w_ih, bias, w_hh, valid, (f32,))
+    require(dtype == f32, f"cuDNN's layer at {tag} ran in {dtype}")
+    layer, leaves = port_layer(x, w_ih, bias, w_hh, valid, f32)
+    for name, fn, params in (("port", layer, leaves),
+                             ("cudnn", lambda: mod(packed)[0].data,
+                              [packed.data, *mod.parameters()])):
+        dy = torch.randn_like(fn())
+        with torch.no_grad():
+            f_ms = back_to_back_ms(fn, reps=4)
+        ft_ms = back_to_back_ms(fn, reps=4)
+        both = back_to_back_ms(
+            lambda: torch.autograd.grad(fn(), params, dy), reps=4)
+        times.setdefault(f"{key}{name}_layer_fwd_b2b", []).append(f_ms)
+        times.setdefault(f"{key}{name}_layer_bwd_b2b", []).append(
+            both - ft_ms)
+    med = {k: statistics.median(v) for k, v in times.items()
+           if k.startswith(key)}
+    turns = {k: times[key + k] for k in ("fwd_b2b", "fwd_simt_b2b",
+                                         "bwd_b2b", "bwd_simt_b2b")}
+    log(f"[{phase}] {tag} float32 (D={d}, B={b}, T={t}, H={h}), device ms "
+        f"(back to back): K2 {med[key + 'fwd_b2b']:.4f} on the float32 grid "
+        f"against {med[key + 'fwd_simt_b2b']:.4f} on the CUDA cores, K3 "
+        f"{med[key + 'bwd_b2b']:.4f} against {med[key + 'bwd_simt_b2b']:.4f}"
+        f" (in turns {turns}); "
+        f"the grid's serial floor fwd {med[key + 'floor_fwd_b2b']:.4f} / "
+        f"bwd {med[key + 'floor_bwd_b2b']:.4f} (the barrier alone "
+        f"{med[key + 'barrier_fwd_b2b']:.4f} / "
+        f"{med[key + 'barrier_bwd_b2b']:.4f}); plain call "
+        f"{med[key + 'fwd_plain_call']:.1f} / "
+        f"{med[key + 'bwd_plain_call']:.1f}; the port's layer "
+        f"{med[key + 'port_layer_fwd_b2b']:.4f} / "
+        f"{med[key + 'port_layer_bwd_b2b']:.4f} against cuDNN's float32 "
+        f"{med[key + 'cudnn_layer_fwd_b2b']:.4f} / "
+        f"{med[key + 'cudnn_layer_bwd_b2b']:.4f} ({card})")
+    del mod, packed, leaves, x
+    torch.cuda.empty_cache()
+
+
+def f32_grid_sweep(times: dict, card: str) -> None:
+    """K2 and K3 at the LM's shape (D=1, B=64, H=1024, T=256, float32,
+    every step valid) under each ring plan of F32_GRID_SWEEP that fits, in
+    turns (each plan, then again in reverse order), CUDA events over
+    back-to-back calls."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    f32 = torch.float32
+    tag, t, _, h, d, _ = LM_LSTM_SHAPE
+    gx, w_hh, valid, dh_out = scan_inputs(h, d, LM_BATCH, t, 21)
+    valid = torch.ones_like(valid)
+    with torch.inference_mode():
+        res = K.lstm_scan_reference(gx, w_hh, valid, f32, (False,),
+                                    residuals=True)
+        for kind, call in (
+                ("fwd", lambda: K.lstm_scan(gx, w_hh, valid, f32, (False,))),
+                ("bwd", lambda: K.lstm_scan_bwd(w_hh, valid, res[3], res[2],
+                                                dh_out, f32, (False,)))):
+            base = K.cluster_plan(kind, h, LM_BATCH, f32, d)
+            for chunk, stages in (*F32_GRID_SWEEP, *F32_GRID_SWEEP[::-1]):
+                plan = base._replace(chunk=chunk, stages=stages,
+                                     smem=K.grid_smem(
+                                         kind, h, base.units, base.rows,
+                                         base.sub, chunk, stages, f32))
+                if plan.smem > K.MAX_SMEM:
+                    continue
+                with forced_plan(lambda *a, **k: plan):
+                    n = _native.LAUNCHES[f"lstm_scan_{kind}_grid_f32"]
+                    ms = back_to_back_ms(call, reps=2)
+                    require(_native.LAUNCHES[f"lstm_scan_{kind}_grid_f32"]
+                            == n + 4, f"the {kind} sweep left the grid")
+                times.setdefault(f"td_{tag}_{kind}_c{chunk}_s{stages}_b2b",
+                                 []).append(ms)
+            for chunk, stages in F32_GRID_SWEEP:
+                key = f"td_{tag}_{kind}_c{chunk}_s{stages}_b2b"
+                if key in times:
+                    log(f"[phase21] float32 grid plan {kind} at {tag}: chunk="
+                        f"{chunk} stages={stages}: {times[key]} ms (the plan: "
+                        f"chunk={base.chunk} stages={base.stages}) ({card})")
+
+
+def f32_threshold_sweep(times: dict, card: str) -> None:
+    """K2 and K3 in float32 at the widths of F32_SWEEP_WIDTHS around
+    ``GRID_F32_MIN_HIDDEN`` (timit's listener shape otherwise: D=2, B=32,
+    T=400, every step valid) on the float32 grid (its plan forced where
+    the threshold sends the width to the CUDA cores) and on the CUDA cores,
+    in turns, CUDA events over back-to-back calls."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    f32, d, b, t = torch.float32, 2, 32, 400
+    rev = (False, True)
+
+    def grid(kernel, hidden, batch, compute, directions=1):
+        return K.grid_plan(kernel, hidden, batch, directions, compute)
+
+    for h in F32_SWEEP_WIDTHS:
+        gx, w_hh, valid, dh_out = scan_inputs(h, d, b, t, h)
+        valid = torch.ones_like(valid)
+        with torch.inference_mode():
+            res = K.lstm_scan_reference(gx, w_hh, valid, f32, rev,
+                                        residuals=True)
+            fns = {"fwd": lambda: K.lstm_scan(gx, w_hh, valid, f32, rev),
+                   "bwd": lambda: K.lstm_scan_bwd(w_hh, valid, res[3], res[2],
+                                                  dh_out, f32, rev)}
+            for route in ("grid_f32", "simt", "simt", "grid_f32"):
+                with forced_plan(grid if route == "grid_f32" else simt_plan):
+                    for kind, fn in fns.items():
+                        times.setdefault(f"f32_sweep_h{h}_{kind}_{route}",
+                                         []).append(
+                            back_to_back_ms(fn, reps=4))
+        med = {k: statistics.median(times[f"f32_sweep_h{h}_{k}"])
+               for k in ("fwd_grid_f32", "fwd_simt", "bwd_grid_f32",
+                         "bwd_simt")}
+        log(f"[phase21] float32 at H={h} (D=2, B=32, T=400), device ms "
+            f"(back to back, in turns): K2 {med['fwd_grid_f32']:.4f} on the "
+            f"float32 grid against {med['fwd_simt']:.4f} on the CUDA cores, "
+            f"K3 {med['bwd_grid_f32']:.4f} against {med['bwd_simt']:.4f}; "
+            f"planned: {K.cluster_plan('fwd', h, b, f32, d).route} "
+            f"(GRID_F32_MIN_HIDDEN {K.GRID_F32_MIN_HIDDEN}) ({card})")
 
 
 def grid_floors(times: dict, tag: str, t: int, h: int) -> None:
@@ -4528,12 +4799,12 @@ def grid_sweep(times: dict, tag: str, fwd: tuple, bwd: tuple,
                 f"{plan.stages} smem={plan.smem}: {ms:.4f} ms")
 
 
-def stream_step_routes(s) -> dict:
-    """ls100_transducer_streaming's step at the 400-frame bucket with the
-    listener's K2 and K3 on the CUDA-core route (the plan forced there, the
-    route before the grid's) and on the grid route, in turns (simt, grid,
-    grid, simt), two steps each, the second timed (host ms to a
-    synchronize) -> {route: median ms}."""
+def step_routes(s, grid: str = "grid") -> dict:
+    """A Solver's step with the K2 and K3 launches that its plans put on
+    the ``grid`` route ("grid" or "grid_f32") forced onto the CUDA-core
+    route (the route before the grid's) and on their own route, in turns
+    (simt, grid, grid, simt), two steps each, the second timed (host ms to
+    a synchronize) -> {route: median ms}."""
     import torch
 
     from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
@@ -4542,11 +4813,11 @@ def stream_step_routes(s) -> dict:
 
     def simt(kernel, hidden, batch, compute, directions=1):
         p = plan(kernel, hidden, batch, compute, directions)
-        return K.Plan("simt") if p.route == "grid" else p
+        return K.Plan("simt") if p.route == grid else p
 
     lab = s._labeled_stream()
-    walls = {"simt": [], "grid": []}
-    for route in ("simt", "grid", "grid", "simt"):
+    walls = {"simt": [], grid: []}
+    for route in ("simt", grid, grid, "simt"):
         with forced_plan(simt if route == "simt" else plan):
             for i in range(2):
                 args, unlab = s.step_inputs(next(lab)[2])
@@ -4589,7 +4860,7 @@ def phase18_stream(d: Path, card: str) -> tuple[dict, dict, dict]:
         f"listener's K2 8 and K3 4 on the grid route), loss and every "
         f"gradient bitwise equal: {same}")
     require(same, "two runs of one ls100_transducer_streaming step differ")
-    routes = stream_step_routes(s)
+    routes = step_routes(s)
     out["td_stream_step_simt_ms"] = routes["simt"]
     out["td_stream_step_grid_ms"] = routes["grid"]
     log(f"[phase18] ls100_transducer_streaming step at 400 frames, in turns: "
@@ -4936,6 +5207,7 @@ def phase19_listener(card: str) -> dict:
 
     from semi_supervised_asr_tpu_torch import _native
     from semi_supervised_asr_tpu_torch.models import listener as L
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
     from semi_supervised_asr_tpu_torch.training.train_step import featurize
 
     cfg32, m32 = stream_model(TD_STREAM_CONFIG, "float32")
@@ -4975,7 +5247,8 @@ def phase19_listener(card: str) -> dict:
                         runs = dict(_native.LAUNCHES)
                         off, _ = model.listener(feats, flens)
             torch.cuda.synchronize()
-            route = "grid" if dtype == "bfloat16" else "simt"
+            route = K.cluster_plan("fwd", m.enc_hidden, b,
+                                   getattr(torch, dtype)).route
             n_calls = 4 * t // chunk
             require(runs["lstm_scan_fwd_" + route] == n_calls,
                     f"streaming listener {dtype} B={b}: launches {runs}")
@@ -5488,10 +5761,20 @@ LM_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
 LM_RUN = ["lm.total_steps=3", "lm.log_every=1"]
 LM_TRANSFORMER = ["lm.arch=transformer", "lm.heads=4", "lm.ff_dim=512",
                   "lm.max_len=256"]
-# a step: K2 and K3 once (one layer, every step valid), float32
+# a step: K2 and K3 once (one layer, every step valid), float32, on the
+# float32 grid
 LM_STEP_LAUNCHES = {"lstm_scan_fwd": 1, "lstm_scan_bwd": 1}
-# K2 / K3 at the LM's shape: (tag, T, input width, H, every step valid)
-LM_LSTM_SHAPE = ("lm_t256", 256, 256, 1024, True)
+LM_STEP_ROUTES = {"lstm_scan_fwd_grid_f32": 1, "lstm_scan_bwd_grid_f32": 1}
+# K2 / K3 in float32 at the LM's shape and at the first listener layer of
+# the cold / deep fusion step (ls100 in float32, bucket 400): (tag, T,
+# input width, H, D, every step valid), at B=LM_BATCH
+LM_LSTM_SHAPE = ("lm_t256", 256, 256, 1024, 1, True)
+FUSION_LSTM_SHAPE = ("fusion_listener_t400", 400, 80, 384, 2, False)
+F32_LSTM_SHAPES = (LM_LSTM_SHAPE, FUSION_LSTM_SHAPE)
+# widths around the float32 grid's threshold (GRID_F32_MIN_HIDDEN)
+F32_SWEEP_WIDTHS = (128, 192, 256)
+# the float32 grid's ring plans timed at the LM's shape: (chunk, stages)
+F32_GRID_SWEEP = ((128, 2), (64, 2), (64, 3), (64, 4), (32, 4))
 LM_BATCH = 64
 # (b) shallow fusion of (a)'s LM in float32 (tokens kernels vs plain must
 # be identical), each recipe at full width as shipped but for its data (the
@@ -5564,7 +5847,7 @@ def lm_trainer_phase(d: Path, card: str) -> tuple[dict, dict, Path]:
         log(f"[phase21] lm_trainer step {i + 1}: {w:.1f} ms wall; kernel "
             f"launches {st}")
         require_launches(f"LM step {i + 1}", st, LM_STEP_LAUNCHES,
-                         {"lstm_scan_fwd_simt": 1, "lstm_scan_bwd_simt": 1})
+                         LM_STEP_ROUTES)
     log(f"[phase21] lm_trainer (B=64, T=256, H=1024, float32, 3 steps): "
         f"{res}; run launches {launches} ({card})")
     require(len(steps) == 3 and math.isfinite(res["lm_loss"]),
@@ -5757,10 +6040,11 @@ def fusion_graft_phase(d: Path, lm_dir: Path, card: str) -> tuple[dict, dict]:
                 f"B=64, bucket 400): loss {r['loss']:.4f}; {w:.1f} ms wall; "
                 f"kernel launches {st} ({card})")
             require(math.isfinite(r["loss"]), f"{kind} step loss")
-            require(st.get("fused_post_fft", 0) == 1
-                    and st.get("lstm_scan_fwd", 0) == 4
-                    and st.get("lstm_scan_bwd", 0) == 4,
-                    f"{kind} step launches {st}")
+            require_launches(f"{kind} fusion step {i + 1}", st,
+                             {"fused_post_fft": 1, "lstm_scan_fwd": 4,
+                              "lstm_scan_bwd": 4},
+                             {"lstm_scan_fwd_grid_f32": 4,
+                              "lstm_scan_bwd_grid_f32": 4})
         out[f"{kind}_fusion_step_ms"] = statistics.median(walls)
         same = all(torch.equal(a, b) for a, b in zip(
             frozen, s.state.model.speller.fusion_lm.parameters()))
@@ -5768,13 +6052,22 @@ def fusion_graft_phase(d: Path, lm_dir: Path, card: str) -> tuple[dict, dict]:
             f"after {len(walls)} steps: {same}")
         require(same, f"{kind}: the frozen LM moved")
         step_check(s, "phase21")
+        routes = step_routes(s, "grid_f32")
+        out[f"{kind}_fusion_step_simt_ms"] = routes["simt"]
+        out[f"{kind}_fusion_step_grid_f32_ms"] = routes["grid_f32"]
+        log(f"[phase21] ls100 {kind} fusion step (float32, B=64, bucket "
+            f"400), in turns: the listener's K2 / K3 on the CUDA-core route "
+            f"{routes['simt']:.1f} ms, on the float32 grid "
+            f"{routes['grid_f32']:.1f} ms (host ms to a synchronize, median "
+            f"of 2) ({card})")
         del s
         torch.cuda.empty_cache()
     return launches, out
 
 
 def phase21(d: Path, card: str) -> tuple[dict, dict, dict]:
-    """Phase 21: (a) the LM trainer, K2 / K3 at its shape; (b) shallow
+    """Phase 21: (a) the LM trainer, K2 / K3 in float32 at its shape and
+    the fusion listener's, the float32 grid's threshold; (b) shallow
     fusion in the four beams; (c) cold and deep fusion -> (launches by
     path, numbers, K2 / K3 errors at the LM's shape)."""
     import torch
@@ -5783,8 +6076,10 @@ def phase21(d: Path, card: str) -> tuple[dict, dict, dict]:
     launches["lm_trainer"], res, lm_dir = lm_trainer_phase(d, card)
     out.update(res)
     times, errs = {}, {}
-    td_lstm_shapes(times, errs, card, (LM_LSTM_SHAPE,), LM_BATCH, "phase21",
-                   torch.float32)
+    for shape in F32_LSTM_SHAPES:
+        f32_scan_times(times, errs, shape, LM_BATCH, card)
+    f32_threshold_sweep(times, card)
+    f32_grid_sweep(times, card)
     out.update({k: statistics.median(v) for k, v in times.items()})
     torch.cuda.empty_cache()
     fl, res = fusion_phase(d, lm_dir, card)
@@ -5855,9 +6150,10 @@ def bounds() -> dict:
     13's (ls100_semi: B=64, H=384, T=400 and 1600), phase 18's
     (TD_LSTM_SHAPES: D=1, B=64, H=768 at T=1600 and 200, H=512 at T=257,
     timed with every step valid, as counted here) and phase 20's (the MWER
-    predictor: D=1, B=256, H=512, T=129) and phase 21's (the LM: D=1,
-    B=64, H=1024, T=256, float32 weights and products, against the CUDA
-    cores' float32 peak); K5 at phase 12's
+    predictor: D=1, B=256, H=512, T=129) and phase 21's (F32_LSTM_SHAPES:
+    the LM, D=1, B=64, H=1024, T=256, and the fusion listener's first
+    layer, D=2, B=64, H=384, T=400; float32 weights and products, against
+    the CUDA cores' float32 peak); K5 at phase 12's
     (B=32, T'=400, 8 heads of 64, bf16), counting the products these
     lengths need: every query row against the valid keys of its batch row
     (all T keys for an empty row, whose weights are uniform)."""
@@ -5887,9 +6183,10 @@ def bounds() -> dict:
             work[f"lstm_scan_bwd_{tag}"] = k3
     lens = k5_inputs(*K5_TIMING, seed=11, odd_rows=False)[3].sum(1)
     work["flash_mhsa_fwd"], work["flash_mhsa_bwd"] = k5_work(K5_TIMING, lens)
-    tag, tt, _, h, _ = LM_LSTM_SHAPE
-    f32_work = dict(zip((f"lstm_scan_fwd_{tag}", f"lstm_scan_bwd_{tag}"),
-                        lstm_work(tt, LM_BATCH, h, d=1, wbytes=4)))
+    f32_work = {}
+    for tag, tt, _, h, d, _ in F32_LSTM_SHAPES:
+        f32_work.update(zip((f"lstm_scan_fwd_{tag}", f"lstm_scan_bwd_{tag}"),
+                            lstm_work(tt, LM_BATCH, h, d=d, wbytes=4)))
     out = {}
     for name, (nbytes, flops) in {**work, **f32_work}.items():
         peak = F32_FLOPS if name in f32_work else BF16_FLOPS
@@ -6189,24 +6486,34 @@ def main(argv=None) -> int:
             f"layer {kind} {p20[key + 'port_layer_' + kind + '_b2b']:.4f} ms "
             f"against cuDNN's {p20[key + 'cudnn_layer_' + kind + '_b2b']:.4f}"
             f" ms ({card})")
-    tag, t, _, h, _ = LM_LSTM_SHAPE
-    for kind in ("fwd", "bwd"):
-        key, name = f"td_{tag}_", "lstm_scan_" + kind
-        ms, (bms, by) = p21[key + kind + "_b2b"], bound[f"{name}_{tag}"]
-        log(f"[summary] {name} at {tag} (the LM: B={LM_BATCH}, T={t}, H={h}, "
-            f"D=1, float32, {p21_errs[tag][2]} route): {ms:.4f} ms device "
-            f"(back to back), {ms / t * 1e3:.2f} us a step; bound "
-            f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; plain "
-            f"{p21[key + kind + '_plain_call']:.1f} ms a call; the port's "
-            f"layer {kind} {p21[key + 'port_layer_' + kind + '_b2b']:.4f} ms "
-            f"against cuDNN's float32 "
-            f"{p21[key + 'cudnn_layer_' + kind + '_b2b']:.4f} ms ({card})")
+    for tag, t, _, h, d, _ in F32_LSTM_SHAPES:
+        for kind in ("fwd", "bwd"):
+            key, name = f"td_{tag}_", "lstm_scan_" + kind
+            ms, (bms, by) = p21[key + kind + "_b2b"], bound[f"{name}_{tag}"]
+            log(f"[summary] {name} at {tag} (B={LM_BATCH}, T={t}, H={h}, "
+                f"D={d}, float32, {p21_errs[tag][2]} route): {ms:.4f} ms "
+                f"device (back to back), {ms / t * 1e3:.2f} us a step, "
+                f"against {p21[key + kind + '_simt_b2b']:.4f} ms on the "
+                f"CUDA cores (in turns); serial floor "
+                f"{p21[key + 'floor_' + kind + '_b2b']:.4f} ms (the barrier "
+                f"alone {p21[key + 'barrier_' + kind + '_b2b']:.4f} ms); "
+                f"bound {bms:.4f} ms ({by}), share {bms / ms:.3f}; plain "
+                f"{p21[key + kind + '_plain_call']:.1f} ms a call; the "
+                f"port's layer {kind} "
+                f"{p21[key + 'port_layer_' + kind + '_b2b']:.4f} ms against "
+                f"cuDNN's float32 "
+                f"{p21[key + 'cudnn_layer_' + kind + '_b2b']:.4f} ms ({card})")
     fusion = {k: v for k, v in p21.items() if k.startswith("fusion_")}
     log(f"[summary] phase 21: LM step {p21['lm_step_ms']:.1f} ms wall "
         f"(transformer LM {p21['lm_transformer_step_ms']:.1f} ms); fused "
         f"beams host ms (with the LM / without) {json.dumps(fusion)}; cold "
         f"fusion step {p21['cold_fusion_step_ms']:.1f} ms, deep "
-        f"{p21['deep_fusion_step_ms']:.1f} ms (ls100, float32); launches "
+        f"{p21['deep_fusion_step_ms']:.1f} ms (ls100, float32; in turns, "
+        f"the listener on the CUDA cores / on the float32 grid: cold "
+        f"{p21['cold_fusion_step_simt_ms']:.1f} / "
+        f"{p21['cold_fusion_step_grid_f32_ms']:.1f} ms, deep "
+        f"{p21['deep_fusion_step_simt_ms']:.1f} / "
+        f"{p21['deep_fusion_step_grid_f32_ms']:.1f} ms); launches "
         f"{json.dumps(p21_launches)} ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
@@ -6220,7 +6527,8 @@ def main(argv=None) -> int:
                    "co-resident grid (cooperative launch), the weight slice "
                    "resident in shared memory, {0} through L2 by step "
                    "parity with a step barrier on a global counter, "
-                   "mma.sync; f32: CUDA cores")
+                   "mma.sync; f32: the same grid in float32 (see the "
+                   "_grid_f32 row); what fits no grid: CUDA cores")
     # launches: K1-K3 from the timit Solver run (phase 14: 4 steps and 2
     # validations), K5 from the conformer training run (phase 11), and by
     # path in launches_by_path;
@@ -6320,7 +6628,7 @@ def main(argv=None) -> int:
                 "library_vs": "cuDNN LSTM (torch.nn.LSTM, one direction, "
                               "packed, bf16), the whole layer " + kind
                               + " against the port's layer"}
-            tag, t, _, h, _ = LM_LSTM_SHAPE
+            tag, t, _, h, _, _ = LM_LSTM_SHAPE
             out["at_lm"] = {
                 "shape": f"{tag}: B={LM_BATCH} T={t} H={h} D=1 float32",
                 "route": p21_errs[tag][2],
@@ -6337,7 +6645,64 @@ def main(argv=None) -> int:
                               + " against the port's layer"}
         return out
 
-    print(json.dumps({"kernels": [entry(*row) for row in rows]}), flush=True)
+    def f32_entry(kind: str) -> dict:
+        """The float32 grid's kernel of K2 or K3 (its own __global__
+        function): ms, plain and library at the LM's shape, launches from
+        the LM trainer's run, and the fusion listener's shape beside."""
+        name = f"lstm_scan_{kind}_grid_f32"
+        f32_design = (
+            "one co-resident grid (cooperative launch) of H/8 blocks a "
+            "direction and row group, w_hh's slice of 8 units resident in "
+            "shared memory in float32, " + ("h" if kind == "fwd" else
+                                            "dgates")
+            + " through L2 in float32 (k-major, 64 rows a sub-tile) by step "
+            "parity with a step barrier on a global counter, read through a "
+            "ring fed by bulk copies from a producer warp (mbarriers, no "
+            "block barrier a chunk), the product on the CUDA cores' FMAs (a "
+            "lane's 4 x 8 / 4 x 4 register tile), k-parts added in a fixed "
+            "order")
+
+        def at(shape):
+            tag, t, _, h, d, _ = shape
+            key = f"td_{tag}_"
+            return {
+                "shape": f"{tag}: B={LM_BATCH} T={t} H={h} D={d} float32",
+                "route": p21_errs[tag][2],
+                "max_abs_err": p21_errs[tag][0 if kind == "fwd" else 1],
+                "ms": p21[key + kind + "_b2b"], "method": METHODS["b2b"][1],
+                "simt_ms": p21[key + kind + "_simt_b2b"],
+                "floor_ms": p21[key + "floor_" + kind + "_b2b"],
+                "barrier_ms": p21[key + "barrier_" + kind + "_b2b"],
+                "plain_call_ms": p21[key + kind + "_plain_call"],
+                "bound_ms": bound[f"lstm_scan_{kind}_{tag}"][0],
+                "bound_by": bound[f"lstm_scan_{kind}_{tag}"][1],
+                "port_layer_ms": p21[key + "port_layer_" + kind + "_b2b"],
+                "library_ms": p21[key + "cudnn_layer_" + kind + "_b2b"]}
+
+        lm = at(LM_LSTM_SHAPE)
+        return {"name": name, "route": "cuda",
+                "source": src + f"lstm_scan_{kind}.cu",
+                "replaces": tpu + ("pallas_lstm.py:41" if kind == "fwd"
+                                   else "pallas_lstm.py:85"),
+                "launches": p21_launches["lm_trainer"].get(name, 0),
+                "max_abs_err": ROUTE_ERRS[kind, "grid_f32"],
+                "ms": lm["ms"], "method": lm["method"],
+                "plain_ms": lm["plain_call_ms"],
+                "plain_method": "call time, CUDA events",
+                "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
+                "library_ms": lm["library_ms"],
+                "library_method": METHODS["b2b"][1], "design": f32_design,
+                "library_vs": "cuDNN LSTM (torch.nn.LSTM, packed, float32), "
+                              "the whole layer " + kind + " at the LM's shape "
+                              "against the port's layer at "
+                              f"{lm['port_layer_ms']:.4f} ms",
+                "launches_by_path": {p: n.get(name, 0)
+                                     for p, n in paths.items()},
+                "at_lm": lm, "at_fusion_listener": at(FUSION_LSTM_SHAPE)}
+
+    kernels = [entry(*row) for row in rows]
+    kernels[3:3] = [f32_entry("fwd"), f32_entry("bwd")]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,8 @@ launch sites increment it, so a caller can reset it, drive the serving
 or training path and see that each kernel actually ran.  The LSTM scans
 also count each launch under the route that ran it
 (``lstm_scan_fwd_cluster`` / ``lstm_scan_fwd_grid`` /
-``lstm_scan_fwd_simt``, and the same for ``lstm_scan_bwd``).
+``lstm_scan_fwd_grid_f32`` / ``lstm_scan_fwd_simt``, and the same for
+``lstm_scan_bwd``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ LAUNCHES: dict[str, int] = {
     "lstm_scan_fwd_cluster": 0, "lstm_scan_fwd_grid": 0,
     "lstm_scan_fwd_simt": 0, "lstm_scan_bwd_cluster": 0,
     "lstm_scan_bwd_grid": 0, "lstm_scan_bwd_simt": 0,
+    "lstm_scan_fwd_grid_f32": 0, "lstm_scan_bwd_grid_f32": 0,
     "lstm_exchange_floor": 0,
 }
 
@@ -130,6 +132,17 @@ _SIGNATURES = {
         _P,                          # stream
     ],
 }
+
+# the float32 grid's entries take the bf16 grid's arguments
+_SIGNATURES.update({
+    "lstm_scan_fwd_grid_f32": _SIGNATURES["lstm_scan_fwd_grid"],
+    "lstm_scan_bwd_grid_f32": _SIGNATURES["lstm_scan_bwd_grid"],
+    "lstm_scan_fwd_grid_f32_occupancy":
+        _SIGNATURES["lstm_scan_fwd_grid_occupancy"],
+    "lstm_scan_bwd_grid_f32_occupancy":
+        _SIGNATURES["lstm_scan_bwd_grid_occupancy"],
+    "lstm_grid_f32_floor": _SIGNATURES["lstm_grid_floor"],
+})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,9 +1,10 @@
 // Helpers shared by the LSTM scan kernels (lstm_scan_fwd.cu, lstm_scan_bwd.cu):
-// the CUDA-core route (float32, and bfloat16 where no other plan fits), the
-// cluster route (bfloat16 at H <= 512 on sm_90a: thread-block clusters,
-// distributed shared memory, mma.sync on the tensor cores) and the grid
-// route (bfloat16 above H = 512: one co-resident grid, the exchange through
-// L2 and a step barrier on a counter in global memory, mma.sync).
+// the CUDA-core route (the shapes no other plan fits), the cluster route
+// (bfloat16 at H <= 512 on sm_90a: thread-block clusters, distributed
+// shared memory, mma.sync on the tensor cores), the grid route (bfloat16
+// above H = 512: one co-resident grid, the exchange through L2 and a step
+// barrier on a counter in global memory, mma.sync) and the float32 grid
+// route (the same grid and protocol in float32, FMAs on the CUDA cores).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -533,16 +534,165 @@ __device__ __forceinline__ void grid_wait(const unsigned* ctr,
   __syncthreads();
 }
 
+// ---- the float32 grid route ----
+//
+// The grid route's protocol (N = H/u blocks for each (direction, row
+// group), all resident at once; the exchange through a global buffer by
+// step parity; the step barrier on the group's counter) with every value
+// in float32: w_hh's slice, the exchanged h or dgates, the products (FMAs
+// on the CUDA cores: no TF32, no rounding).  A block owns kF32Units units
+// and takes its group's rows kF32Sub at a time (a sub-tile).  The exchange
+// is k-major, [2][D][sub-tiles][K][kF32Sub] (K = H forward, 4H backward),
+// so a ring chunk of KC values of k is one run of KC x kF32Sub floats, and
+// 4 rows of one k are one 16-byte word.  What bounds a step next to the
+// exchange is shared memory against the FMA rate (an SM reads 128 bytes of
+// shared memory a clock and runs 128 FMAs): a lane keeps a register tile of
+// 4 rows x 8 gate columns (forward) or 4 rows x 4 units (backward), so
+// each 16-byte load of h (dgates) or of the weights feeds 8 or 4 FMAs of
+// each of its values, and neighbouring lanes read one 128-byte line that
+// the others receive by broadcast.  The warps split each chunk's k values
+// (forward: 2 row tiles of 32 rows x 4 k-parts; backward: 8 k-parts);
+// every warp writes its partial sums, and the (row, unit) pairs' gate math
+// adds them in a fixed order, so two calls are bitwise equal.
+
+constexpr int kF32Units = 8;      // hidden units a block
+constexpr int kF32Sub = 64;       // rows a sub-tile
+// The mbarriers (the weights', then each ring stage's "full" and "empty"),
+// padded so that the weight slice and the ring start on 128-byte lines: a
+// ring 16 bytes off a line halved the rate at which cp.async filled it
+// (45.6 against 23.0 us a step for K3's 1 MB at H=1024 on an H100).
+constexpr int kF32Header = 128;
+constexpr int kF32MaxStages = 4;
+// 8 warps run the products and the gate math; one more warp feeds the ring
+constexpr int kF32Threads = kGridThreads + 32;
+constexpr int kF32Producer = kGridThreads;   // the feeding thread
+constexpr int kF32Pairs = kF32Sub * kF32Units / kGridThreads;   // a thread's
+// The forward's partial sums, [k-part][row tile][v][lane] float4 (the 4
+// gates of one unit, v = 2 x row-in-tile + unit-in-pair), v by 33 float4s:
+// the pair readers then meet 8 distinct bank groups a request.
+constexpr int kF32FwdV = 33;
+constexpr size_t kF32FwdPart = (size_t)kGridWarps * 8 * kF32FwdV * 16;
+// The backward's, [k-part][row-in-tile i][unit half][16 row groups][4] f32
+// with a unit half 68 floats and an i 136 floats apart: a warp of pair
+// readers (4 rows x 8 units) then hits 32 distinct banks.
+constexpr int kF32BwdHalf = 68;
+constexpr int kF32BwdI = 2 * kF32BwdHalf;
+constexpr size_t kF32BwdPart = (size_t)kGridWarps * 4 * kF32BwdI * 4;
+
+// Byte offsets of a float32 grid block's shared memory: the weights'
+// mbarrier (kF32Header), the weight slice ([H][4u] forward, [4H][u] backward, f32), the
+// ring (S stages of [KC][kF32Sub] f32: the stage of a chunk follows the
+// count of chunks through the ring, across steps) and, in the same bytes
+// once the ring's last chunk has been used, the partial sums; a
+// sub-tile's streamed inputs (forward gates_x [64][4u]; backward acts
+// [64][4u], cprev [64][u], dh_out [64][u]; then valid [64]) and the
+// carries ([R][u] x 2).  (The read of the exchange runs at a rate that
+// grows with the chunk, so the chunk gets the room.)
+struct F32Layout {
+  size_t ring, in, carry, total;
+};
+__host__ __device__ inline F32Layout f32_layout(bool bwd, int H, int R,
+                                                int KC, int S) {
+  const size_t ring = (size_t)S * KC * kF32Sub * 4;
+  const size_t part = bwd ? kF32BwdPart : kF32FwdPart;
+  F32Layout L;
+  L.ring = kF32Header + (size_t)H * 4 * kF32Units * 4;
+  L.in = L.ring + (ring > part ? ring : part);
+  L.carry = L.in + align16((size_t)kF32Sub *
+                           ((bwd ? 6 : 4) * kF32Units + 1) * 4);
+  L.total = L.carry + (size_t)R * kF32Units * 2 * 4;
+  return L;
+}
+
+// Whether the float32 route takes the plan: u = kF32Units dividing H,
+// sub-tiles of kF32Sub rows dividing R, KC dividing K, 2 to
+// kF32MaxStages stages, within the shared memory.
+inline bool grid_f32_plan_ok(bool bwd, int H, int u, int R, int RS, int KC,
+                             int S) {
+  if (H <= 0 || u != kF32Units || H % u) return false;
+  if (RS != kF32Sub || R < RS || R % RS) return false;
+  const int K = bwd ? 4 * H : H;
+  if (KC <= 0 || K % KC || S < 2 || S > kF32MaxStages) return false;
+  return f32_layout(bwd, H, R, KC, S).total <= kMaxSmem;
+}
+
+// The float32 grid's mbarriers: [0] the weights' (one arrival), then
+// full[kF32MaxStages] (one arrival: the producer's, and the chunk's bytes)
+// and empty[kF32MaxStages] (an arrival from each of the 8 compute warps).
+// Every thread calls it.
+__device__ __forceinline__ void init_f32_barriers(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + 2 * kF32MaxStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_u32(bars + i)),
+                   "r"(i <= kF32MaxStages ? 1 : kGridWarps)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A sub-tile's K exchanged values through the ring: chunk c of K/KC (KC x
+// kF32Sub contiguous floats of the k-major exchange at `src`) lands in
+// stage n % S, n = seq + c (seq: the chunks this block has put through
+// the ring before, whose count sets each barrier's phase).  The producer
+// thread copies each chunk with one bulk copy, counted in bytes on the
+// stage's full barrier, once the stage's empty barrier shows that every
+// compute warp is done with the chunk S before; each compute warp waits
+// for the stage's full barrier, runs compute(c, stage), and arrives on
+// its empty barrier.  No block barrier in the loop: a warp runs ahead to
+// any chunk that has landed.  The caller puts a __syncthreads after it
+// before the ring's bytes are written otherwise.
+template <typename Compute>
+__device__ __forceinline__ void ring_f32(float* ring_s, const float* src,
+                                         int K, int KC, int S,
+                                         uint64_t* full, uint64_t* empty,
+                                         uint32_t& seq, Compute compute) {
+  const int nch = K / KC;
+  const uint32_t stage = (uint32_t)KC * kF32Sub;
+  if (threadIdx.x == kF32Producer) {
+    // the exchange's rows (other blocks' generic stores, acquired by the
+    // step barrier) and the partial sums in the ring's bytes (this
+    // block's generic stores) come before the bulk copies' accesses
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int c = 0; c < nch; ++c) {
+      const uint32_t n = seq + c, st = n % S;
+      if (n >= (uint32_t)S) wait_phase(&empty[st], ((n / S) - 1) & 1);
+      expect_bytes(&full[st], stage * 4);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(ring_s + st * stage)),
+          "l"(src + (size_t)c * stage), "r"(stage * 4),
+          "r"(smem_u32(&full[st]))
+          : "memory");
+    }
+  } else if (threadIdx.x < kGridThreads) {
+    for (int c = 0; c < nch; ++c) {
+      const uint32_t n = seq + c, st = n % S;
+      wait_phase(&full[st], (n / S) & 1);
+      compute(c, ring_s + st * stage);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                         smem_u32(&empty[st]))
+                     : "memory");
+    }
+  }
+  seq += nch;
+}
+
 // Blocks of this shape one SM holds, and the card's SMs.
 template <typename... KArgs>
 inline cudaError_t grid_occupancy(void (*kernel)(KArgs...), size_t smem,
-                                  int* per_sm, int* sms) {
+                                  int* per_sm, int* sms,
+                                  int threads = kGridThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                        kGridThreads, smem);
+                                                        threads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
@@ -552,18 +702,20 @@ inline cudaError_t grid_occupancy(void (*kernel)(KArgs...), size_t smem,
 // Launch `kernel` on a grid whose blocks must all be resident at once (the
 // step barrier spins): a cooperative launch, refused before it starts --
 // cudaErrorCooperativeLaunchTooLarge -- when the card cannot hold it.
+// (launch_grid_threads: blocks of `threads` threads; launch_grid:
+// kGridThreads.)
 template <typename... KArgs, typename... Args>
-inline cudaError_t launch_grid(void (*kernel)(KArgs...), dim3 grid,
-                               size_t smem, cudaStream_t stream,
-                               Args... args) {
+inline cudaError_t launch_grid_threads(void (*kernel)(KArgs...), dim3 grid,
+                                       int threads, size_t smem,
+                                       cudaStream_t stream, Args... args) {
   int per_sm = 0, sms = 0;
-  cudaError_t err = grid_occupancy(kernel, smem, &per_sm, &sms);
+  cudaError_t err = grid_occupancy(kernel, smem, &per_sm, &sms, threads);
   if (err != cudaSuccess) return err;
   if ((long long)per_sm * sms < (long long)grid.x * grid.y * grid.z)
     return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kGridThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -574,6 +726,13 @@ inline cudaError_t launch_grid(void (*kernel)(KArgs...), dim3 grid,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_grid(void (*kernel)(KArgs...), dim3 grid,
+                               size_t smem, cudaStream_t stream,
+                               Args... args) {
+  return launch_grid_threads(kernel, grid, kGridThreads, smem, stream,
+                             args...);
 }
 
 }  // namespace lstm

@@ -21,7 +21,7 @@
 // sum_t,b hprev^T dgates is one large product outside the kernel (as in
 // JAX), so the kernel returns dgates only.
 //
-// Three routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
+// Four routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
 // passed in as the plan's integers:
 //
 // The cluster route (bfloat16, H <= 512).  As for the forward scan, what
@@ -73,8 +73,22 @@
 // what a block reads a step, [R][4H] bf16 from L2, sets the step's time
 // above the barrier.
 //
-// The CUDA-core route (float32, the exactness checks, and bfloat16 where
-// neither fits): one block owns (direction, tile of kRows batch rows) and
+// The float32 grid route (float32 from H=192 where the grid fits the
+// card): the forward's float32 grid with w_hh's rows [j*u, (j+1)*u), u =
+// 8, as block j's resident slice ([4H][8] f32, k-major: 128 KB at
+// H=1024), and dgates exchanged in float32 as they are (the reference's
+// float32 rounds nothing), k-major in the natural gate-column order
+// ([4H][64] a sub-tile of 64 rows).  A step reads the group's whole
+// dgates, 64 x 4H f32 (1 MB a block at H=1024, 128 MB through L2 for the
+// 128 blocks), fed by the producer warp's bulk copies under the 64 x 8 x
+// 4H FMAs, as the forward's h is.  A lane holds 4 rows x 4
+// units in registers (a 16-byte word of dgates and one of the weights
+// feed 16 FMAs), one warp covers the sub-tile's 64 x 8 outputs, and the 8
+// warps are 8 k-parts of each chunk, added in a fixed order by the pairs'
+// owners before the gate gradients.
+//
+// The CUDA-core route (the exactness checks, and float32 and bfloat16
+// where no grid fits): one block owns (direction, tile of kRows batch rows) and
 // loops over all T with (dh, dc) in shared memory; the
 // wrapper hands the weights transposed, [D,4H,H], so the product reduces
 // over rows of a contiguous matrix like the forward's: each thread owns a
@@ -590,6 +604,216 @@ lstm_bwd_grid_kernel(const __nv_bfloat16* __restrict__ w_frag,  // [D,N,u*4H]
   }
 }
 
+
+// ---- the float32 grid route ----
+
+// One block per (unit slice j, row group g, direction d): grid (N, G, D),
+// u = kF32Units.  Product: warp w is k-part w (the chunk's k values w, w +
+// 8, ...); lane (rg, ug) = (lane % 16, lane / 16) owns the rows 4*rg +
+// [0, 4) of the sub-tile and the units 4*ug + [0, 4).  Gate math: thread p
+// owns the pairs (unit p % u, row p / u) and (the same + 256).  Step s
+// first adds dgates_{s-1} . w_hh^T, read from exchange buffer (s-1) & 1,
+// to the dh carry (no product at s = 0), then computes dgates_s and
+// writes them into buffer s & 1 (k = gate * H + unit) before arriving, as
+// the bf16 grid does.
+__global__ void __launch_bounds__(lstm::kF32Threads, 1)
+lstm_bwd_grid_f32_kernel(const float* __restrict__ w_frag,    // [D,N,4H*u]
+                         const float* __restrict__ valid,     // [T,B]
+                         const float* __restrict__ acts,      // [D,T,B,4H]
+                         const float* __restrict__ cprev,     // [D,T,B,H]
+                         const float* __restrict__ dh_out,    // [D,T,B,H]
+                         float* __restrict__ dgates,          // [D,T,B,4H]
+                         float* __restrict__ xch,   // [2,D,G*R/64,4H,64]
+                         unsigned* __restrict__ ctr,          // [D*G], zeroed
+                         int T, int B, int H, int R, int KC, int S,
+                         int reverse_mask) {
+  using namespace lstm;
+  constexpr int u = kF32Units, RS = kF32Sub, KP = kGridWarps;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  const int H4 = 4 * H;
+  const F32Layout L = f32_layout(true, H, R, KC, S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  uint64_t* full = bars + 1;                    // [kF32MaxStages]
+  uint64_t* empty = full + kF32MaxStages;       // [kF32MaxStages]
+  const float* w_s = reinterpret_cast<const float*>(smem_b + kF32Header);
+  float* ring_s = reinterpret_cast<float*>(smem_b + L.ring);
+  float* a_s = reinterpret_cast<float*>(smem_b + L.in);   // [RS][4u] acts
+  float* cp_s = a_s + RS * 4 * u;                          // [RS][u] cprev
+  float* g_s = cp_s + RS * u;                              // [RS][u] dh_out
+  float* v_s = g_s + RS * u;                               // [RS] valid
+  float* dh_s = reinterpret_cast<float*>(smem_b + L.carry);  // [R][u]
+  float* dc_s = dh_s + R * u;                                // [R][u]
+  float* part_s = reinterpret_cast<float*>(smem_b + L.ring);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool compute = warp < kGridWarps;      // not the producer warp
+  const int kp = warp, rg = lane % 16, ug = lane / 16;
+  const bool rev = (reverse_mask >> d) & 1;
+  const size_t seq = (size_t)T * B, nsub = (size_t)G * R / RS;
+  uint32_t chunks = 0;                          // put through the ring
+  const float* act = acts + (size_t)d * seq * H4;
+  const float* cpv = cprev + (size_t)d * seq * H;
+  const float* dho = dh_out + (size_t)d * seq * H;
+  float* dg = dgates + (size_t)d * seq * H4;
+  unsigned* my_ctr = ctr + d * G + g;
+  // sub-tile st's exchanged dgates of step parity par: [4H][RS]
+  auto xbuf = [&](int par, int st) {
+    return xch + (((size_t)par * D + d) * nsub + st) * (size_t)H4 * RS;
+  };
+
+  // the thread's dgates of a sub-tile at step t (pair e), stored after the
+  // arrival: 8 threads write the 8 units of a row and gate, one sector
+  float out[kF32Pairs][4];
+  auto store = [&](int t, int r0) {
+    if (!compute) return;
+#pragma unroll
+    for (int e = 0; e < kF32Pairs; ++e) {
+      const int p = threadIdx.x + e * kGridThreads;
+      const int row = r0 + p / u;
+      if (row >= B) continue;
+      float* o = dg + ((size_t)t * B + row) * H4 + j * u + p % u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[q * H] = out[e][q];
+    }
+  };
+
+  for (int i = threadIdx.x; i < 2 * R * u; i += blockDim.x) dh_s[i] = 0.f;
+  init_f32_barriers(bars);
+  load_resident(smem_b + kF32Header, w_frag + ((size_t)d * N + j) * u * H4,
+                (uint32_t)((size_t)u * H4 * 4), &bars[0]);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? s : T - 1 - s;
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      const int st = r0 / RS;
+      // this step's acts (4 gate groups of u units), cprev, dh_out and
+      // valid of the sub-tile's rows, in flight while the block waits and
+      // multiplies
+      const int pr = 3 * u / 2;            // 16-byte pieces a row
+      for (int i = threadIdx.x; i < RS * pr; i += blockDim.x) {
+        const int r = i / pr, p = i - r * pr;
+        const int row = r0 + r;
+        const bool live = row < B;
+        const size_t base = (size_t)t * B + (live ? row : 0);
+        if (p < u) {                       // acts: gate p / (u/4)
+          const int q = p / (u / 4), k = p % (u / 4);
+          cp16(a_s + r * 4 * u + q * u + 4 * k,
+               act + base * H4 + q * H + j * u + 4 * k, live);
+        } else if (p < 5 * u / 4) {
+          const int k = p - u;
+          cp16(cp_s + r * u + 4 * k, cpv + base * H + j * u + 4 * k, live);
+        } else {
+          const int k = p - 5 * u / 4;
+          cp16(g_s + r * u + 4 * k, dho + base * H + j * u + 4 * k, live);
+        }
+      }
+      for (int r = threadIdx.x; r < RS; r += blockDim.x)
+        cp4(v_s + r, valid + (size_t)t * B + (r0 + r < B ? r0 + r : 0),
+            r0 + r < B);
+      cp_commit();
+
+      // dh[rows, units] += dgates_{s-1}[rows, 4H] . w_slice[4H, u]
+      float acc[4][4] = {};
+      if (s > 0) {
+        if (r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+        ring_f32(ring_s, xbuf((s - 1) & 1, st), H4, KC, S, full, empty,
+                 chunks, [&](int c, const float* stage) {
+                   const float* gp = stage + rg * 4;
+                   const float* wp = w_s + (size_t)c * KC * u + ug * 4;
+#pragma unroll 4
+                   for (int kk = kp; kk < KC; kk += KP) {
+                     const float4 g4 =
+                         *reinterpret_cast<const float4*>(gp + kk * RS);
+                     const float4 w4 =
+                         *reinterpret_cast<const float4*>(wp + kk * u);
+                     const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+                     const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+                     for (int i = 0; i < 4; ++i)
+#pragma unroll
+                       for (int m = 0; m < 4; ++m)
+                         acc[i][m] = fmaf(gv[i], wv[m], acc[i][m]);
+                   }
+                 });
+        __syncthreads();   // the ring's bytes take the partial sums
+      }
+      // the partial sums: row 4 * rg + i, units 4 * ug + [0, 4)
+      if (compute)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(part_s + (size_t)kp * 4 * kF32BwdI +
+                                     i * kF32BwdI + ug * kF32BwdHalf +
+                                     rg * 4) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      cp_wait<0>();
+      __syncthreads();
+
+      // each pair: the k-parts added in order into the dh carry, the gate
+      // gradients, the dc carry and the (1-v) part of the dh carry;
+      // dgates into the exchange, and in registers until stored
+      if (compute)
+#pragma unroll
+        for (int e = 0; e < kF32Pairs; ++e) {
+          const int p = threadIdx.x + e * kGridThreads;
+          const int ul = p % u, rr = p / u;
+          const float* pp = part_s + (rr % 4) * kF32BwdI +
+                            (ul / 4) * kF32BwdHalf + (rr / 4) * 4 + ul % 4;
+          float sum = pp[0];
+#pragma unroll
+          for (int k = 1; k < KP; ++k) sum += pp[k * 4 * kF32BwdI];
+          const float* ap = a_s + rr * 4 * u + ul;
+          const float ig = ap[0], fg = ap[u], gg = ap[2 * u], og = ap[3 * u];
+          const float c0 = cp_s[rr * u + ul];
+          const float v = v_s[rr];
+          float* dhc = dh_s + (r0 - g * R + rr) * u + ul;
+          float* dcc = dc_s + (r0 - g * R + rr) * u + ul;
+          const float dh = s > 0 ? *dhc + sum : *dhc;
+          const float dc = *dcc;
+          const float tc = tanhf(fg * c0 + ig * gg);
+          const float dh_new = v * (dh + g_s[rr * u + ul]);
+          const float dc_new = dh_new * og * (1.f - tc * tc) + v * dc;
+          float* dq = out[e];
+          dq[0] = dc_new * gg * ig * (1.f - ig);
+          dq[1] = dc_new * c0 * fg * (1.f - fg);
+          dq[2] = dc_new * ig * (1.f - gg * gg);
+          dq[3] = dh_new * tc * og * (1.f - og);
+          if (s + 1 < T) {
+            float* x = xbuf(s & 1, st) + (size_t)(j * u + ul) * RS + rr;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) x[(size_t)q * H * RS] = dq[q];
+          }
+          *dhc = (1.f - v) * dh;
+          *dcc = (1.f - v) * dc + dc_new * fg;
+        }
+      // a sub-tile's dgates go out once the next one needs the registers;
+      // the last one's after the arrival
+      if (r0 + RS < g * R + R) store(t, r0);
+      __syncthreads();   // the ring, inputs and partials are free again
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+    store(t, g * R + R - RS);
+  }
+}
+
+int launch_grid_f32_bwd(const void* w_frag, const float* valid,
+                        const float* acts, const float* cprev,
+                        const float* dh_out, float* dgates, void* xch,
+                        unsigned* ctr, int D, int T, int B, int H,
+                        int reverse_mask, int u, int G, int R, int RS, int KC,
+                        int S, cudaStream_t stream) {
+  if (!lstm::grid_f32_plan_ok(true, H, u, R, RS, KC, S) || G < 1 ||
+      (long long)G * R < B)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm::f32_layout(true, H, R, KC, S).total;
+  return (int)lstm::launch_grid_threads(
+      lstm_bwd_grid_f32_kernel, dim3(H / u, G, D), lstm::kF32Threads, smem,
+      stream,
+      static_cast<const float*>(w_frag), valid, acts, cprev, dh_out, dgates,
+      static_cast<float*>(xch), ctr, T, B, H, R, KC, S, reverse_mask);
+}
+
 int launch_grid_bwd(const void* w_frag, const float* valid, const float* acts,
                     const float* cprev, const float* dh_out, float* dgates,
                     void* xch, unsigned* ctr, int D, int T, int B, int H,
@@ -608,8 +832,8 @@ int launch_grid_bwd(const void* w_frag, const float* valid, const float* acts,
 }  // namespace
 
 // valid [T,B] f32 0/1, acts [D,T,B,4H], cprev and dh_out [D,T,B,H],
-// dgates [D,T,B,4H], all f32 (the grid route has its own entry,
-// lstm_scan_bwd_grid).  cluster = 0: the CUDA-core route, w_t
+// dgates [D,T,B,4H], all f32 (the grid routes have their own entries,
+// lstm_scan_bwd_grid and lstm_scan_bwd_grid_f32).  cluster = 0: the CUDA-core route, w_t
 // [D,4H,H] = w_hh transposed (bf16 when w_is_bf16 else f32).  cluster =
 // C > 0: the cluster route with clusters of C blocks and R = rows batch
 // rows; w_t is bf16 w_hh in the wrapper's fragment order
@@ -672,4 +896,35 @@ extern "C" int lstm_scan_bwd_occupancy(int H, int cluster, int rows,
   return (int)lstm::max_clusters(lstm_bwd_cluster_kernel, threads,
                                  lstm::bwd_cluster_smem(H, cluster, rows),
                                  cluster, clusters);
+}
+
+// The float32 grid route: the arguments of lstm_scan_bwd_grid, with w_frag
+// f32 w_hh's rows in H/units slices [D, H/units, 4H*units] (block j's
+// slice [4H][u], k-major) and xch f32 scratch [2, D, groups*rows/sub, 4H,
+// sub]; units = 8 and sub = 64.
+extern "C" int lstm_scan_bwd_grid_f32(const void* w_frag, const float* valid,
+                                      const float* acts, const float* cprev,
+                                      const float* dh_out, float* dgates,
+                                      void* xch, unsigned* ctr, int D, int T,
+                                      int B, int H, int reverse_mask,
+                                      int units, int groups, int rows,
+                                      int sub, int chunk, int stages,
+                                      void* stream) {
+  if (D == 0 || T == 0 || B == 0) return 0;
+  return launch_grid_f32_bwd(w_frag, valid, acts, cprev, dh_out, dgates, xch,
+                             ctr, D, T, B, H, reverse_mask, units, groups,
+                             rows, sub, chunk, stages, (cudaStream_t)stream);
+}
+
+// Blocks of the backward float32 grid plan one SM holds, and the card's SMs.
+extern "C" int lstm_scan_bwd_grid_f32_occupancy(int H, int units, int rows,
+                                                int sub, int chunk,
+                                                int stages, int* per_sm,
+                                                int* sms) {
+  if (!lstm::grid_f32_plan_ok(true, H, units, rows, sub, chunk, stages))
+    return (int)cudaErrorInvalidValue;
+  return (int)lstm::grid_occupancy(
+      lstm_bwd_grid_f32_kernel,
+      lstm::f32_layout(true, H, rows, chunk, stages).total, per_sm, sms,
+      lstm::kF32Threads);
 }

@@ -23,7 +23,7 @@
 // step, since invalid steps pass the carry through (chunked streaming).
 // With h0 NULL every route computes exactly what it computed without them.
 //
-// Three routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
+// Four routes, chosen by shape in ops/lstm_scan.py::cluster_plan and
 // passed in as the plan's integers:
 //
 // The cluster route (bfloat16, H <= 512).  What bounds the scan on this
@@ -81,11 +81,37 @@
 // blocks).  The next step's gates_x and valid are copied in before the
 // wait; the outputs are stored after the arrival.
 //
-// The CUDA-core route (float32, the exactness checks, and bfloat16 where
-// neither fits): one block owns (direction, tile of kRows batch rows) and
-// loops over all T with h and c in shared memory, w_hh re-read from L2
-// every step; 1024 threads each own a 16-byte column group over one slice
-// of k, the slices summed in order, then the gate math.
+// The float32 grid route (float32 from H=192 where the grid fits the card;
+// ops/lstm_scan.py::grid_plan).  The bf16 grid's design and protocol,
+// every value in float32 (the reference's float32 has no TF32 and no
+// rounding): block j of N = H/8 keeps w_hh's columns of its 8 units ([H,
+// 32] f32, 128 KB at H=1024, gate columns unit by unit) in shared memory
+// for the whole scan, so the loop moves no weights; h_{s+1} goes through
+// the exchange buffer (k-major, [H][64] a sub-tile of 64 rows) by step
+// parity, with the step barrier on the group's counter.  At the LM's
+// D=1, B=64, H=1024 that is 128 blocks, one row group, one sub-tile: a
+// step is 64 x 32 x 1024 FMAs a block (~9 us at 128 FMAs a clock) and
+// 256 KB of h read from L2.  A ninth warp feeds the read through a ring
+// of chunks by bulk copies (lstm_common.cuh::ring_f32): the 8 compute
+// warps wait only for a chunk's mbarrier, never for each other, so the
+// copies run under the products; chunks as wide as the shared memory
+// allows, since each costs a fixed ~0.2 us besides its bytes (the plans
+// timed in chip_smoke.py's phase 21).  What bounds the products is shared
+// memory against the FMA rate (lstm_common.cuh): a lane holds 4 rows x 8 gate columns (2 units x
+// 4 gates) of a 32-row tile in registers, reads 4 rows of h as one 16-byte
+// word and 8 columns of the weights as two, and runs 32 FMAs on them; the
+// 8 warps are 2 row tiles x 4 k-parts of each chunk.  Each warp writes its
+// partial sums; every thread then adds the 4 parts of its 2 (unit, row)
+// pairs in a fixed order, runs the gate math with the carries in shared
+// memory, and writes h_{s+1} into the exchange; the outputs are stored
+// after the arrival.
+//
+// The CUDA-core route (the exactness checks, and float32 and bfloat16
+// where no grid fits, e.g. D=2 at H=1024 in float32): one block owns
+// (direction, tile of kRows batch rows) and loops over all T with h and c
+// in shared memory, w_hh re-read from L2 every step; 1024 threads each own
+// a 16-byte column group over one slice of k, the slices summed in order,
+// then the gate math.
 
 #include "lstm_common.cuh"
 
@@ -745,13 +771,291 @@ grid_floor_kernel(__nv_bfloat16* __restrict__ xch, unsigned* __restrict__ ctr,
     if (s + 1 < T) grid_arrive(my_ctr);
   }
 }
+
+
+// ---- the float32 grid route ----
+
+// One block per (unit slice j, row group g, direction d): grid (N, G, D),
+// u = kF32Units.  Product: warp w is row tile rt = w % 2 (32 rows of the
+// sub-tile) and k-part kp = w / 2 (the chunk's k values kp, kp + 4, ...);
+// lane (rg, cg) = (lane % 8, lane / 8) owns the rows 32*rt + 4*rg + [0, 4)
+// and the gate columns 8*cg + [0, 8) of w_s ([H][4u], column 4*ul + gate:
+// the units 2*cg and 2*cg + 1).  Gate math: thread p owns the pairs (unit
+// p % u, row p / u) and (the same + 256).  Step s reads h_s from exchange
+// buffer s & 1 (h_0 = 0: no product at s = 0, unless h0 is given: then the
+// wrapper has written h0 into buffer 0) and writes h_{s+1} into buffer
+// (s+1) & 1 before arriving, as the bf16 grid does.
+__global__ void __launch_bounds__(lstm::kF32Threads, 1)
+lstm_fwd_grid_f32_kernel(const float* __restrict__ gates_x,   // [D,T,B,4H]
+                         const float* __restrict__ w_frag,    // [D,N,H*4u]
+                         const float* __restrict__ valid,     // [T,B]
+                         float* __restrict__ h_out,           // [D,T,B,H]
+                         float* __restrict__ hprev,   // [D,T,B,H] | NULL
+                         float* __restrict__ cprev,   // [D,T,B,H] | NULL
+                         float* __restrict__ acts,    // [D,T,B,4H] | NULL
+                         const float* __restrict__ h0,        // [D,B,H] | NULL
+                         const float* __restrict__ c0,        // [D,B,H] | NULL
+                         float* __restrict__ h_fin,           // [D,B,H] | NULL
+                         float* __restrict__ c_fin,           // [D,B,H] | NULL
+                         float* __restrict__ xch,   // [2,D,G*R/64,H,64]
+                         unsigned* __restrict__ ctr,          // [D*G], zeroed
+                         int T, int B, int H, int R, int KC, int S,
+                         int reverse_mask) {
+  using namespace lstm;
+  constexpr int u = kF32Units, RS = kF32Sub, RT = RS / 32;
+  constexpr int KP = kGridWarps / RT;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  const int H4 = 4 * H;
+  const F32Layout L = f32_layout(false, H, R, KC, S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  uint64_t* full = bars + 1;                    // [kF32MaxStages]
+  uint64_t* empty = full + kF32MaxStages;       // [kF32MaxStages]
+  const float* w_s = reinterpret_cast<const float*>(smem_b + kF32Header);
+  float* ring_s = reinterpret_cast<float*>(smem_b + L.ring);
+  float* gx_s = reinterpret_cast<float*>(smem_b + L.in);    // [RS][4u]
+  float* v_s = gx_s + RS * 4 * u;                            // [RS]
+  float* h_s = reinterpret_cast<float*>(smem_b + L.carry);  // [R][u]
+  float* c_s = h_s + R * u;                                  // [R][u]
+  float4* part_s = reinterpret_cast<float4*>(smem_b + L.ring);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool compute = warp < kGridWarps;      // not the producer warp
+  const int rt = warp % RT, kp = warp / RT;
+  const int rg = lane % 8, cg = lane / 8;
+  const bool rev = (reverse_mask >> d) & 1;
+  const size_t seq = (size_t)T * B, nsub = (size_t)G * R / RS;
+  uint32_t chunks = 0;                          // put through the ring
+  const float* gx = gates_x + (size_t)d * seq * H4;
+  float* ho = h_out + (size_t)d * seq * H;
+  const bool residuals = hprev != nullptr;
+  unsigned* my_ctr = ctr + d * G + g;
+  // sub-tile st's exchanged h of step parity par: [H][RS]
+  auto xbuf = [&](int par, int st) {
+    return xch + (((size_t)par * D + d) * nsub + st) * (size_t)H * RS;
+  };
+
+  // the thread's outputs of a sub-tile at step t (pair e: unit p % u, row
+  // p / u, p = threadIdx.x + e * kGridThreads): i, f, g, o, hprev, cprev,
+  // h_out; 8 threads write the 8 units of a row, one 32-byte sector
+  float out[kF32Pairs][7];
+  auto store = [&](int t, int r0) {
+    if (!compute) return;
+#pragma unroll
+    for (int e = 0; e < kF32Pairs; ++e) {
+      const int p = threadIdx.x + e * kGridThreads;
+      const int row = r0 + p / u, unit = j * u + p % u;
+      if (row >= B) continue;
+      const float* o = out[e];
+      const size_t off = ((size_t)t * B + row) * H + unit;
+      if (residuals) {
+        hprev[(size_t)d * seq * H + off] = o[4];
+        cprev[(size_t)d * seq * H + off] = o[5];
+        float* ac = acts + ((size_t)d * seq + (size_t)t * B + row) * H4 + unit;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ac[q * H] = o[q];
+      }
+      ho[off] = o[6];
+    }
+  };
+
+  for (int i = threadIdx.x; i < R * u; i += blockDim.x) {
+    const int row = g * R + i / u;
+    const size_t o = ((size_t)d * B + row) * H + j * u + i % u;
+    const bool live = h0 != nullptr && row < B;
+    h_s[i] = live ? h0[o] : 0.f;
+    c_s[i] = live ? c0[o] : 0.f;
+  }
+  init_f32_barriers(bars);
+  load_resident(smem_b + kF32Header, w_frag + ((size_t)d * N + j) * H * 4 * u,
+                (uint32_t)((size_t)H * 4 * u * 4), &bars[0]);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? T - 1 - s : s;
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      const int st = r0 / RS;
+      // this step's gates_x of the sub-tile's rows (4 gate groups of u
+      // units) and valid, in flight while the block waits and multiplies
+      for (int i = threadIdx.x; i < RS * u; i += blockDim.x) {
+        const int r = i / u, p = i % u, q = p / (u / 4), k = p % (u / 4);
+        const int row = r0 + r;
+        const bool live = row < B;
+        cp16(gx_s + r * 4 * u + q * u + 4 * k,
+             gx + ((size_t)t * B + (live ? row : 0)) * H4 + q * H + j * u +
+                 4 * k,
+             live);
+      }
+      for (int r = threadIdx.x; r < RS; r += blockDim.x)
+        cp4(v_s + r, valid + (size_t)t * B + (r0 + r < B ? r0 + r : 0),
+            r0 + r < B);
+      cp_commit();
+
+      // gates[rows, 4u cols] = h_s[rows, H] . w_slice[H, 4u]
+      float acc[4][8] = {};
+      if (s > 0 || h0 != nullptr) {
+        if (s > 0 && r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+        ring_f32(ring_s, xbuf(s & 1, st), H, KC, S, full, empty, chunks,
+                 [&](int c, const float* stage) {
+                   const float* hp = stage + rt * 32 + rg * 4;
+                   const float* wp = w_s + (size_t)c * KC * 4 * u + cg * 8;
+#pragma unroll 4
+                   for (int kk = kp; kk < KC; kk += KP) {
+                     const float4 h4 =
+                         *reinterpret_cast<const float4*>(hp + kk * RS);
+                     const float4 w0 =
+                         *reinterpret_cast<const float4*>(wp + kk * 4 * u);
+                     const float4 w1 =
+                         *reinterpret_cast<const float4*>(wp + kk * 4 * u + 4);
+                     const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+                     const float wv[8] = {w0.x, w0.y, w0.z, w0.w,
+                                          w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+                     for (int i = 0; i < 4; ++i)
+#pragma unroll
+                       for (int q = 0; q < 8; ++q)
+                         acc[i][q] = fmaf(hv[i], wv[q], acc[i][q]);
+                   }
+                 });
+        __syncthreads();   // the ring's bytes take the partial sums
+      }
+      // the partial sums: float4 v = 2 * i + m holds the 4 gates of unit
+      // 2 * cg + m at row 4 * rg + i of the row tile
+      if (compute)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            part_s[((kp * RT + rt) * 8 + 2 * i + m) * kF32FwdV + lane] =
+                make_float4(acc[i][4 * m], acc[i][4 * m + 1],
+                            acc[i][4 * m + 2], acc[i][4 * m + 3]);
+      cp_wait<0>();
+      __syncthreads();
+
+      // each pair: the k-parts added in order, the gate math, the masked
+      // carry update, h_{s+1} into the exchange; the outputs wait in
+      // registers
+      if (compute)
+#pragma unroll
+        for (int e = 0; e < kF32Pairs; ++e) {
+          const int p = threadIdx.x + e * kGridThreads;
+          const int ul = p % u, rr = p / u;
+          const int slot =
+              ((rr / 32) * 8 + 2 * (rr % 4) + ul % 2) * kF32FwdV +
+              (ul / 2) * 8 + (rr % 32) / 4;
+          float4 sum = part_s[slot];
+#pragma unroll
+          for (int k = 1; k < KP; ++k) {
+            const float4 q = part_s[slot + k * RT * 8 * kF32FwdV];
+            sum.x += q.x;
+            sum.y += q.y;
+            sum.z += q.z;
+            sum.w += q.w;
+          }
+          const float* gq = gx_s + rr * 4 * u + ul;
+          float* o = out[e];
+          o[0] = sigmoid(gq[0] + sum.x);
+          o[1] = sigmoid(gq[u] + sum.y);
+          o[2] = tanhf(gq[2 * u] + sum.z);
+          o[3] = sigmoid(gq[3 * u] + sum.w);
+          float* hc = h_s + (r0 - g * R + rr) * u + ul;
+          float* cc = c_s + (r0 - g * R + rr) * u + ul;
+          o[4] = *hc;
+          o[5] = *cc;
+          const float c_new = o[1] * o[5] + o[0] * o[2];
+          const float h_new = o[3] * tanhf(c_new);
+          const float v = v_s[rr];
+          const float h2 = v * h_new + (1.f - v) * o[4];
+          o[6] = v * h_new;
+          *hc = h2;
+          *cc = v * c_new + (1.f - v) * o[5];
+          if (s + 1 < T)
+            xbuf((s + 1) & 1, st)[(size_t)(j * u + ul) * RS + rr] = h2;
+        }
+      // a sub-tile's outputs go out once the next one needs the
+      // registers; the last one's after the arrival
+      if (r0 + RS < g * R + R) store(t, r0);
+      __syncthreads();   // the ring, inputs and partials are free again
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+    store(t, g * R + R - RS);
+  }
+  if (h_fin != nullptr)      // the carries are final since the last sync
+    for (int i = threadIdx.x; i < R * u; i += blockDim.x) {
+      const int row = g * R + i / u;
+      if (row >= B) continue;
+      const size_t o = ((size_t)d * B + row) * H + j * u + i % u;
+      h_fin[o] = h_s[i];
+      c_fin[o] = c_s[i];
+    }
+}
+
+// The float32 grid's serial floor: T steps of its protocol alone, on the
+// grid, threads and shared memory of one of its plans -- every block
+// writes its W values (u forward, 4u backward) of each row of each of its
+// group's sub-tiles into the next buffer and arrives; then (read = 1) it
+// waits and streams each sub-tile's K x 64 values through the ring, as the
+// scans do, or (read = 0) only waits.  No product, no gate math, no other
+// global memory.
+__global__ void __launch_bounds__(lstm::kF32Threads, 1)
+grid_f32_floor_kernel(float* __restrict__ xch, unsigned* __restrict__ ctr,
+                      int T, int K, int W, int R, int KC, int S, int read) {
+  using namespace lstm;
+  constexpr int RS = kF32Sub;
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  const int N = gridDim.x, G = gridDim.y, D = gridDim.z;
+  const int j = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_b);
+  float* ring_s = reinterpret_cast<float*>(smem_b + kF32Header);
+  const size_t nsub = (size_t)G * R / RS;
+  unsigned* my_ctr = ctr + d * G + g;
+  uint32_t chunks = 0;
+  init_f32_barriers(bars);
+  auto xbuf = [&](int par, int st) {
+    return xch + (((size_t)par * D + d) * nsub + st) * (size_t)K * RS;
+  };
+  for (int s = 0; s < T; ++s) {
+    for (int r0 = g * R; r0 < g * R + R; r0 += RS) {
+      if (s > 0 && r0 == g * R) grid_wait(my_ctr, (unsigned)N * s);
+      if (s > 0 && read)
+        ring_f32(ring_s, xbuf(s & 1, r0 / RS), K, KC, S, bars + 1,
+                 bars + 1 + kF32MaxStages, chunks, [](int, const float*) {});
+      __syncthreads();
+      if (s + 1 < T)
+        for (int i = threadIdx.x; i < RS * W; i += blockDim.x)
+          xbuf((s + 1) & 1, r0 / RS)[(size_t)j * W * RS + i] = 0.f;
+      __syncthreads();
+    }
+    if (s + 1 < T) grid_arrive(my_ctr);
+  }
+}
+
+int launch_grid_f32_fwd(const float* gates_x, const void* w_frag,
+                        const float* valid, float* h_out, float* hprev,
+                        float* cprev, float* acts, const float* h0,
+                        const float* c0, float* h_fin, float* c_fin,
+                        void* xch, unsigned* ctr, int D, int T, int B, int H,
+                        int reverse_mask, int u, int G, int R, int RS, int KC,
+                        int S, cudaStream_t stream) {
+  if (!lstm::grid_f32_plan_ok(false, H, u, R, RS, KC, S) || G < 1 ||
+      (long long)G * R < B)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm::f32_layout(false, H, R, KC, S).total;
+  return (int)lstm::launch_grid_threads(
+      lstm_fwd_grid_f32_kernel, dim3(H / u, G, D), lstm::kF32Threads, smem,
+      stream, gates_x,
+      static_cast<const float*>(w_frag), valid, h_out, hprev, cprev, acts,
+      h0, c0, h_fin, c_fin, static_cast<float*>(xch), ctr, T, B, H, R, KC,
+      S, reverse_mask);
+}
 }  // namespace
 
 // gates_x [D,T,B,4H] f32, valid [T,B] f32 0/1, h_out [D,T,B,H] f32;
 // hprev/cprev [D,T,B,H] and acts [D,T,B,4H] f32 all given or all NULL;
 // h0/c0 [D,B,H] f32 both given (the initial carries) or both NULL (zeros);
 // h_fin/c_fin [D,B,H] f32 both given (the final carries) or both NULL.
-// (The grid route has its own entry, lstm_scan_fwd_grid.)
+// (The grid routes have their own entries, lstm_scan_fwd_grid and
+// lstm_scan_fwd_grid_f32.)
 // cluster = 0: the CUDA-core route, w_hh [D,H,4H] (bf16 when w_is_bf16
 // else f32).  cluster = C > 0: the cluster route with clusters of C blocks
 // and R = rows batch rows; w_hh is bf16 in the wrapper's fragment order
@@ -875,4 +1179,61 @@ extern "C" int lstm_grid_floor(int backward, int read, int D, int T, int B,
       (cudaStream_t)stream, static_cast<__nv_bfloat16*>(xch), ctr, T,
       bwd ? 4 * H : H, bwd ? 4 * units : units, rows, sub, chunk, stages,
       read);
+}
+
+// The float32 grid route: the arguments of lstm_scan_fwd_grid, with w_frag
+// f32 w_hh [D, H/units, H*4*units] (block j's slice [H][4u], column 4*ul +
+// gate) and xch f32 scratch [2, D, groups*rows/sub, H, sub], k-major (with
+// h0 given, buffer 0 holds h0 in rows [0, B) and zeros in the rest, as the
+// wrapper writes it); units = 8 and sub = 64.  A plan the route cannot
+// take returns cudaErrorInvalidValue, a grid the card cannot hold all at
+// once cudaErrorCooperativeLaunchTooLarge, both before any launch.
+extern "C" int lstm_scan_fwd_grid_f32(const float* gates_x, const void* w_frag,
+                                      const float* valid, float* h_out,
+                                      float* hprev, float* cprev, float* acts,
+                                      const float* h0, const float* c0,
+                                      float* h_fin, float* c_fin, void* xch,
+                                      unsigned* ctr, int D, int T, int B,
+                                      int H, int reverse_mask, int units,
+                                      int groups, int rows, int sub,
+                                      int chunk, int stages, void* stream) {
+  if (D == 0 || T == 0 || B == 0) return 0;
+  if ((h0 == nullptr) != (c0 == nullptr) ||
+      (h_fin == nullptr) != (c_fin == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_grid_f32_fwd(gates_x, w_frag, valid, h_out, hprev, cprev,
+                             acts, h0, c0, h_fin, c_fin, xch, ctr, D, T, B, H,
+                             reverse_mask, units, groups, rows, sub, chunk,
+                             stages, (cudaStream_t)stream);
+}
+
+// Blocks of the forward float32 grid plan one SM holds, and the card's SMs.
+extern "C" int lstm_scan_fwd_grid_f32_occupancy(int H, int units, int rows,
+                                                int sub, int chunk,
+                                                int stages, int* per_sm,
+                                                int* sms) {
+  if (!lstm::grid_f32_plan_ok(false, H, units, rows, sub, chunk, stages))
+    return (int)cudaErrorInvalidValue;
+  return (int)lstm::grid_occupancy(
+      lstm_fwd_grid_f32_kernel,
+      lstm::f32_layout(false, H, rows, chunk, stages).total, per_sm, sms,
+      lstm::kF32Threads);
+}
+
+// The float32 grid's serial floor over T steps (backward = 0: K2's plan,
+// u values a row and block; 1: K3's, 4u), as lstm_grid_floor for the
+// bf16 grid; xch f32 [2, D, groups*rows/sub, K, sub].
+extern "C" int lstm_grid_f32_floor(int backward, int read, int D, int T,
+                                   int B, int H, int units, int groups,
+                                   int rows, int sub, int chunk, int stages,
+                                   void* xch, unsigned* ctr, void* stream) {
+  const bool bwd = backward != 0;
+  if (!lstm::grid_f32_plan_ok(bwd, H, units, rows, sub, chunk, stages) ||
+      groups < 1 || (long long)groups * rows < B || T < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)lstm::launch_grid_threads(
+      grid_f32_floor_kernel, dim3(H / units, groups, D), lstm::kF32Threads,
+      lstm::f32_layout(bwd, H, rows, chunk, stages).total,
+      (cudaStream_t)stream, static_cast<float*>(xch), ctr, T,
+      bwd ? 4 * H : H, bwd ? 4 * units : units, rows, chunk, stages, read);
 }

@@ -21,7 +21,7 @@ return its final ones (``return_state``): each row's (h, c) after its last
 valid step, which a later scan resumes from (chunked streaming, the
 reference's ``recurrent.lstm(..., h0=, c0=, return_state=True)``).
 
-Three routes run the kernels, chosen by shape in :func:`cluster_plan`:
+Four routes run the kernels, chosen by shape in :func:`cluster_plan`:
 bfloat16 at H <= 512 runs as thread-block clusters (each block holds its
 slice of ``w_hh`` in shared memory for the whole scan, the step's h or
 dgates go between blocks through distributed shared memory, the step's
@@ -29,9 +29,11 @@ product runs on the tensor cores); bfloat16 above H = 512 runs as one grid
 whose blocks are all resident at once (:func:`grid_plan`: each block holds
 its slice of ``w_hh`` in shared memory, the step's h or dgates go between
 blocks through a global buffer in L2 with a step barrier on a counter);
-float32, and bfloat16 where neither fits, runs on the CUDA cores.
-:func:`fragment_weights` lays ``w_hh`` out in the order the cluster and
-grid kernels read it (a permutation, one gather a call) and
+float32 from ``GRID_F32_MIN_HIDDEN`` up runs as the same grid in float32
+(:func:`grid_plan`, the products on the CUDA cores' FMAs); the shapes
+no grid fits (D=2 at H=1024 in float32, for one) run on the CUDA-core
+kernels.  :func:`fragment_weights` lays ``w_hh`` out in the order the
+cluster and grid kernels read it (a permutation, one gather a call) and
 :func:`fragment_product_reference` computes one step's product from that
 layout the way the kernels arrange it.
 
@@ -75,6 +77,23 @@ GRID_THREADS = 256
 GRID_WARPS = GRID_THREADS // 32
 GRID_UNITS = {"fwd": (16, 8, 32), "bwd": (16, 32)}
 GRID_MAX_CHUNK = 768
+# The float32 grid: 8 hidden units a block (its slice of w_hh, [H, 32] or
+# [32, H] f32, is 128 KB at the LM's H=1024), the rows 64 at a time, the
+# exchange streamed in chunks of at most GRID_F32_MAX_CHUNK values of k.
+# Float32 takes it from GRID_F32_MIN_HIDDEN up where it fits the card:
+# below it K3 is faster on the CUDA cores (chip_smoke.py phase 21, D=2,
+# B=32, T=400, NVIDIA H100 80GB HBM3 at 700 W: K2 / K3 on the grid against
+# the CUDA cores 2.223 / 2.380 against 2.926 / 2.303 ms at H=128, 2.614 /
+# 2.943 against 5.362 / 4.091 ms at H=192, 2.997 / 3.474 against 8.070 /
+# 6.376 ms at H=256).
+GRID_F32_UNITS = 8
+GRID_F32_SUB = 64
+GRID_F32_THREADS = GRID_THREADS + 32    # and a warp that feeds the ring
+GRID_F32_MAX_CHUNK = 256
+GRID_F32_MIN_HIDDEN = 192
+# bytes of the partial sums (csrc/lstm_common.cuh: kF32FwdPart, kF32BwdPart)
+GRID_F32_PART = {"fwd": GRID_WARPS * 8 * 33 * 16,
+                 "bwd": GRID_WARPS * 4 * 136 * 4}
 
 
 class Plan(NamedTuple):
@@ -83,8 +102,9 @@ class Plan(NamedTuple):
     block, ``threads`` and ``smem`` bytes a block), "grid" (bf16, H/units
     blocks for each of ``groups`` groups of ``rows`` batch rows and each
     direction, the rows taken ``sub`` at a time, the exchange streamed in
-    ``chunk`` columns through ``stages`` ring stages) or "simt" (the
-    CUDA-core kernels; the integers 0)."""
+    ``chunk`` columns through ``stages`` ring stages), "grid_f32" (the same
+    in float32, the exchange streamed ``chunk`` values of k at a time) or
+    "simt" (the CUDA-core kernels; the integers 0)."""
     route: str
     cluster: int = 0
     rows: int = 0
@@ -116,59 +136,86 @@ def cluster_smem(kernel: str, hidden: int, cluster: int, rows: int) -> int:
 
 
 def grid_smem(kernel: str, hidden: int, units: int, rows: int, sub: int,
-              chunk: int, stages: int) -> int:
+              chunk: int, stages: int,
+              compute: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of one grid block (bytes), as ``csrc/lstm_common.cuh``
-    counts it: the weights' mbarrier (16), the weight slice (u x 4H bf16),
-    the ring (min(stages, K/chunk) stages of [sub][chunk + pad] bf16, K = H
-    forward, 4H backward), a sub-tile's streamed inputs (f32: 4u gates_x,
-    or 4u acts + u cprev + u dh_out a row, and valid), the carries
-    ([rows][u] x 2 f32) and the k-split partial sums."""
+    counts it (``grid_layout``, ``f32_layout``): the mbarriers (16; 128
+    on the float32 grid), the weight slice (u x 4H in ``compute``), the
+    ring (min(stages, K/chunk) stages of [sub][chunk + pad] bf16, or
+    ``stages`` of [chunk][sub] f32 on the float32 grid; K = H forward, 4H
+    backward), a sub-tile's streamed inputs (f32: 4u gates_x, or 4u acts +
+    u cprev + u dh_out a row, and valid), the carries ([rows][u] x 2 f32)
+    and the k-split partial sums (on the float32 grid in the ring's
+    bytes)."""
     bwd = kernel == "bwd"
+    f32 = compute == torch.float32
     k = 4 * hidden if bwd else hidden
-    work = units // (16 if bwd else 8) * (sub // 8)
-    ring = min(stages, k // chunk) * sub * (chunk + CLUSTER_PAD) * 2
+    if f32:     # the partial sums take the ring's bytes
+        ring = max(stages * chunk * sub * 4, GRID_F32_PART[kernel])
+        parts = 0
+    else:
+        work = units // (16 if bwd else 8) * (sub // 8)
+        ring = min(stages, k // chunk) * sub * (chunk + CLUSTER_PAD) * 2
+        parts = (GRID_WARPS // work - 1) * work * 32 * (4 if bwd else 8) * 4
     inputs = -(-sub * ((6 if bwd else 4) * units + 1) * 4 // 16) * 16
-    parts = (GRID_WARPS // work - 1) * work * 32 * (4 if bwd else 8) * 4
-    return (16 + hidden * 4 * units * 2 + ring + inputs + rows * units * 8
-            + parts)
+    # the weights' mbarrier: 16 bytes, padded to a 128-byte line on the
+    # float32 grid (its slice and ring start on lines)
+    return ((128 if f32 else 16) + hidden * 4 * units * (4 if f32 else 2)
+            + ring + inputs + rows * units * 8 + parts)
 
 
-def grid_plan(kernel: str, hidden: int, batch: int,
-              directions: int) -> Plan | None:
-    """The grid route's launch shape for bf16 K2 / K3 at this width, batch
-    and number of directions, or None where none fits.  The first unit
-    count of ``GRID_UNITS`` whose N = H/u blocks a direction fit the card
-    (``GRID_SMS``, one block an SM) takes as many row groups as fit: each
-    block then reads the fewest exchanged rows a step.  A sub-tile holds as
-    many 8-row tiles as give the 8 warps a work unit each (fewer at a small
-    batch: the warps then split the k-steps); the ring takes the widest
-    chunk of at most ``GRID_MAX_CHUNK`` columns (and 3 stages where there
-    are more than 2 chunks, else 2) that fits ``MAX_SMEM``."""
+def grid_plan(kernel: str, hidden: int, batch: int, directions: int,
+              compute: torch.dtype = torch.bfloat16) -> Plan | None:
+    """The grid route's launch shape for K2 / K3 at this width, batch,
+    number of directions and compute dtype, or None where none fits.
+
+    bf16: the first unit count of ``GRID_UNITS`` whose N = H/u blocks a
+    direction fit the card (``GRID_SMS``, one block an SM) takes as many
+    row groups as fit: each block then reads the fewest exchanged rows a
+    step.  A sub-tile holds as many 8-row tiles as give the 8 warps a work
+    unit each (fewer at a small batch: the warps then split the k-steps);
+    the ring takes the widest chunk of at most ``GRID_MAX_CHUNK`` columns
+    (and 3 stages where there are more than 2 chunks, else 2) that fits
+    ``MAX_SMEM``.
+
+    float32 ("grid_f32"): ``GRID_F32_UNITS`` units a block, as many row
+    groups as fit, each a whole number of ``GRID_F32_SUB``-row sub-tiles;
+    the ring takes the widest chunk of at most ``GRID_F32_MAX_CHUNK``
+    values of k that fits, by the same rule."""
     bwd = kernel == "bwd"
+    f32 = compute == torch.float32
     k = 4 * hidden if bwd else hidden
-    if hidden % 16:
+    if hidden % (GRID_F32_UNITS if f32 else 16):
         return None
-    for u in GRID_UNITS[kernel]:
+    for u in (GRID_F32_UNITS,) if f32 else GRID_UNITS[kernel]:
         if hidden % u:
             continue
         fit = GRID_SMS // (hidden // u * directions)
         if fit < 1:
             continue
-        groups = min(fit, -(-batch // 8))
-        need = -(-batch // groups)                 # rows a group
-        tiles = min(GRID_WARPS // (u // (16 if bwd else 8)),
-                    1 << max(0, (-(-need // 8) - 1).bit_length()))
-        sub = 8 * tiles
+        if f32:
+            sub = GRID_F32_SUB
+            groups = min(fit, -(-batch // sub))
+            need = -(-batch // groups)             # rows a group
+            chunks = range(min(k, GRID_F32_MAX_CHUNK), 0, -1)
+        else:
+            groups = min(fit, -(-batch // 8))
+            need = -(-batch // groups)
+            tiles = min(GRID_WARPS // (u // (16 if bwd else 8)),
+                        1 << max(0, (-(-need // 8) - 1).bit_length()))
+            sub = 8 * tiles
+            chunks = range(min(k, GRID_MAX_CHUNK) // 16 * 16, 0, -16)
         rows = -(-need // sub) * sub
-        for chunk in range(min(k, GRID_MAX_CHUNK) // 16 * 16, 0, -16):
+        for chunk in chunks:
             if k % chunk:
                 continue
             for stages in ((3, 2) if k // chunk > 2 else (2,)):
                 smem = grid_smem(kernel, hidden, u, rows, sub, chunk,
-                                 stages)
+                                 stages, compute)
                 if smem <= MAX_SMEM:
-                    return Plan("grid", 0, rows, u, GRID_THREADS, smem,
-                                -(-batch // rows), sub, chunk, stages)
+                    return Plan("grid_f32" if f32 else "grid", 0, rows, u,
+                                GRID_F32_THREADS if f32 else GRID_THREADS,
+                                smem, -(-batch // rows), sub, chunk, stages)
     return None
 
 
@@ -176,15 +223,19 @@ def cluster_plan(kernel: str, hidden: int, batch: int,
                  compute: torch.dtype, directions: int = 1) -> Plan:
     """The route and launch shape of K2 (``kernel="fwd"``) or K3
     (``"bwd"``) for this width, batch, compute dtype and number of
-    directions.  float32, and bfloat16 where neither the cluster nor the
-    grid route fits, go to the CUDA-core route; bfloat16 above
-    ``CLUSTER_MAX_HIDDEN`` to :func:`grid_plan`'s.  Otherwise tiles of
-    ``CLUSTER_ROWS`` rows and the first cluster size of ``CLUSTER_SIZES``
-    whose blocks own a multiple of 16 units (whole k-steps of one block's
-    slab; the backward's unit tiles) within ``MAX_SMEM``.  The batch and
-    the directions only set the number of clusters there."""
+    directions.  float32 from ``GRID_F32_MIN_HIDDEN`` up goes to
+    :func:`grid_plan`'s float32 grid where it fits; bfloat16 above
+    ``CLUSTER_MAX_HIDDEN`` to its bf16 grid; what fits neither to the
+    CUDA-core route.  Otherwise (bfloat16) tiles of ``CLUSTER_ROWS``
+    rows and the first cluster size of ``CLUSTER_SIZES`` whose blocks own a
+    multiple of 16 units (whole k-steps of one block's slab; the
+    backward's unit tiles) within ``MAX_SMEM``.  The batch and the
+    directions only set the number of clusters there."""
     if kernel not in ("fwd", "bwd"):
         raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
+    if compute == torch.float32 and hidden >= GRID_F32_MIN_HIDDEN:
+        return (grid_plan(kernel, hidden, batch, directions, compute)
+                or Plan("simt"))
     if compute != torch.bfloat16:
         return Plan("simt")
     if hidden > CLUSTER_MAX_HIDDEN:
@@ -255,10 +306,21 @@ def _slab_column(k: torch.Tensor, hidden: int, u: int) -> torch.Tensor:
 
 def fragment_weights(w_hh: torch.Tensor, kernel: str,
                      plan: Plan) -> torch.Tensor:
-    """w_hh [D, H, 4H] -> bf16 [D, H * 4H] in the fragment order of the
-    cluster or grid kernels (block j's slice is the j-th of H / units
-    equal pieces): a permutation of each direction's entries."""
+    """w_hh [D, H, 4H] -> [D, H * 4H] in the order the cluster or grid
+    kernels hold it, block j's slice the j-th of H / units equal pieces: a
+    permutation of each direction's entries.  bf16 in mma fragment order;
+    float32 for the float32 grid, whose block j holds [H][4u] with column
+    4 * unit + gate (forward) or w_hh's rows [j*u, (j+1)*u) as [4H][u]
+    (backward)."""
     d, hidden, h4 = w_hh.shape
+    if plan.route == "grid_f32":
+        u = plan.units
+        w = w_hh.float()
+        if kernel == "fwd":   # [D, k, gate, j, unit] -> [D, j, k, unit, gate]
+            w = w.view(d, hidden, 4, hidden // u, u).permute(0, 3, 1, 4, 2)
+        else:                 # [D, j, unit, k] -> [D, j, k, unit]
+            w = w.view(d, hidden // u, u, h4).transpose(2, 3)
+        return w.reshape(d, hidden * h4).contiguous()
     idx = _fragment_index(kernel, hidden, plan.units, w_hh.device)
     return w_hh.to(torch.bfloat16).reshape(d, hidden * h4).index_select(1, idx)
 
@@ -271,6 +333,17 @@ def fragment_product_reference(w_frag: torch.Tensor, x: torch.Tensor,
     -> dh [D, N, H] = dgates . w_hh^T."""
     d = w_frag.shape[0]
     u = plan.units
+    if plan.route == "grid_f32":
+        xf = x.float()
+        n = x.shape[1]
+        if kernel == "fwd":          # block j: [k, unit, gate]
+            hidden = x.shape[-1]
+            a = w_frag.float().view(d, hidden // u, hidden, u, 4)
+            out = torch.einsum("djkug,dnk->dngju", a, xf)
+            return out.reshape(d, n, 4 * hidden)
+        hidden = x.shape[-1] // 4    # block j: [k, unit]
+        a = w_frag.float().view(d, hidden // u, 4 * hidden, u)
+        return torch.einsum("djku,dnk->dnju", a, xf).reshape(d, n, hidden)
     hidden = x.shape[-1] if kernel == "fwd" else x.shape[-1] // 4
     c = hidden // u
     m, kk = _fragment_position()
@@ -310,14 +383,15 @@ def cluster_occupancy(kernel: str, plan: Plan) -> int:
 
 
 def grid_occupancy(kernel: str, hidden: int, plan: Plan) -> tuple[int, int]:
-    """(blocks of the grid ``plan`` one SM holds, the card's SMs)
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): a launch of N * G *
-    D blocks runs only if it is at most their product."""
+    """(blocks of the grid ``plan`` (bf16 or float32) one SM holds, the
+    card's SMs) (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): a
+    launch of N * G * D blocks runs only if it is at most their product."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    code = getattr(_native.lib(), f"lstm_scan_{kernel}_grid_occupancy")(
+    entry = f"lstm_scan_{kernel}_{plan.route}_occupancy"
+    code = getattr(_native.lib(), entry)(
         hidden, plan.units, plan.rows, plan.sub, plan.chunk, plan.stages,
         ctypes.byref(per_sm), ctypes.byref(sms))
-    _native.check(f"lstm_scan_{kernel}_grid_occupancy", code)
+    _native.check(entry, code)
     return per_sm.value, sms.value
 
 
@@ -329,17 +403,29 @@ def _grid_ints(plan: Plan) -> tuple[int, ...]:
 
 def _grid_scratch(kernel: str, plan: Plan, d: int, hidden: int,
                   device: torch.device, h0: torch.Tensor | None = None):
-    """The grid route's exchange buffer ([2, D, G * R, K] bf16, by step
-    parity) and its zeroed step counters ([D * G]).  With ``h0`` [D, B, H]
-    (K2's initial carry) buffer 0 holds it rounded to bf16, zeros past B:
-    the rows step 0 reads."""
+    """A grid route's exchange buffer, by step parity, and its zeroed step
+    counters ([D * G]): [2, D, G * R, K] bf16 on the bf16 grid, [2, D, G *
+    R / sub, K, sub] float32 (k-major a sub-tile) on the float32 grid (K =
+    H, or 4H for K3).  With ``h0`` [D, B, H] (K2's initial carry) buffer 0
+    holds it (rounded to bf16 on the bf16 grid), zeros past B: the rows
+    step 0 reads."""
     k = 4 * hidden if kernel == "bwd" else hidden
-    shape = (2, d, plan.groups * plan.rows, k)
-    if h0 is None:
-        xch = torch.empty(shape, dtype=torch.bfloat16, device=device)
+    rows = plan.groups * plan.rows
+    if plan.route == "grid_f32":
+        shape = (2, d, rows // plan.sub, k, plan.sub)
+        dtype = torch.float32
     else:
-        xch = torch.zeros(shape, dtype=torch.bfloat16, device=device)
-        xch[0, :, :h0.shape[1]] = h0
+        shape, dtype = (2, d, rows, k), torch.bfloat16
+    if h0 is None:
+        xch = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        xch = torch.zeros(shape, dtype=dtype, device=device)
+        if plan.route == "grid_f32":
+            h = torch.zeros((d, rows, k), dtype=dtype, device=device)
+            h[:, :h0.shape[1]] = h0
+            xch[0] = h.view(d, -1, plan.sub, k).transpose(2, 3)
+        else:
+            xch[0, :, :h0.shape[1]] = h0
     ctr = torch.zeros((d * plan.groups,), dtype=torch.int32, device=device)
     return xch, ctr
 
@@ -351,11 +437,13 @@ def exchange_floor(kernel: str, plan: Plan, d: int, t: int, b: int,
     exchange and the waits for it alone, no product and no gate math, on
     the grid the scan would have for D directions and B rows (a
     measurement of ``chip_smoke.py``, not a step of the scan).  A grid
-    plan needs ``hidden``; ``read=False`` leaves out its read of the
+    plan (bf16 or float32) needs ``hidden``; ``read=False`` leaves out its read of the
     exchanged rows (the step barrier alone)."""
-    if plan.route == "grid":
+    if plan.route in ("grid", "grid_f32"):
         xch, ctr = _grid_scratch(kernel, plan, d, hidden, device)
-        code = _native.lib().lstm_grid_floor(
+        entry = ("lstm_grid_floor" if plan.route == "grid"
+                 else "lstm_grid_f32_floor")
+        code = getattr(_native.lib(), entry)(
             int(kernel == "bwd"), int(read), d, t, b, hidden,
             *_grid_ints(plan), xch.data_ptr(), ctr.data_ptr(),
             _native.stream_ptr(device))
@@ -518,10 +606,10 @@ def lstm_scan(
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
     ptrs = (gx.data_ptr(), w.data_ptr(), v.data_ptr(), h_out.data_ptr(),
             *(_native.ptr(x) for x in res + init + fin))
-    if plan.route == "grid":
-        entry = "lstm_scan_fwd_grid"
+    if plan.route in ("grid", "grid_f32"):
+        entry = "lstm_scan_fwd_" + plan.route
         xch, ctr = _grid_scratch("fwd", plan, d, hidden, dev, init[0])
-        code = _native.lib().lstm_scan_fwd_grid(
+        code = getattr(_native.lib(), entry)(
             *ptrs, xch.data_ptr(), ctr.data_ptr(), d, t, b, hidden, mask,
             *_grid_ints(plan), _native.stream_ptr(dev))
     else:
@@ -636,10 +724,10 @@ def lstm_scan_bwd(
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
     ptrs = (w_t.data_ptr(), v.data_ptr(), a.data_ptr(), cp.data_ptr(),
             dho.data_ptr(), dgates.data_ptr())
-    if plan.route == "grid":
-        entry = "lstm_scan_bwd_grid"
+    if plan.route in ("grid", "grid_f32"):
+        entry = "lstm_scan_bwd_" + plan.route
         xch, ctr = _grid_scratch("bwd", plan, d, hidden, dev)
-        code = _native.lib().lstm_scan_bwd_grid(
+        code = getattr(_native.lib(), entry)(
             *ptrs, xch.data_ptr(), ctr.data_ptr(), d, t, b, hidden, mask,
             *_grid_ints(plan), _native.stream_ptr(dev))
     else:

@@ -72,9 +72,10 @@ def test_lstm_kernel_plain_matches_pallas(case):
     c = CASES[case]
     p, x = make(sorted(CASES).index(case))
     lens = LENS if c["lens"] else None
-    ref = PL.lstm_pallas(to_jax(p), jnp.asarray(x),
-                         None if lens is None else jnp.asarray(lens),
-                         c["reverse"], jnp.float32, allow_interpret=True)
+    ref = run_jax(lambda pp, xx, ll: PL.lstm_pallas(
+        pp, xx, ll, c["reverse"], jnp.float32, allow_interpret=True),
+        to_jax(p), jnp.asarray(x),
+        None if lens is None else jnp.asarray(lens))
     with torch.inference_mode():
         got = K.lstm_kernel(to_torch(p), torch.from_numpy(x),
                             None if lens is None else torch.from_numpy(lens),
@@ -85,16 +86,18 @@ def test_lstm_kernel_plain_matches_pallas(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bilstm_kernel_plain_matches_pallas(dtype):
     p, x = make(11, bidir=True)
-    ref = PL.bilstm_pallas(to_jax(p), jnp.asarray(x), jnp.asarray(LENS),
-                           jnp.dtype(dtype), allow_interpret=True)
+    ref = run_jax(lambda pp, xx, ll: PL.bilstm_pallas(
+        pp, xx, ll, jnp.dtype(dtype), allow_interpret=True),
+        to_jax(p), jnp.asarray(x), jnp.asarray(LENS))
     with torch.inference_mode():
         got = K.bilstm_kernel(to_torch(p), torch.from_numpy(x),
                               torch.from_numpy(LENS), R.dtype_of(dtype))
     tol = TOL if dtype == "float32" else TOL_BF16
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
     # the one plain recurrence also stands in for the reference's XLA scan
-    ref_xla = JR.bilstm(to_jax(p), jnp.asarray(x), jnp.asarray(LENS),
-                        jnp.dtype(dtype))
+    ref_xla = run_jax(lambda pp, xx, ll: JR.bilstm(pp, xx, ll,
+                                                   jnp.dtype(dtype)),
+                      to_jax(p), jnp.asarray(x), jnp.asarray(LENS))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref_xla), **tol)
 
 
@@ -104,8 +107,9 @@ def test_scan_residuals_match_pallas():
     p = lstm_params(rng)
     gx = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
     valid = (np.arange(T)[:, None] < LENS[None, :]).astype(np.float32)
-    ref = PL._fwd_call(jnp.asarray(gx), jnp.asarray(p["w_hh"], jnp.float32),
-                       jnp.asarray(valid), jnp.float32, 1)
+    ref = run_jax(lambda g, w, v: PL._fwd_call(g, w, v, jnp.float32, 1),
+                  jnp.asarray(gx), jnp.asarray(p["w_hh"], jnp.float32),
+                  jnp.asarray(valid))
     with torch.inference_mode():
         got = K.lstm_scan(torch.from_numpy(gx)[None],
                           torch.from_numpy(p["w_hh"]).float()[None],
