@@ -309,6 +309,27 @@ failure raises and the script exits non-zero:
     unchanged after them, a step kernels against plain, the step with the
     listener forced onto the CUDA cores against the float32 grid in
     turns).
+22. BEST-RQ pretraining, its transfer and a self-training round: (a) the
+    pretraining CLI (``training/pretrain.py``) of ``configs/ls100_semi.yaml``
+    at full width (enc 384 x (1 + 3) BiLSTM, bf16, B=64) in a fresh
+    process on the synthetic corpus's unlabeled audio in the 400-frame
+    bucket, 4 steps with a resume save every 2: each step's launches (K1
+    1, K2 4, K3 4, the cluster route), host ms and peak memory, every
+    logged metric finite; (b) the same command to 2 steps, then again to
+    4 in fresh processes: the parameters and Adam state bitwise equal to
+    (a)'s; (c) one pretraining step kernels against plain with the
+    targets (from K1's features) and the draws fixed, float32 (1e-5 /
+    GRAD_TOL) and bf16 (the phase-7 bounds), and the share of targets that
+    K1's features and the plain ones agree on; (d) ls100_semi's Solver
+    (phase 13's cuts) from (a)'s encoder with ``train.freeze=[listener]``,
+    2 steps: the listener and its EMA copy equal to the file before step
+    1, the listener bitwise unchanged after, the speller moved, K3 still
+    launched for the frozen listener; (e) ``configs/ls960_conformer.yaml``
+    with the flash route pretrained at B=32 (cut from 256), bucket 400, 3
+    steps: K5's launches, a finite loss, host ms and peak memory; (f)
+    ``selftrain.py`` from a 1-step timit Solver workdir over 8 synthetic
+    WAVs with ``--keep-frac 0.5 --union``: the output read back as a
+    training manifest, K1 / K2 launched.
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -317,7 +338,9 @@ for K1-K3, from the conformer training run for K5, and per path in
 ``launches_by_path``, the C5 run as ``c5_dp``, phase 19's training run as
 ``conformer_streaming_train``, phase 20's as ``mwer_*``,
 ``ctc_pseudo``, ``timestamps_*``, ``align`` and ``stream_timestamps_*``,
-phase 21's as ``lm_trainer``, ``fusion_*`` and ``{cold,deep}_fusion``;
+phase 21's as ``lm_trainer``, ``fusion_*`` and ``{cold,deep}_fusion``,
+phase 22's as ``bestrq_pretrain``, ``bestrq_finetune_frozen``,
+``bestrq_conformer`` and ``selftrain``;
 K2 and K3 also at the C4 shapes in ``at_c4``, at phase 18's in
 ``at_transducer``, at the MWER predictor's in ``at_mwer_predictor`` and at
 the LM's in ``at_lm``; the float32 grid's kernels of K2 and K3, each its
@@ -6092,6 +6115,404 @@ def phase21(d: Path, card: str) -> tuple[dict, dict, dict]:
     return launches, out, errs
 
 
+# --------------------------------------------------------------------- #
+# phase 22: BEST-RQ pretraining, its transfer, train.freeze, selftrain
+# --------------------------------------------------------------------- #
+
+# (a) the pretraining CLI at configs/ls100_semi.yaml full width (enc 384 x
+# (1 + 3) BiLSTM, bf16, B=64); cuts: the synthetic corpus (its unlabeled
+# audio stream, 64 utterances) in the 400-frame bucket, 4 steps
+BRQ_RUN = ["data.dataset=synthetic", "data.num_synthetic_utts=64",
+           "data.frame_buckets=[400]", "pretrain.total_steps=4",
+           "pretrain.ckpt_every=2", "pretrain.log_every=1"]
+# a pretraining step: K1 once (the clean view), K2 and K3 once a listener
+# layer (both directions in one launch), on the cluster route
+BRQ_STEP_LAUNCHES = {"fused_post_fft": 1, "lstm_scan_fwd": 4,
+                     "lstm_scan_bwd": 4}
+# (e) configs/ls960_conformer.yaml with the flash route at B=32 (cut from
+# 256) in the 400-frame bucket, 3 steps (the host ms of steps 2-3)
+BRQ_CONFORMER = ["model.attn_backend=flash", "data.dataset=synthetic",
+                 "data.num_synthetic_utts=32", "data.frame_buckets=[400]",
+                 "train.batch_size=32", "pretrain.total_steps=3",
+                 "pretrain.log_every=1"]
+# (d) ls100_semi (phase 13's cuts) from (a)'s encoder with the listener
+# frozen, 2 steps
+BRQ_FINETUNE = ["train.freeze=[listener]"]
+
+
+def counted_pretrain(steps: list, walls: list, peaks: list):
+    """Wrap ``pretrain.loss_and_grads`` and ``schedules.update`` so that
+    each step's launches (the count's difference around the step), host
+    ms to a synchronize and peak device memory (GiB) are recorded; ->
+    the function that undoes it."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+    from semi_supervised_asr_tpu_torch.training import schedules
+
+    grads_fn, update = PT.loss_and_grads, schedules.update
+    mark = {}
+
+    def counted_grads(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark["before"] = dict(_native.LAUNCHES)
+        mark["t0"] = time.perf_counter()
+        return grads_fn(*args, **kw)
+
+    def counted_update(*args, **kw):
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - mark["t0"]) * 1e3)
+        steps.append(launch_delta(mark["before"], _native.LAUNCHES))
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        return out
+
+    PT.loss_and_grads, schedules.update = counted_grads, counted_update
+
+    def undo():
+        PT.loss_and_grads, schedules.update = grads_fn, update
+
+    return undo
+
+
+def pretrain_run(out: Path, argv: list[str]) -> None:
+    """``chip_smoke.py --pretrain-run OUT ARGV``: the pretraining CLI in
+    this process with ARGV, each step's launches, host ms and peak memory
+    written to OUT (JSON)."""
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+
+    steps, walls, peaks = [], [], []
+    counted_pretrain(steps, walls, peaks)
+    _native.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = PT.main(argv)
+    out.write_text(json.dumps({
+        "rc": rc, "result": json.loads(buf.getvalue().strip()
+                                       .splitlines()[-1]),
+        "steps": steps, "walls": walls, "peaks": peaks,
+        "launches": {k: v for k, v in _native.LAUNCHES.items() if v}}))
+
+
+def pretrain_process(workdir: Path, extra: list[str], tag: str) -> dict:
+    """The pretraining CLI of ls100_semi in a fresh process -> what
+    :func:`pretrain_run` recorded (and its stderr)."""
+    out = workdir.parent / f"pretrain_{tag}.json"
+    argv = ["--config", str(SEMI_CONFIG), "--workdir", str(workdir),
+            "--device", DEVICE, *BRQ_RUN, *extra]
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--pretrain-run",
+         str(out), *argv], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    require(proc.returncode == 0, f"pretrain exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    got = json.loads(out.read_text())
+    got["stderr"] = proc.stderr
+    return got
+
+
+def bestrq_state(workdir: Path) -> dict:
+    import torch
+
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+
+    return torch.load(workdir / "train_ckpt" / PT.STATE_FILE,
+                      weights_only=False)
+
+
+def bestrq_vs_plain(d: Path, card: str) -> dict:
+    """Phase 22 (c): one pretraining step of ls100_semi kernels against
+    ``backend="reference"`` with the targets (from K1's features) and the
+    draws fixed, float32 then bf16 -> numbers."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data import pipeline as pipe
+    from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
+    from semi_supervised_asr_tpu_torch.data.registry import build_datasets
+    from semi_supervised_asr_tpu_torch.objectives import best_rq as BRQ
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+    from semi_supervised_asr_tpu_torch.training import train_step as TS
+    from semi_supervised_asr_tpu_torch.training.solver import DeviceCopier
+    from semi_supervised_asr_tpu_torch.transcribe import finalize_config
+
+    out = {}
+    for dtype, loss_tol, grad_tol in (
+            ("float32", 1e-5, GRAD_TOL),
+            ("bfloat16", BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL)):
+        cfg = load_config(SEMI_CONFIG, [*BRQ_RUN,
+                                        f"model.compute_dtype={dtype}"])
+        bundle = build_datasets(cfg)
+        cfg = finalize_config(cfg, bundle.vocab.size)
+        spec = make_bucket_spec(cfg.data, cfg.frontend,
+                                cfg.model.time_reduction)
+        b = next(pipe.repeating_batches(bundle.unlabeled_audio, spec,
+                                        cfg.frontend, cfg.train.batch_size,
+                                        cfg.train.seed,
+                                        drop_remainder=False))
+        audio, lens, real = DeviceCopier(torch.device(DEVICE))(
+            b.audio, b.audio_lens, b.real)
+        cmvn = tuple(torch.as_tensor(a, device=DEVICE) for a in
+                     pipe.compute_global_cmvn(bundle.unlabeled_audio,
+                                              cfg.frontend))
+        quant = PT.quantizer(cfg, DEVICE)
+        feats = {}
+        with torch.no_grad():
+            for backend in (None, "reference"):
+                feats[backend] = TS.featurize(cfg, audio, lens, cmvn,
+                                              backend=backend)
+        r = cfg.model.time_reduction
+        labels = BRQ.bestrq_targets(feats[None][0], *quant, r)
+        plain = BRQ.bestrq_targets(feats["reference"][0], *quant, r)
+        agree = (labels == plain).float().mean().item()
+        model = PT.init_model(cfg, 0, DEVICE)
+        draws = BRQ.draw_masking(PT.step_generator(0, 1, DEVICE),
+                                 model.listener, cfg.model, cfg.pretrain,
+                                 tuple(feats[None][0].shape),
+                                 feats[None][1])
+        got = {backend: PT.loss_and_grads(cfg, model, audio, lens, real,
+                                          cmvn, quant, None, backend,
+                                          draws=draws, labels=labels)
+               for backend in (None, "reference")}
+        (lk, mk, gk), (lr, mr, gr) = got[None], got["reference"]
+        rel = abs(lk.item() - lr.item()) / abs(lr.item())
+        names = [n for n, _ in model.named_parameters()]
+        errs = dict(zip(names, grad_errs(gk, gr)))
+        worst = max(errs, key=errs.get)
+        log(f"[phase22] ls100_semi pretraining step, {dtype}, kernels vs "
+            f"plain (targets from K1's features, the draws fixed): loss "
+            f"{lk.item():.6f} vs {lr.item():.6f} (rel {rel:.2e}, tol "
+            f"{loss_tol:g}); mask_acc {float(mk['mask_acc']):.4f} vs "
+            f"{float(mr['mask_acc']):.4f}; worst gradient leaf {worst} "
+            f"{errs[worst]:.3e} of the model's max |g| (tol {grad_tol:g}); "
+            f"targets from K1's features equal to the plain features' on "
+            f"{agree:.5f} of the stacked frames ({card})")
+        require(rel <= loss_tol and errs[worst] <= grad_tol,
+                f"{dtype} pretraining step kernels vs plain: loss rel {rel},"
+                f" {worst} {errs[worst]}")
+        out[f"bestrq_{dtype}_loss_rel"] = rel
+        out[f"bestrq_{dtype}_grad_err"] = errs[worst]
+        out[f"bestrq_{dtype}_target_agree"] = agree
+        del model, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def bestrq_finetune(d: Path, enc_dir: Path, card: str) -> tuple[dict, dict]:
+    """Phase 22 (d): ls100_semi's Solver as ``main --train`` builds it,
+    from (a)'s encoder with the listener frozen, 2 steps -> (launches,
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+
+    s = short_solver(load_config(SEMI_CONFIG, [
+        *SEMI_OVERRIDES, *BRQ_FINETUNE,
+        f"train.init_encoder_from={enc_dir}"]), d / "finetune", steps=2)
+    with np.load(PT.encoder_ckpt_dir(enc_dir) / PT.PARAMS_FILE) as z:
+        want = {k: torch.as_tensor(z[k]) for k in z.files}
+
+    def same(module) -> bool:
+        return all(torch.equal(p.detach().cpu(), want[n])
+                   for n, p in module.named_parameters())
+
+    start = same(s.state.model.listener) and same(s.state.ema.listener)
+    speller = [p.detach().clone() for p in s.state.model.speller.parameters()]
+    steps, evals, walls = [], [], []
+    counting(s, steps, evals, walls)
+    _native.reset_launches()
+    s.train()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    frozen = same(s.state.model.listener)
+    moved = not all(torch.equal(a, b) for a, b in zip(
+        speller, s.state.model.speller.parameters()))
+    for i, (r, st, w) in enumerate(zip(s.history, steps, walls)):
+        log(f"[phase22] ls100_semi from the pretrained encoder, listener "
+            f"frozen, step {i + 1}: loss {r['loss']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f}; {w:.1f} ms wall; kernel launches {st} "
+            f"({card})")
+        require(math.isfinite(r["loss"]), "fine-tuning loss not finite")
+        require_launches(f"frozen fine-tuning step {i + 1}", st,
+                         C4_LAUNCHES)
+    log(f"[phase22] the listener and its EMA copy equal the encoder file "
+        f"bitwise before step 1: {start}; the frozen listener bitwise "
+        f"unchanged after {len(walls)} steps: {frozen}; the speller moved: "
+        f"{moved}; K3 still runs for the frozen listener (the reference "
+        f"zeroes its gradients after the backward): "
+        f"{[st.get('lstm_scan_bwd', 0) for st in steps]} launches a step")
+    require(start and frozen and moved,
+            f"transfer / freeze: start {start} frozen {frozen} moved {moved}")
+    out = {"bestrq_finetune_step_ms": statistics.median(walls)}
+    del s
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def bestrq_conformer(d: Path, card: str) -> tuple[dict, dict]:
+    """Phase 22 (e): ls960_conformer's listener pretrained on the flash
+    route at B=32, 3 steps -> (launches, numbers)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+
+    steps, walls, peaks = [], [], []
+    undo = counted_pretrain(steps, walls, peaks)
+    _native.reset_launches()
+    try:
+        res = PT.train_bestrq(load_config(CONFORMER_CONFIG, BRQ_CONFORMER),
+                              d / "conformer", DEVICE)
+    finally:
+        undo()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    for i, (st, w, pk) in enumerate(zip(steps, walls, peaks)):
+        log(f"[phase22] ls960_conformer pretraining step {i + 1} (d_model "
+            f"512 x 16 blocks, flash, bf16, B=32, bucket 400): {w:.1f} ms "
+            f"wall, peak {pk:.2f} GiB; kernel launches {st} ({card})")
+        require(st.get("flash_mhsa_fwd", 0) > 0
+                and st.get("flash_mhsa_bwd", 0) > 0
+                and st.get("fused_post_fft", 0) == 1,
+                f"conformer pretraining step {i + 1}: launches {st}")
+    log(f"[phase22] ls960_conformer pretraining: {res}")
+    require(len(steps) == 3 and math.isfinite(res["loss"]),
+            f"conformer pretraining {res}")
+    torch.cuda.empty_cache()
+    return launches, {"bestrq_conformer_step_ms": statistics.median(
+        walls[1:3]), "bestrq_conformer_peak_gib": max(peaks)}
+
+
+def bestrq_selftrain(d: Path, card: str) -> tuple[dict, dict]:
+    """Phase 22 (f): a self-training round over synthetic WAVs from a
+    1-step timit-width Solver workdir -> (launches, numbers)."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native, selftrain, synthetic
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data.corpus import (
+        ManifestDataset, load_audio,
+    )
+
+    teacher = d / "teacher"
+    s = short_solver(load_config(CONFIG, TRAIN_OVERRIDES), teacher, steps=1)
+    s.train()
+    cfg, vocab, text = s.cfg, s.vocab, s.bundle.train[0].text
+    del s
+    wavs = d / "wavs"
+    wavs.mkdir()
+    files = synthetic.write_wavs(wavs, cfg, vocab, 8, min_tokens=5,
+                                 max_tokens=12, token_dur_s=0.3)
+    manifest = wavs / "unlabeled.jsonl"
+    manifest.write_text("".join(json.dumps(
+        {"uid": f"u{i}", "audio": f.name,
+         "n_samples": int(load_audio(f).shape[0])}) + "\n"
+        for i, f in enumerate(files)))
+    labeled = wavs / "labeled.jsonl"
+    labeled.write_text(json.dumps({"uid": "l0", "audio": files[0].name,
+                                   "n_samples": int(load_audio(files[0])
+                                                    .shape[0]),
+                                   "text": text}) + "\n")
+    out = wavs / "pseudo.jsonl"
+    buf = io.StringIO()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = selftrain.main(["--config", str(CONFIG), "--load-dir",
+                             str(teacher), "--manifest", str(manifest),
+                             "--out", str(out), "--keep-frac", "0.5",
+                             "--union", str(labeled), "--device", DEVICE,
+                             *TRAIN_OVERRIDES])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ds = ManifestDataset(out, TR.build_vocab(cfg))
+    rows = [ds[i] for i in range(len(ds))]
+    log(f"[phase22] selftrain (timit teacher after 1 step, beam 5, "
+        f"--keep-frac 0.5 --union, 8 files): {stats}; {wall:.1f} s wall "
+        f"(the Solver's start-up included); kernel launches {launches}; "
+        f"the output read back as a training manifest: {len(rows)} rows, "
+        f"token counts {[len(u.tokens) for u in rows]} ({card})")
+    require(rc == 0 and stats["total"] == 8 and len(rows) == 1
+            + stats["kept"] and all(len(u.tokens) > 0 and len(u.audio) > 0
+                                    for u in rows),
+            f"selftrain {stats}, {len(rows)} manifest rows")
+    require(launches.get("fused_post_fft", 0) > 0
+            and launches.get("lstm_scan_fwd", 0) > 0,
+            f"selftrain decoded without K1 / K2: {launches}")
+    return launches, {"selftrain_wall_s": wall}
+
+
+def phase22(d: Path, card: str) -> tuple[dict, dict]:
+    """Phase 22: BEST-RQ pretraining of ls100_semi's listener through the
+    CLI (a), resumed in fresh processes (b), a step kernels against plain
+    (c), the transfer into ls100_semi with the listener frozen (d), the
+    conformer's pretraining on K5 (e), a self-training round (f), each
+    pretraining step's host ms and peak memory (g) -> (launches by path,
+    numbers)."""
+    import torch
+
+    launches, out = {}, {}
+    straight = d / "straight"
+    a = pretrain_process(straight, [], "straight")
+    for i, (st, w, pk) in enumerate(zip(a["steps"], a["walls"],
+                                        a["peaks"])):
+        log(f"[phase22] ls100_semi pretraining step {i + 1} (enc 384 x "
+            f"(1 + 3) BiLSTM, bf16, B=64, bucket 400): {w:.1f} ms wall, "
+            f"peak {pk:.2f} GiB; kernel launches {st} ({card})")
+        require_launches(f"pretraining step {i + 1}", st, BRQ_STEP_LAUNCHES)
+    recs = read_records(straight)
+    log(f"[phase22] pretraining CLI in a fresh process: {a['result']}; "
+        f"metrics.jsonl {[{k: r[k] for k in r if k.startswith('bestrq_')} for r in recs]}")
+    require(len(a["steps"]) == 4 and [r["step"] for r in recs]
+            == [1, 2, 3, 4] and all(math.isfinite(v) for r in recs
+                                    for k, v in r.items()
+                                    if k.startswith("bestrq_")),
+            f"pretraining records {recs}")
+    launches["bestrq_pretrain"] = a["launches"]
+    out["bestrq_step_ms"] = statistics.median(a["walls"][1:3])
+    out["bestrq_peak_gib"] = max(a["peaks"])
+
+    split = d / "split"
+    pretrain_process(split, ["pretrain.total_steps=2"], "split_2")
+    b = pretrain_process(split, [], "split_4")
+    diff = first_difference(bestrq_state(straight), bestrq_state(split))
+    log(f"[phase22] 2 steps, then the same command to 4 in a fresh process "
+        f"(resumed: {'bestrq resumed from step 2' in b['stderr']}): step "
+        f"4's parameters and Adam state "
+        f"{'bitwise equal' if diff is None else 'differ first at ' + diff}"
+        f" to the straight run's")
+    require(diff is None and "bestrq resumed from step 2" in b["stderr"],
+            f"the resumed pretraining differs at {diff}")
+
+    out.update(bestrq_vs_plain(d, card))
+    fl, res = bestrq_finetune(d, straight, card)
+    launches["bestrq_finetune_frozen"] = fl
+    out.update(res)
+    cl, res = bestrq_conformer(d, card)
+    launches["bestrq_conformer"] = cl
+    out.update(res)
+    sl, res = bestrq_selftrain(d, card)
+    launches["selftrain"] = sl
+    out.update(res)
+    log(f"[phase22] pretraining step host ms (median of steps 2-3) "
+        f"ls100_semi {out['bestrq_step_ms']:.1f} ms, peak "
+        f"{out['bestrq_peak_gib']:.2f} GiB; ls960_conformer (B=32) "
+        f"{out['bestrq_conformer_step_ms']:.1f} ms, peak "
+        f"{out['bestrq_conformer_peak_gib']:.2f} GiB ({card})")
+    log(f"[phase22] summary {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -6263,6 +6684,8 @@ def main(argv=None) -> int:
                         "one train step of each path here")
     p.add_argument("--c5-rank", nargs=2, metavar=("PART", "DIR"),
                    help=argparse.SUPPRESS)   # phase 15's ranks (torchrun)
+    p.add_argument("--pretrain-run", nargs=argparse.REMAINDER,
+                   help=argparse.SUPPRESS)   # phase 22's pretraining CLI
     p.add_argument("--k2-bits", nargs=2, metavar=("ROOT", "JSON"),
                    type=Path,
                    help="hash stateless K2 outputs of the package under ROOT "
@@ -6281,6 +6704,9 @@ def main(argv=None) -> int:
     if args.c5_rank:
         part, out = args.c5_rank
         {"a": c5_rank_a, "b": c5_rank_b}[part](Path(out))
+        return 0
+    if args.pretrain_run:
+        pretrain_run(Path(args.pretrain_run[0]), args.pretrain_run[1:])
         return 0
     from semi_supervised_asr_tpu_torch import strict_fp32, synthetic
     from semi_supervised_asr_tpu_torch import transcribe as TR
@@ -6366,6 +6792,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         p21_launches, p21, p21_errs = phase21(Path(tmp), card)
     elapsed("phase 21")
+    with tempfile.TemporaryDirectory() as tmp:
+        p22_launches, p22 = phase22(Path(tmp), card)
+    elapsed("phase 22")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -6515,6 +6944,16 @@ def main(argv=None) -> int:
         f"{p21['deep_fusion_step_simt_ms']:.1f} / "
         f"{p21['deep_fusion_step_grid_f32_ms']:.1f} ms); launches "
         f"{json.dumps(p21_launches)} ({card})")
+    log(f"[summary] phase 22: BEST-RQ pretraining step (host ms, median of "
+        f"steps 2-3) ls100_semi {p22['bestrq_step_ms']:.1f} ms (peak "
+        f"{p22['bestrq_peak_gib']:.2f} GiB), ls960_conformer at B=32 "
+        f"{p22['bestrq_conformer_step_ms']:.1f} ms (peak "
+        f"{p22['bestrq_conformer_peak_gib']:.2f} GiB); kernels vs plain "
+        f"loss rel float32 {p22['bestrq_float32_loss_rel']:.2e} / bf16 "
+        f"{p22['bestrq_bfloat16_loss_rel']:.2e}, targets from K1's "
+        f"features equal on {p22['bestrq_float32_target_agree']:.5f}; "
+        f"frozen fine-tuning step {p22['bestrq_finetune_step_ms']:.1f} ms; "
+        f"launches {json.dumps(p22_launches)} ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -6540,7 +6979,8 @@ def main(argv=None) -> int:
              "c5_dp": c5_launches, "ls100_bpe": bpe_launches,
              "transformer_remat": p16["transformer_launches"],
              "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
-             **td_launches, **cs_launches, **p20_launches, **p21_launches}
+             **td_launches, **cs_launches, **p20_launches, **p21_launches,
+             **p22_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

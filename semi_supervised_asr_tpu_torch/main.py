@@ -90,6 +90,9 @@ def main(argv=None) -> int:
 def _run(args, eff_argv, device, primary: bool) -> int:
     from semi_supervised_asr_tpu_torch.config import load_config
     from semi_supervised_asr_tpu_torch.training.lm_trainer import LMNotFound
+    from semi_supervised_asr_tpu_torch.training.pretrain import (
+        EncoderNotFound,
+    )
     from semi_supervised_asr_tpu_torch.training.solver import Solver
 
     cfg = load_config(args.config, args.overrides)
@@ -99,7 +102,7 @@ def _run(args, eff_argv, device, primary: bool) -> int:
     workdir = args.workdir if args.train else (args.load_dir or args.workdir)
     try:
         solver = Solver(cfg, workdir, device)
-    except (NotImplementedError, LMNotFound) as e:
+    except (NotImplementedError, LMNotFound, EncoderNotFound) as e:
         raise SystemExit(str(e)) from None
 
     if args.train:

@@ -33,6 +33,7 @@ import torch
 from semi_supervised_asr_tpu_torch import strict_fp32, weights
 from semi_supervised_asr_tpu_torch.config import Config, load_config
 from semi_supervised_asr_tpu_torch.training.lm_trainer import LMNotFound
+from semi_supervised_asr_tpu_torch.training.pretrain import EncoderNotFound
 from semi_supervised_asr_tpu_torch.training.solver import Solver
 
 METRIC_KEYS = ("loss", "ce", "acc", "grad_norm", "tf_rate", "frames", "lr")
@@ -73,7 +74,7 @@ def main(argv=None) -> int:
         strict_fp32()
     try:
         solver = Solver(cfg, args.workdir, device)
-    except (NotImplementedError, LMNotFound) as e:
+    except (NotImplementedError, LMNotFound, EncoderNotFound) as e:
         raise SystemExit(str(e)) from None
     solver.train()
     weights.save_npz(solver.state.model, Path(args.workdir) / "params.npz")

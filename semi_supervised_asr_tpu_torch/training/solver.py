@@ -49,6 +49,10 @@ over the ranks of a torchrun (``parallel/``).
   ``model.lm_fusion_ckpt`` into the speller before the first step (the
   EMA buffer copies the grafted weights); an empty ``lm_fusion_ckpt`` logs
   a warning and fuses the random stand-in, as the reference does.
+* ``train.init_encoder_from`` (a ``training/pretrain.py`` workdir) loads
+  the BEST-RQ-pretrained listener over the fresh weights before the first
+  step (the EMA buffer copies it); ``train.freeze`` and
+  ``train.optimizer`` act in the step's optimizer chain.
 * ``data.batch_frames`` sizes each labeled bucket's batch to a constant
   frame count (``_train_batch_size``); ``train.grad_accum`` = A makes
   every rank hold its ceil-sized share of each of a batch's A
@@ -141,6 +145,33 @@ def check_solver_supported(cfg: Config) -> None:
     check_supported(cfg.decode)
 
 
+class DeviceCopier:
+    """Host arrays -> device tensors.  On the card each array is pinned and
+    copied without blocking on a side stream, and the current stream waits
+    for those copies before the work queued after the call: a prefetched
+    step's copies run beside the steps queued before it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = None
+
+    def __call__(self, *arrays) -> tuple[torch.Tensor, ...]:
+        if self.device.type != "cuda":
+            return tuple(torch.as_tensor(a) for a in arrays)
+        main = torch.cuda.current_stream(self.device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                        .pin_memory().to(self.device, non_blocking=True)
+                        for a in arrays)
+        main.wait_stream(self.stream)
+        for t in out:
+            # allocated on the side stream, used and freed on the main one
+            t.record_stream(main)
+        return out
+
+
 class Solver:
     def __init__(self, cfg: Config, workdir: str | Path, device="cuda"):
         self.workdir = Path(workdir)
@@ -199,6 +230,17 @@ class Solver:
         weights.load_flat(model, weights.init_numpy(cfg.model,
                                                     cfg.train.seed))
         self._graft_fusion_lm(model)
+        if cfg.train.init_encoder_from:
+            # BEST-RQ transfer: every family keeps its encoder as .listener;
+            # before the train state, so the EMA buffer starts from it
+            from semi_supervised_asr_tpu_torch.training.pretrain import (
+                load_pretrained_encoder,
+            )
+
+            load_pretrained_encoder(cfg.train.init_encoder_from,
+                                    model.listener)
+            self.log.info("encoder initialized from BEST-RQ pretraining at "
+                          f"{cfg.train.init_encoder_from}")
         self.state = TS.init_train_state(cfg, model.to(self.device),
                                          cfg.train.seed)
         # the external LM of shallow fusion (decode.lm_weight), or None
@@ -209,7 +251,7 @@ class Solver:
                                  async_save=cfg.train.async_ckpt)
         self.data_pos = {"epoch": 0, "batch": 0}
         self.history: list[dict] = []     # the "train" records logged
-        self._copy_stream = None          # the card's input copies (_put)
+        self._put = DeviceCopier(self.device)   # host batches -> device
 
     def _graft_fusion_lm(self, model) -> None:
         """Deep / cold fusion: the trained LM of ``model.lm_fusion_ckpt``
@@ -339,27 +381,6 @@ class Solver:
                 skip_batches=skip_batches, row_shard=row_shard,
                 micro=self._accum())
         return ua, ut
-
-    def _put(self, *arrays) -> tuple[torch.Tensor, ...]:
-        """Host arrays -> device tensors.  On the card each array is pinned
-        and copied without blocking on a side stream, and the current
-        stream waits for those copies before the work queued after this
-        call: a prefetched step's copies run beside the steps queued
-        before it."""
-        if self.device.type != "cuda":
-            return tuple(torch.as_tensor(a) for a in arrays)
-        main = torch.cuda.current_stream(self.device)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            out = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                        .pin_memory().to(self.device, non_blocking=True)
-                        for a in arrays)
-        main.wait_stream(self._copy_stream)
-        for t in out:
-            # allocated on the side stream, used and freed on the main one
-            t.record_stream(main)
-        return out
 
     def step_inputs(self, batch, ua_stream=None, ut_stream=None):
         """One labeled batch and the next batch of each unlabeled stream

@@ -16,8 +16,9 @@ the step is given the unlabeled batches, the text term on unlabeled text
 pseudo-label term on unlabeled audio (the teacher's greedy or best-path
 decode of the clean view, the student's CE, lattice NLL or CTC NLL on the
 augmented view, gated by ``objective.pseudo_warmup_steps``); then backward
-(through K3 for the listener and the predictor), global-norm clip, Adam,
-the EMA update and the step counter.  The metrics keep the JAX keys
+(through K3 for the listener and the predictor), the optimizer chain
+(``train.freeze``, global-norm clip, ``train.optimizer``: adam, adamw or
+sgd; ``training/schedules.py``), the EMA update and the step counter.  The metrics keep the JAX keys
 (``loss``, ``ce``, ``acc``, ``ctc``, ``nll_per_label``, ``grad_norm``,
 ``tf_rate``, ``frames``, and ``mwer``, ``mwer_risk``, ``text_ae`` or
 ``text_ilm``, ``pseudo``, ``pseudo_gate`` where the step runs those
@@ -85,9 +86,6 @@ def check_train_supported(cfg: Config) -> None:
     m, o, t = cfg.model, cfg.objective, cfg.train
     unsupported = {
         "model.param_dtype": (m.param_dtype, "float32"),
-        "train.optimizer": (t.optimizer, "adam"),
-        "train.freeze": (tuple(t.freeze), ()),
-        "train.init_encoder_from": (t.init_encoder_from, ""),
         "train.checkify_errors": (t.checkify_errors, ""),
         "data.use_feature_store": (cfg.data.use_feature_store, False),
     }
@@ -96,6 +94,8 @@ def check_train_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{key}={got!r} is not ported yet (the PyTorch port trains "
                 f"with {key}={want!r})")
+    if t.optimizer not in schedules.OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {t.optimizer!r}")
     if m.family == "transducer":
         # the reference's refusal (its LM-fusion one is the model's)
         if o.lambda_ctc:
@@ -262,15 +262,15 @@ class TrainState:
 
     model: torch.nn.Module        # Seq2Seq, float32 parameters
     ema: torch.nn.Module          # Seq2Seq: the EMA of ``model``, no grad
-    opt: schedules.Adam
+    opt: schedules.Adam | schedules.SGD   # train.optimizer's
     step: int
     gen: torch.Generator          # per-row draws (CPU)
     dgen: torch.Generator         # dropout masks, white noise (the device's)
 
     def state_dict(self) -> dict:
         """Everything an exact resume needs, as CPU tensors: the
-        parameters, the EMA buffer, Adam's moments and count, the step and
-        both generators' states."""
+        parameters, the EMA buffer, the optimizer's moments and count, the
+        step and both generators' states."""
         return {"model": module_state(self.model),
                 "ema": module_state(self.ema),
                 "opt": self.opt.state_dict(),
@@ -296,7 +296,8 @@ def init_train_state(cfg: Config, model: torch.nn.Module,
     dev = next(model.parameters()).device
     return TrainState(model=model,
                       ema=copy.deepcopy(model).requires_grad_(False),
-                      opt=schedules.Adam(list(model.parameters()), cfg.train),
+                      opt=schedules.make_optimizer(
+                          list(model.named_parameters()), cfg.train),
                       step=0, gen=torch.Generator().manual_seed(seed),
                       dgen=torch.Generator(dev).manual_seed(seed))
 
@@ -606,13 +607,11 @@ def family_terms(cfg: Config):
 @torch.no_grad()
 def apply_grads(cfg: Config, state: TrainState,
                 grads: list[torch.Tensor]) -> tuple[torch.Tensor, float]:
-    """Clip ``grads`` by their global norm, take one Adam step, update the
-    EMA buffer and count the step -> (the norm before clipping, the
-    learning rate used)."""
-    gnorm = schedules.global_norm(grads)
-    if cfg.train.grad_clip_norm > 0:
-        schedules.clip_by_global_norm(grads, cfg.train.grad_clip_norm, gnorm)
-    lr = state.opt.step(grads)
+    """The optimizer chain on ``grads`` (``schedules.update``: the frozen
+    leaves zeroed, the clip, one optimizer step), the EMA update and the
+    step count -> (the global norm of the gradients as given, the learning
+    rate used)."""
+    gnorm, lr = schedules.update(state.opt, grads, cfg.train)
     d = ema_decay(cfg)
     if d is not None:
         for e, p in zip(state.ema.parameters(), state.model.parameters()):

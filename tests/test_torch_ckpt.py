@@ -58,10 +58,14 @@ def assert_state_bitwise_equal(a, b):
         for n in sa[part]:
             assert torch.equal(sa[part][n].view(torch.uint8),
                                sb[part][n].view(torch.uint8)), (part, n)
-    for x, y in zip(sa["opt"]["mu"] + sa["opt"]["nu"],
-                    sb["opt"]["mu"] + sb["opt"]["nu"]):
-        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-    assert sa["opt"]["count"] == sb["opt"]["count"]
+    # the optimizer's moments (adam / adamw: mu, nu; sgd: trace) and count
+    assert sa["opt"].keys() == sb["opt"].keys()
+    for k in sa["opt"]:
+        if k == "count":
+            assert sa["opt"][k] == sb["opt"][k]
+            continue
+        for x, y in zip(sa["opt"][k], sb["opt"][k], strict=True):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), k
     assert sa["step"] == sb["step"]
     assert torch.equal(sa["gen"], sb["gen"])
     assert torch.equal(sa["dgen"], sb["dgen"])
@@ -73,18 +77,30 @@ AUGMENT = {"model.enc_dropout": 0.2, "model.dec_dropout": 0.2,
            "frontend.time_warp_param": 5, "frontend.noise_aug_prob": 0.5}
 
 
-@pytest.mark.parametrize("semi, augment", [(False, False), (True, False),
-                                           (False, True)],
-                         ids=["supervised", "semi", "dropout"])
-def test_exact_resume_is_bitwise(semi, augment, tmp_path):
+# the other optimizers: adamw with its decay, sgd with momentum (its trace
+# is the state a resume restores)
+OPTIMIZERS = {"adam": {},
+              "adamw": {"train.optimizer": "adamw",
+                        "train.weight_decay": 0.01},
+              "sgd": {"train.optimizer": "sgd", "train.learning_rate": 0.05}}
+
+
+@pytest.mark.parametrize("semi, augment, optimizer",
+                         [(False, False, "adam"), (True, False, "adam"),
+                          (False, True, "adam"), (False, False, "adamw"),
+                          (False, False, "sgd")],
+                         ids=["supervised", "semi", "dropout", "adamw",
+                              "sgd"])
+def test_exact_resume_is_bitwise(semi, augment, optimizer, tmp_path):
     """4 batches an epoch; stop at step 5 (mid epoch 1), resume to 7: the
     state and the train records equal the uninterrupted run's bitwise,
     with SpecAugment and scheduled sampling drawing from the generator,
-    and in the third case dropout, time warp and noise drawing from both
-    generators."""
+    in the third case dropout, time warp and noise drawing from both
+    generators, and in the last two with adamw's and sgd's state."""
     extra = {"train.ckpt_every": 5, "frontend.spec_augment": "true",
              "objective.tf_rate_end": 0.5, "objective.tf_decay_steps": 4,
-             **(SEMI if semi else {}), **(AUGMENT if augment else {})}
+             **(SEMI if semi else {}), **(AUGMENT if augment else {}),
+             **OPTIMIZERS[optimizer]}
     full = Solver(small_cfg(**extra, **{"train.total_steps": 7}),
                   tmp_path / "full", "cpu")
     full.train()
@@ -94,6 +110,10 @@ def test_exact_resume_is_bitwise(semi, augment, tmp_path):
                      tmp_path / "split", "cpu")
     resumed.train(resume=True)
     assert resumed.state.step == 7
+    opt = resumed.state.opt
+    assert ("trace" in opt.state_dict()) == (optimizer == "sgd")
+    assert optimizer == "sgd" or opt.wd == (0.01 if optimizer == "adamw"
+                                            else 0.0)
     assert resumed.data_pos == full.data_pos == {"epoch": 1, "batch": 2}
     assert_state_bitwise_equal(full.state, resumed.state)
     if semi:

@@ -47,7 +47,7 @@ from semi_supervised_asr_tpu_torch.models import listener as L
 from semi_supervised_asr_tpu_torch.models.seq2seq import Seq2Seq
 from semi_supervised_asr_tpu_torch.training import train_step as TS
 from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
-    make_step_setup, one_thread, port_model, run_jax, stash, t,
+    FAST_XLA, make_step_setup, one_thread, port_model, run_jax, stash, t,
     train_records,
 )
 
@@ -156,7 +156,7 @@ def stream_jax(tree, jcfg, x, n_valid):
     rope = JCL.conformer_rope_table(jcfg, 64)
     st = JCL.conformer_stream_init(jcfg, 1)
     step = jax.jit(lambda p, f, s, fl: JCL.conformer_listener_apply_stream(
-        p, f, jcfg, s, rope, frame_lens=fl))
+        p, f, jcfg, s, rope, frame_lens=fl), compiler_options=FAST_XLA)
     outs, full = [], n_valid // CHUNK_FEATS
     for i in range(full):
         o, st = step(tree, x[:, i * CHUNK_FEATS:(i + 1) * CHUNK_FEATS], st,

@@ -32,6 +32,12 @@ no process group in the way.
   an unreal stand-in row, makes the draws and joins the reductions);
   the Solver's granule is held against the reference's in
   tests/test_torch_solver.py.
+* The BEST-RQ pretraining step (``training/pretrain.py``) at global B=4
+  with encoder dropout: the masking and dropout draws made at the global
+  shape, the CE over the global count of masked positions (summed over the
+  ranks), the loss, accuracy and code hits summed with the gradients:
+  loss within 1e-6 relative, metrics within 1e-6, gradients at the step
+  tolerance, the ranks bitwise equal.
 * A 2-rank Solver run of 4 steps (``train.async_ckpt``, validation and a
   checkpoint every 2; constant-frames batches of 6 rows with
   ``train.grad_accum=2``, so each microbatch of 3 splits 2 + 1 and the
@@ -82,7 +88,15 @@ AUGMENT = ["model.enc_dropout=0.2", "model.dec_dropout=0.2",
 UNEVEN = {"uneven": 6, "empty": 2}
 MWER = ["objective.lambda_mwer=0.3", "objective.mwer_beam=2"]
 # the step cases, run in turn by one pair of ranks
-STEP_CASES = ("supervised", "semi", "transducer_semi", "augment", *UNEVEN)
+STEP_CASES = ("supervised", "semi", "transducer_semi", "augment", *UNEVEN,
+              "pretrain")
+# the BEST-RQ pretraining step (training/pretrain.py) on configs/timit.yaml
+# at the step cases' width, with encoder dropout: the masking and dropout
+# draws made at the global batch's shape, the CE over the global count of
+# masked positions
+PRETRAIN = ["model.enc_dropout=0.2", "pretrain.codebook_size=16",
+            "pretrain.codebook_dim=4", "pretrain.mask_prob=0.1",
+            "pretrain.mask_span=4"]
 # configs/synthetic_smoke.yaml at a small width, 48 utterances in its
 # 144-frame bucket, constant-frames batches of 900 // 144 = 6 rows (the
 # lcm(2, 2) granule) in 2 microbatches of 3: rank 0 holds 2 rows of each,
@@ -103,8 +117,52 @@ SOLVER = ["data.num_synthetic_utts=48", "train.batch_size=4",
 # the ranks
 # --------------------------------------------------------------------- #
 
+def _pretrain_case() -> dict:
+    import torch
+
+    from semi_supervised_asr_tpu_torch.config import load_config
+    from semi_supervised_asr_tpu_torch.data import pipeline
+    from semi_supervised_asr_tpu_torch.data.bucketing import make_bucket_spec
+    from semi_supervised_asr_tpu_torch.data.registry import build_datasets
+    from semi_supervised_asr_tpu_torch.parallel import dp as DP
+    from semi_supervised_asr_tpu_torch.training import pretrain as PT
+    from semi_supervised_asr_tpu_torch.transcribe import finalize_config
+
+    cfg = load_config(REPO / "configs/timit.yaml", STEP + PRETRAIN)
+    bundle = build_datasets(cfg)
+    cfg = finalize_config(cfg, bundle.vocab.size)
+    spec = make_bucket_spec(cfg.data, cfg.frontend, cfg.model.time_reduction)
+    rows = [0, 1, 2, 0]
+    batch = pipeline.assemble_batch(bundle.train, rows, len(rows) - 1,
+                                    (128, 12), spec, cfg.frontend)
+    n = len(rows)
+    cmvn = tuple(torch.as_tensor(a) for a in
+                 pipeline.compute_global_cmvn(bundle.train, cfg.frontend))
+    quant = PT.quantizer(cfg, "cpu")
+
+    def run(pos, dp):
+        model = PT.init_model(cfg, 0)
+        args = [torch.as_tensor(getattr(batch, f)[pos])
+                for f in ("audio", "audio_lens", "real")]
+        loss, metrics, grads = PT.loss_and_grads(
+            cfg, model, *args, cmvn, quant, PT.step_generator(0, 1, "cpu"),
+            dp=dp, global_rows=n)
+        return {"loss": loss, "aux": {k: float(v) for k, v in
+                                      metrics.items()}, "grads": grads}
+
+    dp = DP.current()
+    res = {"dp": run(pipeline.rank_rows(n, (dp.rank, dp.rank + 1, dp.world)),
+                     dp)}
+    if dp.rank == 0:
+        res["one"] = run(slice(0, n), None)
+    return res
+
+
 def _step_case(case: str) -> dict:
     import torch
+
+    if case == "pretrain":
+        return _pretrain_case()
 
     from semi_supervised_asr_tpu_torch import weights
     from semi_supervised_asr_tpu_torch.config import load_config
@@ -364,6 +422,28 @@ def test_two_ranks_uneven_microbatches_match_one_process(steps):
     for case in UNEVEN:
         _check_step(steps[case])
         assert steps[case][0]["dp"]["aux"]["mwer_risk"] > 0
+
+
+def test_two_ranks_pretrain_step_match_one_process(steps):
+    """The BEST-RQ step: the ranks' summed loss within 1e-6 of one
+    process's on the concatenated batch, the metrics (the accuracy and the
+    code hits summed, the counts global), every all-reduced gradient leaf
+    within the step tolerance, the two ranks bitwise equal."""
+    import numpy as np
+    import torch
+
+    r0, r1 = steps["pretrain"]
+    one, a, b = r0["one"], r0["dp"], r1["dp"]
+    np.testing.assert_allclose(a["loss"].item(), one["loss"].item(),
+                               rtol=1e-6)
+    assert one["aux"]["masked_positions"] > 0
+    for k in one["aux"]:
+        np.testing.assert_allclose(a["aux"][k], one["aux"][k], rtol=1e-6,
+                                   err_msg=k)
+    for g, w in zip(a["grads"], one["grads"], strict=True):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL_GRAD)
+    assert torch.equal(a["loss"], b["loss"]) and a["aux"] == b["aux"]
+    assert all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
 
 
 def test_two_rank_solver_run_and_resume(ranks):

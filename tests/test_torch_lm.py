@@ -36,7 +36,7 @@ from semi_supervised_asr_tpu_torch.data.registry import build_vocab
 from semi_supervised_asr_tpu_torch.models import lm as LM
 from semi_supervised_asr_tpu_torch.training import lm_trainer as LT
 from tests.test_torch_train import (  # noqa: F401 -- one_thread: autouse
-    one_thread, run_jax,
+    FAST_XLA, one_thread, run_jax,
 )
 
 V, E, H, LAYERS, B, U = 12, 16, 32, 2, 3, 7
@@ -104,7 +104,7 @@ def test_lstm_lm_step_matches_jax(lstm_ref):
     lm, tree, _, tin, logits_ref, _, _ = lstm_ref
     st, jst = LM.lm_step(lm, None, None, init_batch=B)[0], \
         JLM.lm_init_state(tree, B)
-    jstep = jax.jit(JLM.lm_step)
+    jstep = jax.jit(JLM.lm_step, compiler_options=FAST_XLA)
     with torch.no_grad():
         for u in range(U):
             st, lg = LM.lm_step(lm, st, t(tin[:, u]))

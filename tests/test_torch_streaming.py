@@ -179,7 +179,7 @@ def test_streaming_listener_matches_offline_and_jax(models):
     st = L.listener_stream_init(cfg.model, 1, "cpu")
     jst = JL.listener_stream_init(jcfg.model, 1)
     step = jax.jit(lambda p, f, s, fl: JL.listener_apply_stream(
-        p, f, jcfg.model, s, frame_lens=fl))
+        p, f, jcfg.model, s, frame_lens=fl), compiler_options=FAST_XLA)
     outs, jouts = [], []
     for i in range(0, 48, tc):
         n = min(tc, n_valid - i)
