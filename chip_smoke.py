@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --k2-bits ROOT JSON   # stateless K2's bits, ROOT's
                                                 # package against JSON's
+    python3 chip_smoke.py --export-depth N      # phase 23's ls100_semi
+                                                # program at depth N alone
 
 Run from the root of a checkout.  It imports nothing of JAX and fails
 (non-zero exit, no result line) when CUDA is unavailable.  Phases; any
@@ -330,6 +332,31 @@ failure raises and the script exits non-zero:
     ``selftrain.py`` from a 1-step timit Solver workdir over 8 synthetic
     WAVs with ``--keep-frac 0.5 --union``: the output read back as a
     training manifest, K1 / K2 launched.
+23. contextual biasing and the serving export: (a) one padded batch at
+    bucket 400 in float32, biased by a phrase file of the vocabulary's
+    labels at bonus 3, through ``Recognizer`` (``decode.bias_phrases``):
+    ``ls100_semi`` beam 5, ``ls100_ctc`` prefix beam 8 and its biased
+    best-path walk, ``ls100_transducer`` beam 4 and its biased greedy
+    walk, kernels against plain (identical tokens, scores 1e-4 relative,
+    the launches, one warm call's host ms biased and unbiased, the share
+    of rows the bias changed, which must be > 0);
+    ``ls100_transducer_streaming`` greedy and beam 4 biased, streamed
+    against offline (tokens and scores equal); (b) ``export.py`` on the
+    card, in bfloat16 as the recipes ship: ``ls100_semi``'s biased beam 5
+    (on (a)'s model directory; K2's bf16 cluster route) and
+    ``ls960_conformer``'s flash greedy (cut to 1 of its 16 blocks; K5f's
+    bf16 route), both at B=8, 400 frames and ``decode.max_decode_len``
+    cut to 8 (the export unrolls every step), and
+    ``ls100_transducer_streaming``'s biased beam-4 streaming bundle (K2's
+    bf16 grid route); each saved, loaded and run in a fresh process that
+    imports torch and the op module only, beside the next export (the
+    last beside (a)'s streams): the graphs hold the ``ssasr_torch`` ops,
+    the fresh processes launch K1, K2 and K5's forward on those routes,
+    tokens equal to the live decode on the kernels in the same dtype and
+    scores within 1e-6; export, save, load and call times and the bytes;
+    the phase's time against its 90 s budget.  ``--export-depth N`` runs
+    the float32 ``ls100_semi`` program at depth N alone (the export time
+    and size at the shipped 256).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound, library time and what that library call computes, how each time
@@ -365,6 +392,7 @@ import io
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4982,7 +5010,8 @@ def stream_audio(cfg, n: int) -> tuple[list, tuple]:
 def offline_tokens(model, cfg, cmvn, wav, beam: int, **fuse):
     """The port's offline decode of one file on the card, padded to the
     streaming chunk grid as a bucketed batch pads it -> (tokens, score);
-    ``fuse`` (lm, lm_weight, ilm_weight) goes to the beam."""
+    ``fuse`` (lm, lm_weight, ilm_weight, bias) goes to the beam, ``bias``
+    also to the greedy walk."""
     import numpy as np
     import torch
 
@@ -5011,7 +5040,8 @@ def offline_tokens(model, cfg, cmvn, wav, beam: int, **fuse):
                 **fuse)
         else:
             toks, score = transducer_greedy_from_enc(
-                model, m, enc, mask, dc.max_decode_len, dc.max_symbols)
+                model, m, enc, mask, dc.max_decode_len, dc.max_symbols,
+                bias=fuse.get("bias"))
     return [int(x) for x in toks[0].tolist() if x != 0], float(score[0])
 
 
@@ -6513,6 +6543,630 @@ def phase22(d: Path, card: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# phase 23: contextual biasing at full width and the serving export.  (a)
+# biased decodes of one padded batch at bucket 400 in float32 through
+# Recognizer (the trie from decode.bias_phrases, a phrase file built from
+# the vocabulary, bonus BIAS_BONUS: large enough to force phrases on random
+# weights), kernels against backend="reference": ls100_semi beam 5,
+# ls100_ctc prefix beam 8 and its biased best-path walk, ls100_transducer
+# beam 4 and its biased greedy walk; ls100_transducer_streaming streamed
+# (greedy and beam 4, biased) against its offline decode in float32.  (b)
+# the export, in bfloat16 as the recipes ship, so that each program runs
+# the kernel routes serving runs: ls100_semi's biased beam 5 (B=8, 400
+# frames; the listener on K2's bf16 cluster route, the weights of (a)'s
+# model directory), ls960_conformer with attn_backend=flash (greedy, B=8,
+# 400 frames; K5f's bf16 route) and ls100_transducer_streaming's biased
+# beam-4 streaming bundle (the listener on K2's bf16 grid route), each
+# saved, then loaded and run in a fresh process that imports torch and the
+# port's op module only, and held to the live decode on the kernels in the
+# same dtype (tokens equal, scores within 1e-6).  The offline programs
+# unroll decode.max_decode_len steps: cut to EXPORT_DEPTH to hold the
+# phase's time (widths as shipped); ``--export-depth N`` times the float32
+# ls100_semi program at depth N alone.  The conformer's program is cut to
+# EXPORT_CONFORMER_BLOCKS of its 16 blocks (a depth cut, widths as
+# shipped: at 16 blocks its 468 MB of float32 weights took 10 s to save and
+# 23 s to load on an H100 80GB HBM3 at 700 W).  No program is exported on
+# the plain versions: a plain BLSTM listener's program would unroll every
+# step of its scans (~750 at 400 frames); (a) holds the biased decodes to
+# the plain versions in float32, and earlier phases the bf16 kernels.  Each
+# fresh process runs beside the next export, the last beside (a)'s biased
+# streams: its load and call times are taken under that load.
+PHASE23_BUDGET_S = 90
+BIAS_BONUS = 3.0
+BIAS_DATA = ["data.dataset=synthetic", "data.num_synthetic_utts=64"]
+BIAS_RECIPES = {
+    "las": (SEMI_CONFIG, [], ("beam",)),
+    "ctc": (CTC_CONFIG, ["decode.beam_size=8"], ("beam", "greedy")),
+    "td": (TD_CONFIG, ["decode.beam_size=4"], ("beam", "greedy")),
+}
+BIAS_FILES = 8
+EXPORT_DEPTH = 8
+EXPORT_CONFORMER_BLOCKS = 1
+EXPORT_BATCH, EXPORT_FRAMES = 8, 400
+# what a fresh process runs: the program (offline: one warm-up call and
+# one timed call; streaming: the bundle's host loop, as StreamingArtifact
+# drives it), importing torch and the op module alone
+FRESH_RUN = r'''
+import json, sys, time
+import torch
+import semi_supervised_asr_tpu_torch.ops.library  # registers the ops
+from semi_supervised_asr_tpu_torch import _native   # the launch counts
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kind, path, inputs, out = sys.argv[1:5]
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+t0 = time.perf_counter()
+if kind == "offline":
+    fn = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    audio, lens = torch.load(inputs)
+    fn(audio, lens)
+    sync()
+    _native.reset_launches()
+    t1 = time.perf_counter()
+    toks, scores = fn(audio, lens)
+    sync()
+    call_ms = (time.perf_counter() - t1) * 1e3
+    torch.save((toks.cpu(), scores.cpu()), out)
+else:
+    meta = json.load(open(path + "/manifest.json"))["streaming"]
+    progs = {n: torch.export.load(path + "/" + f).module()
+             for n, f in meta["files"].items()}
+    load_s = time.perf_counter() - t0
+    wav = torch.load(inputs)
+    _native.reset_launches()
+    t1 = time.perf_counter()
+    state = progs["init"]()
+    cs, hop = meta["chunk_samples"], meta["hop_length"]
+    step = meta["chunk_frames"] * hop
+    pos = 0
+    while len(wav) - pos >= cs:
+        state = progs["chunk"](state, wav[pos: pos + cs])
+        pos += step
+    rem = len(wav) - pos
+    dec = state[1]
+    if rem >= meta["n_fft"]:
+        audio = torch.zeros((cs,), device=wav.device)
+        audio[:rem] = wav[pos:]
+        dec = progs["final"](state, audio, torch.tensor(
+            rem, dtype=torch.int32, device=wav.device))
+    toks, count, score = progs["emit"](dec)
+    sync()
+    call_ms = (time.perf_counter() - t1) * 1e3
+    torch.save((toks[: int(count)].cpu(), score.cpu()), out)
+print(json.dumps({"load_s": load_s, "call_ms": call_ms,
+                  "launches": {k: v for k, v in _native.LAUNCHES.items()
+                               if v}}))
+'''
+
+
+def phrase_file(d: Path, vocab) -> Path:
+    """Three phrases of the vocabulary's labels (two and three letters),
+    written one a line; each must encode back to its labels."""
+    labels = [i for i in range(4, vocab.size)
+              if vocab.decode_text([i]).strip()]
+    phrases = [labels[3:5], labels[5:8], labels[8:10]]
+    hot = d / "hot.txt"
+    hot.write_text("".join(vocab.decode_text(p) + "\n" for p in phrases))
+    from semi_supervised_asr_tpu_torch.decode import biasing as BZ
+
+    require(BZ.load_bias_phrases(str(hot), vocab) == phrases,
+            f"phrases do not encode back: {phrases}")
+    return hot
+
+
+def bias_recognizers(config: Path, extra: list, d: Path, bias: bool = True,
+                     plain: bool = True, dtype: str = "float32"):
+    """A recipe's Recognizer (``Recognizer.from_dir`` on a model directory
+    written to ``d``, in ``dtype``, biased by a phrase file of its
+    vocabulary unless ``bias`` is off), the same on the plain versions
+    (None unless ``plain``), the same model without biasing, and a padded
+    batch of the recipe's batch size at bucket 400."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch import synthetic
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+
+    d.mkdir(parents=True)
+    keys = [*BIAS_DATA, f"model.compute_dtype={dtype}", *extra]
+    cfg = TR.load_config(config, keys)
+    vocab = TR.build_vocab(cfg)
+    if bias:
+        hot = phrase_file(d, vocab)
+        cfg = TR.load_config(config, [
+            *keys, f"decode.bias_phrases={hot}",
+            f"decode.bias_bonus={BIAS_BONUS}"])
+    cfg = TR.finalize_config(cfg, vocab.size)
+    files = synthetic.write_wavs(d, cfg, vocab, BIAS_FILES, min_tokens=8,
+                                 max_tokens=20)
+    synthetic.write_model_dir(d, cfg, files, seed=0)
+    ker = TR.Recognizer.from_dir(cfg, d, DEVICE)
+    ref = (TR.Recognizer.from_dir(cfg, d, DEVICE, backend="reference")
+           if plain else None)
+    bare = TR.Recognizer(ker.cfg, ker.model, (ker.mean.cpu(),
+                         ker.inv_std.cpu()), ker.vocab, torch.device(DEVICE))
+    pieces = [TR.load_audio(files[r % len(files)])
+              for r in range(cfg.train.batch_size - 4)]
+    return ker, ref, bare, TR.pad_batch(
+        pieces, ker.spec.samples_for_frames(400), cfg)
+
+
+def biased_greedy(rec, audio, lens, trie):
+    """The greedy walk of the CTC family (the best path) or the transducer
+    on ``rec``'s encoder, biased by ``trie`` (None: unbiased) -> (tokens,
+    scores) as numpy."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.decode import ctc as CTC
+    from semi_supervised_asr_tpu_torch.decode import biasing as BZ
+    from semi_supervised_asr_tpu_torch.decode.transducer_greedy import (
+        transducer_greedy_from_enc,
+    )
+    from semi_supervised_asr_tpu_torch.transcribe import max_decode_steps
+
+    cfg = rec.cfg
+    with torch.inference_mode():
+        a = torch.as_tensor(audio, device=DEVICE)
+        n = torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)
+        enc, mask = rec.encode(a, n)
+        max_u = max_decode_steps(cfg, enc.shape[1])
+        if rec.ctc_family:
+            c = CTC.ctc_greedy_stream(
+                rec.model.ctc, enc, mask, max_u,
+                CTC.ctc_greedy_stream_init(enc.shape[0], max_u, DEVICE,
+                                           bias=trie is not None),
+                bias=trie)
+            toks, scores = c[1], c[3]
+            if trie is not None:
+                scores = scores + c[-1] - BZ.bias_pending(trie, c[-2])
+        else:
+            toks, scores = transducer_greedy_from_enc(
+                rec.model, cfg.model, enc, mask, max_u,
+                cfg.decode.max_symbols, bias=trie)
+    return toks.cpu().numpy(), scores.cpu().numpy()
+
+
+def biased_decodes(d: Path, card: str) -> tuple[dict, dict, tuple]:
+    """Phase 23 (a)'s offline decodes -> (launches by decode, numbers,
+    ls100_semi's (config, model directory, the first EXPORT_BATCH rows of
+    its batch) for the export)."""
+    import numpy as np
+    import torch
+
+    from semi_supervised_asr_tpu_torch import _native
+
+    launches, out = {}, {}
+    for name, (config, extra, modes) in BIAS_RECIPES.items():
+        ker, ref, bare, (audio, lens) = bias_recognizers(config, extra,
+                                                         d / name)
+        require(ker.bias is not None and ref.bias is not None
+                and bare.bias is None, f"{name}: no trie")
+        if name == "las":
+            las = (ker.cfg, d / name,
+                   (audio[:EXPORT_BATCH], lens[:EXPORT_BATCH]))
+        for mode in modes:
+            tag = f"bias_{name}_{mode}"
+
+            def run(rec, trie):
+                if mode == "beam":
+                    return rec.decode(audio, lens, "beam")
+                return biased_greedy(rec, audio, lens, trie)
+
+            _native.reset_launches()
+            tk, sk = run(ker, ker.bias)
+            torch.cuda.synchronize()
+            launches[tag] = {k: v for k, v in _native.LAUNCHES.items() if v}
+            # host ms of one biased and one unbiased call, both warm
+            bare_out = []
+            out[tag + "_bare_ms"] = host_ms(
+                lambda: bare_out.append(run(bare, None)), 1)[0]
+            out[tag + "_ms"] = host_ms(lambda: run(ker, ker.bias), 1)[0]
+            tb = bare_out[0][0]
+            if mode == "beam":
+                tr, sr = ref.decode(audio, lens, "beam")
+            else:
+                tr, sr = biased_greedy(ref, audio, lens, ref.bias)
+            same = float(np.mean(np.all(tk == tr, axis=1)))
+            score_err = float(np.max(np.abs(sk - sr) / np.maximum(
+                np.abs(sr), 1.0)))
+            moved = float(np.mean(np.any(tk != tb, axis=1)))
+            log(f"[phase23] {name} {mode} biased ({ker.bias.next_node.shape[0]}"
+                f" trie nodes, bonus {BIAS_BONUS}; B={len(lens)}, bucket 400,"
+                f" float32): host ms biased {out[tag + '_ms']:.1f}, unbiased "
+                f"{out[tag + '_bare_ms']:.1f} (one warm call each); launches "
+                f"{launches[tag]}; rows with identical tokens kernels vs plain"
+                f" {same:.3f}, scores within {score_err:.2e} relative; rows "
+                f"the bias changed {moved:.3f} ({card})")
+            require(same == 1.0, f"{tag}: tokens differ from plain")
+            require(score_err <= 1e-4, f"{tag}: scores differ {score_err}")
+            require(moved > 0.0, f"{tag}: the bias changed no row")
+            require(launches[tag].get("fused_post_fft", 0) == 1
+                    and launches[tag].get("lstm_scan_fwd", 0) > 0,
+                    f"{tag}: {launches[tag]}")
+        del ker, ref, bare
+        torch.cuda.empty_cache()
+    return launches, out, las
+
+
+def stream_trie(d: Path):
+    """ls100_transducer_streaming's biasing trie from a phrase file of its
+    vocabulary (written to ``d``)."""
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+    from semi_supervised_asr_tpu_torch.decode import biasing as BZ
+
+    vocab = TR.build_vocab(TR.load_config(TD_STREAM_CONFIG, TD_DATA))
+    d.mkdir(parents=True)
+    return BZ.build_bias_trie(
+        BZ.load_bias_phrases(str(phrase_file(d, vocab)), vocab),
+        vocab.size, BIAS_BONUS, DEVICE)
+
+
+def biased_streams(trie, card: str) -> dict:
+    """Phase 23 (a)'s streams: ls100_transducer_streaming biased, streamed
+    == offline in float32 (greedy and beam 4) -> the launches."""
+    from semi_supervised_asr_tpu_torch import _native
+
+    cfg, model = stream_model(TD_STREAM_CONFIG, "float32")
+    wavs, cmvn = stream_audio(cfg, 2)
+    _native.reset_launches()
+    for beam in (1, 4):
+        for i, wav in enumerate(wavs):
+            off, off_score = offline_tokens(model, cfg, cmvn, wav, beam,
+                                            bias=trie)
+            toks, score, calls, ms = streamed(model, cfg, cmvn, wav, beam,
+                                              320, bias=trie)
+            log(f"[phase23] ls100_transducer_streaming {'beam 4' if beam > 1 else 'greedy'} "
+                f"biased, file {i} ({len(wav)} samples, float32): streamed "
+                f"{len(toks)} tokens in {calls} chunk calls, {ms:.1f} ms; "
+                f"equal to offline {toks == off}; scores {score:.4f} vs "
+                f"{off_score:.4f} ({card})")
+            require(toks == off and abs(score - off_score)
+                    <= 1e-4 * max(abs(off_score), 1.0),
+                    f"biased stream {i} (beam {beam}) differs from offline: "
+                    f"{toks} vs {off}, {score} vs {off_score}")
+    return {k: v for k, v in _native.LAUNCHES.items() if v}
+
+
+def fresh_runs(kind: str, jobs: list, started: list):
+    """Start exported programs, each in a fresh process (torch and the op
+    module only), all at once: ``jobs`` of (program path, inputs, output
+    file), the processes appended to ``started`` (the caller kills what is
+    left of them) -> a function that waits for them and returns each run's
+    load seconds, call ms and launch counts."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", FRESH_RUN, kind, str(path), str(inputs),
+         str(out)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)})
+        for path, inputs, out in jobs]
+    started.extend(procs)
+    return lambda: fresh_wait(kind, jobs, procs)
+
+
+def fresh_wait(kind: str, jobs: list, procs: list) -> list[dict]:
+    runs = []
+    for (path, _, _), proc in zip(jobs, procs):
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        require(proc.returncode == 0, f"fresh {kind} run of {path} failed:"
+                f"\n{out}\n{err[-4000:]}")
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+    return runs
+
+
+def export_offline(rec, d: Path, tag: str, mode: str, card: str,
+                   batch_rows, started: list, routes: tuple):
+    """Export ``rec``'s decode, save it and start it in a fresh process
+    (appended to ``started``) on ``batch_rows``, to be held to ``rec``'s
+    live decode -> a function that waits for the run, checks it (the
+    launch counters ``routes`` must have risen there) and returns
+    (launches in the fresh run, numbers)."""
+    import copy
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch import export as EX
+
+    audio, lens = batch_rows
+    inputs = d / f"{tag}_inputs.pt"
+    torch.save((torch.as_tensor(audio, device=DEVICE),
+                torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)),
+               inputs)
+    live = rec.decode(audio, lens, mode)
+    if live[1].ndim == 2:
+        # greedy: the per-step log-probs, summed on the card as the
+        # program sums them
+        live = (live[0], torch.as_tensor(live[1], device=DEVICE).sum(
+            dim=-1).cpu().numpy())
+    t0 = time.perf_counter()
+    ep = EX.export_decode(rec.cfg, copy.deepcopy(rec.model),
+                          (rec.mean, rec.inv_std), EXPORT_BATCH,
+                          EXPORT_FRAMES, mode,
+                          bias=rec.bias if mode == "beam" else None,
+                          vocab=rec.vocab)
+    export_s = time.perf_counter() - t0
+    ops = {str(n.target).split(".")[1] for n in ep.graph.nodes
+           if str(n.target).startswith("ssasr_torch.")}
+    # the dtype of K5f's q in the graph (its route)
+    attn = {str(n.args[0].meta["val"].dtype).removeprefix("torch.")
+            for n in ep.graph.nodes
+            if str(n.target).startswith("ssasr_torch.flash_mhsa_fwd")}
+    path = d / f"{tag}.pt2"
+    t0 = time.perf_counter()
+    torch.export.save(ep, str(path))
+    made = (path, ops, attn, len(ep.graph.nodes), export_s,
+            time.perf_counter() - t0)
+    del ep
+    wait = fresh_runs("offline", [(path, inputs, d / f"{tag}_out.pt")],
+                      started)
+    return lambda: program_checks(tag, mode, card, made, wait()[0], live,
+                                  rec.cfg, d, routes)
+
+
+def program_checks(tag: str, mode: str, card: str, made: tuple, run: dict,
+                   live, cfg, d: Path, routes: tuple) -> tuple[dict, dict]:
+    """:func:`export_offline`'s checks of the fresh ``run`` of the program
+    ``made`` against the ``live`` decode -> (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    path, ops, attn, nodes, export_s, save_s = made
+    toks, scores = (x.numpy() for x in torch.load(d / f"{tag}_out.pt"))
+    nums = {tag + "_export_s": export_s, tag + "_bytes": path.stat().st_size,
+            tag + "_load_s": run["load_s"], tag + "_call_ms": run["call_ms"]}
+    m = cfg.model
+    log(f"[phase23] export {tag} ({mode}, {m.compute_dtype}, B={EXPORT_BATCH}"
+        f", {EXPORT_FRAMES} frames, decode.max_decode_len "
+        f"{cfg.decode.max_decode_len}): {nodes} graph nodes, ops "
+        f"{sorted(ops)}{f', K5f q {sorted(attn)}' if attn else ''}; export "
+        f"{export_s:.1f} s, save {save_s:.1f} s, {path.stat().st_size} "
+        f"bytes; fresh process (beside phase 23's next work): load "
+        f"{run['load_s']:.1f} s, one call {run['call_ms']:.1f} ms, launches "
+        f"{run['launches']} ({card})")
+    require(ops >= ({"fused_post_fft", "lstm_scan_fwd"}
+                    if m.encoder_arch == "blstm" else
+                    {"fused_post_fft", "flash_mhsa_fwd"}),
+            f"{tag}: the graph holds {ops}")
+    require(m.encoder_arch == "blstm" or attn == {str(m.compute_dtype)},
+            f"{tag}: K5f runs {attn} in a {m.compute_dtype} program")
+    require(all(run["launches"].get(r, 0) > 0 for r in routes),
+            f"{tag}: the fresh run launched {run['launches']}, not {routes}")
+    same_live = bool((toks == live[0]).all())
+    score_err = float(np.abs(scores - live[1]).max())
+    log(f"[phase23] {tag}: fresh-process tokens equal to the live decode "
+        f"{same_live} (scores within {score_err:.2e}) ({card})")
+    require(same_live and score_err <= 1e-6, f"{tag}: program != live")
+    return run["launches"], nums
+
+
+def export_stream(d: Path, card: str, started: list, trie):
+    """ls100_transducer_streaming's biased beam-4 bundle in bfloat16 (as
+    shipped), started in a fresh process (appended to ``started``), to be
+    held to the live StreamingTranscriber on the kernels -> a function that
+    waits for it, checks it and returns (launches in the fresh run,
+    numbers)."""
+    import copy
+
+    import torch
+
+    from semi_supervised_asr_tpu_torch import export as EX
+
+    cfg, model = stream_model(TD_STREAM_CONFIG, "bfloat16")
+    cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, beam_size=4))
+    wavs, cmvn = stream_audio(cfg, 1)
+    wav = wavs[0]
+    live = streamed(model, cfg, cmvn, wav, 4, 320, bias=trie)
+    inputs = d / "stream_wav.pt"
+    torch.save(torch.from_numpy(wav).to(DEVICE), inputs)
+    out = d / "export_stream"
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    b = EX.export_streaming(cfg, copy.deepcopy(model), cmvn, "beam",
+                            bias=trie)
+    export_s = time.perf_counter() - t0
+    files, size, ops = {}, 0, set()
+    for name, ep in b["programs"].items():
+        ops |= {str(n.target).split(".")[1] for n in ep.graph.nodes
+                if str(n.target).startswith("ssasr_torch.")}
+        torch.export.save(ep, str(out / f"{name}.pt2"))
+        files[name] = f"{name}.pt2"
+        size += (out / f"{name}.pt2").stat().st_size
+    (out / "manifest.json").write_text(json.dumps(
+        {"streaming": {**b["meta"], "files": files}}))
+    made = (ops, size, export_s, b["meta"])
+    wait = fresh_runs("stream", [(out, inputs, d / "export_stream_out.pt")],
+                      started)
+    return lambda: bundle_checks(card, made, wait()[0], live, len(wav), d)
+
+
+def bundle_checks(card: str, made: tuple, run: dict, live, samples: int,
+                  d: Path) -> tuple[dict, dict]:
+    """:func:`export_stream`'s checks of the fresh ``run`` of the bundle
+    ``made`` against the ``live`` stream -> (launches, numbers)."""
+    import torch
+
+    ops, size, export_s, meta = made
+    toks, score = torch.load(d / "export_stream_out.pt")
+    toks, score = [int(x) for x in toks.tolist()], float(score)
+    nums = {"export_stream_export_s": export_s, "export_stream_bytes": size,
+            "export_stream_load_s": run["load_s"],
+            "export_stream_call_ms": run["call_ms"]}
+    log(f"[phase23] export_stream (beam 4, biased, bfloat16, chunks of "
+        f"{meta['chunk_frames']} frames): ops {sorted(ops)}; export "
+        f"{export_s:.1f} s, {size} bytes; fresh process (beside phase 23's "
+        f"next work): load {run['load_s']:.1f} s, the file ({samples} "
+        f"samples) {run['call_ms']:.1f} ms, launches {run['launches']} "
+        f"({card})")
+    require(ops >= {"fused_post_fft", "lstm_scan_fwd"},
+            f"export_stream: the graph holds {ops}")
+    require(run["launches"].get("lstm_scan_fwd_grid", 0) > 0,
+            f"export_stream: the listener left the bf16 grid route: "
+            f"{run['launches']}")
+    log(f"[phase23] streaming bundle: tokens equal to the live "
+        f"StreamingTranscriber {toks == live[0]} ({len(toks)} tokens; scores"
+        f" {score:.6f} vs {live[1]:.6f}) ({card})")
+    require(toks == live[0] and abs(score - live[1]) <= 1e-6,
+            "the streaming bundle differs from the live stream")
+    return run["launches"], nums
+
+
+def export_las(las: tuple, d: Path, card: str, started: list):
+    """ls100_semi's biased beam-5 program in bfloat16 (as shipped) at
+    EXPORT_DEPTH, from (a)'s model directory and rows -> as
+    :func:`export_offline`."""
+    from semi_supervised_asr_tpu_torch import transcribe as TR
+
+    cfg, model_dir, rows = las
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
+        decode=dataclasses.replace(cfg.decode, max_decode_len=EXPORT_DEPTH))
+    rec = TR.Recognizer.from_dir(cfg, model_dir, DEVICE)
+    return export_offline(rec, d, "export_las", "beam", card, rows, started,
+                          ("fused_post_fft", "lstm_scan_fwd_cluster"))
+
+
+def export_conformer(d: Path, card: str, started: list):
+    """ls960_conformer's flash greedy program in bfloat16 (as shipped),
+    cut to EXPORT_CONFORMER_BLOCKS blocks, at EXPORT_DEPTH -> as
+    :func:`export_offline`."""
+    rec, _, _, (audio, lens) = bias_recognizers(
+        CONFORMER_CONFIG, [*CONFORMER_OVERRIDES,
+                           f"model.enc_blocks={EXPORT_CONFORMER_BLOCKS}",
+                           f"decode.max_decode_len={EXPORT_DEPTH}"],
+        d / "conformer", bias=False, plain=False, dtype="bfloat16")
+    return export_offline(rec, d, "export_conformer", "greedy", card,
+                          (audio[:EXPORT_BATCH], lens[:EXPORT_BATCH]),
+                          started, ("fused_post_fft", "flash_mhsa_fwd"))
+
+
+def op_cost(card: str, calls: int = 200) -> dict:
+    """What a custom op adds to a launch: K1, K2 and K5's forward called
+    through their ``ssasr_torch`` op and through their launch function,
+    in turns, at shapes whose device time is small (one streamed chunk:
+    B=1, 8 frames) -> host us a call of each, over ``calls`` calls with
+    the queue drained before and after."""
+    import torch
+
+    from semi_supervised_asr_tpu_torch.config import FrontendConfig
+    from semi_supervised_asr_tpu_torch.ops import flash_mhsa as FM
+    from semi_supervised_asr_tpu_torch.ops import frontend as F
+    from semi_supervised_asr_tpu_torch.ops import fused_frontend as FF
+    from semi_supervised_asr_tpu_torch.ops import library as LIB
+    from semi_supervised_asr_tpu_torch.ops import lstm_scan as K
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    fcfg = FrontendConfig()
+    runs = FF._mel_runs_on(fcfg, DEVICE)
+    _, fb = F.constants(fcfg, DEVICE)
+    pspec = torch.rand((1, 8, fcfg.n_fft // 2 + 1), device=DEVICE,
+                       generator=g)
+    flens = torch.full((1,), 8, dtype=torch.int32, device=DEVICE)
+    mean = torch.zeros((fcfg.n_mels,), device=DEVICE)
+    istd = torch.ones((fcfg.n_mels,), device=DEVICE)
+    gx = torch.randn((1, 8, 1, 4 * 384), device=DEVICE, generator=g)
+    w = torch.randn((1, 384, 4 * 384), device=DEVICE, generator=g) * 0.05
+    valid = torch.ones((8, 1), device=DEVICE)
+    q = torch.randn((1, 16, 4, 64), device=DEVICE, generator=g).to(
+        torch.bfloat16)
+    km = torch.ones((1, 16), dtype=torch.bool, device=DEVICE)
+    pairs = {
+        "fused_post_fft": (
+            lambda: LIB.fused_post_fft(pspec, flens, *runs, fb, mean, istd,
+                                       None, None, None, None,
+                                       fcfg.log_floor),
+            lambda: FF.launch_post_fft(pspec, flens, *runs, mean, istd,
+                                       None, fcfg.log_floor)),
+        "lstm_scan_fwd": (
+            lambda: LIB.lstm_scan_fwd(gx, w, valid, torch.float32, 0, False,
+                                      None, None, False),
+            lambda: K.launch_scan_fwd(gx, w, valid, torch.float32, (False,),
+                                      False, None, None, False)),
+        "flash_mhsa_fwd": (
+            lambda: LIB.flash_mhsa_fwd(q, q, q, km, 0.125),
+            lambda: FM.mhsa_fwd(q, q, q, km, 0.125)),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (op, direct) in pairs.items():
+            us = {"op": [], "direct": []}
+            for key in ("op", "direct", "op", "direct"):
+                fn = op if key == "op" else direct
+                fn()
+                us[key] += [x * 1e3 / calls for x in host_ms(
+                    lambda: [fn() for _ in range(calls)], 1)]
+            out[name] = {k: statistics.median(v) for k, v in us.items()}
+            log(f"[phase23] {name} through its custom op {us['op']} us a "
+                f"call, its launch function {us['direct']} us (in turns, "
+                f"{calls} calls at a streamed chunk's shape) ({card})")
+    return out
+
+
+def phase23(d: Path, card: str) -> tuple[dict, dict]:
+    """Phase 23 -> (launches by path, numbers)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, out, las = biased_decodes(d / "bias", card)
+    out["op_cost_us"] = op_cost(card)
+    trie = stream_trie(d / "hot")
+    exports, started = {}, []
+    try:
+        # (b): each program's fresh process runs beside the next export;
+        # the bundle (the longest export) first
+        exports["export_stream"] = export_stream(d, card, started, trie)
+        torch.cuda.empty_cache()
+        exports["export_las"] = export_las(las, d, card, started)
+        torch.cuda.empty_cache()
+        exports["export_conformer"] = export_conformer(d, card, started)
+        torch.cuda.empty_cache()
+        # (a)'s streams while the last programs load and run
+        launches["bias_stream"] = biased_streams(trie, card)
+        fresh = {}
+        for tag, check in exports.items():
+            fresh[tag], nums = check()
+            out.update(nums)
+    finally:
+        for proc in started:
+            proc.kill()
+    log(f"[phase23] launches in the fresh processes {json.dumps(fresh)}")
+    launches.update(fresh)
+    out["phase23_s"] = time.perf_counter() - t0
+    log(f"[phase23] summary {json.dumps(out)}; phase 23 took "
+        f"{out['phase23_s']:.1f} s against a budget of {PHASE23_BUDGET_S} s "
+        f"({card})")
+    return launches, out
+
+
+def export_depth_timing(depth: int) -> int:
+    """``--export-depth N``: ls100_semi's biased beam-5 program (B=8, 400
+    frames, float32) at decode.max_decode_len N alone: export, save, load
+    and one call in a fresh process, tokens held to the live decode."""
+    card = phase0()
+    started = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ker, _, _, (audio, lens) = bias_recognizers(
+            SEMI_CONFIG, [f"decode.max_decode_len={depth}"], d / "las",
+            plain=False)
+        try:
+            _, nums = export_offline(
+                ker, d, f"export_las_depth{depth}", "beam", card,
+                (audio[:EXPORT_BATCH], lens[:EXPORT_BATCH]), started,
+                ("fused_post_fft", "lstm_scan_fwd_grid_f32"))()
+        finally:
+            for proc in started:
+                proc.kill()
+    log(f"[export-depth] {json.dumps(nums)} ({card})")
+    return 0
+
+
 def k5_work(shape: tuple, lens) -> tuple:
     """(bytes, flops) of K5 forward and backward at one [B, T, H, D] bf16
     shape, counting the products these lengths need: every query row
@@ -6686,6 +7340,10 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)   # phase 15's ranks (torchrun)
     p.add_argument("--pretrain-run", nargs=argparse.REMAINDER,
                    help=argparse.SUPPRESS)   # phase 22's pretraining CLI
+    p.add_argument("--export-depth", type=int, default=None, metavar="N",
+                   help="time the export of ls100_semi's biased beam-5 "
+                        "float32 program at decode.max_decode_len N alone, "
+                        "and exit")
     p.add_argument("--k2-bits", nargs=2, metavar=("ROOT", "JSON"),
                    type=Path,
                    help="hash stateless K2 outputs of the package under ROOT "
@@ -6708,6 +7366,12 @@ def main(argv=None) -> int:
     if args.pretrain_run:
         pretrain_run(Path(args.pretrain_run[0]), args.pretrain_run[1:])
         return 0
+    if args.export_depth:
+        from semi_supervised_asr_tpu_torch import strict_fp32
+
+        strict_fp32()
+        phase1()
+        return export_depth_timing(args.export_depth)
     from semi_supervised_asr_tpu_torch import strict_fp32, synthetic
     from semi_supervised_asr_tpu_torch import transcribe as TR
 
@@ -6795,6 +7459,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         p22_launches, p22 = phase22(Path(tmp), card)
     elapsed("phase 22")
+    with tempfile.TemporaryDirectory() as tmp:
+        p23_launches, p23 = phase23(Path(tmp), card)
+    elapsed("phase 23")
     bound = bounds()
     for kind, name in (("fwd", "lstm_scan_fwd"), ("bwd", "lstm_scan_bwd")):
         log(f"[summary] {name} at bucket 400, B=32, H=256, D=2, bf16: "
@@ -6954,6 +7621,14 @@ def main(argv=None) -> int:
         f"features equal on {p22['bestrq_float32_target_agree']:.5f}; "
         f"frozen fine-tuning step {p22['bestrq_finetune_step_ms']:.1f} ms; "
         f"launches {json.dumps(p22_launches)} ({card})")
+    log(f"[summary] phase 23: biased decodes host ms "
+        + json.dumps({k: v for k, v in p23.items() if k.startswith("bias_")})
+        + "; export (B=8, 400 frames, decode.max_decode_len "
+        f"{EXPORT_DEPTH}; the streaming bundle's 4 programs) seconds, bytes, "
+        "fresh-process load seconds and one call's ms "
+        + json.dumps({k: v for k, v in p23.items()
+                      if k.startswith("export_")})
+        + f"; launches {json.dumps(p23_launches)} ({card})")
     src = "semi_supervised_asr_tpu_torch/csrc/"
     tpu = "semi_supervised_asr_tpu/ops/"
     jax_fa = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -6980,7 +7655,7 @@ def main(argv=None) -> int:
              "transformer_remat": p16["transformer_launches"],
              "ls100_ctc": ctc_launches, "ls960_aed": aed_launches,
              **td_launches, **cs_launches, **p20_launches, **p21_launches,
-             **p22_launches}
+             **p22_launches, **p23_launches}
     rows = (
         ("fused_post_fft", "fused_post_fft.cu", tpu + "pallas_frontend.py:50",
          k1_err, None, solver_launches,

@@ -1,7 +1,7 @@
 """Batched attention beam search over a [B, K] lattice.
 
-Counterpart of ``semi_supervised_asr_tpu/decode/beam.py`` without
-contextual biasing (it raises).  Encoder outputs and the speller's decode
+Counterpart of ``semi_supervised_asr_tpu/decode/beam.py``.  Encoder
+outputs and the speller's decode
 cache (the LSTM speller's key projections, the transformer speller's
 cross K/V: a tensor or a dict of tensors, lattice row on axis 0) are tiled
 to the K lattice rows once; each step scores all K*V continuations with
@@ -25,6 +25,15 @@ the LM's state leaves (lattice row on axis 1) reorder with the beam, as
 the speller's own ``lm_h`` / ``lm_c`` do under deep or cold fusion.  The
 length normalization of the final pick is not scaled.
 
+Contextual biasing (``bias``, a :class:`~.biasing.BiasTrie`): every step
+adds the automaton's delta to each candidate, unscaled, after the LM and
+the one-pass CTC mix; each hypothesis's trie node (one int32 a row) rides
+the lattice like a state leaf and freezes when the row finishes.  EOS
+retracts a mid-phrase hypothesis's pending bonus through the delta's EOS
+column, and rows the step cap cut off retract theirs before the final
+pick.  Under CTC rescoring the accumulated bias rides the attention
+total, scaled by ``1 - w`` in the blend, as in the reference.
+
 Ties are broken as ``lax.top_k`` does (lower flat index first) through a
 stable descending sort; dead beams sit at exactly -1e30, so ties occur.
 """
@@ -37,6 +46,7 @@ import torch
 
 from semi_supervised_asr_tpu_torch.config import DecodeConfig
 from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD, SOS
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.decode import ctc_prefix as CP
 from semi_supervised_asr_tpu_torch.decode.ctc import ctc_head_logits
 from semi_supervised_asr_tpu_torch.models import lm as LM
@@ -45,13 +55,6 @@ from semi_supervised_asr_tpu_torch.objectives.losses import (
 )
 
 NEG_INF = -1e30
-
-
-def check_supported(dcfg: DecodeConfig) -> None:
-    """Refuse decode options outside the ported slices with a clear
-    message."""
-    if dcfg.bias_phrases:
-        raise NotImplementedError("contextual biasing is not ported yet")
 
 
 def tile_rows(x, k: int):
@@ -82,13 +85,14 @@ def beam_decode_from_enc(
     return_nbest: bool = False,
     ctc=None,
     lm=None,
+    bias=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (best tokens [B, max_len] int32 (EOS then PADs), best score [B]);
     with ``return_nbest``: (all K lattices [B, K, max_len] sorted by
     normalized score, best first, and their scores [B, K]).  ``ctc`` (the
     model's CTC head) with ``dcfg.ctc_weight`` > 0 decodes jointly; ``lm``
-    fuses shallowly at ``dcfg.lm_weight``."""
-    check_supported(dcfg)
+    fuses shallowly at ``dcfg.lm_weight``; ``bias`` (a
+    :class:`~.biasing.BiasTrie`) biases every step."""
     b, t = enc_mask.shape
     k = dcfg.beam_size
     dev = enc.device
@@ -119,6 +123,8 @@ def beam_decode_from_enc(
     lens = torch.zeros((b, k), dtype=torch.int32, device=dev)
     use_coverage = dcfg.coverage_weight != 0.0
     cum = torch.zeros((b * k, t), device=dev) if use_coverage else None
+    if bias is not None:
+        bias_state = torch.zeros((b * k,), dtype=torch.int32, device=dev)
     row_base = (torch.arange(b, device=dev) * k)[:, None]        # [B, 1]
     # frozen rows: only PAD continues, at zero cost; live rows never PAD
     vsz = speller.cfg.vocab_size
@@ -146,6 +152,8 @@ def beam_decode_from_enc(
             delta[:, EOS] = eos_sc - psi_flat
             delta[:, PAD] = 0.0
             logp = (1.0 - w) * logp + w * delta
+        if bias is not None:
+            logp = logp + BZ.bias_delta(bias, bias_state)
         logp = logp.view(b, k, vsz)
         logp = torch.where(done[..., None], pad_only, logp + live_block)
 
@@ -198,10 +206,23 @@ def beam_decode_from_enc(
             psi = torch.where(adv.view(b, k), psi_sel,
                               torch.gather(psi, 1, beam_idx))
 
+        if bias is not None:
+            # the node follows the surviving row's token; finished rows
+            # keep theirs (their score is final)
+            bst_g = bias_state.index_select(0, rows)
+            bias_state = torch.where(
+                ~done_new.reshape(b * k),
+                BZ.bias_advance(bias, bst_g, new_tok.reshape(b * k)), bst_g)
+
         done = done_new
         scores = new_scores
         tok = emit.reshape(b * k)
 
+    if bias is not None:
+        # rows the step cap cut off mid-phrase never met the EOS column's
+        # retraction
+        scores = scores - torch.where(
+            done, 0.0, BZ.bias_pending(bias, bias_state).view(b, k))
     if use_ctc and not one_pass:
         scores = (1.0 - w) * scores + w * ctc_rescore(ctc, enc, enc_mask,
                                                       hyps)

@@ -1,9 +1,8 @@
 """CTC prefix beam search (Hannun et al. 2014), batched over a [B, K] lattice.
 
 Counterpart of ``semi_supervised_asr_tpu/decode/ctc_beam.py``'s
-``ctc_beam_from_enc`` without biasing; ``carry`` / ``return_carry`` resume
-and return the lattice, so that chunked streaming searches as the whole
-utterance does.
+``ctc_beam_from_enc``; ``carry`` / ``return_carry`` resume and return the
+lattice, so that chunked streaming searches as the whole utterance does.
 Frame-synchronous: every row of the lattice holds a label prefix with two
 log-probabilities, ``pb`` (its paths ending in blank) and ``pnb`` (ending
 in its last label), and each frame scores, for every live prefix, one STAY
@@ -21,6 +20,12 @@ only where a prefix is extended (blanks and repeats carry them); its state
 leaves (lattice row on axis 1) reorder with the beam.  No EOS or length
 term: every candidate of a frame has consumed the same audio.
 
+Contextual biasing (``bias``, a :class:`~.biasing.BiasTrie`): each prefix
+carries its trie node and running bias score (committed + pending), which
+ride every candidate and advance only on extensions, as the LM does; the
+final ranking subtracts each prefix's pending bonus.  The carry then grows
+two trailing slots (node, bias score).
+
 The rows come out PAD-padded with no EOS (the labels never hold PAD, and
 EOS is a legal label class), so metrics read them to their first PAD.
 """
@@ -30,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from semi_supervised_asr_tpu_torch.data.vocab import PAD, SOS
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.decode.ctc import ctc_head_logits
 from semi_supervised_asr_tpu_torch.models import lm as LM
 
@@ -59,13 +65,16 @@ def ctc_beam_from_enc(
     return_carry: bool = False,
     lm=None,
     lm_weight: float = 0.0,
+    bias=None,
 ):
     """-> (tokens [B, max_u] int32, PAD-padded, score [B]: the prefix's CTC
     log-marginal, every alignment pooled, plus ``lm_weight`` times its LM
     log-probability when ``lm`` fuses); ``return_nbest``: ([B, K, max_u],
     [B, K]) sorted by score; ``return_carry`` adds the lattice that
-    ``carry`` resumes: (tokens, count, last, pb, pnb), and with the LM
-    (lm_score, lm_state, lm_lp), as the reference's carry."""
+    ``carry`` resumes: (tokens, count, last, pb, pnb), with the LM
+    (lm_score, lm_state, lm_lp), as the reference's carry, and with
+    ``bias`` (its node, its bias score) last.  The score of a biased decode
+    adds each prefix's bias, its pending part retracted."""
     b, t, _ = enc.shape
     k, blank, dev = beam_size, PAD, enc.device
     logp = torch.log_softmax(ctc_head_logits(ctc, enc), dim=-1)
@@ -80,7 +89,9 @@ def ctc_beam_from_enc(
     if carry is not None:
         toks, count, last, pb, pnb = carry[:5]
         if use_lm:
-            lm_score, lm_state, lm_lp = carry[5:]
+            lm_score, lm_state, lm_lp = carry[5:8]
+        if bias is not None:
+            bias_node, bias_score = carry[-2:]
     else:
         toks = torch.full((b, k, max_u), PAD, dtype=torch.int32, device=dev)
         count = torch.zeros((b, k), dtype=torch.int32, device=dev)
@@ -95,6 +106,9 @@ def ctc_beam_from_enc(
                 lm, LM.lm_step(lm, None, None, init_batch=b * k)[0],
                 torch.full((b * k,), SOS, dtype=torch.int32, device=dev))
             lm_lp = unflat(torch.log_softmax(lm_logits.float(), dim=-1))
+        if bias is not None:
+            bias_node = torch.zeros((b, k), dtype=torch.int32, device=dev)
+            bias_score = torch.zeros((b, k), device=dev)
     vocab = torch.arange(v, device=dev)
     upos = torch.arange(max_u, device=dev)
     row_base = (torch.arange(b, device=dev) * k)[:, None]        # [B, 1]
@@ -138,6 +152,14 @@ def ctc_beam_from_enc(
             ext_total = (ext_total + lm_weight * lm_score[..., None]
                          + lm_weight * lm_lp)
         stay_total = torch.where(live, stay_total, NEG_INF)
+        if bias is not None:
+            # the running bias rides every candidate; an extension adds the
+            # delta of its label (blanks and repeats are alignment moves)
+            bias_ext = BZ.bias_delta(bias, bias_node.reshape(-1)).view(b, k,
+                                                                       v)
+            stay_total = torch.where(live, stay_total + bias_score,
+                                     stay_total)
+            ext_total = ext_total + bias_score[..., None] + bias_ext
         ext_total = torch.where(
             live[..., None] & ~remove & (count[..., None] < max_u),
             ext_total, NEG_INF)
@@ -162,6 +184,15 @@ def ctc_beam_from_enc(
         last_n = torch.where(is_ext, tok, last_g)
         pb_n = torch.where(is_ext, NEG_INF, pb_g)
         pnb_n = torch.where(is_ext, ext_mass_g, pnb_g)
+        if bias is not None:
+            node_g = torch.gather(bias_node, 1, src)
+            bsc_g = torch.gather(bias_score, 1, src)
+            bias_tok = torch.gather(gather_k(bias_ext, src), 2,
+                                    tok.long()[..., None])[..., 0]
+            bias_score_n = torch.where(is_ext, bsc_g + bias_tok, bsc_g)
+            bias_node_n = torch.where(
+                is_ext, BZ.bias_advance(bias, node_g.reshape(-1),
+                                        tok.reshape(-1)).view(b, k), node_g)
         if use_lm:
             # the LM advances on extensions only: the parents' state takes
             # the chosen label, kept where the row was extended
@@ -189,12 +220,21 @@ def ctc_beam_from_enc(
             lm_score = torch.where(upd, lm_score_n, lm_score)
             lm_lp = torch.where(upd[..., None], lm_lp_n, lm_lp)
             lm_state = LM.where_rows(upd.expand(b, k), lm_state_n, lm_state)
+        if bias is not None:
+            bias_node = torch.where(upd, bias_node_n, bias_node)
+            bias_score = torch.where(upd, bias_score_n, bias_score)
 
     scores = _logaddexp(pb, pnb)
     lattice = (toks, count, last, pb, pnb)
     if use_lm:
         scores = scores + lm_weight * lm_score
         lattice += (lm_score, lm_state, lm_lp)
+    if bias is not None:
+        # completed phrases keep their boost; a prefix mid-phrase at the
+        # last frame gives the transient bonus back
+        scores = scores + bias_score - BZ.bias_pending(
+            bias, bias_node.reshape(-1)).view(b, k)
+        lattice += (bias_node, bias_score)
     if return_nbest and not return_carry:
         order_scores, order = _top_k(scores, k)
         return gather_k(toks, order), order_scores

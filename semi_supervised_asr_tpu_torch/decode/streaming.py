@@ -23,7 +23,11 @@ one:
   shallow LM fusion (``lm``, ``lm_weight``; the transducer's
   ``ilm_weight``) the beams' carries hold the LM's score, state and
   next-label log-probabilities too, so a fused stream is the fused offline
-  decode.  The greedy walks do not fuse, as in the reference.
+  decode.  The greedy walks do not fuse, as in the reference.  With
+  contextual biasing (``bias``, a :class:`~.biasing.BiasTrie`) every
+  walk's carry holds its trie nodes (and the CTC walks' running bias
+  score) in trailing slots, greedy and beam alike, so a biased stream is
+  the biased offline decode.
 
 The reference's refusals hold (LAS, a bidirectional or conv-stem BLSTM
 listener, ``frontend.center``, a CMVN other than ``global``, an unbounded
@@ -31,9 +35,9 @@ conformer left context, a chunk size other than the conformer's), raised
 as ``ValueError`` with its messages.  Streaming timestamps
 (``track_frames``, greedy only): the greedy walks record each token's
 emission frame in their carries, ``frame_base`` keeping the frames the
-utterance's across chunks (``StreamingTranscriber.emission_frames``).
-Biasing is not ported; the CLI refuses it by name.  The reference's two jit
-functions are plain calls here.
+utterance's across chunks (``StreamingTranscriber.emission_frames``); the
+frames keep their fixed slot and the bias slots trail, so both compose.
+The reference's two jit functions are plain calls here.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from semi_supervised_asr_tpu_torch.config import Config
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.decode.ctc import (
     ctc_greedy_stream, ctc_greedy_stream_init,
 )
@@ -93,6 +98,7 @@ def build_stream_fns(
     lm=None,
     lm_weight: float = 0.0,
     ilm_weight: float = 0.0,
+    bias=None,
 ) -> dict:
     """The computational core of streaming, shared by
     :class:`StreamingTranscriber` and :class:`MultiStreamTranscriber` ->
@@ -100,7 +106,9 @@ def build_stream_fns(
     ``dec_carry0`` is None for the beams, which build theirs on their first
     chunk), ``chunk_step(enc_state, dec_carry, audio [S, chunk_samples],
     frame_base)`` -> (enc_state, dec_carry), ``final_step(enc_state,
-    dec_carry, audio, n_samples [S], frame_base)`` -> dec_carry,
+    dec_carry, audio, n_samples [S], frame_base)`` -> dec_carry (both under
+    inference mode; ``chunk_fn`` / ``final_fn`` are the same without it,
+    which ``export.py`` traces),
     ``decode_chunk`` and the chunk geometry (``chunk_frames``,
     ``chunk_samples``, ``conformer``).  ``batch`` sizes the carries for that
     many independent streams; every carry leaf keeps its stream axis first
@@ -108,9 +116,9 @@ def build_stream_fns(
     never interact.  ``cmvn`` = (mean, inv_std) on the model's
     device.  ``track_frames`` (greedy only) gives the greedy carries their
     emission-frame slot; ``lm`` / ``lm_weight`` / ``ilm_weight`` fuse the
-    beams as offline."""
+    beams as offline; ``bias`` biases every walk."""
     m, f = cfg.model, cfg.frontend
-    device = next(model.parameters()).device
+    device = cmvn[0].device
     _check(not (track_frames and beam_size > 1),
            "track_frames (streaming timestamps) is greedy-only — the beam "
            "carries keep no per-token frame slot")
@@ -164,37 +172,38 @@ def build_stream_fns(
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return ctc_beam_from_enc(model.ctc, enc, mask, max_u, beam_size,
                                      carry=dec_carry, return_carry=True,
-                                     lm=lm, lm_weight=lm_weight)[2]
+                                     lm=lm, lm_weight=lm_weight,
+                                     bias=bias)[2]
     elif m.family == "ctc":
         dec_carry0 = ctc_greedy_stream_init(batch, max_u, device,
-                                            track_frames)
+                                            track_frames, bias is not None)
 
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return ctc_greedy_stream(model.ctc, enc, mask, max_u, dec_carry,
-                                     frame_base)
+                                     frame_base, bias)
     elif beam_size > 1:
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return transducer_beam_from_enc(
                 model, m, enc, mask, max_u, beam_size, max_symbols,
                 carry=dec_carry, return_carry=True, lm=lm,
-                lm_weight=lm_weight, ilm_weight=ilm_weight)[2]
+                lm_weight=lm_weight, ilm_weight=ilm_weight, bias=bias)[2]
     else:
         with torch.inference_mode():
             dec_carry0 = transducer_greedy_init(model, m, batch, max_u,
                                                 device,
-                                                track_frames=track_frames)
+                                                track_frames=track_frames,
+                                                bias=bias is not None)
 
         def decode_chunk(enc, mask, dec_carry, frame_base):
             return transducer_greedy_from_enc(
                 model, m, enc, mask, max_u, max_symbols, carry=dec_carry,
                 return_carry=True, track_frames=track_frames,
-                frame_base=frame_base)[2]
+                frame_base=frame_base, bias=bias)[2]
 
     def features(a, n_samples):
         return featurize(cfg, a, n_samples, cmvn, backend=backend)
 
-    @torch.inference_mode()
-    def chunk_step(enc_state, dec_carry, audio, frame_base):
+    def chunk_fn(enc_state, dec_carry, audio, frame_base):
         a = audio if audio.dim() == 2 else audio[None]
         n = torch.full((a.shape[0],), a.shape[1], dtype=torch.int32,
                        device=a.device)
@@ -203,8 +212,7 @@ def build_stream_fns(
         mask = torch.ones(enc.shape[:2], dtype=torch.bool, device=enc.device)
         return enc_state, decode_chunk(enc, mask, dec_carry, frame_base)
 
-    @torch.inference_mode()
-    def final_step(enc_state, dec_carry, audio, n_samples, frame_base):
+    def final_fn(enc_state, dec_carry, audio, n_samples, frame_base):
         a = audio if audio.dim() == 2 else audio[None]
         feats, flens = features(a, n_samples.reshape(-1))
         enc, _ = enc_stream(feats, enc_state, flens)
@@ -216,34 +224,58 @@ def build_stream_fns(
         return decode_chunk(enc, mask, dec_carry, frame_base)
 
     return {"enc_state0": enc_state0, "dec_carry0": dec_carry0,
-            "chunk_step": chunk_step, "final_step": final_step,
+            "chunk_step": torch.inference_mode()(chunk_fn),
+            "final_step": torch.inference_mode()(final_fn),
+            "chunk_fn": chunk_fn, "final_fn": final_fn,
             "decode_chunk": decode_chunk, "chunk_frames": chunk_frames,
             "chunk_samples": chunk_samples, "conformer": conformer}
 
 
-def _best_hyp(dec_carry, row: int, *, ctc: bool, beam_size: int,
-              lm_weight: float = 0.0) -> tuple[list[int], float]:
-    """The best hypothesis of stream ``row`` in a decode carry -> (tokens,
-    score): the one selection rule of both transcribers (a fused CTC
-    beam's prefixes rank with ``lm_weight`` times their LM score)."""
-    if beam_size > 1:
-        if dec_carry is None:
-            return [], 0.0
+def carry_scores(dec_carry, *, ctc: bool, beam_size: int,
+                 lm_weight: float = 0.0, bias=None):
+    """The ranking scores of a decode carry -> (tokens, count, scores):
+    [S, K, U], [S, K], [S, K] for the beams, [S, U], [S], [S] for the
+    greedy walks.  A fused CTC beam's prefixes rank with ``lm_weight``
+    times their LM score; under ``bias`` the committed bias ranks and the
+    pending part is retracted (the CTC carries hold the bias apart, the
+    transducer's inside their scores), as the offline decoders rank."""
+    n_bias = 0 if bias is None else (2 if ctc else 1)
+    if beam_size > 1 and ctc:
+        toks, count, _, pb, pnb = dec_carry[:5]
+        scores = torch.logaddexp(pb, pnb)
+        if len(dec_carry) - n_bias > 5:
+            scores = scores + lm_weight * dec_carry[5]
+    elif beam_size > 1:
+        _, _, toks, count, scores = dec_carry[:5]
+    else:
+        # the greedy carries: (prev, out, count, score[, frames]) and
+        # (pred, state, out, count, score[, frames]), bias slots last
+        toks, count, scores = dec_carry[1:4] if ctc else dec_carry[2:5]
+    if bias is not None:
         if ctc:
-            toks, count, _, pb, pnb = dec_carry[:5]
-            scores = torch.logaddexp(pb, pnb)
-            if len(dec_carry) > 5:
-                scores = scores + lm_weight * dec_carry[5]
+            node, bsc = dec_carry[-2:]
+            scores = scores + bsc - BZ.bias_pending(bias, node)
         else:
-            _, _, toks, count, scores = dec_carry[:5]
+            scores = scores - BZ.bias_pending(bias, dec_carry[-1])
+    return toks, count, scores
+
+
+def _best_hyp(dec_carry, row: int, *, ctc: bool, beam_size: int,
+              lm_weight: float = 0.0, bias=None) -> tuple[list[int], float]:
+    """The best hypothesis of stream ``row`` in a decode carry -> (tokens,
+    score): the one selection rule of both transcribers
+    (:func:`carry_scores`)."""
+    if dec_carry is None:
+        return [], 0.0
+    toks, count, scores = carry_scores(dec_carry, ctc=ctc,
+                                       beam_size=beam_size,
+                                       lm_weight=lm_weight, bias=bias)
+    if beam_size > 1:
         k = int(torch.argmax(scores[row]))
         out = toks[row, k][: int(count[row, k])]
         return [int(x) for x in out.tolist()], float(scores[row, k])
-    # the greedy carries: (prev, out, count, score[, frames]) and (pred,
-    # state, out, count, score[, frames])
-    out, count, score = dec_carry[1:4] if ctc else dec_carry[2:5]
-    return ([int(x) for x in out[row][: int(count[row])].tolist()],
-            float(score[row]))
+    return ([int(x) for x in toks[row][: int(count[row])].tolist()],
+            float(scores[row]))
 
 
 def _audio_tensor(x: np.ndarray, device) -> torch.Tensor:
@@ -268,14 +300,16 @@ class StreamingTranscriber:
                  chunk_frames: int | None = None, max_symbols: int = 4,
                  beam_size: int = 1, max_stream_frames: int = 60_000,
                  backend: str | None = None, track_frames: bool = False,
-                 lm=None, lm_weight: float = 0.0, ilm_weight: float = 0.0):
+                 lm=None, lm_weight: float = 0.0, ilm_weight: float = 0.0,
+                 bias=None):
         self.device = next(model.parameters()).device
         fns = build_stream_fns(
             model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
             max_symbols, beam_size, max_stream_frames, backend=backend,
             track_frames=track_frames, lm=lm, lm_weight=lm_weight,
-            ilm_weight=ilm_weight)
+            ilm_weight=ilm_weight, bias=bias)
         self._lm_weight = lm_weight
+        self._bias = bias
         self._track = track_frames
         self._conformer = fns["conformer"]
         self.chunk_frames = fns["chunk_frames"]
@@ -308,7 +342,8 @@ class StreamingTranscriber:
     def _best(self) -> tuple[list[int], float]:
         return _best_hyp(self._dec_carry, 0,
                          ctc=self.cfg.model.family == "ctc",
-                         beam_size=self.beam_size, lm_weight=self._lm_weight)
+                         beam_size=self.beam_size, lm_weight=self._lm_weight,
+                         bias=self._bias)
 
     def emission_frames(self) -> list[int]:
         """The utterance's encoder frame at which each emitted token first
@@ -317,7 +352,8 @@ class StreamingTranscriber:
         ``track_frames=True`` (greedy only)."""
         if not self._track:
             raise ValueError("construct with track_frames=True")
-        # the frames sit at a fixed place of either greedy carry
+        # the frames sit at a fixed place of either greedy carry, the bias
+        # slots trail
         ctc = self.cfg.model.family == "ctc"
         count = self._dec_carry[2 if ctc else 3]
         frames = self._dec_carry[4 if ctc else 5]
@@ -385,7 +421,8 @@ class MultiStreamTranscriber:
                  max_symbols: int = 4, beam_size: int = 1,
                  max_stream_frames: int = 60_000,
                  backend: str | None = None, lm=None,
-                 lm_weight: float = 0.0, ilm_weight: float = 0.0):
+                 lm_weight: float = 0.0, ilm_weight: float = 0.0,
+                 bias=None):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         S = self.n_streams = n_streams
@@ -393,13 +430,14 @@ class MultiStreamTranscriber:
         self.beam_size = beam_size
         self.cfg = cfg
         self._lm_weight = lm_weight
+        self._bias = bias
 
         def init(batch):
             fns = build_stream_fns(
                 model, cfg, _cmvn_on(cmvn, self.device), max_u, chunk_frames,
                 max_symbols, beam_size, max_stream_frames, batch=batch,
                 backend=backend, lm=lm, lm_weight=lm_weight,
-                ilm_weight=ilm_weight)
+                ilm_weight=ilm_weight, bias=bias)
             dec0 = fns["dec_carry0"]
             if dec0 is None:
                 # the beams build their carry on their first chunk; a
@@ -507,7 +545,7 @@ class MultiStreamTranscriber:
         return _best_hyp(self._state[1], sid,
                          ctc=self.cfg.model.family == "ctc",
                          beam_size=self.beam_size,
-                         lm_weight=self._lm_weight)[0]
+                         lm_weight=self._lm_weight, bias=self._bias)[0]
 
     def finalize(self, sid: int) -> tuple[list[int], float]:
         """Run ``sid``'s remainder through the masked final chunk and free
@@ -532,7 +570,8 @@ class MultiStreamTranscriber:
             self._dirty[sid] = True
         out = _best_hyp(self._state[1], sid,
                         ctc=self.cfg.model.family == "ctc",
-                        beam_size=self.beam_size, lm_weight=self._lm_weight)
+                        beam_size=self.beam_size, lm_weight=self._lm_weight,
+                        bias=self._bias)
         self._buf[sid] = None
         return out
 
@@ -541,13 +580,13 @@ def stream_decode(model, cfg: Config, cmvn: tuple, audio: np.ndarray,
                   max_u: int, chunk_frames: int | None = None,
                   piece_samples: int | None = None, max_symbols: int = 4,
                   beam_size: int = 1, backend: str | None = None, lm=None,
-                  lm_weight: float = 0.0,
-                  ilm_weight: float = 0.0) -> tuple[list[int], float]:
+                  lm_weight: float = 0.0, ilm_weight: float = 0.0,
+                  bias=None) -> tuple[list[int], float]:
     """Decode ``audio`` by streaming it in ``piece_samples`` pieces."""
     st = StreamingTranscriber(model, cfg, cmvn, max_u, chunk_frames,
                               max_symbols, beam_size, backend=backend,
                               lm=lm, lm_weight=lm_weight,
-                              ilm_weight=ilm_weight)
+                              ilm_weight=ilm_weight, bias=bias)
     n = piece_samples or len(audio)
     for s in range(0, len(audio), n):
         st.feed(audio[s: s + n])

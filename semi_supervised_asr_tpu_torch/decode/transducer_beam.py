@@ -24,8 +24,13 @@ it emits (the transformer LM's cache tracks each row's own depth).
 ``ilm_weight`` > 0 subtracts ``ilm_weight`` times the model's internal LM
 (the predictor through the joint with the acoustics zeroed,
 ``objectives/transducer_semi.py::ilm_logits``, blank excluded) from every
-label emission: the HAT / density-ratio correction.  Biasing is not
-ported: the callers refuse it by name.
+label emission: the HAT / density-ratio correction.
+
+Contextual biasing (``bias``, a :class:`~.biasing.BiasTrie`) rides label
+emissions only (a blank is alignment, not a label): each hypothesis's trie
+node reorders with the beam, the carried scores hold the bias with its
+pending part, and the returned ranking subtracts that part.  The carry
+then grows a trailing node slot.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.data.vocab import PAD, SOS
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.models import lm as LM
 from semi_supervised_asr_tpu_torch.models import transducer as TD
 from semi_supervised_asr_tpu_torch.objectives.transducer_semi import (
@@ -66,13 +72,16 @@ def transducer_beam_from_enc(
     lm=None,
     lm_weight: float = 0.0,
     ilm_weight: float = 0.0,
+    bias=None,
 ):
     """-> (the best hypothesis' tokens [B, max_u] int32, PAD-padded, and
     its score [B]); with ``return_nbest`` ([B, K, max_u], [B, K]) every
     hypothesis, best first; with ``return_carry`` also the lattice that
     ``carry`` resumes (the best hypothesis may change between chunks):
-    (pred, the predictor's state, tokens, count, scores), and with the LM
-    (lm_state, lm_lp), as the reference's carry."""
+    (pred, the predictor's state, tokens, count, scores), with the LM
+    (lm_state, lm_lp), as the reference's carry, and with ``bias`` the
+    trie nodes [B, K] last (its scores keep the pending bonus, which the
+    returned scores retract)."""
     b, t, e = enc.shape
     k, v = beam_size, cfg.vocab_size
     dev = enc.device
@@ -94,7 +103,9 @@ def transducer_beam_from_enc(
     if carry is not None:
         pred, state, toks, count, scores = carry[:5]
         if use_lm:
-            lm_state, lm_lp = carry[5:]
+            lm_state, lm_lp = carry[5:7]
+        if bias is not None:
+            bias_node = carry[-1]
     else:
         pred0, state0 = TD.predictor_step(
             model.predictor, torch.full((b * k,), SOS, dtype=torch.int32,
@@ -114,6 +125,8 @@ def transducer_beam_from_enc(
                 lm, LM.lm_step(lm, None, None, init_batch=b * k)[0],
                 torch.full((b * k,), SOS, dtype=torch.int32, device=dev))
             lm_lp = unflat(torch.log_softmax(lm_logits.float(), dim=-1))
+        if bias is not None:
+            bias_node = torch.zeros((b, k), dtype=torch.int32, device=dev)
     slots = torch.arange(max_u, device=dev)[None, None, :]
     row_base = (torch.arange(b, device=dev) * k)[:, None]        # [B, 1]
 
@@ -136,6 +149,9 @@ def transducer_beam_from_enc(
                 il[..., blank] = -1e30
                 emit_cand = emit_cand - ilm_weight * unflat(
                     torch.log_softmax(il, dim=-1))
+            if bias is not None:
+                emit_cand = emit_cand + BZ.bias_delta(
+                    bias, flat(bias_node)).view(b, k, v)
             emit_cand = torch.where(
                 can_emit[..., None] & (count[..., None] < max_u),
                 emit_cand, NEG_INF)
@@ -165,6 +181,11 @@ def transducer_beam_from_enc(
             toks_n = torch.where((slots == count_g[..., None]) & emit3,
                                  tok[..., None], toks_g)
             count_n = count_g + is_emit.to(torch.int32)
+            if bias is not None:
+                node_g = torch.gather(bias_node, 1, src)
+                bias_node_n = torch.where(
+                    is_emit, BZ.bias_advance(bias, flat(node_g),
+                                             flat(tok)).view(b, k), node_g)
             if use_lm:
                 lm_state_g = LM.reorder_rows(lm_state,
                                              (row_base + src).reshape(-1))
@@ -191,10 +212,19 @@ def transducer_beam_from_enc(
                 lm_lp = torch.where(upd3, lm_lp_n, lm_lp)
                 lm_state = LM.where_rows(upd.expand(b, k), lm_state_n,
                                          lm_state)
+            if bias is not None:
+                bias_node = torch.where(upd, bias_node_n, bias_node)
         # frame exit: the blank on every hypothesis that never froze
         lp = lp_now(pred, enc_tk)
         scores = torch.where(valid_t[:, None] & can_emit,
                              scores + lp[..., blank], scores)
+    lattice = (pred, state, toks, count, scores)
+    if use_lm:
+        lattice += (lm_state, lm_lp)
+    if bias is not None:
+        lattice += (bias_node,)
+        # hypotheses mid-phrase at the last frame give the bonus back
+        scores = scores - BZ.bias_pending(bias, flat(bias_node)).view(b, k)
     if return_nbest and not return_carry:
         order_scores, order = top_k(scores, k)
         return gather_k(toks, order), order_scores
@@ -203,8 +233,5 @@ def transducer_beam_from_enc(
         toks, 1, best[:, None, None].expand(b, 1, max_u))[:, 0]
     best_score = torch.gather(scores, 1, best[:, None])[:, 0]
     if return_carry:
-        lattice = (pred, state, toks, count, scores)
-        if use_lm:
-            lattice += (lm_state, lm_lp)
         return best_toks, best_score, lattice
     return best_toks, best_score

@@ -11,8 +11,8 @@ frame ending in its blank.  ``carry`` / ``return_carry`` resume and
 return the walk's state, so that chunked streaming (``decode/streaming.py``)
 walks the same path as the whole utterance.  ``track_frames`` also
 records each token's emission frame (the family's timestamps, offline and
-across streamed chunks).  The reference's biasing (``bias``) is not
-ported; its callers refuse it by name.
+across streamed chunks).  ``bias`` (a :class:`~.biasing.BiasTrie`) biases
+each emission decision, the reference's greedy biasing.
 """
 
 from __future__ import annotations
@@ -21,16 +21,20 @@ import torch
 
 from semi_supervised_asr_tpu_torch.config import ModelConfig
 from semi_supervised_asr_tpu_torch.data.vocab import PAD, SOS
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.models import transducer as TD
 
 
 def transducer_greedy_init(model, cfg: ModelConfig, b: int, max_u: int,
                            device, blank: int = PAD,
-                           track_frames: bool = False) -> tuple:
+                           track_frames: bool = False,
+                           bias: bool = False) -> tuple:
     """A fresh walk's state: (pred [B, P] after SOS, the predictor's state,
-    tokens [B, max_u] all ``blank``, count [B], score [B]), and with
+    tokens [B, max_u] all ``blank``, count [B], score [B]), with
     ``track_frames`` each token's emission frame [B, max_u] (-1 until
-    written)."""
+    written), and with ``bias`` a trailing automaton state [B] (the score
+    slot then holds model + bias, the pending part not retracted, so that
+    the walk resumes exactly)."""
     pred0, state0 = TD.predictor_step(
         model.predictor, torch.full((b,), SOS, dtype=torch.int32,
                                     device=device),
@@ -42,6 +46,8 @@ def transducer_greedy_init(model, cfg: ModelConfig, b: int, max_u: int,
     if track_frames:
         base = base + (torch.full((b, max_u), -1, dtype=torch.int32,
                                   device=device),)
+    if bias:
+        base = base + (torch.zeros((b,), dtype=torch.int32, device=device),)
     return base
 
 
@@ -57,6 +63,7 @@ def transducer_greedy_from_enc(
     return_carry: bool = False,
     track_frames: bool = False,
     frame_base: int = 0,
+    bias=None,
 ):
     """-> (tokens [B, max_u] int32, PAD-padded; the path's total log-prob
     [B]), and with ``return_carry`` the walk's state (pred, the predictor's
@@ -67,21 +74,29 @@ def transducer_greedy_from_enc(
     ``return_carry`` records them in the carry's sixth slot instead;
     ``frame_base`` (the encoder frames already walked) keeps them the
     utterance's across chunks.  Tokens and scores are bitwise those of
-    the walk without frames."""
+    the walk without frames.
+
+    ``bias`` (with the carry of ``transducer_greedy_init(bias=True)``):
+    each emission argmaxes the logits plus the automaton's delta, the blank
+    column held at 0; the carried score sums model and bias, and the
+    returned score subtracts the final pending bonus."""
     b, t, _ = enc.shape
     dev = enc.device
+    n_bias = 1 if bias is not None else 0
     if carry is None:
         carry = transducer_greedy_init(model, cfg, b, max_u, dev, blank,
-                                       track_frames)
-    if track_frames and len(carry) != 6:
+                                       track_frames, bias is not None)
+    if track_frames and len(carry) != 6 + n_bias:
         raise ValueError("track_frames streaming needs the 6-tuple carry "
-                         "from transducer_greedy_init(track_frames=True)")
-    if not track_frames and len(carry) != 5:
+                         "from transducer_greedy_init(track_frames=True)"
+                         + (" (+ the bias slot)" if n_bias else ""))
+    if not track_frames and len(carry) != 5 + n_bias:
         raise ValueError("carry arity does not match (track_frames, bias) — "
                          "build it with transducer_greedy_init("
                          "track_frames=..., bias=...)")
     pred, state, out, count, score = carry[:5]
     frames = carry[5] if track_frames else None
+    node = carry[-1] if n_bias else None
     slots = torch.arange(max_u, device=dev)[None, :]
     for ti in range(t):
         enc_t = enc[:, ti]
@@ -89,11 +104,22 @@ def transducer_greedy_from_enc(
         for _ in range(max_symbols):
             logits = TD.joint_row(model.joint, enc_t, pred, cfg)
             lp = torch.log_softmax(logits, dim=-1)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            if bias is not None:
+                eff = BZ.bias_delta(bias, node)
+                eff[:, blank] = 0.0
+                tok = torch.argmax(logits + eff, dim=-1).to(torch.int32)
+            else:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
             emit = emitting & (tok != blank) & (count < max_u)
             chosen = torch.where(emit, tok, blank).long()
             score = score + torch.where(
                 emitting, torch.gather(lp, 1, chosen[:, None])[:, 0], 0.0)
+            if bias is not None:
+                score = score + torch.where(
+                    emit, torch.gather(eff, 1, tok.long()[:, None])[:, 0],
+                    0.0)
+                node = torch.where(emit, BZ.bias_advance(bias, node, tok),
+                                   node)
             slot = (slots == count[:, None]) & emit[:, None]
             out = torch.where(slot, tok[:, None], out)
             if track_frames:
@@ -110,9 +136,12 @@ def transducer_greedy_from_enc(
         lp = torch.log_softmax(TD.joint_row(model.joint, enc_t, pred, cfg),
                                dim=-1)
         score = score + torch.where(emitting, lp[:, blank], 0.0)
+    # the returned score retracts the pending bonus; the carry keeps it
+    ret = score if bias is None else score - BZ.bias_pending(bias, node)
     if return_carry:
-        return out, score, (pred, state, out, count, score) + (
-            (frames,) if track_frames else ())
+        return out, ret, (pred, state, out, count, score) + (
+            (frames,) if track_frames else ()) + (
+            (node,) if n_bias else ())
     if track_frames:
-        return out, score, frames
-    return out, score
+        return out, ret, frames
+    return out, ret

@@ -12,11 +12,13 @@ its own constraint: the CUDA kernels mask their ragged tails).
   ``mhsa_reference``: scores in the compute dtype, scaled in float32, pad
   keys replaced by -1e9, a float32 softmax cast to the compute dtype, then
   the context product.
-* :func:`mhsa` is the wrapper: it casts q, k and v to the compute dtype,
-  runs the plain version for CPU tensors (or ``backend="reference"``) and
-  the kernels for CUDA tensors, through :class:`_FlashMHSA` when a
-  gradient is wanted (forward kernel, then the backward kernel's two
-  launches).
+* :func:`mhsa` is the wrapper: it casts q, k and v to the compute dtype
+  and calls the custom op ``ssasr_torch::flash_mhsa_fwd``
+  (``ops/library.py``: the forward kernel on CUDA tensors, the plain
+  version on CPU tensors); when a gradient is wanted, CUDA tensors go
+  through :class:`_FlashMHSA` (the op, then the backward kernel's two
+  launches) and CPU tensors through the plain version's own autograd.
+  ``backend="reference"`` runs the plain version on any device.
 
 The kernels compute the plain version on every row.  The TPU kernel lets a
 pad query attend pad keys (its segment ids); the listeners zero pad rows,
@@ -43,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from semi_supervised_asr_tpu_torch import _native
+from semi_supervised_asr_tpu_torch.ops import library as LIB
 
 MASKED = -1e9     # the score a pad key gets (replaced, not added)
 
@@ -59,6 +62,18 @@ def mhsa_reference(
     scores = scores.masked_fill(~key_mask[:, None, None, :], MASKED)
     alpha = torch.softmax(scores, dim=-1).to(compute)
     return torch.einsum("bhqk,bkhd->bqhd", alpha, v.to(compute))
+
+
+def mhsa_fwd_plain(q, k, v, key_mask, sm_scale: float):
+    """The forward op's CPU implementation -> (o, the scores' row max m,
+    the softmax's row sum l of exp(score - m) [B, H, T] float32): o is
+    :func:`mhsa_reference`'s in q's dtype."""
+    o = mhsa_reference(q, k, v, key_mask, sm_scale=sm_scale,
+                       compute=q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * sm_scale
+    scores = scores.masked_fill(~key_mask[:, None, None, :], MASKED)
+    m = scores.amax(dim=-1)
+    return o, m, torch.exp(scores - m[..., None]).sum(dim=-1)
 
 
 def _check(q, k, v, key_mask) -> None:
@@ -146,7 +161,7 @@ class _FlashMHSA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, sm_scale):
-        o, m, l = mhsa_fwd(q, k, v, key_mask, sm_scale)
+        o, m, l = LIB.flash_mhsa_fwd(q, k, v, key_mask, sm_scale)
         ctx.save_for_backward(q.contiguous(), k.contiguous(), v.contiguous(),
                               key_mask, o, m, l)
         ctx.sm_scale = sm_scale
@@ -172,10 +187,12 @@ def mhsa(
     Differentiable in q, k and v on both routes.
     """
     q, k, v = q.to(compute), k.to(compute), v.to(compute)
-    if not _native.use_kernel(q, backend):
+    on_card = _native.use_kernel(q, backend)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if backend == "reference" or (grad and not on_card):
         return mhsa_reference(q, k, v, key_mask, sm_scale=sm_scale,
                               compute=compute)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if grad:
         return _FlashMHSA.apply(q, k, v, key_mask, float(sm_scale))
-    return mhsa_fwd(q, k, v, key_mask, sm_scale)[0]
+    return LIB.flash_mhsa_fwd(q, k, v, key_mask, float(sm_scale))[0]

@@ -12,9 +12,11 @@ so ``pspec`` must be contiguous and 16-byte aligned (:func:`tile_spans`
 is its tiling).
 
 ``fused_post_fft_reference`` is the same math in plain PyTorch.  The
-wrapper runs it only for CPU tensors or when asked with
-``backend="reference"``; a CUDA tensor otherwise launches the kernel or
-raises.
+wrapper calls the custom op ``ssasr_torch::fused_post_fft``
+(``ops/library.py``), whose CUDA implementation launches the kernel
+(:func:`launch_post_fft`) or raises and whose CPU implementation is the
+plain version; ``backend="reference"`` runs the plain version on any
+device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from semi_supervised_asr_tpu_torch.config import FrontendConfig
 from semi_supervised_asr_tpu_torch import _native
 from semi_supervised_asr_tpu_torch.ops import frontend as F
+from semi_supervised_asr_tpu_torch.ops import library as LIB
 
 SpecAug = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -62,8 +65,18 @@ def fused_post_fft_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel -> [B, T, M] float32."""
     _, fb = F.constants(cfg, pspec.device)
+    return post_fft_plain(pspec, feat_lens, fb, cmvn_mean, cmvn_inv_std,
+                          cfg.log_floor, specaug)
+
+
+def post_fft_plain(pspec: torch.Tensor, feat_lens: torch.Tensor,
+                   fb: torch.Tensor, cmvn_mean: torch.Tensor,
+                   cmvn_inv_std: torch.Tensor, log_floor: float,
+                   specaug: SpecAug | None = None) -> torch.Tensor:
+    """:func:`fused_post_fft_reference` given the dense mel bank ``fb`` [F,
+    M] and the log floor (the custom op's CPU implementation)."""
     mel = torch.matmul(pspec.float(), fb)
-    x = (torch.log(torch.clamp_min(mel, cfg.log_floor))
+    x = (torch.log(torch.clamp_min(mel, log_floor))
          - cmvn_mean.float()) * cmvn_inv_std.float()
     keep = F.frame_mask(feat_lens, x.shape[1])[:, :, None]
     x = torch.where(keep, x, torch.zeros((), device=x.device))
@@ -126,17 +139,32 @@ def fused_post_fft(
     sampled by the caller (as ``frontend.sample_specaug_params`` does for
     the JAX kernel).  See the module docstring for ``backend``.
     """
-    if not _native.use_kernel(pspec, backend):
+    _native.use_kernel(pspec, backend)      # refuses a bad backend or device
+    if backend == "reference":
         return fused_post_fft_reference(pspec, feat_lens, cfg, cmvn_mean,
                                         cmvn_inv_std, specaug)
-    b, t, f = pspec.shape
-    m = cfg.n_mels
-    dev = pspec.device
-    band_w, band_lo, band_off = _mel_runs_on(cfg, str(dev))
-    _check("pspec", pspec, torch.float32, (b, t, f), dev)
-    if f != cfg.n_fft // 2 + 1:
-        raise ValueError(f"pspec has {f} bins, the mel bank "
+    if pspec.shape[-1] != cfg.n_fft // 2 + 1:
+        raise ValueError(f"pspec has {pspec.shape[-1]} bins, the mel bank "
                          f"{cfg.n_fft // 2 + 1}")
+    dev = str(pspec.device)
+    _, fb = F.constants(cfg, dev)
+    bands = (None,) * 4 if specaug is None else specaug
+    return LIB.fused_post_fft(pspec, feat_lens, *_mel_runs_on(cfg, dev), fb,
+                              cmvn_mean, cmvn_inv_std, *bands,
+                              float(cfg.log_floor))
+
+
+def launch_post_fft(pspec: torch.Tensor, feat_lens: torch.Tensor,
+                    band_w: torch.Tensor, band_lo: torch.Tensor,
+                    band_off: torch.Tensor, cmvn_mean: torch.Tensor,
+                    cmvn_inv_std: torch.Tensor, specaug: SpecAug | None,
+                    log_floor: float) -> torch.Tensor:
+    """K1's launch on CUDA tensors (the custom op's CUDA implementation):
+    the mel bank packed by filter (:func:`_mel_runs_np`) -> [B, T, M]."""
+    b, t, f = pspec.shape
+    m = band_lo.shape[0]
+    dev = pspec.device
+    _check("pspec", pspec, torch.float32, (b, t, f), dev)
     lens = feat_lens.to(torch.int32).contiguous()
     mean = cmvn_mean.to(torch.float32).contiguous()
     istd = cmvn_inv_std.to(torch.float32).contiguous()
@@ -164,7 +192,7 @@ def fused_post_fft(
         band_off.data_ptr(), band_w.numel(), mean.data_ptr(),
         istd.data_ptr(), lens.data_ptr(), *(_native.ptr(x) for x in bands),
         n_f, n_t,
-        out.data_ptr(), b, t, f, m, float(cfg.log_floor), *PLAN,
+        out.data_ptr(), b, t, f, m, float(log_floor), *PLAN,
         _native.stream_ptr(dev),
     )
     _native.check("fused_post_fft", code)

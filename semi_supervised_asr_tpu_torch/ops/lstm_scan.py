@@ -38,9 +38,12 @@ cluster and grid kernels read it (a permutation, one gather a call) and
 layout the way the kernels arrange it.
 
 ``lstm_scan_reference`` / ``lstm_scan_bwd_reference`` are the same math in
-plain PyTorch.  The wrappers run them only for CPU tensors or when asked
-with ``backend="reference"``; a CUDA tensor otherwise launches the kernel
-or raises.  Residuals and gate gradients are indexed in real time order
+plain PyTorch.  The forward scan goes through the custom op
+``ssasr_torch::lstm_scan_fwd`` (``ops/library.py``): its CUDA
+implementation (:func:`launch_scan_fwd`) picks the route from the shapes
+and launches K2 or raises, its CPU implementation is the plain version;
+the backward wrapper runs the plain version for CPU tensors.  Both run it
+on any device when asked with ``backend="reference"``.  Residuals and gate gradients are indexed in real time order
 for every direction (the JAX kernels index a reverse direction's in
 flipped order).
 """
@@ -54,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from semi_supervised_asr_tpu_torch import _native
+from semi_supervised_asr_tpu_torch.ops import library as LIB
 from semi_supervised_asr_tpu_torch.ops import recurrent as R
 
 
@@ -563,9 +567,32 @@ def lstm_scan(
             raise ValueError(f"{name}: expected {(d, b, hidden)} on "
                              f"{gates_x.device}, got {tuple(x.shape)} on "
                              f"{x.device}")
-    if not _native.use_kernel(gates_x, backend):
+    _native.use_kernel(gates_x, backend)   # refuses a bad backend or device
+    if backend == "reference":
         return lstm_scan_reference(gates_x, w_hh, valid, compute, reverse,
                                    residuals, h0, c0, return_state)
+    outs = LIB.lstm_scan_fwd(gates_x, w_hh, valid, compute,
+                             sum(1 << i for i, r in enumerate(reverse) if r),
+                             residuals, h0, c0, return_state)
+    out = tuple(outs[:4]) if residuals else outs[0]
+    return (out, tuple(outs[-2:])) if return_state else out
+
+
+def reverse_of(mask: int, d: int) -> tuple[bool, ...]:
+    """The per-direction reverse flags of a bit mask (bit i: direction i
+    walks backward)."""
+    return tuple(bool(mask >> i & 1) for i in range(d))
+
+
+def launch_scan_fwd(gates_x, w_hh, valid, compute, reverse, residuals, h0,
+                    c0, return_state) -> list[torch.Tensor]:
+    """K2's launch on CUDA tensors (the custom op's CUDA implementation):
+    the route from :func:`cluster_plan`, the weights laid out for it and
+    (grid routes) a zeroed exchange and step counters, all per call ->
+    [h_out] + [hprev, cprev, acts] with ``residuals`` + [h, c] with
+    ``return_state``."""
+    d, t, b, h4 = gates_x.shape
+    hidden = h4 // 4
     dev = gates_x.device
     if compute not in (torch.float32, torch.bfloat16):
         raise ValueError(f"lstm_scan kernel: compute dtype {compute} "
@@ -620,8 +647,8 @@ def lstm_scan(
     _native.check(entry, code)
     _native.count("lstm_scan_fwd")
     _native.count("lstm_scan_fwd_" + plan.route)
-    out = (h_out, *res) if residuals else h_out
-    return (out, fin) if return_state else out
+    return [h_out, *(res if residuals else ()),
+            *(fin if return_state else ())]
 
 
 def lstm_scan_bwd_reference(

@@ -49,6 +49,12 @@ over the ranks of a torchrun (``parallel/``).
   ``model.lm_fusion_ckpt`` into the speller before the first step (the
   EMA buffer copies the grafted weights); an empty ``lm_fusion_ckpt`` logs
   a warning and fuses the random stand-in, as the reference does.
+* Contextual biasing: ``decode.bias_phrases`` (a phrase file) with a
+  nonzero ``decode.bias_bonus`` biases every beam of ``test`` (the trie is
+  built at the first beam decode, :attr:`Solver.bias`); one key without
+  the other logs that biasing is disabled, and the greedy decodes
+  (validation, ``test`` greedy) run unbiased with a warning, as the
+  reference's do.
 * ``train.init_encoder_from`` (a ``training/pretrain.py`` workdir) loads
   the BEST-RQ-pretrained listener over the fresh weights before the first
   step (the EMA buffer copies it); ``train.freeze`` and
@@ -60,8 +66,8 @@ over the ranks of a torchrun (``parallel/``).
   step what one process steps on the concatenated batch.
 
 Not ported (each refused with its key, here or where the step, the model
-or the decoders are built): the feature store, grain threads, contextual
-biasing, ``train.debug_nans``, tensor parallelism
+or the decoders are built): the feature store, grain threads,
+``train.debug_nans``, tensor parallelism
 (``parallel.model_parallel``) and exec-restarts under data parallelism.
 ``train.compile_cache_dir`` has no meaning here (nothing is compiled per
 shape) and has no effect.
@@ -88,7 +94,7 @@ from semi_supervised_asr_tpu_torch.data.bucketing import (
     make_batch_sizer, make_bucket_spec,
 )
 from semi_supervised_asr_tpu_torch.data.vocab import EOS
-from semi_supervised_asr_tpu_torch.decode.beam import check_supported
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
 from semi_supervised_asr_tpu_torch.models.seq2seq import build_model
 from semi_supervised_asr_tpu_torch.models.speller import attach_fusion_lm
 from semi_supervised_asr_tpu_torch.parallel import dp as DP
@@ -99,7 +105,7 @@ from semi_supervised_asr_tpu_torch.training.lm_trainer import (
     LMNotFound, decode_lm, load_lm,
 )
 from semi_supervised_asr_tpu_torch.transcribe import (
-    Recognizer, finalize_config,
+    GREEDY_UNBIASED, Recognizer, finalize_config,
 )
 from semi_supervised_asr_tpu_torch.utils import metrics as MET
 from semi_supervised_asr_tpu_torch.utils.logging import MetricsLogger
@@ -142,7 +148,6 @@ def check_solver_supported(cfg: Config) -> None:
                 f"{key}={got!r} is not ported yet (the PyTorch port's Solver "
                 f"runs with {key}={want!r})")
     MESH.check_parallel_supported(cfg.parallel)
-    check_supported(cfg.decode)
 
 
 class DeviceCopier:
@@ -252,6 +257,18 @@ class Solver:
         self.data_pos = {"epoch": 0, "batch": 0}
         self.history: list[dict] = []     # the "train" records logged
         self._put = DeviceCopier(self.device)   # host batches -> device
+        self._bias: tuple | None = None   # (the trie or None,) once built
+        self._greedy_warned = False
+
+    @property
+    def bias(self):
+        """The contextual-biasing trie of ``decode.bias_phrases`` /
+        ``decode.bias_bonus`` on the device, or None; built (and reported)
+        at first use, as the reference's ``_bias``."""
+        if self._bias is None:
+            self._bias = (BZ.bias_from_config(self.cfg.decode, self.vocab,
+                                              self.device, self.log.info),)
+        return self._bias[0]
 
     def _graft_fusion_lm(self, model) -> None:
         """Deep / cold fusion: the trained LM of ``model.lm_fusion_ckpt``
@@ -665,8 +682,13 @@ class Solver:
             self.log.info("decode mode 'ctc' is LAS-only — transducer "
                           "decodes frame-synchronous greedy")
             mode = "greedy"
+        if (mode != "beam" and self.cfg.decode.bias_phrases
+                and not self._greedy_warned):
+            self.log.info(GREEDY_UNBIASED)
+            self._greedy_warned = True
         rec = Recognizer(self.cfg, model, self.cmvn, self.vocab, self.device,
-                         warn=self.log.info, lm=self.lm)
+                         warn=self.log.info, lm=self.lm,
+                         bias=(lambda: self.bias) if mode == "beam" else None)
         er, wer = MET.ErrorRate(), MET.ErrorRate()
         records = []
         # length-cap telemetry: an EOS-terminated (LAS) hypothesis that

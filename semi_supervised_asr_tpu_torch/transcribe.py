@@ -34,6 +34,10 @@ chunks.
 Shallow LM fusion follows ``decode.lm_weight`` / ``decode.lm_ckpt`` (an
 ``lm_trainer`` workdir), offline and under ``--streaming``, on every beam
 (the transducer's with ``decode.ilm_weight``), as ``main --test`` does.
+Contextual biasing follows ``decode.bias_phrases`` (a phrase file) and
+``decode.bias_bonus``: every beam (offline, ``--nbest``) and every
+streamed walk, greedy included, boosts the phrases; the offline greedy
+decodes run unbiased and say so, as the reference's do.
 
 ``DIR`` is a Solver's workdir (``main --train``): it decodes with the
 best, else the latest checkpoint (``decode.average_ckpts`` and
@@ -61,9 +65,8 @@ from semi_supervised_asr_tpu_torch.data.registry import build_vocab
 from semi_supervised_asr_tpu_torch.data.vocab import EOS, PAD
 from semi_supervised_asr_tpu_torch.ops.frontend_oracle import pad_for_batch
 from semi_supervised_asr_tpu_torch import strict_fp32, weights
-from semi_supervised_asr_tpu_torch.decode.beam import (
-    beam_decode_from_enc, check_supported,
-)
+from semi_supervised_asr_tpu_torch.decode import biasing as BZ
+from semi_supervised_asr_tpu_torch.decode.beam import beam_decode_from_enc
 from semi_supervised_asr_tpu_torch.decode.ctc import (
     ctc_greedy_from_enc, ctc_head_logits,
 )
@@ -122,17 +125,27 @@ def _stderr(msg: str) -> None:
     print(msg, file=sys.stderr)
 
 
+GREEDY_UNBIASED = (
+    "WARNING: offline/eval greedy decode runs unbiased — decode.bias_phrases "
+    "applies to beam decode, and to streaming greedy (transcribe "
+    "--streaming, frame-synchronous families)")
+
+
 class Recognizer:
     """A model (``Seq2Seq``, ``CTCModel`` or ``Transducer``), its CMVN
     statistics and vocab on one device: decodes padded audio batches.
     ``warn`` reports a ``decode.ctc_weight`` that cannot apply (stderr by
     default).  ``lm`` (an external LM, ``training/lm_trainer.py::
-    decode_lm``) fuses every beam shallowly at ``decode.lm_weight``."""
+    decode_lm``) fuses every beam shallowly at ``decode.lm_weight``.
+    ``bias`` (a :class:`~.decode.biasing.BiasTrie`, or a function that
+    builds it at the first beam decode) biases every beam; the greedy
+    modes decode unbiased."""
 
     def __init__(self, cfg: Config, model, cmvn: tuple, vocab,
                  device: torch.device, backend: str | None = None,
-                 warn=_stderr, lm=None):
+                 warn=_stderr, lm=None, bias=None):
         self.cfg, self.vocab, self.device = cfg, vocab, device
+        self._bias = bias
         self.model = model.to(device).eval()
         self.lm = None if lm is None else lm.to(device).eval()
         self.mean = torch.as_tensor(np.asarray(cmvn[0]), dtype=torch.float32,
@@ -160,6 +173,13 @@ class Recognizer:
             else:
                 self.joint_ctc = self.model.ctc
 
+    @property
+    def bias(self):
+        """The biasing trie on the device, or None (built on first use)."""
+        if callable(self._bias):
+            self._bias = self._bias()
+        return None if self._bias is None else self._bias.to(self.device)
+
     @classmethod
     def from_dir(cls, cfg: Config, load_dir: str | Path, device,
                  backend: str | None = None) -> "Recognizer":
@@ -174,7 +194,7 @@ class Recognizer:
             solver = Solver(cfg, load_dir, device)
             return cls(solver.cfg, solver.eval_params(require_ckpt=True),
                        solver.cmvn, solver.vocab, torch.device(device),
-                       backend, lm=solver.lm)
+                       backend, lm=solver.lm, bias=lambda: solver.bias)
         if not (load_dir / "params.npz").exists():
             raise SystemExit(
                 f"{load_dir}: found neither {cfg.train.ckpt_dir}/ (a "
@@ -186,7 +206,9 @@ class Recognizer:
         with np.load(load_dir / "cmvn.npz") as z:
             cmvn = (z["mean"], z["inv_std"])
         return cls(cfg, model, cmvn, vocab, torch.device(device), backend,
-                   lm=decode_lm(cfg, vocab.size, device, _stderr))
+                   lm=decode_lm(cfg, vocab.size, device, _stderr),
+                   bias=lambda: BZ.bias_from_config(cfg.decode, vocab,
+                                                    device, _stderr))
 
     @torch.inference_mode()
     def encode(self, audio: torch.Tensor, lens: torch.Tensor):
@@ -225,7 +247,7 @@ class Recognizer:
                     self.model, cfg.model, enc, enc_mask, max_u,
                     dcfg.beam_size, dcfg.max_symbols, return_nbest=nbest,
                     lm=self.lm, lm_weight=dcfg.lm_weight,
-                    ilm_weight=dcfg.ilm_weight)
+                    ilm_weight=dcfg.ilm_weight, bias=self.bias)
             else:
                 out = transducer_greedy_from_enc(
                     self.model, cfg.model, enc, enc_mask, max_u,
@@ -238,7 +260,7 @@ class Recognizer:
                     self.model.ctc, enc, enc_mask,
                     max_decode_steps(cfg, enc.shape[1]),
                     cfg.decode.beam_size, return_nbest=nbest, lm=self.lm,
-                    lm_weight=cfg.decode.lm_weight)
+                    lm_weight=cfg.decode.lm_weight, bias=self.bias)
             else:
                 out = ctc_greedy_from_enc(self.model.ctc, enc, enc_mask)
             return out[0].cpu().numpy(), out[1].cpu().numpy()
@@ -256,7 +278,8 @@ class Recognizer:
         else:
             out = beam_decode_from_enc(speller, cfg.decode, enc, enc_mask,
                                        keys, max_u, return_nbest=nbest,
-                                       ctc=self.joint_ctc, lm=self.lm)
+                                       ctc=self.joint_ctc, lm=self.lm,
+                                       bias=self.bias)
         return out[0].cpu().numpy(), out[1].cpu().numpy()
 
     def align_head(self):
@@ -338,6 +361,8 @@ def transcribe(rec: Recognizer, files: list[Path], mode: str,
         raise SystemExit("--timestamps times the single best hypothesis; "
                          "drop --nbest")
     spec, cfg = rec.spec, rec.cfg
+    if mode != "beam" and cfg.decode.bias_phrases:
+        _stderr(GREEDY_UNBIASED)
     td_times = timestamps and rec.transducer
     if td_times and mode != "greedy":
         raise SystemExit("transducer --timestamps reads emission frames from "
@@ -497,7 +522,7 @@ def transcribe_streaming(rec: Recognizer, files: list[Path],
               max_symbols=cfg.decode.max_symbols, beam_size=beam_size,
               backend=rec.backend, lm=rec.lm,
               lm_weight=cfg.decode.lm_weight,
-              ilm_weight=cfg.decode.ilm_weight)
+              ilm_weight=cfg.decode.ilm_weight, bias=rec.bias)
     cmvn = (rec.mean, rec.inv_std)
 
     def record(f, toks, score):
@@ -603,20 +628,19 @@ def main(argv=None) -> int:
     if not files:
         raise SystemExit("no audio files found")
     try:
-        check_supported(cfg.decode)
         rec = Recognizer.from_dir(cfg, args.load_dir, device)
-    except (NotImplementedError, LMNotFound) as e:
+        if args.streaming:
+            try:
+                results = transcribe_streaming(
+                    rec, files, cfg.decode.beam_size if mode == "beam" else 1,
+                    args.stream_chunk_ms, args.streams, args.timestamps)
+            except ValueError as e:      # the reference's streaming refusals
+                raise SystemExit(str(e)) from None
+        else:
+            results = transcribe(rec, files, mode, nbest=args.nbest,
+                                 timestamps=args.timestamps)
+    except (NotImplementedError, LMNotFound, FileNotFoundError) as e:
         raise SystemExit(str(e)) from None
-    if args.streaming:
-        try:
-            results = transcribe_streaming(
-                rec, files, cfg.decode.beam_size if mode == "beam" else 1,
-                args.stream_chunk_ms, args.streams, args.timestamps)
-        except ValueError as e:      # the reference's streaming refusals
-            raise SystemExit(str(e)) from None
-    else:
-        results = transcribe(rec, files, mode, nbest=args.nbest,
-                             timestamps=args.timestamps)
     out_f = open(args.out, "w") if args.out else None
     try:
         for r in results:

@@ -228,6 +228,12 @@ def run_wrappers(monkeypatch, compute, h):
     monkeypatch.setattr(_native, "lib", lambda: fake)
     monkeypatch.setattr(_native, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(_native, "use_kernel", lambda t, backend: True)
+    # the forward reaches K2 through the custom op, whose CPU body is the
+    # plain version: give CPU tensors its CUDA body, the launch
+    monkeypatch.setattr(
+        K.LIB, "lstm_scan_fwd",
+        lambda gx, w, v, c, mask, *rest: K.launch_scan_fwd(
+            gx, w, v, c, K.reverse_of(mask, gx.shape[0]), *rest))
     laid, scratch = [], []
     relay, alloc = K.fragment_weights, K._grid_scratch
     monkeypatch.setattr(K, "fragment_weights",

@@ -213,16 +213,14 @@ def test_beam_tokens_identical_to_jax(coverage, encoded):
 
 def test_beam_refuses_unported_options(encoded):
     _, model, _, t = _decode_inputs(encoded)
-    with pytest.raises(NotImplementedError):
-        beam_decode_from_enc(model.speller,
-                             DecodeConfig(bias_phrases="hot.txt"), *t,
-                             MAX_LEN)
-    # LM fusion is ported (tests/test_torch_lm_fusion.py): given no LM, the
-    # beam decodes as without the keys, as the reference's does
+    # LM fusion and biasing are ported (tests/test_torch_lm_fusion.py,
+    # tests/test_torch_biasing.py): given no LM and no trie, the beam
+    # decodes as without the keys, as the reference's does
     with torch.inference_mode():
         plain = beam_decode_from_enc(model.speller, DecodeConfig(), *t,
                                      MAX_LEN)
-        for dcfg in (DecodeConfig(lm_weight=0.3), DecodeConfig(lm_ckpt="lm")):
+        for dcfg in (DecodeConfig(lm_weight=0.3), DecodeConfig(lm_ckpt="lm"),
+                     DecodeConfig(bias_phrases="hot.txt", bias_bonus=2.0)):
             got = beam_decode_from_enc(model.speller, dcfg, *t, MAX_LEN)
             assert all(torch.equal(a, b) for a, b in zip(got, plain))
     # the reference's own refusal: deep / cold fusion is the LSTM speller's
